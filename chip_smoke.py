@@ -1,0 +1,293 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (gennerf_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from csrc/ with nvcc, then:
+  1. device: the card's name and power limit (nvidia-smi), the build time;
+  2. fps: the FPS kernel against its plain version on an (8, 16384, 3)
+     presampled depth cloud with duplicates, npoint 256: 0 index mismatches;
+  3. grid_decode: the grid-decode kernel against its plain bf16-feed
+     version on tables of full-width weights at 96x96x56, H=256, 5 blocks;
+  4. predict: `reconstruct` of the full-width seqs_multigeo_4cm GenNerf
+     (seeded random weights) on 8 rendered 120x160 frames, with the launch
+     counters reset just before and read just after; the volume is checked
+     against the same stages run through the plain versions;
+then a `kernels` JSON line, the nvidia-smi line and the final result line.
+Every phase raises on failure. Needs one CUDA card; exits non-zero without.
+"""
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+SEED = 0
+NUM_FRAMES, HEIGHT, WIDTH = 8, 120, 160
+NPOINT, PRESAMPLE = 256, 16384
+VOXEL_DIM = (96, 96, 56)
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor FLOP/s, f32 FLOP/s
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+# kernel vs plain bf16-feed decode: both round the same values to bf16 but
+# accumulate in another order, so a few activations round the other way
+# (one bf16 step, 2^-8 of the value) and carry that through later blocks
+GRID_MAX_ABS_TOL, GRID_MEAN_ABS_TOL = 5e-2, 1e-3
+EXPERIMENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs", "experiment", "seqs_multigeo_4cm.yaml")
+PRIMITIVES = [
+    {"type": "sphere", "center": (1.45, 1.75, 0.45), "radius": 0.45},
+    {"type": "box", "min": (1.75, 1.05, 0.0), "max": (2.25, 1.55, 0.6)},
+]
+SCENE_CENTER = (1.6, 1.6, 0.4)
+
+
+def emit(record: dict) -> None:
+    print(json.dumps(record), flush=True)
+
+
+def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Median device time of fn() in ms (CUDA events), after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(torch, fn, reps: int, warmup: int = 1) -> float:
+    """Median wall time of fn() ending in a device synchronize, in ms."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from gennerf_tpu_torch import set_reference_precision
+    from gennerf_tpu_torch.data.synthetic import ring_frames
+    from gennerf_tpu_torch.models.resnetfc import ResnetBlockFC
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.ops.grid_decode import (
+        extract_resnetfc_weights, grid_decode_cuda, grid_decode_flops, grid_tables,
+        separable_grid_decode_plain,
+    )
+    from gennerf_tpu_torch.ops.projection import get_3d_points
+    from gennerf_tpu_torch.ops.sampling import (
+        farthest_point_sample_plain, fps_cuda, uniform_presample,
+    )
+    from gennerf_tpu_torch.predict import build_model, reconstruct
+    from gennerf_tpu_torch.train.predict import predict_tsdf_volume, uses_grid_decode
+    from gennerf_tpu_torch.tsdf.fusion import apply_fusion_prior, prior_classes
+    from gennerf_tpu_torch.utils.config import load_experiment_model_config
+
+    set_reference_precision()
+    dev = torch.device("cuda")
+
+    # 1. device + build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0)})
+    t0 = time.perf_counter()
+    kernels.load_library()
+    ptxas = [ln.strip() for ln in kernels.build_info.get("ptxas", "").splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "cached": kernels.build_info["cached"], "ptxas": ptxas, "card": smi})
+
+    # the scene: 8 ring frames of 120x160 around the training volume's center
+    P_np, img_np, depth_np = ring_frames(NUM_FRAMES, HEIGHT, WIDTH, SCENE_CENTER, PRIMITIVES,
+                                         seed=SEED)
+    P, image, depth = (torch.from_numpy(a).to(dev) for a in (P_np, img_np, depth_np))
+
+    # 2. fps: a presampled depth cloud (with replacement: duplicates, ties)
+    gen = torch.Generator().manual_seed(SEED)
+    cloud = get_3d_points(depth, P).reshape(NUM_FRAMES, -1, 3)
+    xyz = uniform_presample(cloud, PRESAMPLE, gen).contiguous()
+    B, N = xyz.shape[:2]
+    start = torch.randint(0, N, (B,), generator=gen).to(dev, torch.int32)
+    idx_k = fps_cuda(xyz, NPOINT, start)
+    idx_p = farthest_point_sample_plain(xyz, NPOINT, start)
+    torch.cuda.synchronize()
+    mismatches = int((idx_k != idx_p).sum())
+    fps_ms = cuda_ms(torch, lambda: fps_cuda(xyz, NPOINT, start), reps=20)
+    fps_plain_ms = cuda_ms(torch, lambda: farthest_point_sample_plain(xyz, NPOINT, start), reps=5)
+    # distance update + running min + argmax compare: 10 f32 ops per point per iteration
+    fps_ops = 10 * B * N * NPOINT
+    fps_bytes = xyz.numel() * 4 + B * 4 + B * NPOINT * 4
+    fps_bound = max(fps_ops / PEAK_F32, fps_bytes / PEAK_BYTES) * 1e3
+    fps_rec = {"phase": "fps", "shape": [B, N, 3], "npoint": NPOINT,
+               "duplicate_points": int(N - torch.unique(xyz[0], dim=0).shape[0]),
+               "index_mismatches": mismatches, "ms": fps_ms, "plain_ms": fps_plain_ms,
+               "bound_ms": fps_bound, "card": smi}
+    emit(fps_rec)
+    if mismatches:
+        raise RuntimeError(f"FPS kernel disagrees with its plain version at {mismatches} indices")
+
+    # 3. grid_decode: full-width weights, every matrix non-zero
+    cfg_dict = load_experiment_model_config(EXPERIMENT)
+    model = build_model(cfg_dict, dev, SEED)
+    wgen = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, ResnetBlockFC):  # fc_1 is zero at init
+                fan_in = m.fc_1.weight.shape[1]
+                m.fc_1.weight.copy_(torch.randn(m.fc_1.weight.shape, generator=wgen) / math.sqrt(fan_in))
+                m.fc_1.bias.copy_(0.1 * torch.randn(m.fc_1.bias.shape, generator=wgen))
+    cfg = model.cfg
+    if not uses_grid_decode(model):
+        raise RuntimeError("the full-width config does not take the grid decode")
+    repr_ = model.encode(P[None], image[None], depth[None], torch.Generator().manual_seed(SEED))
+    weights = extract_resnetfc_weights(model.mlp, model.head_geo, cfg.mlp.d_out_geo,
+                                       cfg.mlp.head_smoothing)
+    extent = [d * cfg.voxel_size for d in cfg.voxel_dim_train]
+    table_args = dict(
+        voxel_dim=VOXEL_DIM, voxel_size=cfg.voxel_size, num_freqs=cfg.code.num_freqs,
+        freq_factor=cfg.code.freq_factor, include_input=cfg.code.include_input,
+        padding=cfg.encoder.pointnet.padding, coord_center=tuple(e / 2 for e in extent),
+        coord_scale=max(extent))
+    planes = repr_.planes
+    tables = grid_tables(planes["xz"][0], planes["xy"][0], planes["yz"][0],
+                         torch.zeros(3, device=dev), weights, **table_args)
+    vol_k = grid_decode_cuda(tables, weights)
+    vol_p = separable_grid_decode_plain(tables, weights, bf16_feeds=True)
+    torch.cuda.synchronize()
+    err = (vol_k - vol_p).abs()
+    grid_max, grid_mean = float(err.max()), float(err.mean())
+    grid_ms = cuda_ms(torch, lambda: grid_decode_cuda(tables, weights), reps=10)
+    grid_plain_ms = cuda_ms(torch, lambda: separable_grid_decode_plain(tables, weights, True), reps=3)
+    H, nb = weights["w0"].shape[-1], weights["w0"].shape[0]
+    grid_flops = grid_decode_flops(VOXEL_DIM, H, nb)
+    grid_bytes = (sum(t.numel() for t in tables) * 4 + 2 * nb * H * H * 2 + 2 * nb * H * 4
+                  + H * 2 + math.prod(VOXEL_DIM) * 4)
+    grid_bound = max(grid_flops / PEAK_BF16, grid_bytes / PEAK_BYTES) * 1e3
+    emit({"phase": "grid_decode", "voxel_dim": list(VOXEL_DIM), "H": H, "n_blocks": nb,
+          "max_abs_err": grid_max, "mean_abs_err": grid_mean,
+          "tolerance": {"max_abs": GRID_MAX_ABS_TOL, "mean_abs": GRID_MEAN_ABS_TOL},
+          "out_abs_max": float(vol_p.abs().max()), "ms": grid_ms, "plain_ms": grid_plain_ms,
+          "flops": grid_flops, "bound_ms": grid_bound,
+          "tflops_per_s": grid_flops / grid_ms / 1e9, "card": smi})
+    if not (torch.isfinite(vol_k).all() and grid_max <= GRID_MAX_ABS_TOL
+            and grid_mean <= GRID_MEAN_ABS_TOL):
+        raise RuntimeError(f"grid-decode kernel disagrees: max {grid_max}, mean {grid_mean}")
+
+    # 4. predict: the main path, counters reset just before, read just after
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vol = reconstruct(model, P, image, depth, VOXEL_DIM, torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    smoothing = cfg.mlp.head_smoothing
+    if tuple(vol.shape) != VOXEL_DIM or vol.dtype != torch.float32:
+        raise RuntimeError(f"bad volume {tuple(vol.shape)} {vol.dtype}")
+    if not torch.isfinite(vol).all() or float(vol.abs().max()) > smoothing:
+        raise RuntimeError("volume not finite or outside +-smoothing")
+    for name, n in launches.items():
+        if n < 1:
+            raise RuntimeError(f"the main path launched no {name} kernel")
+    origin = torch.zeros(3, device=dev)
+    near, farfront = prior_classes(VOXEL_DIM, cfg.voxel_size, origin, 3 * cfg.voxel_size, P, depth)
+    unobserved = ~near & ~farfront
+    if not (near.any() and farfront.any() and unobserved.any()):
+        raise RuntimeError("empty prior class: the scene misses the grid")
+    band = vol.reshape(-1)[near]
+
+    # the same stages through the plain versions on the card
+    gen = torch.Generator().manual_seed(SEED)
+    cloud = get_3d_points(depth, P).reshape(NUM_FRAMES, -1, 3)
+    xyz_ref = uniform_presample(cloud, cfg.encoder.pointnet.fps_presample, gen)
+    start_ref = torch.randint(0, xyz_ref.shape[1], (NUM_FRAMES,), generator=gen)
+    idx_ref = farthest_point_sample_plain(
+        xyz_ref, cfg.encoder.pointnet.num_sparse_points, start_ref).long()
+    sparse = torch.gather(xyz_ref, 1, idx_ref[..., None].expand(-1, -1, 3))
+    with torch.no_grad():
+        planes_ref = model.pointnet(model.plane_coords(sparse.reshape(1, -1, 3)))
+    tables_ref = grid_tables(planes_ref["xz"][0], planes_ref["xy"][0], planes_ref["yz"][0],
+                             origin, weights, **table_args)
+    vol_ref = apply_fusion_prior(separable_grid_decode_plain(tables_ref, weights, True),
+                                 cfg.voxel_size, origin, P, depth)
+    perr = (vol - vol_ref).abs()
+    pred_max, pred_mean = float(perr.max()), float(perr.mean())
+
+    encode_ms = host_ms(torch, lambda: model.encode(P[None], image[None], depth[None],
+                                                     torch.Generator().manual_seed(SEED)), 3)
+    decode_ms = host_ms(torch, lambda: predict_tsdf_volume(model, repr_, VOXEL_DIM,
+                                                           cfg.voxel_size, origin), 3)
+    prior_ms = host_ms(torch, lambda: apply_fusion_prior(vol, cfg.voxel_size, origin, P, depth), 3)
+    total_ms = host_ms(torch, lambda: reconstruct(
+        model, P, image, depth, VOXEL_DIM, torch.Generator().manual_seed(SEED)), 3)
+    emit({"phase": "predict", "config": "configs/experiment/seqs_multigeo_4cm.yaml",
+          "frames": [NUM_FRAMES, HEIGHT, WIDTH], "voxel_dim": list(VOXEL_DIM),
+          "launches": launches, "first_call_ms": first_ms,
+          "near_voxels": int(near.sum()), "farfront_voxels": int((~near & farfront).sum()),
+          "unobserved_voxels": int(unobserved.sum()),
+          "band_min": float(band.min()), "band_max": float(band.max()),
+          "vs_plain_max_abs": pred_max, "vs_plain_mean_abs": pred_mean,
+          "encode_ms": encode_ms, "decode_ms": decode_ms, "prior_ms": prior_ms,
+          "total_ms": total_ms, "card": smi})
+    if pred_max > GRID_MAX_ABS_TOL or pred_mean > GRID_MEAN_ABS_TOL:
+        raise RuntimeError(f"predict disagrees with its plain stages: max {pred_max}, mean {pred_mean}")
+
+    # where one reconstruct's device time goes: device-side events of one
+    # profiled call (host-side op events would count their kernels twice)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        reconstruct(model, P, image, depth, VOXEL_DIM, torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+    kernel_us = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                       key=lambda d: -d[1])
+    busy_ms = sum(d[1] for d in kernel_us) / 1e3
+    emit({"phase": "profile", "device_busy_ms": busy_ms, "unprofiled_total_ms": total_ms,
+          "device_idle_share": 1 - busy_ms / total_ms, "kernels_launched": sum(d[2] for d in kernel_us),
+          "top": [{"name": k[:80], "ms": us / 1e3, "calls": n} for k, us, n in kernel_us[:12]],
+          "card": smi})
+
+    kernel_line = {"kernels": [
+        {"name": "fps", "route": "cuda", "source": "gennerf_tpu_torch/csrc/fps.cu",
+         "replaces": "gennerf_tpu/ops/pallas/fps.py:33", "launches": launches["fps"],
+         "max_abs_err": float((idx_k - idx_p).abs().max()), "ms": fps_ms,
+         "plain_ms": fps_plain_ms, "bound_ms": fps_bound, "bound_by": "operations",
+         "library_ms": None},
+        {"name": "grid_decode", "route": "cuda", "source": "gennerf_tpu_torch/csrc/grid_decode.cu",
+         "replaces": "gennerf_tpu/ops/pallas/fused_decoder.py:353",
+         "launches": launches["grid_decode"], "max_abs_err": grid_max, "ms": grid_ms,
+         "plain_ms": grid_plain_ms, "bound_ms": grid_bound,
+         "bound_by": "operations" if grid_flops / PEAK_BF16 >= grid_bytes / PEAK_BYTES else "bytes",
+         "library_ms": None},
+    ]}
+    emit(kernel_line)
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

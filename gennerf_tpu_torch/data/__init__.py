@@ -1,0 +1,1 @@
+"""data of the gennerf_tpu_torch port."""

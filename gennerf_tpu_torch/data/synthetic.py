@@ -1,0 +1,141 @@
+"""Analytic RGB-D frames of a synthetic scene, numpy only (the port's own
+copy of `look_at_pose` and `render_scene` from gennerf_tpu/data/synthetic.py,
+for the sphere and box primitives over a floor plane), plus `ring_frames`,
+which renders a ring of inward-looking cameras for predict drives.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+
+def look_at_pose(eye, target, up=(0.0, 0.0, 1.0)) -> np.ndarray:
+    """camera2world (4, 4) with +z forward, +y down (vision convention)."""
+    eye = np.asarray(eye, np.float64)
+    target = np.asarray(target, np.float64)
+    fwd = target - eye
+    fwd /= np.linalg.norm(fwd)
+    right = np.cross(fwd, np.asarray(up, np.float64))
+    if np.linalg.norm(right) < 1e-6:
+        right = np.cross(fwd, np.array([0.0, 1.0, 0.0]))
+    right /= np.linalg.norm(right)
+    down = np.cross(fwd, right)
+    pose = np.eye(4)
+    pose[:3, 0] = right
+    pose[:3, 1] = down
+    pose[:3, 2] = fwd
+    pose[:3, 3] = eye
+    return pose.astype(np.float32)
+
+
+def render_scene(H: int, W: int, intrinsics: np.ndarray, pose: np.ndarray,
+                 sphere_center=(0.0, 0.0, 0.5), sphere_radius: float = 0.5,
+                 floor_z: float = 0.0, max_depth: float = 10.0,
+                 primitives=None) -> Tuple[np.ndarray, np.ndarray]:
+    """z-depth (H, W) f32 meters (0 = no hit) and shaded RGB (H, W, 3) uint8
+    of sphere/box primitives (closest hit wins) over a floor plane. Rays are
+    parameterized by camera z-depth, so the hit parameter IS the depth."""
+    fx, fy = float(intrinsics[0, 0]), float(intrinsics[1, 1])
+    cx, cy = float(intrinsics[0, 2]), float(intrinsics[1, 2])
+    us, vs = np.meshgrid(np.arange(W, dtype=np.float64), np.arange(H, dtype=np.float64))
+    d_cam = np.stack([(us - cx) / fx, (vs - cy) / fy, np.ones_like(us)], -1)
+    R = pose[:3, :3].astype(np.float64)
+    o = pose[:3, 3].astype(np.float64)
+    d = d_cam @ R.T
+    if primitives is None:
+        primitives = [{"type": "sphere", "center": sphere_center, "radius": sphere_radius}]
+
+    def hit_sphere(center, radius):
+        c = np.asarray(center, np.float64)
+        oc = o - c
+        a = (d**2).sum(-1)
+        b = (d * oc).sum(-1)
+        disc = b**2 - a * ((oc**2).sum() - radius**2)
+        hit = disc > 0
+        sqrt_disc = np.sqrt(np.where(hit, disc, 0.0))
+        t = np.where(hit, (-b - sqrt_disc) / a, np.inf)
+        t = np.where(t > 1e-6, t, np.inf)
+        with np.errstate(invalid="ignore"):
+            n = o + t[..., None] * d - c
+            n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-9)
+        return t, n
+
+    def hit_box(bmin, bmax):
+        bmin = np.asarray(bmin, np.float64)
+        bmax = np.asarray(bmax, np.float64)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            inv = 1.0 / d
+            t0 = (bmin - o) * inv
+            t1 = (bmax - o) * inv
+        t_near_ax = np.minimum(t0, t1)
+        t_near = t_near_ax.max(-1)
+        t_far = np.maximum(t0, t1).min(-1)
+        hit = (t_far > np.maximum(t_near, 1e-6)) & (t_near > 1e-6)
+        t = np.where(hit, t_near, np.inf)
+        axis = np.argmax(t_near_ax, axis=-1)
+        n = np.zeros(d.shape)
+        for a_i in range(3):
+            sel = axis == a_i
+            n[sel, a_i] = -np.sign(d[sel, a_i])
+        return t, n
+
+    t_best = np.full((H, W), np.inf)
+    n_best = np.zeros((H, W, 3))
+    kind = np.full((H, W), -1, np.int64)
+    for pi, prim in enumerate(primitives):
+        if prim["type"] == "sphere":
+            t_p, n_p = hit_sphere(prim["center"], prim["radius"])
+        elif prim["type"] == "box":
+            t_p, n_p = hit_box(prim["min"], prim["max"])
+        else:
+            raise ValueError(f"primitive {prim['type']!r} is not ported")
+        closer = t_p < t_best
+        t_best = np.where(closer, t_p, t_best)
+        n_best = np.where(closer[..., None], n_p, n_best)
+        kind = np.where(closer, pi, kind)
+
+    dz = d[..., 2]
+    with np.errstate(divide="ignore"):
+        t_f = np.where(np.abs(dz) > 1e-9, (floor_z - o[2]) / dz, np.inf)
+    t_f = np.where(t_f > 1e-6, t_f, np.inf)
+    t = np.minimum(t_best, t_f)
+    prim_closer = t_best <= t_f
+    valid = np.isfinite(t) & (t <= max_depth)
+    depth = np.where(valid, t, 0.0).astype(np.float32)
+
+    with np.errstate(invalid="ignore", over="ignore"):
+        pts = o + np.where(np.isfinite(t), t, 0.0)[..., None] * d
+        light = np.array([0.4, 0.3, 0.85])
+        light /= np.linalg.norm(light)
+        lambert = np.clip((n_best * light).sum(-1), 0.15, 1.0)
+        checker = ((np.floor(pts[..., 0] * 2) + np.floor(pts[..., 1] * 2)) % 2).astype(np.float64)
+    hues = np.array([[0.9, 0.3, 0.2], [0.2, 0.7, 0.9], [0.8, 0.8, 0.2], [0.5, 0.3, 0.8]])
+    prim_rgb = hues[np.maximum(kind, 0) % len(hues)] * lambert[..., None]
+    floor_rgb = np.stack([0.3 + 0.4 * checker, 0.5 + 0.3 * checker, 0.4 + 0.2 * checker], -1)
+    color = np.where(prim_closer[..., None], prim_rgb, floor_rgb)
+    color = np.where(valid[..., None], color, 0.0)
+    return depth, (color * 255).astype(np.uint8)
+
+
+def ring_frames(num_frames: int, H: int, W: int, center, primitives,
+                camera_radius: float = 2.2, camera_height: float = 1.3, seed: int = 0):
+    """Render `num_frames` cameras on a ring around `center` looking at it.
+
+    Returns projection (T, 3, 4) f32 world->image (K @ inv(pose)[:3]),
+    image (T, 3, H, W) f32 in [0, 1], depth (T, H, W) f32 meters."""
+    rng = np.random.default_rng(seed)
+    center = np.asarray(center, np.float64)
+    f = 0.6 * W
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    projections, images, depths = [], [], []
+    for i in range(num_frames):
+        ang = 2 * np.pi * i / num_frames + 0.01 * rng.standard_normal()
+        eye = center + np.array([camera_radius * np.cos(ang), camera_radius * np.sin(ang),
+                                 camera_height + 0.05 * rng.standard_normal()])
+        pose = look_at_pose(eye, center)
+        depth, color = render_scene(H, W, K, pose, primitives=primitives)
+        projections.append((K @ np.linalg.inv(pose)[:3]).astype(np.float32))
+        images.append(color.transpose(2, 0, 1).astype(np.float32) / 255.0)
+        depths.append(depth)
+    return np.stack(projections), np.stack(images), np.stack(depths)

@@ -1,0 +1,1 @@
+"""ops of the gennerf_tpu_torch port."""

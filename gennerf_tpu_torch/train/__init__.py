@@ -1,0 +1,1 @@
+"""train of the gennerf_tpu_torch port."""

@@ -1,0 +1,1 @@
+"""tsdf of the gennerf_tpu_torch port."""

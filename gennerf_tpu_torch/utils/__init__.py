@@ -1,0 +1,1 @@
+"""utils of the gennerf_tpu_torch port."""

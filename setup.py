@@ -44,7 +44,8 @@ setup(
         "for meshing/eval. Capability parity with the gen-nerf reference."
     ),
     author="gennerf_tpu authors",
-    packages=find_packages(include=["gennerf_tpu", "gennerf_tpu.*"]),
+    packages=find_packages(include=["gennerf_tpu", "gennerf_tpu.*",
+                                    "gennerf_tpu_torch", "gennerf_tpu_torch.*"]),
     python_requires=">=3.10",
     cmdclass={"build_py": BuildWithNative},
 )

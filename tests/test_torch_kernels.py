@@ -1,0 +1,162 @@
+"""The port's CUDA kernels (csrc/fps.cu, csrc/grid_decode.cu) against their
+plain PyTorch versions, and their wrappers' checks.
+
+This file imports torch and the port only, so on the machine with the card
+(which has no JAX) it runs without the suite's conftest:
+
+    python -m pytest --noconftest -q tests/test_torch_kernels.py
+
+Tests that launch a kernel skip here when there is no CUDA device (a CUDA
+kernel has no CPU mode); the wrapper and build checks run everywhere.
+Tolerances: FPS indices are identical. The grid decode agrees with the
+bf16-feed plain decode within 5e-2 at any point and 1e-3 on average: both
+round the same values to bf16 and accumulate in f32 in another order, so
+a few activations round the other way (one bf16 step, 2^-8 of the value).
+"""
+import numpy as np
+import pytest
+import torch
+
+from gennerf_tpu_torch.ops import kernels
+from gennerf_tpu_torch.ops import grid_decode as gd
+from gennerf_tpu_torch.ops import sampling as tsamp
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _fps_cloud(kind, B, N, seed=0):
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return rng.standard_normal((B, N, 3)).astype(np.float32)
+    if kind == "duplicates":  # a presample with replacement of a smaller cloud
+        base = rng.standard_normal((B, max(N // 4, 1), 3)).astype(np.float32)
+        sel = rng.integers(0, base.shape[1], (B, N))
+        return np.take_along_axis(base, sel[..., None], 1)
+    if kind == "identical":  # every distance ties
+        return np.ones((B, N, 3), np.float32)
+    raise ValueError(kind)
+
+
+# -- checks that run without a card -----------------------------------------
+
+def test_import_builds_nothing(tmp_path):
+    """Importing every module of the port starts no build."""
+    import os
+    import subprocess
+    import sys
+
+    code = ("import importlib, pkgutil, gennerf_tpu_torch\n"
+            "for m in pkgutil.walk_packages(gennerf_tpu_torch.__path__, 'gennerf_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "from gennerf_tpu_torch.ops import kernels\n"
+            "print(kernels._lib, kernels.build_info)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, GENNERF_TORCH_BUILD_DIR=str(tmp_path / "build"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "None {}" and not (tmp_path / "build").exists()
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("GENNERF_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    assert kernels.build_dir() == str(tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build_library()
+
+
+def test_wrappers_reject_cpu_tensors():
+    xyz = torch.zeros(2, 64, 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tsamp.fps_cuda(xyz, 8, torch.zeros(2, dtype=torch.int32))
+    H = 128
+    tables = gd.GridTables(torch.zeros(6, H), torch.zeros(2, 3, H), torch.zeros(2, 2, H),
+                           torch.zeros(2, 1, H), torch.zeros(1, 2, H), torch.zeros(1, 3, H))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gd.grid_decode_cuda(tables, {})
+
+
+def test_grid_kernel_widths():
+    tables = gd.GridTables(*(torch.zeros(1, 1, 96) for _ in range(6)))
+    with pytest.raises(NotImplementedError, match="d_hidden"):
+        gd.grid_decode_cuda(tables, {})
+
+
+def test_other_devices_raise():
+    meta = torch.zeros(2, 16, 3, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsamp.farthest_point_sample(meta, 4, start=torch.zeros(2, dtype=torch.int32))
+
+
+# -- kernels on the card ----------------------------------------------------
+
+@pytest.mark.parametrize("kind,B,N,npoint", [
+    ("random", 1, 100, 7),
+    ("random", 3, 1000, 64),
+    ("duplicates", 8, 16384, 256),   # the predict shape: cloud in shared memory
+    ("duplicates", 2, 20000, 128),   # past shared memory: cloud read through the cache
+    ("random", 1, 32768, 32),
+    ("identical", 2, 3000, 16),
+])
+def test_fps_kernel_matches_plain(cuda, kind, B, N, npoint):
+    x = torch.from_numpy(_fps_cloud(kind, B, N)).to(cuda)
+    start = torch.randint(0, N, (B,), dtype=torch.int32, device=cuda)
+    k = tsamp.fps_cuda(x, npoint, start)
+    torch.cuda.synchronize()
+    p = tsamp.farthest_point_sample_plain(x, npoint, start)
+    assert k.dtype == torch.int32 and k.shape == (B, npoint)
+    assert torch.equal(k, p), int((k != p).sum())
+
+
+def test_fps_kernel_limits(cuda):
+    start = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        tsamp.fps_cuda(torch.zeros(1, 40000, 3, device=cuda), 8, start)
+    with pytest.raises(ValueError):
+        tsamp.fps_cuda(torch.zeros(1, 10, 3, device=cuda), 11, start)
+
+
+def test_fps_wrapper_counts_launches(cuda):
+    x = torch.from_numpy(_fps_cloud("random", 2, 500)).to(cuda)
+    kernels.reset_launch_counts()
+    sampled, idx = tsamp.farthest_point_sample(x, 16, torch.Generator().manual_seed(0))
+    assert kernels.FPS.launches == 1 and kernels.GRID_DECODE.launches == 0
+    torch.testing.assert_close(sampled, torch.gather(x, 1, idx.long()[..., None].expand(2, 16, 3)))
+
+
+@pytest.mark.parametrize("H,nb,dims", [
+    (128, 2, (5, 7, 9)),
+    (256, 5, (3, 4, 11)),
+    (256, 1, (17, 9, 13)),
+    (512, 2, (2, 3, 7)),
+])
+def test_grid_decode_kernel_matches_plain(cuda, H, nb, dims):
+    gen = torch.Generator().manual_seed(H + nb)
+    nx, ny, nz = dims
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(cuda)
+
+    weights = {"w0": rnd(nb, H, H, scale=H ** -0.5), "w1": rnd(nb, H, H, scale=H ** -0.5),
+               "b0": rnd(nb, H, scale=0.1), "b1": rnd(nb, H, scale=0.1),
+               "w_last": rnd(H, scale=H ** -0.5), "b_last": 0.05, "smoothing": 1.05}
+    tables = gd.GridTables(rnd(ny * nz, H), rnd(nx, nz, H), rnd(nx, ny, H),
+                           rnd(nx, nb, H, scale=0.3), rnd(nb, ny, H, scale=0.3),
+                           rnd(nb, nz, H, scale=0.3))
+    kernels.reset_launch_counts()
+    k = gd.grid_decode(tables, weights)
+    torch.cuda.synchronize()
+    assert kernels.GRID_DECODE.launches == 1
+    p = gd.separable_grid_decode_plain(tables, weights, bf16_feeds=True)
+    err = (k - p).abs()
+    assert k.shape == dims and torch.isfinite(k).all()
+    assert err.max() < 5e-2 and err.mean() < 1e-3, (float(err.max()), float(err.mean()))
+    assert (p - gd.separable_grid_decode_plain(tables, weights, bf16_feeds=False)).abs().mean() > err.mean()
