@@ -12,10 +12,20 @@ Builds the port's CUDA kernels from csrc/ with nvcc, then:
   4. predict: `reconstruct` of the full-width seqs_multigeo_4cm GenNerf
      (seeded random weights) on 8 rendered 120x160 frames, with the launch
      counters reset just before and read just after; the volume is checked
-     against the same stages run through the plain versions;
+     against the same stages run through the plain versions; then a
+     profiled call (device busy ms, idle share);
+  5. point_decode: the point-decode kernel against its plain bf16-feed
+     version on the triplane features and codes of 2^20 points in the
+     test volume;
+  6. render: `render_views` of 4 of the frames (the K3-backed march) with
+     the counters reset just before and read just after, held against the
+     same march on the plain bf16-feed decode; then a profiled view;
+  7. predict_sparse: `reconstruct` with sparse_band_decode, and the band
+     decode against the dense gather decode clamped by the prior;
 then a `kernels` JSON line, the nvidia-smi line and the final result line.
 Every phase raises on failure. Needs one CUDA card; exits non-zero without.
 """
+import dataclasses
 import json
 import math
 import os
@@ -34,6 +44,19 @@ PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 # accumulate in another order, so a few activations round the other way
 # (one bf16 step, 2^-8 of the value) and carry that through later blocks
 GRID_MAX_ABS_TOL, GRID_MEAN_ABS_TOL = 5e-2, 1e-3
+# the point decode rounds the same values to bf16 as its plain version and
+# sums in another order: the grid decode's tolerance, for the same reason
+POINT_MAX_ABS_TOL, POINT_MEAN_ABS_TOL = 5e-2, 1e-3
+N_POINTS = 1 << 20
+NUM_VIEWS = 4
+# kernel march vs plain-decode march: a field sample within a bf16 step of
+# zero can move a bracket by one step, so a few rays may flip their hit or
+# their crossing; 99% of the rays must agree on the hit, and 99% of the
+# rays both hit within 1e-3 m
+RENDER_MASK_AGREE, RENDER_DEPTH_TOL, RENDER_DEPTH_AGREE = 0.99, 1e-3, 0.99
+# sparse band decode vs dense gather decode + prior: both f32, the band's
+# coordinates computed as index * step instead of the linspace formula
+SPARSE_TOL = 1e-5
 EXPERIMENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "configs", "experiment", "seqs_multigeo_4cm.yaml")
 PRIMITIVES = [
@@ -77,7 +100,29 @@ def host_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def profile_device(torch, fn, total_ms: float, card: str) -> dict:
+    """Device busy ms and idle share of one fn() call: device-side events
+    of one profiled call (host-side op events would count their kernels
+    twice), against its unprofiled wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernel_us = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                       key=lambda d: -d[1])
+    busy_ms = sum(d[1] for d in kernel_us) / 1e3
+    return {"device_busy_ms": busy_ms, "unprofiled_total_ms": total_ms,
+            "device_idle_share": 1 - busy_ms / total_ms,
+            "kernels_launched": sum(d[2] for d in kernel_us),
+            "top": [{"name": k[:80], "ms": us / 1e3, "calls": n} for k, us, n in kernel_us[:12]],
+            "card": card}
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -85,6 +130,8 @@ def main() -> int:
         return 1
     from gennerf_tpu_torch import set_reference_precision
     from gennerf_tpu_torch.data.synthetic import ring_frames
+    from gennerf_tpu_torch.models.gen_nerf import GenNerf
+    from gennerf_tpu_torch.models.positional_encoding import positional_encoding
     from gennerf_tpu_torch.models.resnetfc import ResnetBlockFC
     from gennerf_tpu_torch.ops import kernels
     from gennerf_tpu_torch.ops.grid_decode import (
@@ -95,8 +142,15 @@ def main() -> int:
     from gennerf_tpu_torch.ops.sampling import (
         farthest_point_sample_plain, fps_cuda, uniform_presample,
     )
+    from gennerf_tpu_torch.ops.point_decode import (
+        fused_resnetfc_tsdf_cuda, fused_resnetfc_tsdf_plain, pack_point_weights, point_decode_flops,
+    )
     from gennerf_tpu_torch.predict import build_model, reconstruct
-    from gennerf_tpu_torch.train.predict import predict_tsdf_volume, uses_grid_decode
+    from gennerf_tpu_torch.render import render_encoded, render_views
+    from gennerf_tpu_torch.train.predict import (
+        decode_dense, dense_grid_points, make_point_tsdf_fn, predict_tsdf_volume,
+        predict_tsdf_volume_sparse, triplane_feat_fast, triplane_gather_setup, uses_grid_decode,
+    )
     from gennerf_tpu_torch.tsdf.fusion import apply_fusion_prior, prior_classes
     from gennerf_tpu_torch.utils.config import load_experiment_model_config
 
@@ -118,9 +172,9 @@ def main() -> int:
           "cached": kernels.build_info["cached"], "ptxas": ptxas, "card": smi})
 
     # the scene: 8 ring frames of 120x160 around the training volume's center
-    P_np, img_np, depth_np = ring_frames(NUM_FRAMES, HEIGHT, WIDTH, SCENE_CENTER, PRIMITIVES,
-                                         seed=SEED)
-    P, image, depth = (torch.from_numpy(a).to(dev) for a in (P_np, img_np, depth_np))
+    frames_np = ring_frames(NUM_FRAMES, HEIGHT, WIDTH, SCENE_CENTER, PRIMITIVES, seed=SEED,
+                            cameras=True)
+    P, image, depth, intrinsics, poses = (torch.from_numpy(a).to(dev) for a in frames_np)
 
     # 2. fps: a presampled depth cloud (with replacement: duplicates, ties)
     gen = torch.Generator().manual_seed(SEED)
@@ -206,9 +260,9 @@ def main() -> int:
         raise RuntimeError(f"bad volume {tuple(vol.shape)} {vol.dtype}")
     if not torch.isfinite(vol).all() or float(vol.abs().max()) > smoothing:
         raise RuntimeError("volume not finite or outside +-smoothing")
-    for name, n in launches.items():
-        if n < 1:
-            raise RuntimeError(f"the main path launched no {name} kernel")
+    for name in ("fps", "grid_decode"):
+        if launches[name] < 1:
+            raise RuntimeError(f"the predict path launched no {name} kernel")
     origin = torch.zeros(3, device=dev)
     near, farfront = prior_classes(VOXEL_DIM, cfg.voxel_size, origin, 3 * cfg.voxel_size, P, depth)
     unobserved = ~near & ~farfront
@@ -252,22 +306,132 @@ def main() -> int:
     if pred_max > GRID_MAX_ABS_TOL or pred_mean > GRID_MEAN_ABS_TOL:
         raise RuntimeError(f"predict disagrees with its plain stages: max {pred_max}, mean {pred_mean}")
 
-    # where one reconstruct's device time goes: device-side events of one
-    # profiled call (host-side op events would count their kernels twice)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    # where one reconstruct's device time goes
+    emit({"phase": "profile", **profile_device(torch, lambda: reconstruct(
+        model, P, image, depth, VOXEL_DIM, torch.Generator().manual_seed(SEED)), total_ms, smi)})
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        reconstruct(model, P, image, depth, VOXEL_DIM, torch.Generator().manual_seed(SEED))
-        torch.cuda.synchronize()
-    kernel_us = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                       key=lambda d: -d[1])
-    busy_ms = sum(d[1] for d in kernel_us) / 1e3
-    emit({"phase": "profile", "device_busy_ms": busy_ms, "unprofiled_total_ms": total_ms,
-          "device_idle_share": 1 - busy_ms / total_ms, "kernels_launched": sum(d[2] for d in kernel_us),
-          "top": [{"name": k[:80], "ms": us / 1e3, "calls": n} for k, us, n in kernel_us[:12]],
+    # 5. point_decode: 2^20 points uniform in the test volume, their
+    # triplane features and codes from the grid phase's scene
+    box = np.array(cfg.voxel_dim_test, np.float32) * cfg.voxel_size
+    pts = torch.from_numpy(np.random.default_rng(SEED).uniform(0, box, (N_POINTS, 3))
+                           .astype(np.float32)).to(dev)
+    feat = triplane_feat_fast(*triplane_gather_setup(model, planes), pts[None])[0]
+    code = positional_encoding(pts, cfg.code.num_freqs, cfg.code.freq_factor,
+                               cfg.code.include_input)
+    pweights = pack_point_weights(weights)
+    pk = fused_resnetfc_tsdf_cuda(feat, code, pweights)
+    pp = fused_resnetfc_tsdf_plain(feat, code, pweights, bf16_feeds=True)
+    torch.cuda.synchronize()
+    perr = (pk - pp).abs()
+    point_max, point_mean = float(perr.max()), float(perr.mean())
+    point_ms = cuda_ms(torch, lambda: fused_resnetfc_tsdf_cuda(feat, code, pweights), reps=10)
+    point_plain_ms = cuda_ms(torch, lambda: fused_resnetfc_tsdf_plain(feat, code, pweights, True),
+                             reps=3)
+    # one view's launch sizes at 120x160: coarse 16, fine 8 and secant 1 sample per ray
+    rays = HEIGHT * WIDTH
+    launch_ms = {name: cuda_ms(torch, lambda n=n: fused_resnetfc_tsdf_cuda(feat[:n], code[:n],
+                                                                          pweights), reps=10)
+                 for name, n in (("coarse", 16 * rays), ("fine", 8 * rays), ("secant", rays))}
+    d_in, d_code = feat.shape[1], code.shape[1]
+    point_flops = point_decode_flops(N_POINTS, d_in, d_code, H, nb)
+    point_bytes = (feat.numel() + code.numel() + N_POINTS) * 4 + sum(
+        t.numel() * t.element_size() for k, t in pweights.items() if k.startswith("k_"))
+    point_bound = max(point_flops / PEAK_BF16, point_bytes / PEAK_BYTES) * 1e3
+    emit({"phase": "point_decode", "points": N_POINTS, "d_in": d_in, "d_code": d_code, "H": H,
+          "n_blocks": nb, "max_abs_err": point_max, "mean_abs_err": point_mean,
+          "tolerance": {"max_abs": POINT_MAX_ABS_TOL, "mean_abs": POINT_MEAN_ABS_TOL},
+          "out_abs_max": float(pp.abs().max()), "ms": point_ms, "plain_ms": point_plain_ms,
+          "flops": point_flops, "bytes": point_bytes, "bound_ms": point_bound,
+          "tflops_per_s": point_flops / point_ms / 1e9, "launch_ms": launch_ms,
           "card": smi})
+    if not (torch.isfinite(pk).all() and point_max <= POINT_MAX_ABS_TOL
+            and point_mean <= POINT_MEAN_ABS_TOL):
+        raise RuntimeError(f"point-decode kernel disagrees: max {point_max}, mean {point_mean}")
+
+    # 6. render: a random field need not cross zero, so lin_out's bias moves
+    # along the head until the median pre-tanh head over the grid is 0 (the
+    # head bias stays 0, as the point decode requires)
+    d_geo = cfg.mlp.d_out_geo
+    with torch.no_grad():
+        shift = -math.atanh(float(vol_p.median()) / smoothing)
+        w_head = model.head_geo.fc.weight[0].to(torch.float64)
+        model.mlp.lin_out.bias[:d_geo] += (shift * w_head / (w_head @ w_head)).to(torch.float32)
+    render_args = (model, P, image, depth, intrinsics, poses)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = render_views(*render_args, num_views=NUM_VIEWS, generator=torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    render_first_ms = (time.perf_counter() - t0) * 1e3
+    render_launches = {k.name: k.launches for k in kernels.KERNELS}
+    if render_launches["point_decode"] < 1:
+        raise RuntimeError("render_views launched no point_decode kernel")
+    hit_share = (out["ray_depth"] > 0).mean(axis=(1, 2))
+    if not (hit_share > 0).all() or not np.isfinite(out["depth"]).all():
+        raise RuntimeError(f"a rendered view has no hit rays or non-finite depth: {hit_share}")
+    # the same march on the plain bf16-feed decode, on one shared encode
+    repr_r = model.encode(P[None], image[None], depth[None], torch.Generator().manual_seed(SEED))
+    rk = render_encoded(model, repr_r, depth, intrinsics, poses, make_point_tsdf_fn(model, repr_r),
+                        NUM_VIEWS)
+    rp = render_encoded(model, repr_r, depth, intrinsics, poses,
+                        make_point_tsdf_fn(model, repr_r, plain=True), NUM_VIEWS)
+    hk, hp = rk["ray_depth"] > 0, rp["ray_depth"] > 0
+    mask_agree = float((hk == hp).mean())
+    both = hk & hp
+    ddiff = np.abs(rk["ray_depth"] - rp["ray_depth"])[both]
+    depth_agree = float((ddiff <= RENDER_DEPTH_TOL).mean())
+    render_ms = host_ms(torch, lambda: render_views(
+        *render_args, num_views=NUM_VIEWS, generator=torch.Generator().manual_seed(SEED)), 3)
+    tsdf_k = make_point_tsdf_fn(model, repr_r)
+    view_ms = host_ms(torch, lambda: render_encoded(model, repr_r, depth, intrinsics, poses,
+                                                    tsdf_k, 1), 3)
+    emit({"phase": "render", "config": "configs/experiment/seqs_multigeo_4cm.yaml",
+          "views": [int(v) for v in out["views"]], "image": [HEIGHT, WIDTH],
+          "launches": render_launches, "point_decode_launches_per_view":
+          render_launches["point_decode"] / NUM_VIEWS,
+          "point_decode_points_per_view": rays * (16 + 8 + 4),
+          "first_call_ms": render_first_ms, "render_views_ms": render_ms,
+          "host_ms_per_view": render_ms / NUM_VIEWS, "one_view_ms": view_ms,
+          "rays_per_s": NUM_VIEWS * rays / (render_ms / 1e3),
+          "hit_share": [float(h) for h in hit_share],
+          "vs_plain_mask_agree": mask_agree, "vs_plain_depth_agree": depth_agree,
+          "vs_plain_depth_diff_m": {"p99": float(np.quantile(ddiff, 0.99)),
+                                    "p999": float(np.quantile(ddiff, 0.999)),
+                                    "max": float(ddiff.max()),
+                                    "share_over_1cm": float((ddiff > 0.01).mean())},
+          "tolerance": {"mask_agree": RENDER_MASK_AGREE, "depth_m": RENDER_DEPTH_TOL,
+                        "depth_agree": RENDER_DEPTH_AGREE},
+          "eval_depth_random_weights_not_quality": out["mean"], "card": smi})
+    if mask_agree < RENDER_MASK_AGREE or depth_agree < RENDER_DEPTH_AGREE:
+        raise RuntimeError(f"kernel march disagrees with the plain march: masks {mask_agree}, "
+                           f"depths {depth_agree}")
+    emit({"phase": "render_profile", "what": "one view of render_encoded (K3 march)",
+          **profile_device(torch, lambda: render_encoded(model, repr_r, depth, intrinsics, poses,
+                                                         tsdf_k, 1), view_ms, smi)})
+
+    # 7. predict_sparse: the band decode through the user entry point, then
+    # against the dense gather decode clamped by the prior on one encode
+    sparse_model = GenNerf(dataclasses.replace(cfg, sparse_band_decode=True))
+    sparse_model.load_state_dict(model.state_dict())
+    sparse_model = sparse_model.to(dev).eval()
+    kernels.reset_launch_counts()
+    vol_s = reconstruct(sparse_model, P, image, depth, VOXEL_DIM, torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    sparse_launches = {k.name: k.launches for k in kernels.KERNELS}
+    if not torch.isfinite(vol_s).all() or float(vol_s.abs().max()) > max(smoothing, 1.0):
+        raise RuntimeError("sparse volume not finite or out of range")
+    sparse = predict_tsdf_volume_sparse(sparse_model, repr_, VOXEL_DIM, cfg.voxel_size, origin,
+                                        P, depth)
+    dense = decode_dense(model, repr_, dense_grid_points(VOXEL_DIM, cfg.voxel_size, origin, dev))
+    dense = apply_fusion_prior(dense.reshape(VOXEL_DIM), cfg.voxel_size, origin, P, depth)
+    sparse_err = float((sparse - dense).abs().max())
+    sparse_ms = host_ms(torch, lambda: reconstruct(
+        sparse_model, P, image, depth, VOXEL_DIM, torch.Generator().manual_seed(SEED)), 3)
+    emit({"phase": "predict_sparse", "launches": sparse_launches, "total_ms": sparse_ms,
+          "band_share": float(near.float().mean()), "vs_dense_max_abs": sparse_err,
+          "tolerance": SPARSE_TOL, "card": smi})
+    if sparse_err > SPARSE_TOL:
+        raise RuntimeError(f"sparse band decode disagrees with the dense decode: {sparse_err}")
 
     kernel_line = {"kernels": [
         {"name": "fps", "route": "cuda", "source": "gennerf_tpu_torch/csrc/fps.cu",
@@ -280,6 +444,12 @@ def main() -> int:
          "launches": launches["grid_decode"], "max_abs_err": grid_max, "ms": grid_ms,
          "plain_ms": grid_plain_ms, "bound_ms": grid_bound,
          "bound_by": "operations" if grid_flops / PEAK_BF16 >= grid_bytes / PEAK_BYTES else "bytes",
+         "library_ms": None},
+        {"name": "point_decode", "route": "cuda", "source": "gennerf_tpu_torch/csrc/point_decode.cu",
+         "replaces": "gennerf_tpu/ops/pallas/fused_decoder.py:53",
+         "launches": render_launches["point_decode"], "max_abs_err": point_max, "ms": point_ms,
+         "plain_ms": point_plain_ms, "bound_ms": point_bound,
+         "bound_by": "operations" if point_flops / PEAK_BF16 >= point_bytes / PEAK_BYTES else "bytes",
          "library_ms": None},
     ]}
     emit(kernel_line)

@@ -30,62 +30,11 @@
 // taken in flat order and the ragged last tile is masked, so any grid
 // shape works. This is the simple first version: wgmma, TMA-fed weight
 // tiles and persistent blocks are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "resnet_tile.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-template <int H>
-struct Tile {
-  static constexpr int TM = 16384 / H;        // points per block
-  static constexpr int LDX = H + 4;           // f32 row stride (padded)
-  static constexpr int LDA = H + 8;           // bf16 row stride (padded)
-  static constexpr int ROW_FRAGS = TM / 16;
-  static constexpr int COL_FRAGS = H / (16 * kWarps);
-  static constexpr size_t X_BYTES = sizeof(float) * TM * LDX;
-  static constexpr size_t SMEM = 2 * X_BYTES + sizeof(bf16) * TM * LDA + sizeof(int) * 4 * TM;
-  static_assert(TM <= kThreads, "one thread per tile row computes its indices");
-  static_assert(COL_FRAGS >= 1, "H must be a multiple of 128");
-};
-
-// out(TM x H, f32, stride LDX) = act(TM x H, bf16, stride LDA) @ W(H x H, bf16, row-major)
-template <int H>
-__device__ __forceinline__ void tile_gemm(const bf16* act, const bf16* __restrict__ W,
-                                          float* out, int warp) {
-  using T = Tile<H>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::ROW_FRAGS][T::COL_FRAGS];
-#pragma unroll
-  for (int r = 0; r < T::ROW_FRAGS; ++r)
-#pragma unroll
-    for (int c = 0; c < T::COL_FRAGS; ++c) wmma::fill_fragment(acc[r][c], 0.0f);
-  const int col0 = warp * (H / kWarps);
-  for (int kk = 0; kk < H; kk += 16) {
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfrag[T::COL_FRAGS];
-#pragma unroll
-    for (int c = 0; c < T::COL_FRAGS; ++c)
-      wmma::load_matrix_sync(bfrag[c], W + static_cast<size_t>(kk) * H + col0 + c * 16, H);
-#pragma unroll
-    for (int r = 0; r < T::ROW_FRAGS; ++r) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afrag;
-      wmma::load_matrix_sync(afrag, act + r * 16 * T::LDA + kk, T::LDA);
-#pragma unroll
-      for (int c = 0; c < T::COL_FRAGS; ++c) wmma::mma_sync(acc[r][c], afrag, bfrag[c], acc[r][c]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < T::ROW_FRAGS; ++r)
-#pragma unroll
-    for (int c = 0; c < T::COL_FRAGS; ++c)
-      wmma::store_matrix_sync(out + r * 16 * T::LDX + col0 + c * 16, acc[r][c], T::LDX,
-                              wmma::mem_row_major);
-}
+using namespace gennerf;
 
 template <int H>
 __global__ void __launch_bounds__(kThreads)
@@ -145,7 +94,7 @@ grid_decode_kernel(const float* __restrict__ q_yz, const float* __restrict__ q_x
       act[r * T::LDA + h] = __float2bfloat16_rn(fmaxf(xv, 0.0f));
     }
     __syncthreads();
-    tile_gemm<H>(act, w0 + static_cast<size_t>(b) * H * H, sc, warp);
+    tile_gemm<H>(act, T::LDA, w0 + static_cast<size_t>(b) * H * H, H, sc, warp);
     __syncthreads();
     for (int e = t; e < T::TM * H; e += kThreads) {
       const int r = e / H, h = e % H;
@@ -153,7 +102,7 @@ grid_decode_kernel(const float* __restrict__ q_yz, const float* __restrict__ q_x
       act[r * T::LDA + h] = __float2bfloat16_rn(fmaxf(net, 0.0f));
     }
     __syncthreads();
-    tile_gemm<H>(act, w1 + static_cast<size_t>(b) * H * H, sc, warp);
+    tile_gemm<H>(act, T::LDA, w1 + static_cast<size_t>(b) * H * H, H, sc, warp);
     __syncthreads();
     for (int e = t; e < T::TM * H; e += kThreads) {
       const int r = e / H, h = e % H;
@@ -162,17 +111,8 @@ grid_decode_kernel(const float* __restrict__ q_yz, const float* __restrict__ q_x
   }
   __syncthreads();
 
-  // folded lin_out . head: bf16(relu(x)) . bf16 w_last, f32 sum, then tanh
-  for (int r = warp; r < T::TM; r += kWarps) {
-    float s = 0.0f;
-    for (int h = lane; h < H; h += 32) {
-      const float a = __bfloat162float(__float2bfloat16_rn(fmaxf(xs[r * T::LDX + h], 0.0f)));
-      s += a * __bfloat162float(w_last[h]);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0 && rv[r]) out[p0 + r] = tanhf(s + b_last) * smoothing;
-  }
+  tile_head<H>(xs, w_last, b_last, smoothing, out, p0, warp, lane,
+               [&](int r) { return rv[r] != 0; });
 }
 
 template <int H>
@@ -182,14 +122,15 @@ cudaError_t launch(const float* q_yz, const float* q_xz, const float* q_xy, cons
                    float smoothing, float* out, int nx, int ny, int nz, int nb,
                    cudaStream_t stream) {
   using T = Tile<H>;
+  constexpr size_t smem = 2 * T::X_BYTES + T::ACT_BYTES + sizeof(int) * 4 * T::TM;
   cudaError_t err = cudaFuncSetAttribute(grid_decode_kernel<H>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(T::SMEM));
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long n_pts = static_cast<long long>(nx) * ny * nz;
   const long long blocks = (n_pts + T::TM - 1) / T::TM;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  grid_decode_kernel<H><<<static_cast<unsigned>(blocks), kThreads, T::SMEM, stream>>>(
+  grid_decode_kernel<H><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       q_yz, q_xz, q_xy, z_x, z_y, z_z, w0, b0, w1, b1, w_last, b_last, smoothing, out, nx, ny,
       nz, nb);
   return cudaGetLastError();

@@ -119,16 +119,19 @@ def render_scene(H: int, W: int, intrinsics: np.ndarray, pose: np.ndarray,
 
 
 def ring_frames(num_frames: int, H: int, W: int, center, primitives,
-                camera_radius: float = 2.2, camera_height: float = 1.3, seed: int = 0):
+                camera_radius: float = 2.2, camera_height: float = 1.3, seed: int = 0,
+                cameras: bool = False):
     """Render `num_frames` cameras on a ring around `center` looking at it.
 
     Returns projection (T, 3, 4) f32 world->image (K @ inv(pose)[:3]),
-    image (T, 3, H, W) f32 in [0, 1], depth (T, H, W) f32 meters."""
+    image (T, 3, H, W) f32 in [0, 1], depth (T, H, W) f32 meters, and with
+    `cameras` also intrinsics (T, 3, 3) and camera2world poses (T, 4, 4),
+    both f32."""
     rng = np.random.default_rng(seed)
     center = np.asarray(center, np.float64)
     f = 0.6 * W
     K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
-    projections, images, depths = [], [], []
+    projections, images, depths, poses = [], [], [], []
     for i in range(num_frames):
         ang = 2 * np.pi * i / num_frames + 0.01 * rng.standard_normal()
         eye = center + np.array([camera_radius * np.cos(ang), camera_radius * np.sin(ang),
@@ -138,4 +141,8 @@ def ring_frames(num_frames: int, H: int, W: int, center, primitives,
         projections.append((K @ np.linalg.inv(pose)[:3]).astype(np.float32))
         images.append(color.transpose(2, 0, 1).astype(np.float32) / 255.0)
         depths.append(depth)
-    return np.stack(projections), np.stack(images), np.stack(depths)
+        poses.append(pose)
+    frames = (np.stack(projections), np.stack(images), np.stack(depths))
+    if cameras:
+        frames += (np.repeat(K[None], num_frames, axis=0), np.stack(poses))
+    return frames

@@ -80,7 +80,8 @@ class GenNerfConfig:
     voxel_dim_test: Tuple[int, int, int] = (416, 416, 128)
     # inference: clamp voxels no input frame touches to the fusion prior
     mask_unobserved: bool = True
-    sparse_band_decode: bool = False  # not ported (needs the point kernel)
+    # inference: decode only the prior's near-surface band (needs mask_unobserved)
+    sparse_band_decode: bool = False
     encoder: EncoderConfig = EncoderConfig()
     mlp: MlpConfig = MlpConfig()
     use_code: bool = True
@@ -105,7 +106,6 @@ def check_supported(cfg: GenNerfConfig) -> None:
         "plane_merger.strategy 'learn'": enc.plane_merger.strategy != "average",
         "mlp.use_spade": m.use_spade,
         "mlp.use_layer_norm": m.use_layer_norm,
-        "sparse_band_decode": cfg.sparse_band_decode,
     }
     bad = [name for name, on in unsupported.items() if on]
     if bad:

@@ -53,7 +53,11 @@ GRID_DECODE = Kernel(
     "grid_decode", "gennerf_grid_decode",
     [_P] * 6 + [_P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _I, _P],
 )
-KERNELS = (FPS, GRID_DECODE)
+POINT_DECODE = Kernel(
+    "point_decode", "gennerf_point_decode",
+    [_P, _P, ctypes.c_longlong, _I, _I, _I, _I] + [_P] * 9 + [_F, _F, _F, _P, _I, _I, _P],
+)
+KERNELS = (FPS, GRID_DECODE, POINT_DECODE)
 
 _lock = threading.Lock()
 _lib = None

@@ -1,6 +1,8 @@
 """Reconstruct a dense TSDF volume from posed RGB-D frames (counterpart of
 GenNerfTask.reconstruct in gennerf_tpu/train/tasks.py, for scenes without
-ground truth): encode, then the dense decode, then the fusion-prior clamp.
+ground truth): encode, then the dense decode and the fusion-prior clamp, or
+with `sparse_band_decode` (and `mask_unobserved`) the decode of the prior's
+near-surface band only.
 
     python -m gennerf_tpu_torch.predict --config configs/experiment/seqs_multigeo_4cm.yaml \
         --params params.npz --frames frames.npz --out tsdf.npz
@@ -21,7 +23,7 @@ import torch
 from .device import resolve_device, set_reference_precision
 from .models.config import GenNerfConfig, config_from_dict
 from .models.gen_nerf import GenNerf
-from .train.predict import predict_tsdf_volume
+from .train.predict import predict_tsdf_volume, predict_tsdf_volume_sparse
 from .tsdf.fusion import apply_fusion_prior
 
 
@@ -58,9 +60,13 @@ def reconstruct(model: GenNerf, projection: torch.Tensor, image: torch.Tensor,
     voxel_dim = tuple(int(d) for d in (voxel_dim or cfg.voxel_dim_test))
     origin = torch.zeros(3, dtype=torch.float32, device=device)
     repr_ = model.encode(projection[None], image[None], depth[None], generator, sel, start)
-    vol = predict_tsdf_volume(model, repr_, voxel_dim, cfg.voxel_size, origin)
-    if cfg.mask_unobserved:
-        vol = apply_fusion_prior(vol, cfg.voxel_size, origin, projection, depth)
+    if cfg.mask_unobserved and cfg.sparse_band_decode:
+        vol = predict_tsdf_volume_sparse(model, repr_, voxel_dim, cfg.voxel_size, origin,
+                                         projection, depth)
+    else:
+        vol = predict_tsdf_volume(model, repr_, voxel_dim, cfg.voxel_size, origin)
+        if cfg.mask_unobserved:
+            vol = apply_fusion_prior(vol, cfg.voxel_size, origin, projection, depth)
     return vol.to(torch.float32)
 
 

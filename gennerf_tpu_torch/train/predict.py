@@ -1,10 +1,15 @@
-"""Dense TSDF decoding (counterpart of gennerf_tpu/train/predict.py).
+"""Dense and arbitrary-point TSDF decoding (counterpart of
+gennerf_tpu/train/predict.py).
 
 `predict_tsdf_volume` makes one static choice from the config: a
 triplane-only decoder the separable formulation supports, with a zero head
 bias, goes to the separable grid decode (the CUDA kernel on the card);
-every other config goes to the chunked per-point `decode_dense`. There is
-no fall-through on runtime errors: a kernel that fails raises.
+every other config goes to the chunked per-point `decode_dense`.
+`predict_tsdf_volume_sparse` decodes only the fusion prior's near-surface
+band. `make_point_tsdf_fn` and `decode_dense_fused` feed the triplane
+gather and the positional code of arbitrary points to the point-decode
+kernel. There is no fall-through on runtime errors: a kernel that fails
+raises, and an unsupported model raises NotImplementedError up front.
 """
 from __future__ import annotations
 
@@ -13,13 +18,21 @@ from typing import Tuple
 import torch
 
 from ..models.gen_nerf import GenNerf, SceneRepr
-from ..ops.coords import grid_coordinates
+from ..models.positional_encoding import positional_encoding
+from ..ops.coords import grid_coordinates, normalize_coordinate
 from ..ops.grid_decode import (
     extract_resnetfc_weights,
     grid_decode,
     grid_tables,
     supports_grid_decode,
 )
+from ..ops.point_decode import (
+    fused_resnetfc_tsdf,
+    fused_resnetfc_tsdf_plain,
+    pack_point_weights,
+    supports_fused_decode,
+)
+from ..tsdf.fusion import prior_classes
 
 
 def dense_grid_points(voxel_dim, voxel_size: float, origin, device=None) -> torch.Tensor:
@@ -85,3 +98,151 @@ def predict_tsdf_volume(model: GenNerf, repr_: SceneRepr, voxel_dim: Tuple[int, 
         return decode_grid(model, repr_, voxel_dim, voxel_size, origin)
     pts = dense_grid_points(voxel_dim, voxel_size, origin, device)
     return decode_dense(model, repr_, pts, chunk_size).reshape(tuple(int(d) for d in voxel_dim))
+
+
+@torch.no_grad()
+def predict_tsdf_volume_sparse(model: GenNerf, repr_: SceneRepr, voxel_dim, voxel_size: float,
+                               origin, projections: torch.Tensor, depths: torch.Tensor,
+                               trunc_ratio: float = 3.0, chunk_size: int = 32768) -> torch.Tensor:
+    """Prior-first inference: decode only the near-surface band.
+
+    Outside the band the fusion prior is a constant (-1 in observed free
+    space, +1 elsewhere), so only the band voxels go through the chunked
+    `decode_dense`; the result equals apply_fusion_prior of the dense
+    gather decode. `projections` (T, 3, 4) and `depths` (T, H, W) are the
+    encoded input frames."""
+    nx, ny, nz = (int(d) for d in voxel_dim)
+    device = depths.device
+    origin = torch.as_tensor(origin, dtype=torch.float32, device=device).reshape(3)
+    near, farfront = prior_classes((nx, ny, nz), float(voxel_size), origin,
+                                   float(voxel_size) * trunc_ratio, projections, depths)
+    one = torch.ones((), dtype=torch.float32, device=device)
+    out = torch.where(farfront, -one, one)
+    idx = torch.nonzero(near)[:, 0]
+    if idx.numel():
+        # flat index -> grid position as the reference computes it (numpy
+        # f32: index * voxel_size*n/(n-1), plus origin)
+        ijk = torch.stack([idx // (ny * nz), (idx // nz) % ny, idx % nz], dim=-1)
+        step = torch.tensor([voxel_size * n / max(n - 1, 1) for n in (nx, ny, nz)],
+                            dtype=torch.float32, device=device)
+        pts = ijk.to(torch.float32) * step + origin
+        out[idx] = decode_dense(model, repr_, pts, chunk_size)
+    return out.reshape(nx, ny, nz)
+
+
+_PLANES = ("xz", "xy", "yz")
+
+
+def triplane_gather_setup(model: GenNerf, planes: dict):
+    """The fast gather's state: the three (B, C, r, r) planes flattened
+    channels-last into one (B, 3*r*r, C) bf16 table (row = plane*r*r +
+    y*r + x), the resolution, the padding and the plane-coordinate map."""
+    cfg = model.cfg
+    p = cfg.encoder.pointnet
+    reso = planes["xz"].shape[-1]
+    B, C = planes["xz"].shape[:2]
+    flat = torch.cat([planes[k].permute(0, 2, 3, 1).reshape(B, reso * reso, C) for k in _PLANES],
+                     dim=1).to(torch.bfloat16)
+    center = scale = None
+    if p.normalize_coords:
+        extent = torch.tensor(cfg.voxel_dim_train, dtype=torch.float32,
+                              device=flat.device) * cfg.voxel_size
+        center, scale = extent / 2.0, extent.max()
+    return flat, reso, float(p.padding), center, scale
+
+
+def triplane_feat_fast(flat: torch.Tensor, reso: int, padding: float, center, scale,
+                       pts: torch.Tensor) -> torch.Tensor:
+    """(B, N, 3) world points -> (B, N, C) summed triplane features from one
+    gather of the 12 bilinear texels (align_corners=True, border clamp,
+    normalize_coordinate's constants), bf16 texels weighted in f32."""
+    B, N, _ = pts.shape
+    xyz = pts if center is None else (pts - center) / scale
+    idxs, wts = [], []
+    for pi, plane in enumerate(_PLANES):
+        uv = normalize_coordinate(xyz, padding, plane)
+        ix = uv[..., 0] * (reso - 1)
+        iy = uv[..., 1] * (reso - 1)
+        x0 = torch.floor(ix)
+        y0 = torch.floor(iy)
+        wx = (ix - x0)[..., None]
+        wy = (iy - y0)[..., None]
+        x0i = x0.to(torch.int64)
+        y0i = y0.to(torch.int64)
+        x1i = (x0i + 1).clamp(0, reso - 1)
+        y1i = (y0i + 1).clamp(0, reso - 1)
+        x0i = x0i.clamp(0, reso - 1)
+        y0i = y0i.clamp(0, reso - 1)
+        base = pi * reso * reso
+        idxs.append(torch.stack([base + y0i * reso + x0i, base + y0i * reso + x1i,
+                                 base + y1i * reso + x0i, base + y1i * reso + x1i], dim=1))
+        w = torch.cat([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy, wx * wy], dim=-1)
+        wts.append(w.permute(0, 2, 1))  # (B, 4, N)
+    idx = torch.cat(idxs, dim=1).reshape(B, 12 * N, 1)
+    w = torch.cat(wts, dim=1)  # (B, 12, N)
+    C = flat.shape[-1]
+    vals = torch.gather(flat, 1, idx.expand(B, 12 * N, C)).reshape(B, 12, N, C)
+    return (vals.to(torch.float32) * w[..., None]).sum(dim=1)
+
+
+def _point_decode_setup(model: GenNerf) -> dict:
+    """The static gates of the point-decode paths and the packed weights."""
+    cfg = model.cfg
+    if not supports_fused_decode(cfg):
+        raise NotImplementedError("unsupported decoder config")
+    weights = extract_resnetfc_weights(model.mlp, model.head_geo, cfg.mlp.d_out_geo,
+                                       cfg.mlp.head_smoothing)
+    if weights["b_head"] != 0.0:
+        raise NotImplementedError("fused decode assumes zero head bias")
+    return pack_point_weights(weights)
+
+
+def make_point_tsdf_fn(model: GenNerf, repr_: SceneRepr, plain: bool = False):
+    """Forward-only TSDF at arbitrary points: the bf16 triplane gather and
+    the positional code (torch ops) feeding one point-decode launch per
+    call. Returns tsdf_fn(pts (B, N, 3)) -> (B, N) f32.
+
+    `plain=True` runs the kernel's plain bf16-feed version on any device
+    (the reference the kernel's march is held against). Raises
+    NotImplementedError for an unsupported decoder, a non-triplane or
+    non-bilinear scene, a non-zero head bias, or a decoder latent other
+    than the plane channels."""
+    cfg = model.cfg
+    planes = repr_.planes
+    weights = _point_decode_setup(model)
+    if set(planes) != set(_PLANES) or cfg.encoder.pointnet.sample_mode != "bilinear":
+        raise NotImplementedError("fused point decode supports bilinear triplane-only scenes")
+    if weights["w_in"].shape[0] != planes["xz"].shape[1]:
+        raise NotImplementedError("decoder latent != triplane channels")
+    setup = triplane_gather_setup(model, planes)
+    code_cfg = cfg.code
+    decode = fused_resnetfc_tsdf_plain if plain else fused_resnetfc_tsdf
+
+    def tsdf_fn(pts: torch.Tensor) -> torch.Tensor:
+        B, N, _ = pts.shape
+        feat = triplane_feat_fast(*setup, pts)
+        code = positional_encoding(pts.reshape(-1, 3), code_cfg.num_freqs, code_cfg.freq_factor,
+                                   code_cfg.include_input)
+        return decode(feat.reshape(B * N, -1), code, weights).reshape(B, N)
+
+    return tsdf_fn
+
+
+@torch.no_grad()
+def decode_dense_fused(model: GenNerf, repr_: SceneRepr, points: torch.Tensor,
+                       chunk: int = 1 << 20) -> torch.Tensor:
+    """TSDF at (N, 3) points of one scene -> (N,) f32: the feature gather
+    (`GenNerf.map_features`) and the positional code in chunks of `chunk`
+    points, then one point-decode launch over the whole set (the kernel on
+    the card, its plain bf16-feed version on the CPU)."""
+    device = points.device
+    if device.type not in ("cuda", "cpu"):
+        raise NotImplementedError(f"fused decode runs on CUDA or the CPU, not {device}")
+    weights = _point_decode_setup(model)
+    code_cfg = model.cfg.code
+    feats, codes = [], []
+    for p in torch.split(points, chunk):
+        feats.append(model.map_features(repr_, p[None])[0])
+        codes.append(positional_encoding(p, code_cfg.num_freqs, code_cfg.freq_factor,
+                                         code_cfg.include_input))
+    return fused_resnetfc_tsdf(torch.cat(feats), torch.cat(codes), weights)

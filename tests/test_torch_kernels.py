@@ -1,17 +1,20 @@
-"""The port's CUDA kernels (csrc/fps.cu, csrc/grid_decode.cu) against their
-plain PyTorch versions, and their wrappers' checks.
+"""The port's CUDA kernels (csrc/fps.cu, csrc/grid_decode.cu,
+csrc/point_decode.cu) against their plain PyTorch versions, and their
+wrappers' checks.
 
 This file imports torch and the port only, so on the machine with the card
 (which has no JAX) it runs without the suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
-Tests that launch a kernel skip here when there is no CUDA device (a CUDA
-kernel has no CPU mode); the wrapper and build checks run everywhere.
-Tolerances: FPS indices are identical. The grid decode agrees with the
-bf16-feed plain decode within 5e-2 at any point and 1e-3 on average: both
-round the same values to bf16 and accumulate in f32 in another order, so
-a few activations round the other way (one bf16 step, 2^-8 of the value).
+Tests that launch a kernel carry the `cuda` marker and skip, in their
+`cuda` fixture, when there is no CUDA device (a CUDA kernel has no CPU
+mode); the wrapper and build checks run everywhere.
+Tolerances: FPS indices are identical. The grid and point decodes agree
+with their bf16-feed plain versions within 5e-2 at any point and 1e-3 on
+average: both round the same values to bf16 and accumulate in f32 in
+another order, so a few activations round the other way (one bf16 step,
+2^-8 of the value).
 """
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ import torch
 
 from gennerf_tpu_torch.ops import kernels
 from gennerf_tpu_torch.ops import grid_decode as gd
+from gennerf_tpu_torch.ops import point_decode as pd
 from gennerf_tpu_torch.ops import sampling as tsamp
 
 
@@ -94,10 +98,61 @@ def test_other_devices_raise():
     meta = torch.zeros(2, 16, 3, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tsamp.farthest_point_sample(meta, 4, start=torch.zeros(2, dtype=torch.int32))
+    w = _point_weights(128, 1, 8, 9, torch.device("cpu"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        pd.fused_resnetfc_tsdf(torch.zeros(4, 8, device="meta"), torch.zeros(4, 9, device="meta"), w)
+
+
+def _point_weights(H, nb, d_in, d_code, device, seed=0):
+    """Random packed point-decode weights in extract_resnetfc_weights' form."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(device)
+
+    return pd.pack_point_weights({
+        "w_in": rnd(d_in, H, scale=d_in ** -0.5), "b_in": rnd(H, scale=0.1),
+        "wz": rnd(nb, d_code, H, scale=d_code ** -0.5), "bz": rnd(nb, H, scale=0.1),
+        "w0": rnd(nb, H, H, scale=H ** -0.5), "w1": rnd(nb, H, H, scale=H ** -0.5),
+        "b0": rnd(nb, H, scale=0.1), "b1": rnd(nb, H, scale=0.1),
+        "w_last": rnd(H, scale=H ** -0.5), "b_last": 0.05, "alpha": 0.7, "smoothing": 1.05,
+        "b_head": 0.0})
+
+
+@pytest.mark.parametrize("feat_shape,code_shape,dtype,match", [
+    ((5, 8), (5, 9), torch.float64, "float32"),
+    ((5, 9), (5, 9), torch.float32, "shape"),
+    ((5, 8), (4, 9), torch.float32, "rows"),
+    ((5, 8), (5, 9), torch.float32, "CUDA tensor"),
+])
+def test_point_decode_wrapper_checks(feat_shape, code_shape, dtype, match):
+    w = _point_weights(128, 1, 8, 9, torch.device("cpu"))
+    feat, code = torch.zeros(feat_shape, dtype=dtype), torch.zeros(code_shape, dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        pd.fused_resnetfc_tsdf_cuda(feat, code, w)
+    if match != "CUDA tensor":  # the dispatching wrapper checks the same on the CPU
+        with pytest.raises(ValueError, match=match):
+            pd.fused_resnetfc_tsdf(feat, code, w)
+
+
+@pytest.mark.parametrize("H,d_in,d_code", [(96, 8, 9), (128, 130, 9), (128, 8, 129)])
+def test_point_kernel_limits(H, d_in, d_code):
+    w = _point_weights(H, 1, d_in, d_code, torch.device("cpu"))
+    with pytest.raises(NotImplementedError):
+        pd.fused_resnetfc_tsdf_cuda(torch.zeros(3, d_in), torch.zeros(3, d_code), w)
+
+
+def test_point_weights_packing():
+    w = _point_weights(128, 2, 8, 39, torch.device("cpu"))
+    assert w["k_w_in"].shape == (16, 128) and w["k_wz"].shape == (2, 48, 128)
+    assert w["k_w_in"].dtype == w["k_w0"].dtype == w["k_w_last"].dtype == torch.bfloat16
+    assert not w["k_w_in"][8:].any() and not w["k_wz"][:, 39:].any()
+    assert torch.equal(w["k_wz"][:, :39], w["wz"].to(torch.bfloat16))
 
 
 # -- kernels on the card ----------------------------------------------------
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind,B,N,npoint", [
     ("random", 1, 100, 7),
     ("random", 3, 1000, 64),
@@ -116,6 +171,7 @@ def test_fps_kernel_matches_plain(cuda, kind, B, N, npoint):
     assert torch.equal(k, p), int((k != p).sum())
 
 
+@pytest.mark.cuda
 def test_fps_kernel_limits(cuda):
     start = torch.zeros(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
@@ -124,6 +180,7 @@ def test_fps_kernel_limits(cuda):
         tsamp.fps_cuda(torch.zeros(1, 10, 3, device=cuda), 11, start)
 
 
+@pytest.mark.cuda
 def test_fps_wrapper_counts_launches(cuda):
     x = torch.from_numpy(_fps_cloud("random", 2, 500)).to(cuda)
     kernels.reset_launch_counts()
@@ -132,6 +189,7 @@ def test_fps_wrapper_counts_launches(cuda):
     torch.testing.assert_close(sampled, torch.gather(x, 1, idx.long()[..., None].expand(2, 16, 3)))
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("H,nb,dims", [
     (128, 2, (5, 7, 9)),
     (256, 5, (3, 4, 11)),
@@ -160,3 +218,42 @@ def test_grid_decode_kernel_matches_plain(cuda, H, nb, dims):
     assert k.shape == dims and torch.isfinite(k).all()
     assert err.max() < 5e-2 and err.mean() < 1e-3, (float(err.max()), float(err.mean()))
     assert (p - gd.separable_grid_decode_plain(tables, weights, bf16_feeds=False)).abs().mean() > err.mean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,nb,d_in,d_code,N", [
+    (128, 2, 8, 39, 1000),      # ragged tail (TM 128)
+    (256, 5, 32, 39, 19200),    # a secant launch of one 120x160 view
+    (256, 5, 32, 39, 777),
+    (256, 3, 16, 21, 65),       # one point past a full tile
+    (512, 2, 128, 128, 300),    # widest inputs
+    (128, 1, 128, 128, 257),    # the most shared memory (code tile at TM 128)
+])
+def test_point_decode_kernel_matches_plain(cuda, H, nb, d_in, d_code, N):
+    w = _point_weights(H, nb, d_in, d_code, cuda, seed=H + nb + N)
+    gen = torch.Generator().manual_seed(N)
+    feat = torch.randn(N, d_in, generator=gen).to(cuda)
+    code = torch.randn(N, d_code, generator=gen).to(cuda)
+    kernels.reset_launch_counts()
+    k = pd.fused_resnetfc_tsdf(feat, code, w)
+    torch.cuda.synchronize()
+    assert kernels.POINT_DECODE.launches == 1 and kernels.GRID_DECODE.launches == 0
+    p = pd.fused_resnetfc_tsdf_plain(feat, code, w, bf16_feeds=True)
+    err = (k - p).abs()
+    assert k.shape == (N,) and torch.isfinite(k).all()
+    assert err.max() < 5e-2 and err.mean() < 1e-3, (float(err.max()), float(err.mean()))
+    f32 = pd.fused_resnetfc_tsdf_plain(feat, code, w, bf16_feeds=False)
+    assert (p - f32).abs().mean() > err.mean()
+
+
+@pytest.mark.cuda
+def test_point_decode_kernel_zero_code(cuda):
+    """With code 0 every lin_z injection is alpha * bz."""
+    w = _point_weights(256, 5, 32, 39, cuda, seed=3)
+    feat = torch.randn(500, 32, generator=torch.Generator().manual_seed(1)).to(cuda)
+    code = torch.zeros(500, 39, device=cuda)
+    k = pd.fused_resnetfc_tsdf_cuda(feat, code, w)
+    torch.cuda.synchronize()
+    p = pd.fused_resnetfc_tsdf_plain(feat, code, w, bf16_feeds=True)
+    err = (k - p).abs()
+    assert err.max() < 5e-2 and err.mean() < 1e-3, (float(err.max()), float(err.mean()))

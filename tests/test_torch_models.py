@@ -232,7 +232,7 @@ def test_config_fields_match_jax():
     {"mlp": {"use_spade": True}},
     {"mlp": {"use_layer_norm": True}},
     {"encoder": {"pointnet": {"unet_kwargs": {"merge_mode": "add"}}}},
-    {"sparse_band_decode": True},
+    {"encoder": {"use_pointnet": False}},
 ])
 def test_unsupported_options_raise(override):
     def merge(a, b):
