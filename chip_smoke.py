@@ -4,11 +4,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ with nvcc, then:
-  1. device: the card's name and power limit (nvidia-smi), the build time;
+  1. device and build: the card's name and power limit (nvidia-smi), the
+     build time, each kernel's registers and spill bytes (ptxas) and its
+     HGMMA/HMMA counts (cuobjdump, where the toolkit has it); fails if a
+     decode kernel spills at H=256 or is not on wgmma;
   2. fps: the FPS kernel against its plain version on an (8, 16384, 3)
      presampled depth cloud with duplicates, npoint 256: 0 index mismatches;
   3. grid_decode: the grid-decode kernel against its plain bf16-feed
-     version on tables of full-width weights at 96x96x56, H=256, 5 blocks;
+     version on tables of full-width weights at 96x96x56, H=256, 5 blocks,
+     its time, TFLOP/s and share of the bf16 peak;
   4. predict: `reconstruct` of the full-width seqs_multigeo_4cm GenNerf
      (seeded random weights) on 8 rendered 120x160 frames, with the launch
      counters reset just before and read just after; the volume is checked
@@ -16,7 +20,8 @@ Builds the port's CUDA kernels from csrc/ with nvcc, then:
      profiled call (device busy ms, idle share);
   5. point_decode: the point-decode kernel against its plain bf16-feed
      version on the triplane features and codes of 2^20 points in the
-     test volume;
+     test volume, its time and share of the peak there and at a view's
+     coarse, fine and secant launch sizes;
   6. render: `render_views` of 4 of the frames (the K3-backed march) with
      the counters reset just before and read just after, held against the
      same march on the plain bf16-feed decode; then a profiled view;
@@ -29,6 +34,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -100,6 +107,72 @@ def host_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+KERNEL_OF_ENTRY = (("fps", "fps"), ("grid_decode_kernel", "grid_decode"),
+                   ("point_decode_kernel", "point_decode"))
+
+
+def _kernel_of(entry: str):
+    for key, name in KERNEL_OF_ENTRY:
+        if key in entry:
+            width = re.search(r"decode_kernelILi(\d+)E", entry)
+            return name, int(width.group(1)) if width else None
+    return None, None
+
+
+def build_report(ptxas_log: str, lib_path: str) -> dict:
+    """Per kernel and width: registers and spill bytes from ptxas -v, and
+    the counts of HGMMA (wgmma) and HMMA (mma.sync) instructions in the
+    library's SASS where the toolkit has cuobjdump."""
+    rows, cur = {}, None
+    for ln in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, width = _kernel_of(m.group(1))
+            cur = rows.setdefault((name, width), {"kernel": name, "H": width}) if name else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_store_bytes"], cur["spill_load_bytes"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    sass = None
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                              timeout=300).stdout
+        cur = None
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                name, width = _kernel_of(m.group(1))
+                cur = rows.setdefault((name, width), {"kernel": name, "H": width}) if name else None
+                if cur is not None:
+                    cur.setdefault("hgmma", 0)
+                    cur.setdefault("hmma", 0)
+                continue
+            if cur is not None:
+                cur["hgmma"] += "HGMMA" in ln
+                cur["hmma"] += "HMMA" in ln
+    return {"cuobjdump": cuobjdump if sass is not None else "missing",
+            "kernels": sorted(rows.values(), key=lambda r: (r["kernel"], r["H"] or 0))}
+
+
+def check_build(report: dict) -> None:
+    """The decode kernels run on wgmma (HGMMA, no HMMA, where cuobjdump
+    exists) and spill nothing at H = 256."""
+    for r in report["kernels"]:
+        if r["kernel"] not in ("grid_decode", "point_decode"):
+            continue
+        if r["H"] == 256 and (r.get("spill_store_bytes") or r.get("spill_load_bytes")):
+            raise RuntimeError(f"{r['kernel']} spills at H=256: {r}")
+        if report["cuobjdump"] != "missing" and (r.get("hgmma", 0) == 0 or r.get("hmma", 0)):
+            raise RuntimeError(f"{r['kernel']} H={r['H']} is not on wgmma: {r}")
+
+
 def profile_device(torch, fn, total_ms: float, card: str) -> dict:
     """Device busy ms and idle share of one fn() call: device-side events
     of one profiled call (host-side op events would count their kernels
@@ -142,6 +215,7 @@ def main() -> int:
     from gennerf_tpu_torch.ops.sampling import (
         farthest_point_sample_plain, fps_cuda, uniform_presample,
     )
+    from gennerf_tpu_torch.ops.weight_slabs import pack_decode_weights
     from gennerf_tpu_torch.ops.point_decode import (
         fused_resnetfc_tsdf_cuda, fused_resnetfc_tsdf_plain, pack_point_weights, point_decode_flops,
     )
@@ -166,10 +240,11 @@ def main() -> int:
           "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0)})
     t0 = time.perf_counter()
     kernels.load_library()
-    ptxas = [ln.strip() for ln in kernels.build_info.get("ptxas", "").splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "cached": kernels.build_info["cached"], "ptxas": ptxas, "card": smi})
+    build_s = time.perf_counter() - t0
+    report = build_report(kernels.build_info.get("ptxas", ""), kernels.build_info["path"])
+    emit({"phase": "build", "seconds": build_s, "cached": kernels.build_info["cached"],
+          **report, "card": smi})
+    check_build(report)
 
     # the scene: 8 ring frames of 120x160 around the training volume's center
     frames_np = ring_frames(NUM_FRAMES, HEIGHT, WIDTH, SCENE_CENTER, PRIMITIVES, seed=SEED,
@@ -214,8 +289,8 @@ def main() -> int:
     if not uses_grid_decode(model):
         raise RuntimeError("the full-width config does not take the grid decode")
     repr_ = model.encode(P[None], image[None], depth[None], torch.Generator().manual_seed(SEED))
-    weights = extract_resnetfc_weights(model.mlp, model.head_geo, cfg.mlp.d_out_geo,
-                                       cfg.mlp.head_smoothing)
+    weights = pack_decode_weights(extract_resnetfc_weights(
+        model.mlp, model.head_geo, cfg.mlp.d_out_geo, cfg.mlp.head_smoothing), point=False)
     extent = [d * cfg.voxel_size for d in cfg.voxel_dim_train]
     table_args = dict(
         voxel_dim=VOXEL_DIM, voxel_size=cfg.voxel_size, num_freqs=cfg.code.num_freqs,
@@ -234,15 +309,17 @@ def main() -> int:
     grid_plain_ms = cuda_ms(torch, lambda: separable_grid_decode_plain(tables, weights, True), reps=3)
     H, nb = weights["w0"].shape[-1], weights["w0"].shape[0]
     grid_flops = grid_decode_flops(VOXEL_DIM, H, nb)
-    grid_bytes = (sum(t.numel() for t in tables) * 4 + 2 * nb * H * H * 2 + 2 * nb * H * 4
-                  + H * 2 + math.prod(VOXEL_DIM) * 4)
+    grid_bytes = (sum(t.numel() for t in tables) * 4 + sum(
+        weights[k].numel() * weights[k].element_size() for k in ("k_slabs", "k_b0", "k_b1", "k_w_last"))
+                  + math.prod(VOXEL_DIM) * 4)
     grid_bound = max(grid_flops / PEAK_BF16, grid_bytes / PEAK_BYTES) * 1e3
     emit({"phase": "grid_decode", "voxel_dim": list(VOXEL_DIM), "H": H, "n_blocks": nb,
           "max_abs_err": grid_max, "mean_abs_err": grid_mean,
           "tolerance": {"max_abs": GRID_MAX_ABS_TOL, "mean_abs": GRID_MEAN_ABS_TOL},
           "out_abs_max": float(vol_p.abs().max()), "ms": grid_ms, "plain_ms": grid_plain_ms,
           "flops": grid_flops, "bound_ms": grid_bound,
-          "tflops_per_s": grid_flops / grid_ms / 1e9, "card": smi})
+          "tflops_per_s": grid_flops / grid_ms / 1e9,
+          "peak_share": grid_flops / grid_ms * 1e3 / PEAK_BF16, "card": smi})
     if not (torch.isfinite(vol_k).all() and grid_max <= GRID_MAX_ABS_TOL
             and grid_mean <= GRID_MEAN_ABS_TOL):
         raise RuntimeError(f"grid-decode kernel disagrees: max {grid_max}, mean {grid_mean}")
@@ -329,20 +406,25 @@ def main() -> int:
                              reps=3)
     # one view's launch sizes at 120x160: coarse 16, fine 8 and secant 1 sample per ray
     rays = HEIGHT * WIDTH
+    launch_sizes = (("coarse", 16 * rays), ("fine", 8 * rays), ("secant", rays))
     launch_ms = {name: cuda_ms(torch, lambda n=n: fused_resnetfc_tsdf_cuda(feat[:n], code[:n],
                                                                           pweights), reps=10)
-                 for name, n in (("coarse", 16 * rays), ("fine", 8 * rays), ("secant", rays))}
+                 for name, n in launch_sizes}
     d_in, d_code = feat.shape[1], code.shape[1]
     point_flops = point_decode_flops(N_POINTS, d_in, d_code, H, nb)
     point_bytes = (feat.numel() + code.numel() + N_POINTS) * 4 + sum(
-        t.numel() * t.element_size() for k, t in pweights.items() if k.startswith("k_"))
+        t.numel() * t.element_size() for k, t in pweights.items()
+        if k.startswith("k_") and isinstance(t, torch.Tensor))
     point_bound = max(point_flops / PEAK_BF16, point_bytes / PEAK_BYTES) * 1e3
     emit({"phase": "point_decode", "points": N_POINTS, "d_in": d_in, "d_code": d_code, "H": H,
           "n_blocks": nb, "max_abs_err": point_max, "mean_abs_err": point_mean,
           "tolerance": {"max_abs": POINT_MAX_ABS_TOL, "mean_abs": POINT_MEAN_ABS_TOL},
           "out_abs_max": float(pp.abs().max()), "ms": point_ms, "plain_ms": point_plain_ms,
           "flops": point_flops, "bytes": point_bytes, "bound_ms": point_bound,
-          "tflops_per_s": point_flops / point_ms / 1e9, "launch_ms": launch_ms,
+          "tflops_per_s": point_flops / point_ms / 1e9,
+          "peak_share": point_flops / point_ms * 1e3 / PEAK_BF16, "launch_ms": launch_ms,
+          "launch_peak_share": {name: point_decode_flops(n, d_in, d_code, H, nb) / launch_ms[name]
+                                * 1e3 / PEAK_BF16 for name, n in launch_sizes},
           "card": smi})
     if not (torch.isfinite(pk).all() and point_max <= POINT_MAX_ABS_TOL
             and point_mean <= POINT_MEAN_ABS_TOL):

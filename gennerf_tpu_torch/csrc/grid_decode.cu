@@ -17,146 +17,203 @@
 // points, H=256, 5 blocks) the H x H products are 6.8e11 FLOP against a few
 // MB of tables and output, far above the card's ~295 FLOP/byte balance.
 //
-// What the design does about it: the products run on the tensor cores
-// (WMMA bf16 16x16x16 fragments with f32 accumulators, written here, no
-// library GEMM). A block of 8 warps takes a tile of TM = 16384/H
-// consecutive grid points (64 at H=256); the tile's residual stream, the
-// f32 product output and the bf16 activations stay in shared memory
-// (~164 KB), so nothing but the tables, the weights and the (n,) output
-// crosses device memory. Unlike the TPU's VMEM, shared memory cannot hold
-// the 10 H x H bf16 weight matrices (1.25 MB), so the B fragments are read
-// from global memory per tile, where they stay resident in the 50 MB L2.
-// Each warp owns H/8 output columns of every row of the tile. Points are
-// taken in flat order and the ragged last tile is masked, so any grid
-// shape works. This is the simple first version: wgmma, TMA-fed weight
-// tiles and persistent blocks are later work.
+// What the design does about it: the tile machinery of resnet_tile.cuh. A
+// block takes R consecutive grid points (128 at H <= 256), points in flat
+// order with the ragged last tile masked, so any grid shape works. Its two
+// consumer warpgroups run the H x H products with wgmma from shared memory
+// while the producer streams w0_b, w1_b through the bulk-copy ring; the
+// residual stream stays in registers. The table sums run in the
+// epilogues: each thread rebuilds the residual stream of its two rows from
+// the q tables at the start, and adds block b + 1's lin_z injection in the
+// epilogue of block b's second product, just before rounding relu(x) into
+// the A buffer of block b + 1's first product; the tables stay in L1/L2.
 #include "resnet_tile.cuh"
 
 namespace {
 
 using namespace gennerf;
 
+__device__ __forceinline__ float2 ldg2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
 template <int H>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 grid_decode_kernel(const float* __restrict__ q_yz, const float* __restrict__ q_xz,
                    const float* __restrict__ q_xy, const float* __restrict__ z_x,
                    const float* __restrict__ z_y, const float* __restrict__ z_z,
-                   const bf16* __restrict__ w0, const float* __restrict__ b0,
-                   const bf16* __restrict__ w1, const float* __restrict__ b1,
-                   const bf16* __restrict__ w_last, float b_last, float smoothing,
-                   float* __restrict__ out, int nx, int ny, int nz, int nb) {
+                   const bf16* __restrict__ slabs, const float* __restrict__ b0,
+                   const float* __restrict__ b1, const bf16* __restrict__ w_last, float b_last,
+                   float smoothing, float* __restrict__ out, int nx, int ny, int nz, int nb,
+                   int n_pts) {
   using T = Tile<H>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);                   // residual stream
-  float* sc = reinterpret_cast<float*>(smem + T::X_BYTES);      // product output
-  bf16* act = reinterpret_cast<bf16*>(smem + 2 * T::X_BYTES);   // bf16 product input
-  int* ri = reinterpret_cast<int*>(act + T::TM * T::LDA);
-  int* rj = ri + T::TM;
-  int* rk = rj + T::TM;
-  int* rv = rk + T::TM;
-
-  const long long n_pts = static_cast<long long>(nx) * ny * nz;
-  const long long p0 = static_cast<long long>(blockIdx.x) * T::TM;
-  const int t = threadIdx.x;
-  const int warp = t >> 5;
-  const int lane = t & 31;
-
-  if (t < T::TM) {
-    const long long p = p0 + t;
-    const int valid = p < n_pts;
-    const long long pc = valid ? p : 0;  // masked rows decode point 0, never stored
-    const long long ij = pc / nz;
-    rk[t] = static_cast<int>(pc - ij * nz);
-    rj[t] = static_cast<int>(ij % ny);
-    ri[t] = static_cast<int>(ij / ny);
-    rv[t] = valid;
-  }
+  extern __shared__ __align__(1024) unsigned char smem[];
+  Ring ring(smem);
+  if (threadIdx.x == 0) ring_init(ring);
   __syncthreads();
-
-  for (int e = t; e < T::TM * H; e += kThreads) {
-    const int r = e / H, h = e % H;
-    const size_t i = ri[r], j = rj[r], k = rk[r];
-    float v = q_yz[(j * nz + k) * H + h] + q_xz[(i * nz + k) * H + h];
-    v = v + q_xy[(i * ny + j) * H + h];
-    xs[r * T::LDX + h] = v;
+  if (threadIdx.x >= kConsumers * 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) produce<H>(ring, slabs, 2 * nb, [](int) { return H; });
+    return;
   }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  const Frag<H> f(threadIdx.x);
+  unsigned char* a1 = smem + T::A1_OFF;  // bf16 relu(x): the first product's A
+  unsigned char* a2 = smem + T::A2_OFF;  // bf16 relu(net): the second product's A
+  float* partial = reinterpret_cast<float*>(smem + 16 * kStages);
+  int* pos = reinterpret_cast<int*>(smem + T::END);  // (R, 3): i, j, k of each tile row
+  const int p0 = blockIdx.x * T::R;
+
+  // grid position of the thread's two rows, kept in shared memory for the
+  // injections (registers hold the residual stream); masked rows decode
+  // point 0 and are never stored
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = f.row(rr), p = p0 + r;
+    const int pc = p < n_pts ? p : 0;
+    const int ij = pc / nz;
+    if ((f.lane & 3) == 0) {
+      pos[3 * r] = ij / ny;
+      pos[3 * r + 1] = ij % ny;
+      pos[3 * r + 2] = pc - ij * nz;
+    }
+  }
+  __syncwarp();
+
+  float x[T::XR];
+  // x += block b's lin_z injection on chunk c's columns, then a1 = bf16 relu(x)
+  auto inject = [&](int b, auto c) {
+    int zx_r[2], zy_r[2], zz_r[2];  // row offsets, from one read of the indices
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int* ijk = pos + 3 * f.row(rr);
+      zx_r[rr] = (ijk[0] * nb + b) * H;
+      zy_r[rr] = (b * ny + ijk[1]) * H;
+      zz_r[rr] = (b * nz + ijk[2]) * H;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = f.col(c, j);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const float2 zy = ldg2(z_y + zy_r[rr] + col);
+        const float2 zz = ldg2(z_z + zz_r[rr] + col);
+        const float2 zx = ldg2(z_x + zx_r[rr] + col);
+        const int i = c * 32 + 4 * j + 2 * rr;
+        x[i] = x[i] + ((zy.x + zz.x) + zx.x);
+        x[i + 1] = x[i + 1] + ((zy.y + zz.y) + zx.y);
+        f.store_pair(a1, c, j, rr, fmaxf(x[i], 0.0f), fmaxf(x[i + 1], 0.0f));
+      }
+    }
+  };
+
+  static_for<T::CHUNKS>([&](auto c) {
+    int yz_r[2], xz_r[2], xy_r[2];  // row offsets
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int* ijk = pos + 3 * f.row(rr);
+      yz_r[rr] = (ijk[1] * nz + ijk[2]) * H;
+      xz_r[rr] = (ijk[0] * nz + ijk[2]) * H;
+      xy_r[rr] = (ijk[0] * ny + ijk[1]) * H;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = f.col(c, j);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const float2 yz = ldg2(q_yz + yz_r[rr] + col);
+        const float2 xz = ldg2(q_xz + xz_r[rr] + col);
+        const float2 xy = ldg2(q_xy + xy_r[rr] + col);
+        const int i = c * 32 + 4 * j + 2 * rr;
+        x[i] = (yz.x + xz.x) + xy.x;
+        x[i + 1] = (yz.y + xz.y) + xy.y;
+      }
+    }
+    inject(0, c);
+  });
+  sync_activations<H>(f.wg);
 
   for (int b = 0; b < nb; ++b) {
-    __syncthreads();
-    for (int e = t; e < T::TM * H; e += kThreads) {
-      const int r = e / H, h = e % H;
-      const size_t i = ri[r], j = rj[r], k = rk[r];
-      float tz = z_y[(static_cast<size_t>(b) * ny + j) * H + h] +
-                 z_z[(static_cast<size_t>(b) * nz + k) * H + h];
-      tz = tz + z_x[(i * nb + b) * H + h];
-      const float xv = xs[r * T::LDX + h] + tz;
-      xs[r * T::LDX + h] = xv;
-      act[r * T::LDA + h] = __float2bfloat16_rn(fmaxf(xv, 0.0f));
-    }
-    __syncthreads();
-    tile_gemm<H>(act, T::LDA, w0 + static_cast<size_t>(b) * H * H, H, sc, warp);
-    __syncthreads();
-    for (int e = t; e < T::TM * H; e += kThreads) {
-      const int r = e / H, h = e % H;
-      const float net = sc[r * T::LDX + h] + b0[b * H + h];
-      act[r * T::LDA + h] = __float2bfloat16_rn(fmaxf(net, 0.0f));
-    }
-    __syncthreads();
-    tile_gemm<H>(act, T::LDA, w1 + static_cast<size_t>(b) * H * H, H, sc, warp);
-    __syncthreads();
-    for (int e = t; e < T::TM * H; e += kThreads) {
-      const int r = e / H, h = e % H;
-      xs[r * T::LDX + h] = xs[r * T::LDX + h] + (sc[r * T::LDX + h] + b1[b * H + h]);
-    }
+    const float* b0b = b0 + static_cast<size_t>(b) * H;
+    const float* b1b = b1 + static_cast<size_t>(b) * H;
+    tile_product<H>(ring, f, smem_u32(a1), H, [&](auto c, float(&acc)[32]) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 bias = ldg2(b0b + f.col(c, j));
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int i = 4 * j + 2 * rr;
+          f.store_pair(a2, c, j, rr, fmaxf(acc[i] + bias.x, 0.0f), fmaxf(acc[i + 1] + bias.y, 0.0f));
+        }
+      }
+    });
+    sync_activations<H>(f.wg);
+    tile_product<H>(ring, f, smem_u32(a2), H, [&](auto c, float(&acc)[32]) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 bias = ldg2(b1b + f.col(c, j));
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int i = 4 * j + 2 * rr;
+          x[c * 32 + i] = x[c * 32 + i] + (acc[i] + bias.x);
+          x[c * 32 + i + 1] = x[c * 32 + i + 1] + (acc[i + 1] + bias.y);
+        }
+      }
+      if (b + 1 < nb) inject(b + 1, c);
+    });
+    if (b + 1 < nb) sync_activations<H>(f.wg);
   }
-  __syncthreads();
 
-  tile_head<H>(xs, w_last, b_last, smoothing, out, p0, warp, lane,
-               [&](int r) { return rv[r] != 0; });
+  tile_head<H>(f, x, w_last, b_last, smoothing, partial, out, p0,
+               [&](int r) { return p0 + r < n_pts; });
 }
 
 template <int H>
 cudaError_t launch(const float* q_yz, const float* q_xz, const float* q_xy, const float* z_x,
-                   const float* z_y, const float* z_z, const bf16* w0, const float* b0,
-                   const bf16* w1, const float* b1, const bf16* w_last, float b_last,
-                   float smoothing, float* out, int nx, int ny, int nz, int nb,
-                   cudaStream_t stream) {
+                   const float* z_y, const float* z_z, const bf16* slabs, const float* b0,
+                   const float* b1, const bf16* w_last, float b_last, float smoothing, float* out,
+                   int nx, int ny, int nz, int nb, cudaStream_t stream) {
   using T = Tile<H>;
-  constexpr size_t smem = 2 * T::X_BYTES + T::ACT_BYTES + sizeof(int) * 4 * T::TM;
+  constexpr int smem = T::END + T::R * 3 * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(grid_decode_kernel<H>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  // point indices and table offsets are 32-bit
   const long long n_pts = static_cast<long long>(nx) * ny * nz;
-  const long long blocks = (n_pts + T::TM - 1) / T::TM;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  grid_decode_kernel<H><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      q_yz, q_xz, q_xy, z_x, z_y, z_z, w0, b0, w1, b1, w_last, b_last, smoothing, out, nx, ny,
-      nz, nb);
+  if (n_pts > 0x7fffffffLL - T::R) return cudaErrorInvalidValue;
+  const long long table_rows[] = {1LL * ny * nz, 1LL * nx * nz, 1LL * nx * ny,
+                                  1LL * nx * nb, 1LL * nb * ny, 1LL * nb * nz};
+  for (long long rows : table_rows)
+    if (rows * H > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int blocks = static_cast<int>((n_pts + T::R - 1) / T::R);
+  grid_decode_kernel<H><<<blocks, kThreads, smem, stream>>>(
+      q_yz, q_xz, q_xy, z_x, z_y, z_z, slabs, b0, b1, w_last, b_last, smoothing, out, nx, ny, nz,
+      nb, static_cast<int>(n_pts));
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Tables (f32, contiguous): q_yz (ny*nz, H), q_xz (nx, nz, H), q_xy (nx, ny, H),
-// z_x (nx, nb, H), z_y (nb, ny, H), z_z (nb, nz, H). Weights: w0, w1 (nb, H, H)
-// bf16 as (in, out); b0, b1 (nb, H) f32; w_last (H,) bf16. out: (nx*ny*nz,) f32.
-// H must be 128, 256 or 512. Returns a cudaError_t (0 on success).
+// z_x (nx, nb, H), z_y (nb, ny, H), z_z (nb, nz, H). slabs: bf16, w0_0, w1_0,
+// w0_1, ... each packed as its bulk-copy slabs (ops/weight_slabs.py);
+// b0, b1 (nb, H) f32; w_last (H,) bf16. out: (nx*ny*nz,) f32. Points and
+// table elements each fewer than 2^31. H must be 128, 256 or 512. Returns a
+// cudaError_t (0 on success).
 extern "C" int gennerf_grid_decode(const void* q_yz, const void* q_xz, const void* q_xy,
                                    const void* z_x, const void* z_y, const void* z_z,
-                                   const void* w0, const void* b0, const void* w1,
-                                   const void* b1, const void* w_last, float b_last,
-                                   float smoothing, void* out, int nx, int ny, int nz, int nb,
-                                   int H, void* stream) {
+                                   const void* slabs, const void* b0, const void* b1,
+                                   const void* w_last, float b_last, float smoothing, void* out,
+                                   int nx, int ny, int nz, int nb, int H, void* stream) {
   if (nx <= 0 || ny <= 0 || nz <= 0 || nb <= 0) return static_cast<int>(cudaErrorInvalidValue);
 #define GENNERF_GRID_ARGS                                                                      \
   static_cast<const float*>(q_yz), static_cast<const float*>(q_xz),                           \
       static_cast<const float*>(q_xy), static_cast<const float*>(z_x),                        \
       static_cast<const float*>(z_y), static_cast<const float*>(z_z),                         \
-      static_cast<const bf16*>(w0), static_cast<const float*>(b0),                            \
-      static_cast<const bf16*>(w1), static_cast<const float*>(b1),                            \
-      static_cast<const bf16*>(w_last), b_last, smoothing, static_cast<float*>(out), nx, ny, \
-      nz, nb, static_cast<cudaStream_t>(stream)
+      static_cast<const bf16*>(slabs), static_cast<const float*>(b0),                         \
+      static_cast<const float*>(b1), static_cast<const bf16*>(w_last), b_last, smoothing,    \
+      static_cast<float*>(out), nx, ny, nz, nb, static_cast<cudaStream_t>(stream)
   cudaError_t err;
   switch (H) {
     case 128: err = launch<128>(GENNERF_GRID_ARGS); break;

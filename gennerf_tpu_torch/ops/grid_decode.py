@@ -208,7 +208,8 @@ def separable_grid_decode_plain(tables: GridTables, weights: dict,
 
 @torch.no_grad()
 def grid_decode_cuda(tables: GridTables, weights: dict) -> torch.Tensor:
-    """The grid-decode kernel on CUDA tables -> (nx, ny, nz) f32."""
+    """The grid-decode kernel on CUDA tables -> (nx, ny, nz) f32; `weights`
+    from `pack_decode_weights(..., point=False)`."""
     q_yz, q_xz, q_xy, z_x, z_y, z_z = tables
     nx, nz, H = q_xz.shape
     ny = q_xy.shape[1]
@@ -220,21 +221,18 @@ def grid_decode_cuda(tables: GridTables, weights: dict) -> torch.Tensor:
                            ("q_xy", q_xy, (nx, ny, H)), ("z_x", z_x, (nx, nb, H)),
                            ("z_y", z_y, (nb, ny, H)), ("z_z", z_z, (nb, nz, H))):
         kernels.check_cuda_tensor(t, name, f32, shape)
-    w0 = weights["w0"].to(bf16).contiguous()
-    w1 = weights["w1"].to(bf16).contiguous()
-    w_last = weights["w_last"].to(bf16).contiguous()
-    b0 = weights["b0"].to(f32).contiguous()
-    b1 = weights["b1"].to(f32).contiguous()
-    for name, t, dtype, shape in (("w0", w0, bf16, (nb, H, H)), ("w1", w1, bf16, (nb, H, H)),
-                                  ("b0", b0, f32, (nb, H)), ("b1", b1, f32, (nb, H)),
-                                  ("w_last", w_last, bf16, (H,))):
-        kernels.check_cuda_tensor(t, name, dtype, shape)
+    if weights.get("k_schedule") != "grid":
+        raise ValueError("grid decode takes pack_decode_weights(weights, point=False)")
+    w = weights
+    for name, dtype, shape in (("k_slabs", bf16, (2 * nb * H * H,)), ("k_b0", f32, (nb, H)),
+                               ("k_b1", f32, (nb, H)), ("k_w_last", bf16, (H,))):
+        kernels.check_cuda_tensor(w[name], name, dtype, shape)
     out = torch.empty(nx * ny * nz, dtype=f32, device=q_yz.device)
     kernels.GRID_DECODE.launch(
         q_yz.data_ptr(), q_xz.data_ptr(), q_xy.data_ptr(),
         z_x.data_ptr(), z_y.data_ptr(), z_z.data_ptr(),
-        w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), w_last.data_ptr(),
-        float(weights["b_last"]), float(weights["smoothing"]), out.data_ptr(),
+        w["k_slabs"].data_ptr(), w["k_b0"].data_ptr(), w["k_b1"].data_ptr(),
+        w["k_w_last"].data_ptr(), float(w["b_last"]), float(w["smoothing"]), out.data_ptr(),
         nx, ny, nz, nb, H, kernels.stream_ptr(q_yz.device),
     )
     return out.reshape(nx, ny, nz)
@@ -242,7 +240,8 @@ def grid_decode_cuda(tables: GridTables, weights: dict) -> torch.Tensor:
 
 def grid_decode(tables: GridTables, weights: dict) -> torch.Tensor:
     """Decode the tables: the kernel for CUDA tables, the plain f32 version
-    for CPU tables (the JAX package's own off-TPU numerics)."""
+    for CPU tables (the JAX package's own off-TPU numerics). `weights` from
+    `pack_decode_weights(..., point=False)`."""
     device = tables.q_yz.device
     if device.type == "cuda":
         return grid_decode_cuda(tables, weights)

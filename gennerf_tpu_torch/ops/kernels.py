@@ -51,11 +51,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FPS = Kernel("fps", "gennerf_fps", [_P, _P, _P, _I, _I, _I, _P])
 GRID_DECODE = Kernel(
     "grid_decode", "gennerf_grid_decode",
-    [_P] * 6 + [_P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _I, _P],
+    [_P] * 6 + [_P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _I, _P],
 )
 POINT_DECODE = Kernel(
     "point_decode", "gennerf_point_decode",
-    [_P, _P, ctypes.c_longlong, _I, _I, _I, _I] + [_P] * 9 + [_F, _F, _F, _P, _I, _I, _P],
+    [_P, _P, ctypes.c_longlong, _I, _I, _I, _I] + [_P] * 6 + [_F, _F, _F, _P, _I, _I, _P],
 )
 KERNELS = (FPS, GRID_DECODE, POINT_DECODE)
 
@@ -98,7 +98,9 @@ def build_library() -> str:
     out_dir = os.path.join(build_dir(), digest.hexdigest()[:16])
     lib_path = os.path.join(out_dir, "libgennerf_torch_kernels.so")
     if os.path.exists(lib_path):
-        build_info.update(path=lib_path, seconds=0.0, cached=True)
+        log_path = os.path.join(out_dir, "build.log")
+        log = open(log_path).read() if os.path.exists(log_path) else ""
+        build_info.update(path=lib_path, seconds=0.0, cached=True, ptxas=log)
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()

@@ -18,6 +18,7 @@ import torch
 
 from . import kernels
 from .grid_decode import _feed, supports_grid_decode
+from .weight_slabs import pack_decode_weights, schedule_depths
 
 # the point kernel takes the same decoder as the grid kernel
 supports_fused_decode = supports_grid_decode
@@ -26,31 +27,10 @@ KERNEL_WIDTHS = (128, 256, 512)
 MAX_INPUT_WIDTH = 128
 
 
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
-
-
-@torch.no_grad()
 def pack_point_weights(weights: dict) -> dict:
-    """The kernel's form of `extract_resnetfc_weights`'s arrays, added to a
-    copy of them: bf16 matrices with d_in and d_code zero-padded to a
-    multiple of 16 (the WMMA depth), f32 biases, bf16 w_last."""
-    bf16, f32 = torch.bfloat16, torch.float32
-    d_in, H = weights["w_in"].shape
-    nb, d_code, _ = weights["wz"].shape
-    d_in_p, d_code_p = _round_up(d_in, 16), _round_up(d_code, 16)
-    w_in = torch.zeros(d_in_p, H, dtype=bf16, device=weights["w_in"].device)
-    w_in[:d_in] = weights["w_in"].to(bf16)
-    wz = torch.zeros(nb, d_code_p, H, dtype=bf16, device=w_in.device)
-    wz[:, :d_code] = weights["wz"].to(bf16)
-    return dict(
-        weights,
-        k_w_in=w_in, k_wz=wz,
-        k_w0=weights["w0"].to(bf16).contiguous(), k_w1=weights["w1"].to(bf16).contiguous(),
-        k_w_last=weights["w_last"].to(bf16).contiguous(),
-        k_b_in=weights["b_in"].to(f32).contiguous(), k_bz=weights["bz"].to(f32).contiguous(),
-        k_b0=weights["b0"].to(f32).contiguous(), k_b1=weights["b1"].to(f32).contiguous(),
-    )
+    """The point decode's form of `extract_resnetfc_weights`'s arrays
+    (`weight_slabs.pack_decode_weights` with the point schedule)."""
+    return pack_decode_weights(weights, point=True)
 
 
 def _check_inputs(feat: torch.Tensor, code: torch.Tensor, weights: dict) -> None:
@@ -103,8 +83,7 @@ def fused_resnetfc_tsdf_cuda(feat: torch.Tensor, code: torch.Tensor, weights: di
     _check_inputs(feat, code, weights)
     n, d_in = feat.shape
     d_code = code.shape[1]
-    d_in_p, H = weights["k_w_in"].shape
-    nb, d_code_p, _ = weights["k_wz"].shape
+    nb, H, _ = weights["w0"].shape
     if H not in KERNEL_WIDTHS:
         raise NotImplementedError(f"point decode kernel takes d_hidden 128, 256 or 512, got {H}")
     if max(d_in, d_code) > MAX_INPUT_WIDTH:
@@ -113,19 +92,21 @@ def fused_resnetfc_tsdf_cuda(feat: torch.Tensor, code: torch.Tensor, weights: di
     f32, bf16 = torch.float32, torch.bfloat16
     kernels.check_cuda_tensor(feat, "feat", f32)
     kernels.check_cuda_tensor(code, "code", f32)
-    for name, dtype, shape in (("k_w_in", bf16, (d_in_p, H)), ("k_b_in", f32, (H,)),
-                               ("k_wz", bf16, (nb, d_code_p, H)), ("k_bz", f32, (nb, H)),
-                               ("k_w0", bf16, (nb, H, H)), ("k_b0", f32, (nb, H)),
-                               ("k_w1", bf16, (nb, H, H)), ("k_b1", f32, (nb, H)),
-                               ("k_w_last", bf16, (H,))):
+    if weights.get("k_schedule") != "point":
+        raise ValueError("point decode takes pack_point_weights(weights)")
+    depths = schedule_depths(weights, point=True)
+    d_in_p, d_code_p = depths[:2]
+    for name, dtype, shape in (("k_slabs", bf16, (sum(depths) * H,)), ("k_b_in", f32, (H,)),
+                               ("k_bz", f32, (nb, H)), ("k_b0", f32, (nb, H)),
+                               ("k_b1", f32, (nb, H)), ("k_w_last", bf16, (H,))):
         kernels.check_cuda_tensor(weights[name], name, dtype, shape)
     out = torch.empty(n, dtype=f32, device=feat.device)
     w = weights
     kernels.POINT_DECODE.launch(
         feat.data_ptr(), code.data_ptr(), n, d_in, d_in_p, d_code, d_code_p,
-        w["k_w_in"].data_ptr(), w["k_b_in"].data_ptr(), w["k_wz"].data_ptr(), w["k_bz"].data_ptr(),
-        w["k_w0"].data_ptr(), w["k_b0"].data_ptr(), w["k_w1"].data_ptr(), w["k_b1"].data_ptr(),
-        w["k_w_last"].data_ptr(), float(w["alpha"]), float(w["b_last"]), float(w["smoothing"]),
+        w["k_slabs"].data_ptr(), w["k_b_in"].data_ptr(), w["k_bz"].data_ptr(),
+        w["k_b0"].data_ptr(), w["k_b1"].data_ptr(), w["k_w_last"].data_ptr(),
+        float(w["alpha"]), float(w["b_last"]), float(w["smoothing"]),
         out.data_ptr(), nb, H, kernels.stream_ptr(feat.device),
     )
     return out

@@ -32,6 +32,7 @@ from ..ops.point_decode import (
     pack_point_weights,
     supports_fused_decode,
 )
+from ..ops.weight_slabs import pack_decode_weights
 from ..tsdf.fusion import prior_classes
 
 
@@ -72,8 +73,8 @@ def decode_grid(model: GenNerf, repr_: SceneRepr, voxel_dim, voxel_size: float,
     planes = repr_.planes
     if planes["xz"].shape[0] != 1:
         raise ValueError("grid decode handles one scene at a time")
-    weights = extract_resnetfc_weights(model.mlp, model.head_geo, cfg.mlp.d_out_geo,
-                                       cfg.mlp.head_smoothing)
+    weights = pack_decode_weights(extract_resnetfc_weights(
+        model.mlp, model.head_geo, cfg.mlp.d_out_geo, cfg.mlp.head_smoothing), point=False)
     coord_center = coord_scale = None
     if cfg.encoder.pointnet.normalize_coords:
         extent = [d * cfg.voxel_size for d in cfg.voxel_dim_train]

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (csrc/fps.cu, csrc/grid_decode.cu,
 csrc/point_decode.cu) against their plain PyTorch versions, and their
-wrappers' checks.
+wrappers' checks (the weight packing's own tests: test_torch_packing.py).
 
 This file imports torch and the port only, so on the machine with the card
 (which has no JAX) it runs without the suite's conftest:
@@ -16,6 +16,8 @@ average: both round the same values to bf16 and accumulate in f32 in
 another order, so a few activations round the other way (one bf16 step,
 2^-8 of the value).
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ from gennerf_tpu_torch.ops import kernels
 from gennerf_tpu_torch.ops import grid_decode as gd
 from gennerf_tpu_torch.ops import point_decode as pd
 from gennerf_tpu_torch.ops import sampling as tsamp
+from gennerf_tpu_torch.ops import weight_slabs as ws
 
 
 @pytest.fixture
@@ -51,7 +54,6 @@ def _fps_cloud(kind, B, N, seed=0):
 
 def test_import_builds_nothing(tmp_path):
     """Importing every module of the port starts no build."""
-    import os
     import subprocess
     import sys
 
@@ -142,12 +144,24 @@ def test_point_kernel_limits(H, d_in, d_code):
         pd.fused_resnetfc_tsdf_cuda(torch.zeros(3, d_in), torch.zeros(3, d_code), w)
 
 
+def test_tile_variants_apply(tmp_path):
+    """Every measured variant of the tile (tools/tile_variants.py) still
+    applies to the committed sources."""
+    from gennerf_tpu_torch.tools import tile_variants as tv
+
+    for name in tv.VARIANTS:
+        d = tv.make_variant(name, str(tmp_path), kernels.CSRC_DIR)
+        assert sorted(os.listdir(d)) == sorted(os.listdir(kernels.CSRC_DIR))
+
+
 def test_point_weights_packing():
     w = _point_weights(128, 2, 8, 39, torch.device("cpu"))
-    assert w["k_w_in"].shape == (16, 128) and w["k_wz"].shape == (2, 48, 128)
-    assert w["k_w_in"].dtype == w["k_w0"].dtype == w["k_w_last"].dtype == torch.bfloat16
-    assert not w["k_w_in"][8:].any() and not w["k_wz"][:, 39:].any()
-    assert torch.equal(w["k_wz"][:, :39], w["wz"].to(torch.bfloat16))
+    assert w["k_schedule"] == "point" and w["k_slabs"].dtype == w["k_w_last"].dtype == torch.bfloat16
+    mats = ws.unpack_decode_weights(w)
+    assert [tuple(m.shape) for m in mats] == [(16, 128)] + [(48, 128), (128, 128), (128, 128)] * 2
+    assert not mats[0][8:].any() and not mats[1][39:].any() and not mats[4][39:].any()
+    assert torch.equal(mats[1][:39], w["wz"][0].to(torch.bfloat16))
+    assert torch.equal(mats[6], w["w1"][1].to(torch.bfloat16))
 
 
 # -- kernels on the card ----------------------------------------------------
@@ -189,26 +203,38 @@ def test_fps_wrapper_counts_launches(cuda):
     torch.testing.assert_close(sampled, torch.gather(x, 1, idx.long()[..., None].expand(2, 16, 3)))
 
 
+def _grid_case(H, nb, dims, device):
+    """Random grid tables and packed grid-decode weights."""
+    gen = torch.Generator().manual_seed(H + nb)
+    nx, ny, nz = dims
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(device)
+
+    weights = ws.pack_decode_weights(
+        {"w0": rnd(nb, H, H, scale=H ** -0.5), "w1": rnd(nb, H, H, scale=H ** -0.5),
+         "b0": rnd(nb, H, scale=0.1), "b1": rnd(nb, H, scale=0.1),
+         "w_last": rnd(H, scale=H ** -0.5), "b_last": 0.05, "smoothing": 1.05}, point=False)
+    tables = gd.GridTables(rnd(ny * nz, H), rnd(nx, nz, H), rnd(nx, ny, H),
+                           rnd(nx, nb, H, scale=0.3), rnd(nb, ny, H, scale=0.3),
+                           rnd(nb, nz, H, scale=0.3))
+    return tables, weights
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,nb,dims", [
     (128, 2, (5, 7, 9)),
     (256, 5, (3, 4, 11)),
     (256, 1, (17, 9, 13)),
     (512, 2, (2, 3, 7)),
+    # tiles of 128 (64 at H 512) points spanning several (i, j) lines, nz not dividing the tile
+    (128, 3, (3, 5, 56)),
+    (256, 5, (3, 5, 56)),
+    (512, 1, (3, 5, 56)),
+    (256, 2, (2, 3, 7)),      # one ragged tile
 ])
 def test_grid_decode_kernel_matches_plain(cuda, H, nb, dims):
-    gen = torch.Generator().manual_seed(H + nb)
-    nx, ny, nz = dims
-
-    def rnd(*shape, scale=1.0):
-        return (scale * torch.randn(*shape, generator=gen)).to(cuda)
-
-    weights = {"w0": rnd(nb, H, H, scale=H ** -0.5), "w1": rnd(nb, H, H, scale=H ** -0.5),
-               "b0": rnd(nb, H, scale=0.1), "b1": rnd(nb, H, scale=0.1),
-               "w_last": rnd(H, scale=H ** -0.5), "b_last": 0.05, "smoothing": 1.05}
-    tables = gd.GridTables(rnd(ny * nz, H), rnd(nx, nz, H), rnd(nx, ny, H),
-                           rnd(nx, nb, H, scale=0.3), rnd(nb, ny, H, scale=0.3),
-                           rnd(nb, nz, H, scale=0.3))
+    tables, weights = _grid_case(H, nb, dims, cuda)
     kernels.reset_launch_counts()
     k = gd.grid_decode(tables, weights)
     torch.cuda.synchronize()
@@ -221,13 +247,50 @@ def test_grid_decode_kernel_matches_plain(cuda, H, nb, dims):
 
 
 @pytest.mark.cuda
+def test_decode_wrappers_check_schedule(cuda):
+    tables, grid_w = _grid_case(128, 1, (2, 2, 3), cuda)
+    point_w = _point_weights(128, 1, 8, 9, cuda)
+    with pytest.raises(ValueError, match="point=False"):
+        gd.grid_decode_cuda(tables, point_w)
+    with pytest.raises(ValueError, match="pack_point_weights"):
+        pd.fused_resnetfc_tsdf_cuda(torch.zeros(3, 8, device=cuda), torch.zeros(3, 9, device=cuda),
+                                    dict(grid_w, w_in=point_w["w_in"], wz=point_w["wz"]))
+
+
+@pytest.mark.cuda
+def test_decode_wrappers_count_launches(cuda):
+    tables, grid_w = _grid_case(256, 2, (3, 5, 56), cuda)
+    point_w = _point_weights(256, 2, 32, 39, cuda)
+    feat, code = torch.randn(300, 32, device=cuda), torch.randn(300, 39, device=cuda)
+    kernels.reset_launch_counts()
+    for _ in range(2):
+        gd.grid_decode(tables, grid_w)
+    for _ in range(3):
+        pd.fused_resnetfc_tsdf(feat, code, point_w)
+    torch.cuda.synchronize()
+    assert (kernels.FPS.launches, kernels.GRID_DECODE.launches, kernels.POINT_DECODE.launches) == (0, 2, 3)
+    gd.separable_grid_decode_plain(tables, grid_w, bf16_feeds=True)
+    pd.fused_resnetfc_tsdf_plain(feat, code, point_w)
+    assert (kernels.GRID_DECODE.launches, kernels.POINT_DECODE.launches) == (2, 3)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("H,nb,d_in,d_code,N", [
     (128, 2, 8, 39, 1000),      # ragged tail (TM 128)
     (256, 5, 32, 39, 19200),    # a secant launch of one 120x160 view
     (256, 5, 32, 39, 777),
     (256, 3, 16, 21, 65),       # one point past a full tile
     (512, 2, 128, 128, 300),    # widest inputs
-    (128, 1, 128, 128, 257),    # the most shared memory (code tile at TM 128)
+    (128, 1, 128, 128, 257),    # the largest code tile at TM 128
+    # tile edges (TM 128 at H <= 256, 64 at H 512)
+    (256, 5, 32, 39, 1),
+    (256, 5, 32, 39, 127),
+    (256, 5, 32, 39, 128),
+    (256, 5, 32, 39, 129),
+    (512, 2, 32, 39, 129),
+    (128, 2, 32, 39, 19200),
+    (256, 2, 128, 128, 129),    # the most shared memory (128-wide code tile at H 256)
+    (512, 1, 80, 72, 65),       # lin_in and lin_z deeper than an H-512 slab (64)
 ])
 def test_point_decode_kernel_matches_plain(cuda, H, nb, d_in, d_code, N):
     w = _point_weights(H, nb, d_in, d_code, cuda, seed=H + nb + N)
@@ -247,9 +310,10 @@ def test_point_decode_kernel_matches_plain(cuda, H, nb, d_in, d_code, N):
 
 
 @pytest.mark.cuda
-def test_point_decode_kernel_zero_code(cuda):
+@pytest.mark.parametrize("H", [128, 256, 512])
+def test_point_decode_kernel_zero_code(cuda, H):
     """With code 0 every lin_z injection is alpha * bz."""
-    w = _point_weights(256, 5, 32, 39, cuda, seed=3)
+    w = _point_weights(H, 5, 32, 39, cuda, seed=3)
     feat = torch.randn(500, 32, generator=torch.Generator().manual_seed(1)).to(cuda)
     code = torch.zeros(500, 39, device=cuda)
     k = pd.fused_resnetfc_tsdf_cuda(feat, code, w)

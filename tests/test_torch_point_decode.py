@@ -39,6 +39,7 @@ from gennerf_tpu_torch.models.config import GenNerfConfig, config_from_dict
 from gennerf_tpu_torch.models.gen_nerf import GenNerf, SceneRepr
 from gennerf_tpu_torch.ops import grid_decode as gd
 from gennerf_tpu_torch.ops import point_decode as pd
+from gennerf_tpu_torch.ops.weight_slabs import unpack_decode_weights
 from gennerf_tpu_torch.predict import reconstruct
 from gennerf_tpu_torch.train import predict as tpred
 from gennerf_tpu_torch.tsdf.fusion import apply_fusion_prior
@@ -84,13 +85,17 @@ def test_pack_point_weights_matches_jax(weights):
     jw, tw = weights
     as32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
     d_in, d_code = 8, 39
-    assert tw["k_w_in"].shape == (16, 32) and tw["k_wz"].shape == (NB, 48, 32)
-    # the same bf16 values; JAX pads to 128 rows, the port to 16
-    np.testing.assert_array_equal(tw["k_w_in"].float().numpy(), as32(jw["w_in"])[:16])
-    np.testing.assert_array_equal(tw["k_wz"].float().numpy(), as32(jw["wz"])[:, :48])
+    # the kernel's matrices, unpacked from their slabs in product order:
+    # lin_in, then per block lin_z, w0, w1; the same bf16 values as JAX's,
+    # JAX padding the inputs to 128 rows, the port to 16
+    mats = [m.float().numpy() for m in unpack_decode_weights(tw)]
+    assert [m.shape for m in mats] == [(16, 32)] + [(48, 32), (32, 32), (32, 32)] * NB
+    np.testing.assert_array_equal(mats[0], as32(jw["w_in"])[:16])
     assert not as32(jw["w_in"])[d_in:].any() and not as32(jw["wz"])[:, d_code:].any()
-    for name, ref in (("k_w0", jw["w0"]), ("k_w1", jw["w1"]), ("k_w_last", as32(jw["w_last"])[:, 0])):
-        np.testing.assert_array_equal(tw[name].float().numpy(), as32(ref), err_msg=name)
+    for b in range(NB):
+        for m, ref in zip(mats[1 + 3 * b:4 + 3 * b], (as32(jw["wz"])[b, :48], jw["w0"][b], jw["w1"][b])):
+            np.testing.assert_array_equal(m, as32(ref))
+    np.testing.assert_array_equal(tw["k_w_last"].float().numpy(), as32(jw["w_last"])[:, 0])
     for name, ref in (("k_b_in", jw["b_in"][0]), ("k_bz", jw["bz"][:, 0]), ("k_b0", jw["b0"][:, 0]),
                       ("k_b1", jw["b1"][:, 0])):
         np.testing.assert_array_equal(tw[name].numpy(), as32(ref), err_msg=name)
