@@ -7,15 +7,21 @@ Builds the port's CUDA kernels from csrc/ with nvcc, then:
   1. device and build: the card's name and power limit (nvidia-smi), the
      build time, each kernel's registers and spill bytes (ptxas) and its
      HGMMA/HMMA counts (cuobjdump, where the toolkit has it); fails if a
-     decode kernel spills at H=256 or is not on wgmma;
-  2. fps: the FPS kernel against its plain version on an (8, 16384, 3)
-     presampled depth cloud with duplicates, npoint 256: 0 index mismatches;
+     decode kernel spills at H=256 or is not on wgmma, or an FPS kernel
+     instance spills;
+  2. fps: the FPS kernel against its plain version on (8, 16384, 3)
+     presampled depth clouds with duplicates, npoint 256, and on the
+     training batch's (32, 16384, 3): 0 index mismatches at both; the plan
+     the wrapper launched (cluster size, CTAs, tier), the clusters the card
+     runs at once for each size, ms over back-to-back launches and of one
+     call between two events, us per iteration;
   3. grid_decode: the grid-decode kernel against its plain bf16-feed
      version on tables of full-width weights at 96x96x56, H=256, 5 blocks,
      its time, TFLOP/s and share of the bf16 peak;
   4. predict: `reconstruct` of the full-width seqs_multigeo_4cm GenNerf
      (seeded random weights) on 8 rendered 120x160 frames, with the launch
-     counters reset just before and read just after; the volume is checked
+     counters reset just before and read just after (and the FPS plan that
+     run launched); the volume is checked
      against the same stages run through the plain versions; then a
      profiled call (device busy ms, idle share);
   5. point_decode: the point-decode kernel against its plain bf16-feed
@@ -34,8 +40,6 @@ import dataclasses
 import json
 import math
 import os
-import re
-import shutil
 import statistics
 import subprocess
 import sys
@@ -44,6 +48,7 @@ import time
 SEED = 0
 NUM_FRAMES, HEIGHT, WIDTH = 8, 120, 160
 NPOINT, PRESAMPLE = 256, 16384
+FPS_BATCH = 32  # clouds of a training batch: 4 scenes x 8 frames
 VOXEL_DIM = (96, 96, 56)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor FLOP/s, f32 FLOP/s
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
@@ -77,22 +82,6 @@ def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
 
 
-def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of fn() in ms (CUDA events), after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def host_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     """Median wall time of fn() ending in a device synchronize, in ms."""
     for _ in range(warmup):
@@ -105,72 +94,6 @@ def host_ms(torch, fn, reps: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
-
-
-KERNEL_OF_ENTRY = (("fps", "fps"), ("grid_decode_kernel", "grid_decode"),
-                   ("point_decode_kernel", "point_decode"))
-
-
-def _kernel_of(entry: str):
-    for key, name in KERNEL_OF_ENTRY:
-        if key in entry:
-            width = re.search(r"decode_kernelILi(\d+)E", entry)
-            return name, int(width.group(1)) if width else None
-    return None, None
-
-
-def build_report(ptxas_log: str, lib_path: str) -> dict:
-    """Per kernel and width: registers and spill bytes from ptxas -v, and
-    the counts of HGMMA (wgmma) and HMMA (mma.sync) instructions in the
-    library's SASS where the toolkit has cuobjdump."""
-    rows, cur = {}, None
-    for ln in ptxas_log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", ln)
-        if m:
-            name, width = _kernel_of(m.group(1))
-            cur = rows.setdefault((name, width), {"kernel": name, "H": width}) if name else None
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m:
-            cur["spill_store_bytes"], cur["spill_load_bytes"] = int(m.group(1)), int(m.group(2))
-        m = re.search(r"Used (\d+) registers", ln)
-        if m:
-            cur["registers"] = int(m.group(1))
-    cuobjdump = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
-    sass = None
-    if os.path.exists(cuobjdump):
-        sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
-                              timeout=300).stdout
-        cur = None
-        for ln in sass.splitlines():
-            m = re.search(r"Function : (\S+)", ln)
-            if m:
-                name, width = _kernel_of(m.group(1))
-                cur = rows.setdefault((name, width), {"kernel": name, "H": width}) if name else None
-                if cur is not None:
-                    cur.setdefault("hgmma", 0)
-                    cur.setdefault("hmma", 0)
-                continue
-            if cur is not None:
-                cur["hgmma"] += "HGMMA" in ln
-                cur["hmma"] += "HMMA" in ln
-    return {"cuobjdump": cuobjdump if sass is not None else "missing",
-            "kernels": sorted(rows.values(), key=lambda r: (r["kernel"], r["H"] or 0))}
-
-
-def check_build(report: dict) -> None:
-    """The decode kernels run on wgmma (HGMMA, no HMMA, where cuobjdump
-    exists) and spill nothing at H = 256."""
-    for r in report["kernels"]:
-        if r["kernel"] not in ("grid_decode", "point_decode"):
-            continue
-        if r["H"] == 256 and (r.get("spill_store_bytes") or r.get("spill_load_bytes")):
-            raise RuntimeError(f"{r['kernel']} spills at H=256: {r}")
-        if report["cuobjdump"] != "missing" and (r.get("hgmma", 0) == 0 or r.get("hmma", 0)):
-            raise RuntimeError(f"{r['kernel']} H={r['H']} is not on wgmma: {r}")
 
 
 def profile_device(torch, fn, total_ms: float, card: str) -> dict:
@@ -213,8 +136,9 @@ def main() -> int:
     )
     from gennerf_tpu_torch.ops.projection import get_3d_points
     from gennerf_tpu_torch.ops.sampling import (
-        farthest_point_sample_plain, fps_cuda, uniform_presample,
+        FPS_CLUSTERS, farthest_point_sample_plain, fps_cuda, uniform_presample,
     )
+    from gennerf_tpu_torch.tools.measure import FPS_INNER, build_report, check_build, cuda_ms
     from gennerf_tpu_torch.ops.weight_slabs import pack_decode_weights
     from gennerf_tpu_torch.ops.point_decode import (
         fused_resnetfc_tsdf_cuda, fused_resnetfc_tsdf_plain, pack_point_weights, point_decode_flops,
@@ -251,29 +175,47 @@ def main() -> int:
                             cameras=True)
     P, image, depth, intrinsics, poses = (torch.from_numpy(a).to(dev) for a in frames_np)
 
-    # 2. fps: a presampled depth cloud (with replacement: duplicates, ties)
+    # 2. fps: presampled depth clouds (with replacement: duplicates, ties)
+    # of the 8 frames (the predict shape) and of 4 x 8 frames (the training
+    # batch's shape)
     gen = torch.Generator().manual_seed(SEED)
     cloud = get_3d_points(depth, P).reshape(NUM_FRAMES, -1, 3)
     xyz = uniform_presample(cloud, PRESAMPLE, gen).contiguous()
     B, N = xyz.shape[:2]
     start = torch.randint(0, N, (B,), generator=gen).to(dev, torch.int32)
-    idx_k = fps_cuda(xyz, NPOINT, start)
-    idx_p = farthest_point_sample_plain(xyz, NPOINT, start)
-    torch.cuda.synchronize()
-    mismatches = int((idx_k != idx_p).sum())
-    fps_ms = cuda_ms(torch, lambda: fps_cuda(xyz, NPOINT, start), reps=20)
-    fps_plain_ms = cuda_ms(torch, lambda: farthest_point_sample_plain(xyz, NPOINT, start), reps=5)
-    # distance update + running min + argmax compare: 10 f32 ops per point per iteration
-    fps_ops = 10 * B * N * NPOINT
-    fps_bytes = xyz.numel() * 4 + B * 4 + B * NPOINT * 4
-    fps_bound = max(fps_ops / PEAK_F32, fps_bytes / PEAK_BYTES) * 1e3
-    fps_rec = {"phase": "fps", "shape": [B, N, 3], "npoint": NPOINT,
-               "duplicate_points": int(N - torch.unique(xyz[0], dim=0).shape[0]),
-               "index_mismatches": mismatches, "ms": fps_ms, "plain_ms": fps_plain_ms,
-               "bound_ms": fps_bound, "card": smi}
-    emit(fps_rec)
-    if mismatches:
-        raise RuntimeError(f"FPS kernel disagrees with its plain version at {mismatches} indices")
+    xyz_batch = uniform_presample(cloud.repeat(FPS_BATCH // B, 1, 1), PRESAMPLE, gen).contiguous()
+    start_batch = torch.randint(0, N, (FPS_BATCH,), generator=gen).to(dev, torch.int32)
+    fps_instances = [r for r in report["kernels"] if r["kernel"] == "fps"]
+
+    def fps_case(x, s):
+        nb, n = x.shape[:2]
+        idx_k = fps_cuda(x, NPOINT, s)
+        launched = dict(kernels.FPS.last_launch)  # the plan the wrapper launched
+        idx_p = farthest_point_sample_plain(x, NPOINT, s)
+        torch.cuda.synchronize()
+        ms = cuda_ms(torch, lambda: fps_cuda(x, NPOINT, s), reps=20, inner=FPS_INNER)
+        single_ms = cuda_ms(torch, lambda: fps_cuda(x, NPOINT, s), reps=20)
+        plain_ms = cuda_ms(torch, lambda: farthest_point_sample_plain(x, NPOINT, s), reps=5)
+        # distance update + running min + argmax compare: 10 f32 ops per point per iteration
+        ops = 10 * nb * n * NPOINT
+        nbytes = x.numel() * 4 + nb * 4 + nb * NPOINT * 4
+        return idx_k, idx_p, {
+            "shape": [nb, n, 3], "npoint": NPOINT,
+            "duplicate_points": int(n - torch.unique(x[0], dim=0).shape[0]),
+            "index_mismatches": int((idx_k != idx_p).sum()), "launched": launched,
+            "active_clusters": {cl: kernels.fps_plan(n, cl)["active_clusters"]
+                                for cl in FPS_CLUSTERS},
+            "ms": ms, "us_per_iteration": ms * 1e3 / NPOINT, "single_call_ms": single_ms,
+            "plain_ms": plain_ms, "bound_ms": max(ops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3}
+
+    idx_k, idx_p, fps_rec = fps_case(xyz, start)
+    _, _, fps_batch = fps_case(xyz_batch, start_batch)
+    fps_ms, fps_plain_ms, fps_bound = fps_rec["ms"], fps_rec["plain_ms"], fps_rec["bound_ms"]
+    emit({"phase": "fps", **fps_rec, "batch": fps_batch, "build": fps_instances, "card": smi})
+    for rec in (fps_rec, fps_batch):
+        if rec["index_mismatches"]:
+            raise RuntimeError(f"FPS kernel disagrees with its plain version at "
+                               f"{rec['index_mismatches']} indices at {rec['shape']}")
 
     # 3. grid_decode: full-width weights, every matrix non-zero
     cfg_dict = load_experiment_model_config(EXPERIMENT)
@@ -332,6 +274,7 @@ def main() -> int:
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = {k.name: k.launches for k in kernels.KERNELS}
+    fps_launched = dict(kernels.FPS.last_launch or {})
     smoothing = cfg.mlp.head_smoothing
     if tuple(vol.shape) != VOXEL_DIM or vol.dtype != torch.float32:
         raise RuntimeError(f"bad volume {tuple(vol.shape)} {vol.dtype}")
@@ -373,7 +316,7 @@ def main() -> int:
         model, P, image, depth, VOXEL_DIM, torch.Generator().manual_seed(SEED)), 3)
     emit({"phase": "predict", "config": "configs/experiment/seqs_multigeo_4cm.yaml",
           "frames": [NUM_FRAMES, HEIGHT, WIDTH], "voxel_dim": list(VOXEL_DIM),
-          "launches": launches, "first_call_ms": first_ms,
+          "launches": launches, "fps_launched": fps_launched, "first_call_ms": first_ms,
           "near_voxels": int(near.sum()), "farfront_voxels": int((~near & farfront).sum()),
           "unobserved_voxels": int(unobserved.sum()),
           "band_min": float(band.min()), "band_max": float(band.max()),

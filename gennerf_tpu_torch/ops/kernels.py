@@ -8,7 +8,10 @@ else `gennerf_tpu_torch/_build/`, keyed by a hash of the sources and flags;
 nothing is built or imported when this module is imported.
 
 Each kernel has a `Kernel` record whose `launches` counts the launches its
-wrapper made, so a run can show that its main path went through it.
+wrapper made, so a run can show that its main path went through it, and
+whose `last_launch` holds what a wrapper records of its last launch (the
+FPS wrapper: its plan). `fps_plan` asks the FPS launcher how it would run a
+cloud (no launch).
 """
 from __future__ import annotations
 
@@ -38,17 +41,19 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.last_launch = None
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, record=None) -> None:
         fn = getattr(load_library(), self.symbol)
         err = fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err}")
         self.launches += 1
+        self.last_launch = record
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-FPS = Kernel("fps", "gennerf_fps", [_P, _P, _P, _I, _I, _I, _P])
+FPS = Kernel("fps", "gennerf_fps", [_P, _P, _P, _P, _I, _I, _I, _I, _P])
 GRID_DECODE = Kernel(
     "grid_decode", "gennerf_grid_decode",
     [_P] * 6 + [_P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _I, _P],
@@ -143,8 +148,30 @@ def load_library() -> ctypes.CDLL:
                 fn = getattr(lib, k.symbol)
                 fn.argtypes = k.argtypes
                 fn.restype = ctypes.c_int
+            lib.gennerf_fps_plan.argtypes = [_I, _I, ctypes.POINTER(_I)]
+            lib.gennerf_fps_plan.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+FPS_PLAN_FIELDS = ("active_clusters", "threads", "tier", "points_per_thread", "smem_bytes",
+                   "scratch_per_cloud")
+# gennerf_fps_plan's tiers by number, best first
+FPS_TIERS = ("registers", "shared memory", "device memory")
+
+
+def fps_plan(N: int, cluster: int) -> dict:
+    """How csrc/fps.cu would run clouds of N points on clusters of `cluster`
+    CTAs on the current device (its `gennerf_fps_plan`), keyed by
+    FPS_PLAN_FIELDS with the tier named; `active_clusters` is
+    cudaOccupancyMaxActiveClusters."""
+    info = (_I * len(FPS_PLAN_FIELDS))()
+    err = load_library().gennerf_fps_plan(N, cluster, info)
+    if err != 0:
+        raise RuntimeError(f"fps plan for N={N}, cluster={cluster} failed: CUDA error {err}")
+    plan = dict(zip(FPS_PLAN_FIELDS, info))
+    plan["tier"] = FPS_TIERS[plan["tier"]]
+    return plan
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:

@@ -4,12 +4,17 @@ gennerf_tpu/models/gen_nerf.py:256-267).
 
 `farthest_point_sample` launches the CUDA kernel (csrc/fps.cu, the port of
 ops/pallas/fps.py::_fps_kernel) for a CUDA tensor and runs its plain
-version `farthest_point_sample_plain` for a CPU tensor. Random draws come
+version `farthest_point_sample_plain` for a CPU tensor. The kernel runs
+each cloud on a thread-block cluster whose size `choose_cluster` takes,
+once per device and shape, from the launcher's plan for each size
+(`kernels.fps_plan`: occupancy and tier). Random draws come
 from an explicit torch.Generator, or are passed in (tests inject the JAX
 draws, since the two frameworks' generators differ).
 """
 from __future__ import annotations
 
+import functools
+import types
 from typing import Optional
 
 import torch
@@ -64,16 +69,69 @@ def farthest_point_sample_plain(xyz: torch.Tensor, npoint: int, start: torch.Ten
     return out
 
 
-def fps_cuda(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Tensor:
-    """The FPS kernel on a CUDA (B, N, 3) f32 cloud -> (B, npoint) int32."""
+FPS_CLUSTERS = (1, 2, 4, 8, 16)
+
+
+# the largest cluster the launcher takes unless only 16 reaches a better
+# tier: 8 ran 3-9% faster than 16 at (8, 16384) and (32, 16384) on the H100
+# (PERF.md, tools/fps_variants.py); the exchange grows with the cluster
+FPS_AUTO_MAX_CLUSTER = 8
+
+
+def choose_cluster(B: int, plans: dict) -> int:
+    """Cluster size for B clouds, one cluster each, from `kernels.fps_plan`'s
+    answer for each size in FPS_CLUSTERS (its `active_clusters` and `tier`).
+
+    Among the sizes whose B clusters the card runs at once, those reaching
+    the best tier (kernels.FPS_TIERS order), and of them the largest up to
+    FPS_AUTO_MAX_CLUSTER, else the smallest above it. When no size runs B
+    clusters at once, the smallest size reaching the best tier (the fewest
+    CTAs for the waves that follow)."""
+    runs = [cl for cl in FPS_CLUSTERS if plans[cl]["active_clusters"] >= 1]
+    if not runs:
+        raise RuntimeError(f"the card runs no FPS cluster: {plans}")
+    one_wave = [cl for cl in runs if plans[cl]["active_clusters"] >= B]
+    pool = one_wave or runs
+    best = min(kernels.FPS_TIERS.index(plans[cl]["tier"]) for cl in pool)
+    pool = [cl for cl in pool if kernels.FPS_TIERS.index(plans[cl]["tier"]) == best]
+    if not one_wave:
+        return min(pool)
+    small = [cl for cl in pool if cl <= FPS_AUTO_MAX_CLUSTER]
+    return max(small) if small else min(pool)
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(lib, device_index: int, B: int, N: int, cluster: int) -> types.MappingProxyType:
+    """The plan of a launch of B clouds of N points on `cluster` CTAs a
+    cloud (0: choose_cluster's size), with `cluster` and `ctas`: cached per
+    kernel library, device and shape, so a launch after the first costs one
+    lookup; read-only, since every caller gets the same one."""
+    with torch.cuda.device(device_index):
+        if not cluster:
+            cluster = choose_cluster(B, {cl: kernels.fps_plan(N, cl) for cl in FPS_CLUSTERS})
+        return types.MappingProxyType(
+            dict(kernels.fps_plan(N, cluster), cluster=cluster, ctas=B * cluster))
+
+
+def fps_cuda(xyz: torch.Tensor, npoint: int, start: torch.Tensor, cluster: int = 0) -> torch.Tensor:
+    """The FPS kernel on a CUDA (B, N, 3) f32 cloud -> (B, npoint) int32.
+    Each cloud runs on a cluster of `cluster` CTAs (one of FPS_CLUSTERS);
+    0 takes `choose_cluster`'s size for this card and shape. The plan
+    launched is left in `kernels.FPS.last_launch`."""
     B, N, _ = xyz.shape
+    if not 0 < npoint <= N:
+        raise ValueError(f"fps kernel takes 0 < npoint <= N, got npoint={npoint}, N={N}")
+    if cluster and cluster not in FPS_CLUSTERS:
+        raise ValueError(f"fps cluster must be one of {FPS_CLUSTERS} (or 0), got {cluster}")
     kernels.check_cuda_tensor(xyz, "xyz", torch.float32, (B, N, 3))
     kernels.check_cuda_tensor(start, "start", torch.int32, (B,))
-    if not 0 < npoint <= N or N > 32768:
-        raise ValueError(f"fps kernel takes 0 < npoint <= N <= 32768, got npoint={npoint}, N={N}")
+    plan = _launch_plan(kernels.load_library(), xyz.device.index, B, N, cluster)
+    scratch_n = plan["scratch_per_cloud"]
+    scratch = torch.empty(B * scratch_n, dtype=torch.float32, device=xyz.device) if scratch_n else None
     out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
-    kernels.FPS.launch(xyz.data_ptr(), start.data_ptr(), out.data_ptr(), B, N, npoint,
-                       kernels.stream_ptr(xyz.device))
+    kernels.FPS.launch(xyz.data_ptr(), start.data_ptr(), out.data_ptr(),
+                       None if scratch is None else scratch.data_ptr(), B, N, npoint,
+                       plan["cluster"], kernels.stream_ptr(xyz.device), record=plan)
     return out
 
 

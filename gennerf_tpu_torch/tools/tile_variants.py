@@ -20,9 +20,10 @@ import json
 import os
 import re
 import shutil
-import statistics
 import subprocess
 import sys
+
+from .measure import cuda_ms
 
 
 def _wgmma_n128() -> str:
@@ -96,12 +97,13 @@ VARIANTS = {
 }
 
 
-def make_variant(name: str, build_root: str, csrc: str) -> str:
-    """csrc/ with the variant's edits, in its own directory."""
+def make_variant(name: str, build_root: str, csrc: str, variants=None) -> str:
+    """csrc/ with the variant's edits (from `variants`, default VARIANTS),
+    in its own directory."""
     d = os.path.join(build_root, "variants", name)
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(csrc, d, ignore=shutil.ignore_patterns("*.o", "*.so"))
-    for fname, old, new, every in VARIANTS[name]:
+    for fname, old, new, every in (VARIANTS if variants is None else variants)[name]:
         path = os.path.join(d, fname)
         with open(path) as f:
             src = f.read()
@@ -151,20 +153,6 @@ def main(argv=None) -> int:
     grid_plain = gd.separable_grid_decode_plain(tables, grid_raw, bf16_feeds=True)
     point_plain = pd.fused_resnetfc_tsdf_plain(feat[:check], code[:check], point_raw)
 
-    def cuda_ms(fn, reps):
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
     csrc, build_root, nc = kernels.CSRC_DIR, kernels.build_dir(), ws.NC
     built = {}
     try:
@@ -190,10 +178,11 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             r["grid_max_abs_err"] = float((g - grid_plain).abs().max())
             r["point_max_abs_err"] = float((p - point_plain).abs().max())
-            r["grid_ms"].append(cuda_ms(lambda: gd.grid_decode_cuda(tables, gw), 20))
-            r["point_ms"].append(cuda_ms(lambda: pd.fused_resnetfc_tsdf_cuda(feat, code, pw), 10))
+            r["grid_ms"].append(cuda_ms(torch, lambda: gd.grid_decode_cuda(tables, gw), 20))
+            r["point_ms"].append(cuda_ms(torch, lambda: pd.fused_resnetfc_tsdf_cuda(feat, code, pw),
+                                         10))
             r["secant_ms"].append(cuda_ms(
-                lambda: pd.fused_resnetfc_tsdf_cuda(feat[:19200], code[:19200], pw), 20))
+                torch, lambda: pd.fused_resnetfc_tsdf_cuda(feat[:19200], code[:19200], pw), 20))
             print(json.dumps({"variant": name, **r}), flush=True)
     finally:
         kernels.CSRC_DIR, kernels._lib, ws.NC = csrc, None, nc

@@ -154,6 +154,94 @@ def test_tile_variants_apply(tmp_path):
         assert sorted(os.listdir(d)) == sorted(os.listdir(kernels.CSRC_DIR))
 
 
+def test_fps_variants_apply(tmp_path):
+    """Every measured variant of the FPS kernel (tools/fps_variants.py)
+    still applies to the committed sources."""
+    from gennerf_tpu_torch.tools import fps_variants as fv
+    from gennerf_tpu_torch.tools import tile_variants as tv
+
+    for name in fv.VARIANTS:
+        d = tv.make_variant(name, str(tmp_path), kernels.CSRC_DIR, fv.VARIANTS)
+        assert sorted(os.listdir(d)) == sorted(os.listdir(kernels.CSRC_DIR))
+        with open(os.path.join(d, fv.FPS)) as f, open(os.path.join(kernels.CSRC_DIR, fv.FPS)) as g:
+            assert (f.read() == g.read()) == (name == "base")
+
+
+def _plans(active, tiers=None):
+    """fps_plan answers: clusters the card runs at once and the tier, by size."""
+    tiers = tiers or {}
+    return {cl: {"active_clusters": n, "tier": kernels.FPS_TIERS[tiers.get(cl, 0)]}
+            for cl, n in zip(tsamp.FPS_CLUSTERS, active)}
+
+
+# clusters of (1, 2, 4, 8, 16) CTAs the H100 ran at once at (N 16384, 256 threads)
+H100_16384 = (132, 66, 62, 62, 35)
+
+
+@pytest.mark.parametrize("B,active,tiers,expect", [
+    (8, H100_16384, {1: 1}, 8),       # the predict shape: 8 (16 fits too, and is slower)
+    (32, H100_16384, {1: 1}, 8),      # a training batch
+    (64, H100_16384, {1: 1}, 2),      # 64 clusters of 4 do not fit at once
+    (8, (132, 66, 62, 62, 7), {1: 2, 2: 2, 4: 2, 8: 2, 16: 1}, 8),  # 8 clusters of 16 do not fit
+    (1, (528, 264, 124, 62, 7), {1: 2, 2: 2, 4: 2, 8: 2, 16: 1}, 16),  # a 640x480 frame: 16 for shared memory
+    (1, (132, 66, 62, 62, 35), {}, 8),
+    (200, H100_16384, {1: 1}, 2),     # no size fits: the smallest in registers
+    (200, (132, 66, 33, 16, 7), {1: 2, 2: 2, 4: 2, 8: 2, 16: 2}, 1),
+    (4, (132, 66, 62, 0, 0), {}, 4),  # sizes the card cannot run are skipped
+])
+def test_fps_choose_cluster(B, active, tiers, expect):
+    assert tsamp.choose_cluster(B, _plans(active, tiers)) == expect
+
+
+def test_fps_choose_cluster_none_runs():
+    with pytest.raises(RuntimeError, match="no FPS cluster"):
+        tsamp.choose_cluster(4, _plans((0, 0, 0, 0, 0)))
+
+
+@pytest.mark.parametrize("N,npoint,cluster,match", [
+    (10, 11, 0, "npoint"),
+    (10, 0, 0, "npoint"),
+    (10, -1, 0, "npoint"),
+    (10, 4, 3, "cluster"),
+    (10, 4, 32, "cluster"),
+    (10, 4, 16, "CUDA tensor"),
+])
+def test_fps_wrapper_checks(N, npoint, cluster, match):
+    with pytest.raises(ValueError, match=match):
+        tsamp.fps_cuda(torch.zeros(2, N, 3), npoint, torch.zeros(2, dtype=torch.int32), cluster)
+
+
+def test_fps_build_rows():
+    """The ptxas parse and the build gate chip_smoke.py runs: every FPS
+    instance found, a spill in any of them fails the build."""
+    from gennerf_tpu_torch.tools import fps_variants as fv
+    from gennerf_tpu_torch.tools import measure
+
+    log = ("ptxas info    : Compiling entry function '_ZN34_GLOBAL__N__fps_cu_bc431931_1234514fps_reg_kernelILi4EEEvPKfPKiPiPfiii' for 'sm_90a'\n"
+           "ptxas info    : Used 40 registers\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115fps_loop_kernelEPKfPKiPiPfiii' for 'sm_90a'\n"
+           "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
+           "ptxas info    : Used 38 registers\n"
+           "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110fps_kernelILi16EEEvPKfPKiPiiii' for 'sm_90a'\n"
+           "ptxas info    : Used 30 registers\n"
+           "ptxas info    : Compiling entry function '_Z18grid_decode_kernelILi256EEvv' for 'sm_90a'\n"
+           "ptxas info    : Used 168 registers\n")
+    fps = [{"kernel": "fps", "instance": "fps_reg_kernel<4>", "registers": 40,
+            "spill_store_bytes": 0, "spill_load_bytes": 0},
+           {"kernel": "fps", "instance": "fps_loop_kernel", "registers": 38,
+            "spill_store_bytes": 4, "spill_load_bytes": 8},
+           {"kernel": "fps", "instance": "fps_kernel<16>", "registers": 30}]
+    rows = measure.ptxas_rows(log)
+    assert [r for r in rows.values() if r["kernel"] == "fps"] == fps == fv.fps_rows(log)
+    assert rows[("grid_decode", 256)] == {"kernel": "grid_decode", "H": 256, "registers": 168}
+    report = {"cuobjdump": "missing", "kernels": list(rows.values())}
+    with pytest.raises(RuntimeError, match="fps kernel spills"):
+        measure.check_build(report)
+    rows[("fps", "fps_loop_kernel")].update(spill_store_bytes=0, spill_load_bytes=0)
+    measure.check_build(report)
+
+
 def test_point_weights_packing():
     w = _point_weights(128, 2, 8, 39, torch.device("cpu"))
     assert w["k_schedule"] == "point" and w["k_slabs"].dtype == w["k_w_last"].dtype == torch.bfloat16
@@ -166,19 +254,29 @@ def test_point_weights_packing():
 
 # -- kernels on the card ----------------------------------------------------
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind,B,N,npoint", [
+FPS_CASES = [
     ("random", 1, 100, 7),
     ("random", 3, 1000, 64),
-    ("duplicates", 8, 16384, 256),   # the predict shape: cloud in shared memory
-    ("duplicates", 2, 20000, 128),   # past shared memory: cloud read through the cache
+    ("duplicates", 8, 16384, 256),   # the predict shape
+    ("duplicates", 32, 16384, 256),  # a training batch of 4 x 8 frames
+    ("duplicates", 2, 20000, 128),
     ("random", 1, 32768, 32),
-    ("identical", 2, 3000, 16),
-])
-def test_fps_kernel_matches_plain(cuda, kind, B, N, npoint):
+    ("random", 1, 307200, 32),       # a 640x480 frame without presample
+    ("identical", 2, 3000, 16),      # every distance ties
+    ("random", 2, 1, 1),             # N = 1
+    ("random", 2, 700, 700),         # npoint = N
+    ("random", 3, 5, 4),             # fewer points than CTAs: some own none
+    ("duplicates", 2, 2500, 40),     # fewer points than a cluster has threads
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8, 16])
+@pytest.mark.parametrize("kind,B,N,npoint", FPS_CASES)
+def test_fps_kernel_matches_plain(cuda, kind, B, N, npoint, cluster):
     x = torch.from_numpy(_fps_cloud(kind, B, N)).to(cuda)
     start = torch.randint(0, N, (B,), dtype=torch.int32, device=cuda)
-    k = tsamp.fps_cuda(x, npoint, start)
+    k = tsamp.fps_cuda(x, npoint, start, cluster)
     torch.cuda.synchronize()
     p = tsamp.farthest_point_sample_plain(x, npoint, start)
     assert k.dtype == torch.int32 and k.shape == (B, npoint)
@@ -188,10 +286,35 @@ def test_fps_kernel_matches_plain(cuda, kind, B, N, npoint):
 @pytest.mark.cuda
 def test_fps_kernel_limits(cuda):
     start = torch.zeros(1, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):
-        tsamp.fps_cuda(torch.zeros(1, 40000, 3, device=cuda), 8, start)
-    with pytest.raises(ValueError):
-        tsamp.fps_cuda(torch.zeros(1, 10, 3, device=cuda), 11, start)
+    for npoint in (11, 0, -3):
+        with pytest.raises(ValueError, match="npoint"):
+            tsamp.fps_cuda(torch.zeros(1, 10, 3, device=cuda), npoint, start)
+    with pytest.raises(ValueError, match="cluster"):
+        tsamp.fps_cuda(torch.zeros(1, 10, 3, device=cuda), 4, start, cluster=3)
+    x = torch.from_numpy(_fps_cloud("random", 1, 40000)).to(cuda)  # past the old 32768 cap
+    k = tsamp.fps_cuda(x, 8, start)
+    assert torch.equal(k, tsamp.farthest_point_sample_plain(x, 8, start))
+
+
+@pytest.mark.cuda
+def test_fps_plan(cuda):
+    """The launcher's plan: registers at the predict shape, then shared and
+    device memory as the slice grows; every cluster size runs at least once;
+    the wrapper records the plan it launched."""
+    plans = {cl: kernels.fps_plan(16384, cl) for cl in tsamp.FPS_CLUSTERS}
+    assert all(p["active_clusters"] >= 1 for p in plans.values()), plans
+    # 16384 points on one CTA are past the register tier; split in 2 or more they are not
+    assert plans[1]["tier"] == "shared memory" and plans[1]["scratch_per_cloud"] == 16384
+    assert all(p["tier"] == "registers" and p["scratch_per_cloud"] == 0
+               for cl, p in plans.items() if cl > 1)
+    assert kernels.fps_plan(307200, 16)["tier"] != "registers"
+    deep = kernels.fps_plan(307200, 1)
+    assert deep["tier"] == "device memory" and deep["scratch_per_cloud"] == 307200
+    cl = tsamp.choose_cluster(8, plans)
+    assert cl > 1
+    x = torch.from_numpy(_fps_cloud("random", 8, 16384)).to(cuda)
+    tsamp.fps_cuda(x, 4, torch.zeros(8, dtype=torch.int32, device=cuda))
+    assert kernels.FPS.last_launch == dict(plans[cl], cluster=cl, ctas=8 * cl)
 
 
 @pytest.mark.cuda

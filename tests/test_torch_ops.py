@@ -216,10 +216,13 @@ def _fps_cases(rng):
     cloud = np.asarray(jp.get_3d_points(jnp.asarray(depth), jnp.asarray(P))).reshape(8, -1, 3)
     sel = rng.integers(0, cloud.shape[1], (8, 256))
     cases.append(("presampled_depth", np.take_along_axis(cloud, sel[..., None], 1), 48))
+    # past the 32768 points the port's kernel once capped: a cloud the JAX
+    # function takes through its XLA loop
+    cases.append(("past_old_cap_2x40000", rng.standard_normal((2, 40000, 3)).astype(np.float32), 12))
     return cases
 
 
-@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("case", range(5))
 def test_fps_plain_identical_to_jax(rng, case):
     """Plain FPS = the JAX fori_loop = the Pallas kernel (interpret mode),
     index for index, duplicates and ties included."""
