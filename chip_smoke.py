@@ -10,8 +10,9 @@ Builds the port's CUDA kernels from csrc/ with nvcc, then:
      decode kernel spills at H=256 or is not on wgmma, or an FPS kernel
      instance spills;
   2. fps: the FPS kernel against its plain version on (8, 16384, 3)
-     presampled depth clouds with duplicates, npoint 256, and on the
-     training batch's (32, 16384, 3): 0 index mismatches at both; the plan
+     presampled depth clouds with duplicates, npoint 256 (the predict and
+     the training shape of seqs_multigeo_4cm), and on (32, 16384, 3) (a
+     batch_size-4 config's): 0 index mismatches at both; the plan
      the wrapper launched (cluster size, CTAs, tier), the clusters the card
      runs at once for each size, ms over back-to-back launches and of one
      call between two events, us per iteration;
@@ -33,6 +34,15 @@ Builds the port's CUDA kernels from csrc/ with nvcc, then:
      same march on the plain bf16-feed decode; then a profiled view;
   7. predict_sparse: `reconstruct` with sparse_band_decode, and the band
      decode against the dense gather decode clamped by the prior;
+  8. train: the training path of the same config (ray supervision, smooth_log
+     TSDF loss, autograd, Adam with coupled L2) on `training_batch`'s scene
+     of 8 frames, K1 in every step's encode: one step with K1 against the
+     same step with the plain FPS on the card (same weights and draws),
+     then 3 warm-up and 20 timed chained `train_step`s with the counters
+     reset just before and read just after (K1 launches must equal the
+     steps; the loss must fall), a profiled step, the peak memory, and a
+     save / reload into a fresh model and optimizer / step against the
+     uninterrupted step;
 then a `kernels` JSON line, the nvidia-smi line and the final result line.
 Every phase raises on failure. Needs one CUDA card; exits non-zero without.
 """
@@ -48,7 +58,9 @@ import time
 SEED = 0
 NUM_FRAMES, HEIGHT, WIDTH = 8, 120, 160
 NPOINT, PRESAMPLE = 256, 16384
-FPS_BATCH = 32  # clouds of a training batch: 4 scenes x 8 frames
+# clouds of a batch_size-4 training batch (seqs_living_gen_nerf.yaml: 4
+# scenes x 8 frames); seqs_multigeo_4cm trains at batch_size 1, (8, 16384)
+FPS_BATCH = 32
 VOXEL_DIM = (96, 96, 56)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor FLOP/s, f32 FLOP/s
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
@@ -69,6 +81,13 @@ RENDER_MASK_AGREE, RENDER_DEPTH_TOL, RENDER_DEPTH_AGREE = 0.99, 1e-3, 0.99
 # sparse band decode vs dense gather decode + prior: both f32, the band's
 # coordinates computed as index * step instead of the linspace formula
 SPARSE_TOL = 1e-5
+# a train step with K1 against the same step with the plain FPS: identical
+# indices, so only the order of the scatter_add atomics differs
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+# save, reload into a fresh model and optimizer, one step: the same loss up
+# to the atomics' order
+RESUME_RTOL = 1e-5
 EXPERIMENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "configs", "experiment", "seqs_multigeo_4cm.yaml")
 PRIMITIVES = [
@@ -99,22 +118,165 @@ def host_ms(torch, fn, reps: int, warmup: int = 1) -> float:
 def profile_device(torch, fn, total_ms: float, card: str) -> dict:
     """Device busy ms and idle share of one fn() call: device-side events
     of one profiled call (host-side op events would count their kernels
-    twice), against its unprofiled wall time."""
+    twice, and so would the device-side spans of annotated host ranges
+    such as Optimizer.step, which carry a host event's name), against its
+    unprofiled wall time; and the host ops taking the most host time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernel_us = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                       key=lambda d: -d[1])
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type == DeviceType.CPU}
+    kernel_us = sorted(((e.key, e.self_device_time_total, e.count) for e in events
+                        if e.device_type == DeviceType.CUDA and e.key not in host
+                        and e.self_device_time_total > 0), key=lambda d: -d[1])
+    host_us = sorted(((e.key, e.self_cpu_time_total, e.count) for e in events
+                      if e.device_type == DeviceType.CPU), key=lambda d: -d[1])
     busy_ms = sum(d[1] for d in kernel_us) / 1e3
     return {"device_busy_ms": busy_ms, "unprofiled_total_ms": total_ms,
             "device_idle_share": 1 - busy_ms / total_ms,
             "kernels_launched": sum(d[2] for d in kernel_us),
+            "fps_kernel_ms": sum(d[1] for d in kernel_us if "fps_" in d[0]) / 1e3,
             "top": [{"name": k[:80], "ms": us / 1e3, "calls": n} for k, us, n in kernel_us[:12]],
+            "host_top": [{"name": k[:60], "self_ms": us / 1e3, "calls": n}
+                         for k, us, n in host_us[:8]],
             "card": card}
+
+
+def train_phase(torch, dev, cfg_dict: dict, smi: str) -> dict:
+    """Phase 8 (see the module docstring); returns the launch counts of
+    the main-path steps."""
+    import contextlib
+    import tempfile
+    from unittest import mock
+
+    from gennerf_tpu_torch.data.synthetic import training_batch
+    from gennerf_tpu_torch.models import gen_nerf as gen_nerf_module
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.ops.sampling import farthest_point_sample_plain
+    from gennerf_tpu_torch.predict import build_model
+    from gennerf_tpu_torch.train.checkpoints import load_checkpoint, save_checkpoint
+    from gennerf_tpu_torch.train.state import make_optimizer
+    from gennerf_tpu_torch.train.step import (
+        StepDraws, batch_to_device, gen_nerf_forward_loss, train_step,
+    )
+    from gennerf_tpu_torch.utils.config import load_experiment_config
+
+    clip = load_experiment_config(EXPERIMENT, "train")["trainer"].get("gradient_clip_val")
+    t0 = time.perf_counter()
+    batch_np = training_batch(1, NUM_FRAMES, HEIGHT, WIDTH, cfg_dict["voxel_dim_train"],
+                              cfg_dict["voxel_size"], SEED)
+    batch_s = time.perf_counter() - t0
+    batch = batch_to_device(batch_np, dev)
+    model = build_model(cfg_dict, dev, SEED)
+    cfg = model.cfg
+    opt = make_optimizer(model.parameters(), cfg.optimizer, clip)
+    BT, HW = NUM_FRAMES, HEIGHT * WIDTH
+    R, S = cfg.ray.num_rays, 1 + cfg.ray.N + cfg.ray.M
+    presample = cfg.encoder.pointnet.fps_presample
+
+    # one step with K1 against the same step with the plain FPS on the card
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    draws = StepDraws(sel=torch.randint(0, HW, (BT, presample), generator=g, device=dev),
+                      start=torch.randint(0, presample, (BT,), generator=g, device=dev),
+                      scores=torch.rand((BT, HW), generator=g, device=dev),
+                      noise=torch.randn((BT, R, cfg.ray.M), generator=g, device=dev))
+
+    def plain_fps(xyz, npoint, generator=None, start=None):
+        idx = farthest_point_sample_plain(xyz, npoint, start)
+        return torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)), idx
+
+    def one_step(plain: bool):
+        model.zero_grad(set_to_none=True)
+        before = kernels.FPS.launches
+        patch = (mock.patch.object(gen_nerf_module, "farthest_point_sample", plain_fps) if plain
+                 else contextlib.nullcontext())
+        with patch:
+            loss, _ = gen_nerf_forward_loss(model, batch, draws=draws)
+            loss.backward()
+        torch.cuda.synchronize()
+        return (float(loss.detach()), {n: p.grad.clone() for n, p in model.named_parameters()},
+                kernels.FPS.launches - before)
+
+    loss_k, grads_k, k1_kernel = one_step(plain=False)
+    loss_p, grads_p, k1_plain = one_step(plain=True)
+    model.zero_grad(set_to_none=True)
+    grad_err = {n: float((grads_k[n] - grads_p[n]).abs().max())
+                / max(float(grads_p[n].abs().max()), 1e-30) for n in grads_p}
+    worst = max(grad_err, key=grad_err.get)
+    vs_plain = {"loss_kernel": loss_k, "loss_plain": loss_p,
+                "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+                "worst_grad": worst, "worst_grad_err_over_max_abs": grad_err[worst],
+                "k1_launches": [k1_kernel, k1_plain]}
+    if (k1_kernel, k1_plain) != (1, 0):
+        raise RuntimeError(f"the K1 step launched K1 {k1_kernel} times, the plain one {k1_plain}")
+    if not (vs_plain["loss_rel_err"] <= TRAIN_LOSS_RTOL and grad_err[worst] <= TRAIN_GRAD_TOL):
+        raise RuntimeError(f"train step with K1 disagrees with the plain-FPS step: {vs_plain}")
+
+    # the main path: chained steps, counters reset just before, read just after
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = train_step(model, opt, batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["combined"]))
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    fps_launched = dict(kernels.FPS.last_launch or {})
+    peak_bytes = torch.cuda.max_memory_allocated()
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    med_ms = statistics.median(step_ms[TRAIN_WARMUP:])
+    # the same steps without a synchronize between them
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        metrics = train_step(model, opt, batch, gen)
+    torch.cuda.synchronize()
+    chained_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    losses.append(float(metrics["combined"]))
+    prof = profile_device(torch, lambda: train_step(model, opt, batch, gen), med_ms, smi)
+
+    # save, reload into a fresh model and optimizer, one step
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.pt")
+        save_checkpoint(path, model, opt, epoch=0, step=n_steps, generator=gen)
+        loss_a = float(train_step(model, opt, batch, gen)["combined"])
+        fresh = build_model(cfg_dict, dev, SEED + 1)
+        fresh_opt = make_optimizer(fresh.parameters(), cfg.optimizer, clip)
+        fresh_gen = torch.Generator(device=dev)
+        load_checkpoint(path, fresh, fresh_opt, fresh_gen)
+        loss_b = float(train_step(fresh, fresh_opt, batch, fresh_gen)["combined"])
+    resume_rel = abs(loss_a - loss_b) / abs(loss_a)
+
+    emit({"phase": "train", "config": "configs/experiment/seqs_multigeo_4cm.yaml",
+          "batch": {"scenes": 1, "frames": [NUM_FRAMES, HEIGHT, WIDTH],
+                    "voxel_dim": list(cfg.voxel_dim_train), "built_s": batch_s},
+          "points_per_step": BT * R * S, "optimizer": dataclasses.asdict(cfg.optimizer),
+          "gradient_clip_val": clip, "vs_plain_fps": vs_plain,
+          "tolerance": {"loss_rel": TRAIN_LOSS_RTOL, "grad_over_max_abs": TRAIN_GRAD_TOL,
+                        "resume_loss_rel": RESUME_RTOL},
+          "steps": n_steps, "launches": launches, "k1_launches_per_step": launches["fps"] / n_steps,
+          "fps_launched": fps_launched, "step_ms_median": med_ms,
+          "step_ms_first": step_ms[0], "chained_ms_per_step": chained_ms,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "peak_memory_bytes": peak_bytes, "resume": {"loss": loss_a, "loss_resumed": loss_b,
+                                                      "rel_err": resume_rel},
+          "card": smi})
+    emit({"phase": "train_profile", "what": "one train_step (forward, backward, Adam)",
+          "k1_share": prof["fps_kernel_ms"] / prof["device_busy_ms"], **prof})
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise RuntimeError(f"training did not lower the loss on its fixed batch: {losses}")
+    if launches["fps"] != n_steps:
+        raise RuntimeError(f"K1 launched {launches['fps']} times in {n_steps} train steps")
+    if resume_rel > RESUME_RTOL:
+        raise RuntimeError(f"the resumed step disagrees: {loss_b} against {loss_a}")
+    return launches
 
 
 def main() -> int:
@@ -230,7 +392,8 @@ def main() -> int:
     cfg = model.cfg
     if not uses_grid_decode(model):
         raise RuntimeError("the full-width config does not take the grid decode")
-    repr_ = model.encode(P[None], image[None], depth[None], torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        repr_ = model.encode(P[None], image[None], depth[None], torch.Generator().manual_seed(SEED))
     weights = pack_decode_weights(extract_resnetfc_weights(
         model.mlp, model.head_geo, cfg.mlp.d_out_geo, cfg.mlp.head_smoothing), point=False)
     extent = [d * cfg.voxel_size for d in cfg.voxel_dim_train]
@@ -307,8 +470,9 @@ def main() -> int:
     perr = (vol - vol_ref).abs()
     pred_max, pred_mean = float(perr.max()), float(perr.mean())
 
-    encode_ms = host_ms(torch, lambda: model.encode(P[None], image[None], depth[None],
-                                                     torch.Generator().manual_seed(SEED)), 3)
+    with torch.no_grad():
+        encode_ms = host_ms(torch, lambda: model.encode(P[None], image[None], depth[None],
+                                                         torch.Generator().manual_seed(SEED)), 3)
     decode_ms = host_ms(torch, lambda: predict_tsdf_volume(model, repr_, VOXEL_DIM,
                                                            cfg.voxel_size, origin), 3)
     prior_ms = host_ms(torch, lambda: apply_fusion_prior(vol, cfg.voxel_size, origin, P, depth), 3)
@@ -395,7 +559,9 @@ def main() -> int:
     if not (hit_share > 0).all() or not np.isfinite(out["depth"]).all():
         raise RuntimeError(f"a rendered view has no hit rays or non-finite depth: {hit_share}")
     # the same march on the plain bf16-feed decode, on one shared encode
-    repr_r = model.encode(P[None], image[None], depth[None], torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        repr_r = model.encode(P[None], image[None], depth[None],
+                              torch.Generator().manual_seed(SEED))
     rk = render_encoded(model, repr_r, depth, intrinsics, poses, make_point_tsdf_fn(model, repr_r),
                         NUM_VIEWS)
     rp = render_encoded(model, repr_r, depth, intrinsics, poses,
@@ -458,9 +624,13 @@ def main() -> int:
     if sparse_err > SPARSE_TOL:
         raise RuntimeError(f"sparse band decode disagrees with the dense decode: {sparse_err}")
 
+    # 8. train: the training path, K1 in every step's encode
+    train_launches = train_phase(torch, dev, cfg_dict, smi)
+
     kernel_line = {"kernels": [
         {"name": "fps", "route": "cuda", "source": "gennerf_tpu_torch/csrc/fps.cu",
-         "replaces": "gennerf_tpu/ops/pallas/fps.py:33", "launches": launches["fps"],
+         "replaces": "gennerf_tpu/ops/pallas/fps.py:33",
+         "launches": launches["fps"] + train_launches["fps"],
          "max_abs_err": float((idx_k - idx_p).abs().max()), "ms": fps_ms,
          "plain_ms": fps_plain_ms, "bound_ms": fps_bound, "bound_by": "operations",
          "library_ms": None},

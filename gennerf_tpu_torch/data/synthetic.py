@@ -1,13 +1,19 @@
-"""Analytic RGB-D frames of a synthetic scene, numpy only (the port's own
-copy of `look_at_pose` and `render_scene` from gennerf_tpu/data/synthetic.py,
-for the sphere and box primitives over a floor plane), plus `ring_frames`,
-which renders a ring of inward-looking cameras for predict drives.
+"""Analytic RGB-D frames of a synthetic scene in numpy (the port's own copy
+of `look_at_pose`, `render_scene` and `random_primitives` from
+gennerf_tpu/data/synthetic.py, for the sphere and box primitives over a
+floor plane), plus `ring_frames`, which renders a ring of inward-looking
+cameras for predict drives, and `training_batch`, which adds the ground-
+truth volume, fused from the frames by the port's `tsdf.fusion`, for
+training drives.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
+import torch
+
+from ..tsdf.fusion import TSDFFusion
 
 
 def look_at_pose(eye, target, up=(0.0, 0.0, 1.0)) -> np.ndarray:
@@ -120,8 +126,9 @@ def render_scene(H: int, W: int, intrinsics: np.ndarray, pose: np.ndarray,
 
 def ring_frames(num_frames: int, H: int, W: int, center, primitives,
                 camera_radius: float = 2.2, camera_height: float = 1.3, seed: int = 0,
-                cameras: bool = False):
-    """Render `num_frames` cameras on a ring around `center` looking at it.
+                cameras: bool = False, floor_z: float = 0.0):
+    """Render `num_frames` cameras on a ring around `center` looking at it,
+    `camera_height` above it, over a floor plane at height `floor_z`.
 
     Returns projection (T, 3, 4) f32 world->image (K @ inv(pose)[:3]),
     image (T, 3, H, W) f32 in [0, 1], depth (T, H, W) f32 meters, and with
@@ -137,7 +144,7 @@ def ring_frames(num_frames: int, H: int, W: int, center, primitives,
         eye = center + np.array([camera_radius * np.cos(ang), camera_radius * np.sin(ang),
                                  camera_height + 0.05 * rng.standard_normal()])
         pose = look_at_pose(eye, center)
-        depth, color = render_scene(H, W, K, pose, primitives=primitives)
+        depth, color = render_scene(H, W, K, pose, floor_z=floor_z, primitives=primitives)
         projections.append((K @ np.linalg.inv(pose)[:3]).astype(np.float32))
         images.append(color.transpose(2, 0, 1).astype(np.float32) / 255.0)
         depths.append(depth)
@@ -146,3 +153,78 @@ def ring_frames(num_frames: int, H: int, W: int, center, primitives,
     if cameras:
         frames += (np.repeat(K[None], num_frames, axis=0), np.stack(poses))
     return frames
+
+
+def random_primitives(rng, family: str = "spheres", n_min: int = 1, n_max: int = 3):
+    """Random spheres ('spheres') or boxes ('boxes') resting on or near the
+    floor within +-0.9 m of the origin in x and y, drawn from the numpy
+    Generator `rng` in the reference's order. The reference's 'cylinders',
+    'mixed' and 'rooms' families need primitives this renderer lacks."""
+    if family not in ("spheres", "boxes"):
+        raise NotImplementedError(f"primitive family {family!r} is not ported")
+    prims = []
+    for _ in range(int(rng.integers(n_min, n_max + 1))):
+        cx, cy = rng.uniform(-0.9, 0.9, 2)
+        if family == "spheres":
+            r = float(rng.uniform(0.2, 0.55))
+            prims.append({"type": "sphere",
+                          "center": (float(cx), float(cy), r + float(rng.uniform(0.0, 0.15))),
+                          "radius": r})
+        else:
+            sx, sy, sz = rng.uniform(0.25, 0.9, 3)
+            prims.append({"type": "box",
+                          "min": (float(cx - sx / 2), float(cy - sy / 2), 0.0),
+                          "max": (float(cx + sx / 2), float(cy + sy / 2), float(sz))})
+    return prims
+
+
+# the reference generator's volume below the floor (its origin z is -0.16 m)
+FLOOR_HEIGHT = 0.16
+
+
+def training_batch(B: int, T: int, H: int, W: int, voxel_dim, voxel_size: float,
+                   seed: int = 0) -> Dict[str, np.ndarray]:
+    """A training batch of B synthetic scenes, T ring frames each, with the
+    ground truth fused from the frames.
+
+    Scene b holds random_primitives of the family ('spheres', 'boxes')[b % 2].
+    World coordinates put the training volume at origin 0: its xy center
+    under the scene's center and the floor FLOOR_HEIGHT above its bottom,
+    so the volume is the reference generator's box recentred, the crop an
+    unaugmented loader takes. Cameras ring the scene as the reference
+    generator's (radius 2.2 m, eye 1.3 m above the floor, aimed 0.4 m above
+    it). The ground truth fuses the T depths at voxel_dim with a truncation
+    of 3 voxels (as the reference generator's `TSDFFusion`).
+
+    Returns numpy float32 arrays: projection (B, T, 3, 4), image
+    (B, T, 3, H, W), depth (B, T, H, W), intrinsics (B, T, 3, 3), pose
+    (B, T, 4, 4) camera->world and vol_XX_tsdf (B, 1, nx, ny, nz), XX the
+    voxel size in cm."""
+    rng = np.random.default_rng(seed)
+    voxel_dim = tuple(int(d) for d in voxel_dim)
+    extent = np.asarray(voxel_dim, np.float64) * voxel_size
+    shift = np.array([extent[0] / 2, extent[1] / 2, FLOOR_HEIGHT])
+    keys = ("projection", "image", "depth", "intrinsics", "pose")
+    out = {k: [] for k in keys}
+    vols = []
+    for b in range(B):
+        prims = []
+        for p in random_primitives(rng, ("spheres", "boxes")[b % 2]):
+            q = dict(p)
+            for key in ("center", "min", "max"):
+                if key in q:
+                    q[key] = tuple(float(v) for v in np.asarray(q[key]) + shift)
+            prims.append(q)
+        frames = ring_frames(T, H, W, shift + np.array([0.0, 0.0, 0.4]), prims,
+                             camera_radius=2.2, camera_height=0.9,
+                             seed=int(rng.integers(2**31)), cameras=True,
+                             floor_z=FLOOR_HEIGHT)
+        for k, a in zip(keys, frames):
+            out[k].append(a)
+        fusion = TSDFFusion(voxel_dim, voxel_size, (0.0, 0.0, 0.0), trunc_ratio=3)
+        for P, depth in zip(frames[0], frames[2]):
+            fusion.integrate(torch.from_numpy(P), torch.from_numpy(depth))
+        vols.append(fusion.get_tsdf().numpy()[None])
+    batch = {k: np.stack(v).astype(np.float32) for k, v in out.items()}
+    batch["vol_%02d_tsdf" % int(voxel_size * 100)] = np.stack(vols).astype(np.float32)
+    return batch

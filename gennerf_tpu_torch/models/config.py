@@ -1,11 +1,12 @@
 """Frozen model-config dataclasses (counterpart of gennerf_tpu/models/config.py).
 
-Only the fields the predict path of the pointnet-only GenNerf reads are
-kept; `config_from_dict` ignores every other key of an experiment yaml
-(loss, optimizer, ray sampling, ...), exactly as the reference's does for
-bookkeeping keys. Defaults are the reference's. Options the port does not
-implement yet are rejected by `check_supported`, called at model
-construction, rather than computed differently.
+Only the fields the predict, render and train paths of the pointnet-only
+GenNerf read are kept; `config_from_dict` ignores every other key of an
+experiment yaml (frustum sampling, the eikonal/gradient/distill weights,
+...), exactly as the reference's does for bookkeeping keys. Defaults are
+the reference's. Options the port does not implement yet are rejected by
+`check_supported`, called at model construction, rather than computed
+differently.
 """
 from __future__ import annotations
 
@@ -74,18 +75,92 @@ class CodeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RayConfig:
+    """Ray-mode supervision: per sampled pixel the surface point, N
+    stratified points over [d_min, depth + delta] and M Gaussian points
+    of std sigma around the depth (iSDF)."""
+
+    num_rays: int = 100
+    N: int = 20
+    M: int = 8
+    d_min: float = 0.07
+    delta: float = 0.1
+    sigma: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class TsdfLossConfig:
+    weight: float = 1.0
+    transform: str = "smooth_log"  # 'log' | 'smooth_log' | 'none'
+    shift: float = 20.0
+    smoothness: float = 8.0
+
+
+@dataclasses.dataclass(frozen=True)
+class IsdfLossConfig:
+    weight: float = 1.0
+    free_space_factor: float = 5.0
+    trunc_weight: float = 5.0
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureLossConfig:
+    weight: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    use_tsdf: bool = True
+    tsdf: TsdfLossConfig = TsdfLossConfig()
+    use_isdf: bool = False
+    isdf: IsdfLossConfig = IsdfLossConfig()
+    use_feature: bool = False
+    feature: FeatureLossConfig = FeatureLossConfig()
+    # not ported (check_supported raises when set)
+    use_eikonal: bool = False
+    use_gradient: bool = False
+    use_distill: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    type: str = "Adam"
+    lr: float = 0.001
+    weight_decay: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerConfig:
+    type: str = "StepLR"  # 'StepLR' | 'None'
+    step_size: int = 300
+    gamma: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class TeacherConfig:
+    type: str = "none"  # only 'none' is ported
+
+
+@dataclasses.dataclass(frozen=True)
 class GenNerfConfig:
     voxel_size: float = 0.04
     voxel_dim_train: Tuple[int, int, int] = (160, 160, 64)
+    voxel_dim_val: Tuple[int, int, int] = (256, 256, 96)
     voxel_dim_test: Tuple[int, int, int] = (416, 416, 128)
     # inference: clamp voxels no input frame touches to the fusion prior
     mask_unobserved: bool = True
     # inference: decode only the prior's near-surface band (needs mask_unobserved)
     sparse_band_decode: bool = False
+    sampling_mode: str = "ray"  # 'ray' ('frustum' is not ported)
+    ray: RayConfig = RayConfig()
     encoder: EncoderConfig = EncoderConfig()
     mlp: MlpConfig = MlpConfig()
     use_code: bool = True
     code: CodeConfig = CodeConfig()
+    loss: LossConfig = LossConfig()
+    teacher: TeacherConfig = TeacherConfig()
+    optimizer: OptimizerConfig = OptimizerConfig()
+    scheduler: SchedulerConfig = SchedulerConfig()
 
     @property
     def encoder_latent(self) -> int:
@@ -95,8 +170,16 @@ class GenNerfConfig:
 def check_supported(cfg: GenNerfConfig) -> None:
     """Raise NotImplementedError for every option this slice of the port
     does not implement (later slices lift these one by one)."""
-    enc, p, m = cfg.encoder, cfg.encoder.pointnet, cfg.mlp
+    enc, p, m, loss = cfg.encoder, cfg.encoder.pointnet, cfg.mlp, cfg.loss
     unsupported = {
+        "sampling_mode 'frustum'": cfg.sampling_mode != "ray",
+        "loss.use_eikonal": loss.use_eikonal,
+        "loss.use_gradient": loss.use_gradient,
+        "loss.use_distill": loss.use_distill,
+        "teacher.type other than 'none'": cfg.teacher.type != "none",
+        "optimizer.type other than 'Adam'": cfg.optimizer.type != "Adam",
+        "scheduler.type other than 'StepLR' or None":
+            cfg.scheduler.type not in ("StepLR", "None", None),
         "encoder.use_spatial": enc.use_spatial,
         "encoder.use_auxiliary": enc.use_auxiliary,
         "encoder.use_pointnet=False": not enc.use_pointnet,

@@ -69,12 +69,15 @@ class GenNerf(nn.Module):
                               device=xyz.device) * self.cfg.voxel_size
         return (xyz - extent / 2.0) / extent.max()
 
-    @torch.no_grad()
     def encode(self, projection: torch.Tensor, image: torch.Tensor, depth: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                sel: Optional[torch.Tensor] = None,
                start: Optional[torch.Tensor] = None) -> SceneRepr:
         """Encode T posed RGB-D frames.
+
+        Differentiable in the PointNet and UNet parameters; the sparse
+        points (presample and FPS) are data, picked under no_grad. Callers
+        that only infer wrap the call in torch.no_grad().
 
         Args:
             projection: (B, T, 3, 4) world->image.
@@ -86,12 +89,13 @@ class GenNerf(nn.Module):
         """
         B, T = projection.shape[:2]
         npoint = self.cfg.encoder.pointnet.num_sparse_points
-        xyz = get_3d_points(depth.reshape(B * T, *depth.shape[2:]),
-                            projection.reshape(B * T, 3, 4)).reshape(B * T, -1, 3)
-        # invalid (depth 0) pixels unproject to the camera center; FPS
-        # never picks such duplicates twice
-        xyz = uniform_presample(xyz, self.cfg.encoder.pointnet.fps_presample, generator, sel)
-        sparse, _ = farthest_point_sample(xyz, npoint, generator, start)
+        with torch.no_grad():
+            xyz = get_3d_points(depth.reshape(B * T, *depth.shape[2:]),
+                                projection.reshape(B * T, 3, 4)).reshape(B * T, -1, 3)
+            # invalid (depth 0) pixels unproject to the camera center; FPS
+            # never picks such duplicates twice
+            xyz = uniform_presample(xyz, self.cfg.encoder.pointnet.fps_presample, generator, sel)
+            sparse, _ = farthest_point_sample(xyz, npoint, generator, start)
         accum = sparse.reshape(B, T * npoint, 3)
         return SceneRepr(self.pointnet(self.plane_coords(accum)))
 

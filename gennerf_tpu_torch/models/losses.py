@@ -1,0 +1,100 @@
+"""GenNerf loss terms (counterpart of gennerf_tpu/models/losses.py).
+
+Per-element loss matrices plus the aggregated dict; all loss math runs in
+float32. The eikonal, gradient and distillation terms are not ported:
+`calculate_loss` raises when their flags are set (as does
+`check_supported` at model construction).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..ops.value_transforms import log_transform, smooth_log_transform
+from .config import LossConfig
+
+
+def _safe_norm(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
+    """L2 norm whose gradient at a zero vector is 0, not NaN."""
+    sq = torch.sum(x * x, dim=dim, keepdim=keepdim)
+    safe = torch.where(sq > 0, sq, torch.ones_like(sq))
+    return torch.where(sq > 0, torch.sqrt(safe), torch.zeros_like(sq))
+
+
+def loss_tsdf(cfg: LossConfig, outputs, targets) -> torch.Tensor:
+    """L1 on the (optionally log-rescaled) TSDF."""
+    pred, trgt = outputs["tsdf"], targets["tsdf"]
+    t = cfg.tsdf
+    if t.transform == "log":
+        pred, trgt = log_transform(pred, t.shift), log_transform(trgt, t.shift)
+    elif t.transform == "smooth_log":
+        pred = smooth_log_transform(pred, t.shift, t.smoothness)
+        trgt = smooth_log_transform(trgt, t.shift, t.smoothness)
+    elif t.transform != "none":
+        raise NotImplementedError(f"tsdf transform {t.transform}")
+    return torch.abs(pred - trgt)
+
+
+def loss_isdf(cfg: LossConfig, outputs, targets) -> torch.Tensor:
+    """iSDF free-space/near-surface loss. On fused-TSDF targets (<= 1
+    everywhere) it is trunc_weight * L1, as the reference's."""
+    pred, trgt = outputs["tsdf"], targets["tsdf"]
+    c = cfg.isdf
+    term1 = torch.exp(-c.free_space_factor * pred) - 1.0
+    loss_free = torch.maximum(torch.relu(term1), pred - trgt)
+    loss_near = torch.abs(pred - trgt) * c.trunc_weight
+    mask = (trgt <= 1.0).to(pred.dtype)
+    return mask * loss_near + (1 - mask) * loss_free
+
+
+def loss_feat(cfg: LossConfig, outputs, targets) -> torch.Tensor:
+    """Encourage non-degenerate encoder features: 1 / mean feature norm."""
+    contribution = _safe_norm(outputs["feat"], dim=-1).mean()
+    return 1.0 / torch.clamp(contribution, min=1e-12)
+
+
+def _masked_mean(m: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean over valid samples only; `valid` is (B, N, 1) in {0, 1} or None."""
+    if valid is None:
+        return m.mean()
+    w = torch.broadcast_to(valid, m.shape)
+    return (m * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def calculate_loss(cfg: LossConfig, outputs: Dict[str, torch.Tensor],
+                   targets: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Weighted sum of the enabled terms. With targets['valid'] ((B, N, 1)
+    float) every point-wise term averages over valid samples only.
+
+    Returns (combined loss, dict of per-term means incl. 'combined' and,
+    with a mask, 'valid_coverage')."""
+    if not (cfg.use_tsdf or cfg.use_isdf):
+        raise ValueError("the loss needs use_tsdf or use_isdf")
+    for flag in ("use_eikonal", "use_gradient", "use_distill"):
+        if getattr(cfg, flag):
+            raise NotImplementedError(f"loss.{flag} is not ported")
+    outputs = {k: v.to(torch.float32) for k, v in outputs.items()}
+    targets = {k: v.to(torch.float32) if v.is_floating_point() else v for k, v in targets.items()}
+    valid = targets.get("valid")
+    losses: Dict[str, torch.Tensor] = {}
+    loss_mat = 0.0
+    loss_scalar = 0.0
+    if cfg.use_tsdf:
+        m = loss_tsdf(cfg, outputs, targets)
+        losses["tsdf"] = _masked_mean(m, valid)
+        loss_mat = loss_mat + cfg.tsdf.weight * m
+    if cfg.use_isdf:
+        m = loss_isdf(cfg, outputs, targets)
+        losses["isdf"] = _masked_mean(m, valid)
+        loss_mat = loss_mat + cfg.isdf.weight * m
+    if cfg.use_feature:
+        m = loss_feat(cfg, outputs, targets)
+        losses["feature"] = m
+        loss_scalar = loss_scalar + cfg.feature.weight * m
+    combined = _masked_mean(loss_mat, valid) + loss_scalar
+    if valid is not None:
+        losses["valid_coverage"] = valid.mean()
+    losses["combined"] = combined
+    return combined, losses

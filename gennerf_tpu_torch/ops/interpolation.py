@@ -1,4 +1,5 @@
-"""Bilinear plane sampling (counterpart of gennerf_tpu/ops/interpolation.py).
+"""Bilinear plane and trilinear volume sampling (counterpart of
+gennerf_tpu/ops/interpolation.py).
 
 Built from gathers and lerps rather than F.grid_sample: the gradient losses
 of later slices need second derivatives through the sampler, which cuDNN's
@@ -45,6 +46,40 @@ def grid_sample_2d(image: torch.Tensor, grid: torch.Tensor, mode: str = "bilinea
     top = v00 * (1 - wx) + v01 * wx
     bot = v10 * (1 - wx) + v11 * wx
     return top * (1 - wy) + bot * wy
+
+
+def trilinear_interpolation(voxel_volume: torch.Tensor, xyz: torch.Tensor, origin,
+                            voxel_size: float, mode: str = "bilinear") -> torch.Tensor:
+    """A channels-last (B, nx, ny, nz, C) volume sampled at (B, N, 3) world
+    points -> (B, N, C): points normalized by the volume extent
+    (dim * voxel_size) from `origin` (the world position of voxel 0), border
+    clamping, align_corners."""
+    B, nx, ny, nz, C = voxel_volume.shape
+    N = xyz.shape[1]
+    origin = torch.as_tensor(origin, dtype=xyz.dtype, device=xyz.device).reshape(-1)[:3]
+    extent = torch.tensor([nx, ny, nz], dtype=xyz.dtype, device=xyz.device) * voxel_size
+    norm = 2.0 * (xyz - origin) / extent - 1.0
+    ix = _unnormalize(norm[..., 0], nx)
+    iy = _unnormalize(norm[..., 1], ny)
+    iz = _unnormalize(norm[..., 2], nz)
+    flat = voxel_volume.reshape(B, nx * ny * nz, C)
+
+    def gather(xi, yi, zi):
+        idx = ((xi.clamp(0, nx - 1) * ny + yi.clamp(0, ny - 1)) * nz + zi.clamp(0, nz - 1))
+        return torch.gather(flat, 1, idx.reshape(B, N, 1).expand(B, N, C))
+
+    if mode == "nearest":
+        return gather(*(torch.round(i).to(torch.int64) for i in (ix, iy, iz)))
+    x0, y0, z0 = torch.floor(ix), torch.floor(iy), torch.floor(iz)
+    x0i, y0i, z0i = x0.to(torch.int64), y0.to(torch.int64), z0.to(torch.int64)
+    wx, wy, wz = (ix - x0)[..., None], (iy - y0)[..., None], (iz - z0)[..., None]
+    c00 = gather(x0i, y0i, z0i) * (1 - wz) + gather(x0i, y0i, z0i + 1) * wz
+    c01 = gather(x0i, y0i + 1, z0i) * (1 - wz) + gather(x0i, y0i + 1, z0i + 1) * wz
+    c10 = gather(x0i + 1, y0i, z0i) * (1 - wz) + gather(x0i + 1, y0i, z0i + 1) * wz
+    c11 = gather(x0i + 1, y0i + 1, z0i) * (1 - wz) + gather(x0i + 1, y0i + 1, z0i + 1) * wz
+    c0 = c00 * (1 - wy) + c01 * wy
+    c1 = c10 * (1 - wy) + c11 * wy
+    return c0 * (1 - wx) + c1 * wx
 
 
 def sample_plane_feature(planes: torch.Tensor, p_norm: torch.Tensor,

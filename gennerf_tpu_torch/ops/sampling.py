@@ -1,6 +1,7 @@
-"""Point sampling of the encoder: the uniform presample and farthest-point
-sampling (counterpart of gennerf_tpu/ops/sampling.py and the presample in
-gennerf_tpu/models/gen_nerf.py:256-267).
+"""Point sampling (counterpart of gennerf_tpu/ops/sampling.py and the
+presample in gennerf_tpu/models/gen_nerf.py:256-267): the encoder's
+uniform presample and farthest-point sampling, and the training
+supervision's valid-pixel and ray samplers.
 
 `farthest_point_sample` launches the CUDA kernel (csrc/fps.cu, the port of
 ops/pallas/fps.py::_fps_kernel) for a CUDA tensor and runs its plain
@@ -22,10 +23,101 @@ import torch
 from . import kernels
 
 
+def _gen_device(generator: Optional[torch.Generator]) -> torch.device:
+    return generator.device if generator is not None else torch.device("cpu")
+
+
 def _draw(high: int, shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     """Uniform int64 in [0, high), drawn on the generator's device."""
-    gen_device = generator.device if generator is not None else torch.device("cpu")
-    return torch.randint(0, high, shape, generator=generator, device=gen_device).to(device)
+    return torch.randint(0, high, shape, generator=generator,
+                         device=_gen_device(generator)).to(device)
+
+
+def draw_uniform(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Uniform float32 in [0, 1), drawn on the generator's device."""
+    return torch.rand(shape, generator=generator, device=_gen_device(generator)).to(device)
+
+
+def draw_normal(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Standard normal float32, drawn on the generator's device."""
+    return torch.randn(shape, generator=generator, device=_gen_device(generator)).to(device)
+
+
+# -- supervision pixels and rays ---------------------------------------------
+
+def sample_valid_pixels_masked(valid: torch.Tensor, num_samples: int,
+                               generator: Optional[torch.Generator] = None,
+                               scores: Optional[torch.Tensor] = None):
+    """`num_samples` pixels per (H, W) mask of (B, H, W), uniformly without
+    replacement among the valid ones: top-k of uniform scores, -inf on
+    invalid pixels. A row with fewer valid pixels is filled with invalid
+    ones, which `ok` marks. `scores` (B, H*W) injects the draw.
+
+    Returns b (B, 1), h (B, num_samples), w (B, num_samples) int64 and
+    ok (B, num_samples) bool."""
+    B, H, W = valid.shape
+    flat_valid = valid.reshape(B, H * W)
+    if scores is None:
+        scores = draw_uniform((B, H * W), generator, valid.device)
+    scores = torch.where(flat_valid, scores.to(valid.device, torch.float32),
+                         torch.full((), float("-inf"), device=valid.device))
+    flat_idx = torch.topk(scores, num_samples, dim=1).indices
+    ok = torch.gather(flat_valid, 1, flat_idx)
+    b = torch.arange(B, device=valid.device)[:, None]
+    return b, flat_idx // W, flat_idx % W, ok
+
+
+def sample_valid_depth_pixels(depth: torch.Tensor, num_samples: int,
+                              generator: Optional[torch.Generator] = None,
+                              scores: Optional[torch.Tensor] = None):
+    """Pixels with nonzero depth (see sample_valid_pixels_masked)."""
+    return sample_valid_pixels_masked(depth != 0, num_samples, generator, scores)
+
+
+def _pixels_to_camera_dirs(h: torch.Tensor, w: torch.Tensor, intrinsics: torch.Tensor):
+    """Normalized image coords ((v - cy)/fy, (u - cx)/fx) of (B, n) pixels."""
+    fx, fy = intrinsics[:, 0, 0][:, None], intrinsics[:, 1, 1][:, None]
+    cx, cy = intrinsics[:, 0, 2][:, None], intrinsics[:, 1, 2][:, None]
+    return (h - cy) / fy, (w - cx) / fx
+
+
+def _camera_to_world(xyz_camera: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """(B, N, 3) camera-space points through (B, 4, 4) camera->world poses."""
+    h = torch.cat([xyz_camera, torch.ones_like(xyz_camera[..., :1])], dim=-1)
+    world_h = torch.einsum("bij,bnj->bni", pose, h)
+    return world_h[..., :3] / world_h[..., 3:4]
+
+
+def sample_points_on_rays(h: torch.Tensor, w: torch.Tensor, depths: torch.Tensor,
+                          intrinsics: torch.Tensor, poses: torch.Tensor, N: int, M: int,
+                          delta: float, min_dist: float, sigma: float,
+                          generator: Optional[torch.Generator] = None,
+                          noise: Optional[torch.Tensor] = None):
+    """iSDF ray samples through (B, n_rays) pixels of surface depth `depths`:
+    the surface point, N stratified points linspace(min_dist, depth + delta)
+    and M points depth + sigma * noise. `noise` (B, n_rays, M) injects the
+    Gaussian draw.
+
+    Returns xyz_world (B, n_rays, 1+N+M, 3) and z (B, n_rays, 1+N+M)."""
+    B, n_rays = depths.shape
+    S = 1 + N + M
+    # the reference's jnp.linspace with array endpoints, rounded as compiled
+    # (ops.coords.linspace): start*(1 - i*r) + i*(stop*r), the last point stop
+    stop = depths + delta
+    if N > 1:
+        r = torch.tensor(1.0, dtype=torch.float32, device=depths.device) / (N - 1)
+        i = torch.arange(N - 1, dtype=torch.float32, device=depths.device)
+        strat = torch.cat([min_dist * (1 - i * r) + i * (stop[..., None] * r), stop[..., None]], -1)
+    else:
+        strat = torch.full_like(depths[..., None], min_dist)
+    if noise is None:
+        noise = draw_normal((B, n_rays, M), generator, depths.device)
+    gauss = depths[..., None] + sigma * noise.to(depths.device, depths.dtype)
+    z = torch.cat([depths[..., None], strat, gauss], dim=-1)
+    h_norm, w_norm = _pixels_to_camera_dirs(h.to(z.dtype), w.to(z.dtype), intrinsics)
+    xyz_camera = torch.stack([w_norm[..., None] * z, h_norm[..., None] * z, z], dim=-1)
+    xyz_world = _camera_to_world(xyz_camera.reshape(B, n_rays * S, 3), poses)
+    return xyz_world.reshape(B, n_rays, S, 3), z
 
 
 def uniform_presample(xyz: torch.Tensor, presample: int,

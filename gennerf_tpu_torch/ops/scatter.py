@@ -35,10 +35,18 @@ def segment_mean(values: torch.Tensor, index: torch.Tensor, num_segments: int) -
 
 
 def segment_max(values: torch.Tensor, index: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """Segment max; empty segments are 0."""
+    """Segment max; empty segments are 0.
+
+    The reduction starts from -inf, not 0: scatter_reduce's backward
+    splits a segment's gradient evenly among the values equal to its max
+    and counts the initial value among them even with include_self=False,
+    so a zero start would give ties at 0 (ReLU zeros) 1/(n+1) each where
+    the reference's scatter-max gives 1/n. Including a -inf start changes
+    no max and saves the kernel that excludes it."""
     B, _, C = values.shape
-    out = torch.zeros(B, num_segments, C, dtype=values.dtype, device=values.device)
-    return out.scatter_reduce_(1, _expand_index(index, C), values, "amax", include_self=False)
+    out = torch.full((B, num_segments, C), float("-inf"), dtype=values.dtype, device=values.device)
+    out = out.scatter_reduce_(1, _expand_index(index, C), values, "amax", include_self=True)
+    return out.nan_to_num(neginf=0.0)
 
 
 def scatter_to_plane(features: torch.Tensor, index: torch.Tensor, reso: int,

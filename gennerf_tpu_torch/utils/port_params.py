@@ -1,4 +1,4 @@
-"""JAX/flax GenNerf parameters -> the port's state_dict.
+"""JAX/flax GenNerf parameters <-> the port's state_dict.
 
 The input is the flax `params` tree as nested dicts of numpy arrays (no
 JAX needed to read it). Dense kernels (in, out) transpose to torch's
@@ -77,6 +77,70 @@ def gen_nerf_params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
         i += 1
     _dense(out, "head_geo.fc", tree["head_geo"]["Dense_0"])
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
+
+
+def _arr(state: Dict, key: str) -> np.ndarray:
+    return state[key].detach().cpu().numpy().astype(np.float32)
+
+
+def _dense_inv(state: Dict, prefix: str) -> dict:
+    p = {"kernel": np.ascontiguousarray(_arr(state, prefix + ".weight").T)}
+    if prefix + ".bias" in state:
+        p["bias"] = _arr(state, prefix + ".bias")
+    return p
+
+
+def _conv_inv(state: Dict, prefix: str) -> dict:
+    return {"kernel": np.ascontiguousarray(_arr(state, prefix + ".weight").transpose(2, 3, 1, 0)),
+            "bias": _arr(state, prefix + ".bias")}
+
+
+def _conv_transpose_inv(state: Dict, prefix: str) -> dict:
+    k = _arr(state, prefix + ".weight").transpose(2, 3, 0, 1)[::-1, ::-1]
+    return {"kernel": np.ascontiguousarray(k), "bias": _arr(state, prefix + ".bias")}
+
+
+def _block_inv(state: Dict, prefix: str) -> dict:
+    p = {"Dense_0": _dense_inv(state, prefix + ".fc_0"), "Dense_1": _dense_inv(state, prefix + ".fc_1")}
+    if prefix + ".shortcut.weight" in state:
+        p["Dense_2"] = _dense_inv(state, prefix + ".shortcut")
+    return p
+
+
+def flax_params_from_gen_nerf(state: Dict[str, torch.Tensor]) -> dict:
+    """GenNerf state_dict -> the flax `params` tree (nested dicts of numpy
+    float32 arrays), the inverse of `gen_nerf_params_from_flax`: a model
+    the port trains is written with `save_params_npz` as the npz the
+    predict and render CLIs (and the JAX side) read."""
+    pn = {"fc_pos": _dense_inv(state, "pointnet.fc_pos"), "fc_c": _dense_inv(state, "pointnet.fc_c")}
+    i = 0
+    while f"pointnet.blocks.{i}.fc_0.weight" in state:
+        pn[f"block_{i}"] = _block_inv(state, f"pointnet.blocks.{i}")
+        i += 1
+    if "pointnet.unet.conv_final.weight" in state:
+        un = {"conv_final": _conv_inv(state, "pointnet.unet.conv_final")}
+        i = 0
+        while f"pointnet.unet.down_convs.{i}.conv1.weight" in state:
+            un[f"down_{i}"] = {"Conv_0": _conv_inv(state, f"pointnet.unet.down_convs.{i}.conv1"),
+                               "Conv_1": _conv_inv(state, f"pointnet.unet.down_convs.{i}.conv2")}
+            i += 1
+        i = 0
+        while f"pointnet.unet.up_convs.{i}.upconv.weight" in state:
+            pre = f"pointnet.unet.up_convs.{i}"
+            un[f"up_{i}"] = {"ConvTranspose_0": _conv_transpose_inv(state, pre + ".upconv"),
+                             "Conv_0": _conv_inv(state, pre + ".conv1"),
+                             "Conv_1": _conv_inv(state, pre + ".conv2")}
+            i += 1
+        pn["unet"] = un
+    mlp = {"lin_in": _dense_inv(state, "mlp.lin_in"), "lin_out": _dense_inv(state, "mlp.lin_out"),
+           "alpha": _arr(state, "mlp.alpha").reshape(())}
+    i = 0
+    while f"mlp.blocks.{i}.fc_0.weight" in state:
+        mlp[f"block_{i}"] = _block_inv(state, f"mlp.blocks.{i}")
+        if f"mlp.lin_z.{i}.weight" in state:
+            mlp[f"lin_z_{i}"] = _dense_inv(state, f"mlp.lin_z.{i}")
+        i += 1
+    return {"pointnet": pn, "mlp": mlp, "head_geo": {"Dense_0": _dense_inv(state, "head_geo.fc")}}
 
 
 def flatten_params(tree: dict, prefix: str = "") -> Dict[str, np.ndarray]:

@@ -444,3 +444,57 @@ def test_point_decode_kernel_zero_code(cuda, H):
     p = pd.fused_resnetfc_tsdf_plain(feat, code, w, bf16_feeds=True)
     err = (k - p).abs()
     assert err.max() < 5e-2 and err.mean() < 1e-3, (float(err.max()), float(err.mean()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes", [1, 4])  # FPS at (8, 16384) and (32, 16384)
+def test_train_step_with_fps_kernel_matches_plain(cuda, scenes):
+    """One full-width train step (seqs_multigeo_4cm) with K1 in the encode
+    against the same step with the plain FPS, same weights and draws: the
+    indices are identical, so only the order of the scatter_add atomics
+    differs (loss within 1e-5 relative, every gradient within 1e-4 of its
+    tensor's largest magnitude)."""
+    from unittest import mock
+
+    from gennerf_tpu_torch.data.synthetic import training_batch
+    from gennerf_tpu_torch.models import gen_nerf as gen_nerf_module
+    from gennerf_tpu_torch.predict import build_model
+    from gennerf_tpu_torch.train.step import StepDraws, batch_to_device, gen_nerf_forward_loss
+    from gennerf_tpu_torch.utils.config import load_experiment_model_config
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg_dict = load_experiment_model_config(
+        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "configs", "experiment", "seqs_multigeo_4cm.yaml"))
+    model = build_model(cfg_dict, cuda, seed=scenes)
+    cfg = model.cfg
+    batch = batch_to_device(training_batch(scenes, 8, 120, 160, cfg.voxel_dim_train,
+                                           cfg.voxel_size, seed=scenes), cuda)
+    BT, HW, presample = 8 * scenes, 120 * 160, cfg.encoder.pointnet.fps_presample
+    g = torch.Generator(device=cuda).manual_seed(scenes)
+    draws = StepDraws(sel=torch.randint(0, HW, (BT, presample), generator=g, device=cuda),
+                      start=torch.randint(0, presample, (BT,), generator=g, device=cuda),
+                      scores=torch.rand((BT, HW), generator=g, device=cuda),
+                      noise=torch.randn((BT, cfg.ray.num_rays, cfg.ray.M), generator=g,
+                                        device=cuda))
+
+    def plain_fps(xyz, npoint, generator=None, start=None):
+        idx = tsamp.farthest_point_sample_plain(xyz, npoint, start)
+        return torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)), idx
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss, _ = gen_nerf_forward_loss(model, batch, draws=draws)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    kernels.reset_launch_counts()
+    loss_k, grads_k = step()
+    assert kernels.FPS.launches == 1
+    with mock.patch.object(gen_nerf_module, "farthest_point_sample", plain_fps):
+        loss_p, grads_p = step()
+    assert kernels.FPS.launches == 1
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and np.isfinite(loss_p)
+    for name, gp in grads_p.items():
+        err = float((grads_k[name] - gp).abs().max())
+        assert err <= 1e-4 * float(gp.abs().max()), (name, err)

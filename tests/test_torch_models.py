@@ -233,6 +233,13 @@ def test_config_fields_match_jax():
     {"mlp": {"use_layer_norm": True}},
     {"encoder": {"pointnet": {"unet_kwargs": {"merge_mode": "add"}}}},
     {"encoder": {"use_pointnet": False}},
+    {"sampling_mode": "frustum"},
+    {"loss": {"use_eikonal": True}},
+    {"loss": {"use_gradient": True}},
+    {"loss": {"use_distill": True}},
+    {"teacher": {"type": "random_projection"}},
+    {"optimizer": {"type": "SGD"}},
+    {"scheduler": {"type": "CosineAnnealingLR"}},
 ])
 def test_unsupported_options_raise(override):
     def merge(a, b):
