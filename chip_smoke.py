@@ -37,12 +37,27 @@ Builds the port's CUDA kernels from csrc/ with nvcc, then:
   8. train: the training path of the same config (ray supervision, smooth_log
      TSDF loss, autograd, Adam with coupled L2) on `training_batch`'s scene
      of 8 frames, K1 in every step's encode: one step with K1 against the
-     same step with the plain FPS on the card (same weights and draws),
+     same step with the plain FPS on the card (same weights and draws,
+     deterministic algorithms),
      then 3 warm-up and 20 timed chained `train_step`s with the counters
      reset just before and read just after (K1 launches must equal the
      steps; the loss must fall), a profiled step, the peak memory, and a
      save / reload into a fresh model and optimizer / step against the
      uninterrupted step;
+  9. data: the multigeo dataset written by the port's writer (8 training
+     and 2 held-out scenes of 10 frames of 120x160, ground truth at 4 and
+     8 cm) into a temporary directory; ScannetDataModule of the same config
+     with its 3D augmentation; 2 epochs (16 steps) of `Trainer.fit` over
+     the loaders with the counters reset just before and read just after
+     (K1 launches must equal the steps, the losses finite), the loader
+     wait and step times, TSDF.transform's time per item, the peak memory
+     and a profiled loader-fed step; then both held-out scenes through the
+     predict CLI's `predict_split` from the trained weights (K2 once per
+     scene, each of those outputs held against the plain bf16-feed decode
+     of its tables; the masked TSDF L1 printed), one held-out view
+     rendered through K3, held against the plain march (the hit share
+     printed), and one step with K1 against the plain-FPS step on the
+     fit's first augmented 480x640 batch;
 then a `kernels` JSON line, the nvidia-smi line and the final result line.
 Every phase raises on failure. Needs one CUDA card; exits non-zero without.
 """
@@ -85,6 +100,9 @@ SPARSE_TOL = 1e-5
 # indices, so only the order of the scatter_add atomics differs
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+# the data phase: the multigeo dataset (8 training scenes, 2 held out, 10
+# frames of 120x160 each), 2 epochs of one window per scene
+DATA_TRAIN_SCENES, DATA_FRAMES, DATA_EPOCHS = 8, 10, 2
 # save, reload into a fresh model and optimizer, one step: the same loss up
 # to the atomics' order
 RESUME_RTOL = 1e-5
@@ -145,40 +163,29 @@ def profile_device(torch, fn, total_ms: float, card: str) -> dict:
             "card": card}
 
 
-def train_phase(torch, dev, cfg_dict: dict, smi: str) -> dict:
-    """Phase 8 (see the module docstring); returns the launch counts of
-    the main-path steps."""
+def k1_step_vs_plain(torch, dev, model, batch: dict, seed: int) -> dict:
+    """One train step's loss and gradients with K1 against the same step
+    with the plain FPS patched into the encoder, on the same weights and
+    draws; raises when they disagree beyond TRAIN_LOSS_RTOL and
+    TRAIN_GRAD_TOL. The steps run with torch's deterministic algorithms
+    (scatter_add's atomics otherwise add in any order, which a gradient
+    that cancels to a small sum, like a UNet bias's on a 480x640 batch,
+    magnifies to 1e-3 of its max-abs); the K1 step runs twice to show that
+    floor. These launches are a comparison, not the main path."""
     import contextlib
-    import tempfile
     from unittest import mock
 
-    from gennerf_tpu_torch.data.synthetic import training_batch
     from gennerf_tpu_torch.models import gen_nerf as gen_nerf_module
     from gennerf_tpu_torch.ops import kernels
     from gennerf_tpu_torch.ops.sampling import farthest_point_sample_plain
-    from gennerf_tpu_torch.predict import build_model
-    from gennerf_tpu_torch.train.checkpoints import load_checkpoint, save_checkpoint
-    from gennerf_tpu_torch.train.state import make_optimizer
-    from gennerf_tpu_torch.train.step import (
-        StepDraws, batch_to_device, gen_nerf_forward_loss, train_step,
-    )
-    from gennerf_tpu_torch.utils.config import load_experiment_config
+    from gennerf_tpu_torch.train.step import StepDraws, gen_nerf_forward_loss
 
-    clip = load_experiment_config(EXPERIMENT, "train")["trainer"].get("gradient_clip_val")
-    t0 = time.perf_counter()
-    batch_np = training_batch(1, NUM_FRAMES, HEIGHT, WIDTH, cfg_dict["voxel_dim_train"],
-                              cfg_dict["voxel_size"], SEED)
-    batch_s = time.perf_counter() - t0
-    batch = batch_to_device(batch_np, dev)
-    model = build_model(cfg_dict, dev, SEED)
     cfg = model.cfg
-    opt = make_optimizer(model.parameters(), cfg.optimizer, clip)
-    BT, HW = NUM_FRAMES, HEIGHT * WIDTH
-    R, S = cfg.ray.num_rays, 1 + cfg.ray.N + cfg.ray.M
+    B, T, H, W = batch["depth"].shape
+    BT, HW = B * T, H * W
+    R = cfg.ray.num_rays
     presample = cfg.encoder.pointnet.fps_presample
-
-    # one step with K1 against the same step with the plain FPS on the card
-    g = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.Generator(device=dev).manual_seed(seed)
     draws = StepDraws(sel=torch.randint(0, HW, (BT, presample), generator=g, device=dev),
                       start=torch.randint(0, presample, (BT,), generator=g, device=dev),
                       scores=torch.rand((BT, HW), generator=g, device=dev),
@@ -200,21 +207,63 @@ def train_phase(torch, dev, cfg_dict: dict, smi: str) -> dict:
         return (float(loss.detach()), {n: p.grad.clone() for n, p in model.named_parameters()},
                 kernels.FPS.launches - before)
 
-    loss_k, grads_k, k1_kernel = one_step(plain=False)
-    loss_p, grads_p, k1_plain = one_step(plain=True)
+    def grad_err(a, b):
+        return {n: float((a[n] - b[n]).abs().max()) / max(float(b[n].abs().max()), 1e-30)
+                for n in b}
+
+    deterministic = (torch.are_deterministic_algorithms_enabled(),
+                     torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss_k, grads_k, k1_kernel = one_step(plain=False)
+        _, grads_k2, _ = one_step(plain=False)
+        loss_p, grads_p, k1_plain = one_step(plain=True)
+    finally:
+        torch.use_deterministic_algorithms(deterministic[0])
+        torch.backends.cudnn.deterministic = deterministic[1]
     model.zero_grad(set_to_none=True)
-    grad_err = {n: float((grads_k[n] - grads_p[n]).abs().max())
-                / max(float(grads_p[n].abs().max()), 1e-30) for n in grads_p}
-    worst = max(grad_err, key=grad_err.get)
-    vs_plain = {"loss_kernel": loss_k, "loss_plain": loss_p,
+    err = grad_err(grads_k, grads_p)
+    worst = max(err, key=err.get)
+    vs_plain = {"frames": [T, H, W], "loss_kernel": loss_k, "loss_plain": loss_p,
                 "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
-                "worst_grad": worst, "worst_grad_err_over_max_abs": grad_err[worst],
+                "worst_grad": worst, "worst_grad_err_over_max_abs": err[worst],
+                "kernel_repeat_worst_grad_err": max(grad_err(grads_k2, grads_k).values()),
                 "k1_launches": [k1_kernel, k1_plain]}
     if (k1_kernel, k1_plain) != (1, 0):
         raise RuntimeError(f"the K1 step launched K1 {k1_kernel} times, the plain one {k1_plain}")
-    if not (vs_plain["loss_rel_err"] <= TRAIN_LOSS_RTOL and grad_err[worst] <= TRAIN_GRAD_TOL):
+    if not (vs_plain["loss_rel_err"] <= TRAIN_LOSS_RTOL and err[worst] <= TRAIN_GRAD_TOL):
         raise RuntimeError(f"train step with K1 disagrees with the plain-FPS step: {vs_plain}")
+    return vs_plain
 
+
+def train_phase(torch, dev, cfg_dict: dict, smi: str) -> dict:
+    """Phase 8 (see the module docstring); returns the launch counts of
+    the main-path steps."""
+    import tempfile
+
+    from gennerf_tpu_torch.data.synthetic import training_batch
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.predict import build_model
+    from gennerf_tpu_torch.train.checkpoints import load_checkpoint, save_checkpoint
+    from gennerf_tpu_torch.train.state import make_optimizer
+    from gennerf_tpu_torch.train.step import batch_to_device, train_step
+    from gennerf_tpu_torch.utils.config import load_experiment_config
+
+    clip = load_experiment_config(EXPERIMENT, "train")["trainer"].get("gradient_clip_val")
+    t0 = time.perf_counter()
+    batch_np = training_batch(1, NUM_FRAMES, HEIGHT, WIDTH, cfg_dict["voxel_dim_train"],
+                              cfg_dict["voxel_size"], SEED)
+    batch_s = time.perf_counter() - t0
+    batch = batch_to_device(batch_np, dev)
+    model = build_model(cfg_dict, dev, SEED)
+    cfg = model.cfg
+    opt = make_optimizer(model.parameters(), cfg.optimizer, clip)
+    BT = NUM_FRAMES
+    R, S = cfg.ray.num_rays, 1 + cfg.ray.N + cfg.ray.M
+
+    # one step with K1 against the same step with the plain FPS on the card
+    vs_plain = k1_step_vs_plain(torch, dev, model, batch, SEED)
     # the main path: chained steps, counters reset just before, read just after
     gen = torch.Generator(device=dev).manual_seed(SEED)
     torch.cuda.reset_peak_memory_stats()
@@ -277,6 +326,193 @@ def train_phase(torch, dev, cfg_dict: dict, smi: str) -> dict:
     if resume_rel > RESUME_RTOL:
         raise RuntimeError(f"the resumed step disagrees: {loss_b} against {loss_a}")
     return launches
+
+
+def data_phase(torch, dev, smi: str) -> dict:
+    """Phase 9 (see the module docstring); returns the launch counts of
+    the main-path runs (the fit, the held-out predict, the render)."""
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+
+    from gennerf_tpu_torch.data.datamodule import ScannetDataModule
+    from gennerf_tpu_torch.data.make_multigeo import make_multigeo
+    from gennerf_tpu_torch.ops import grid_decode as grid_decode_module
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.predict import build_model, predict_split
+    from gennerf_tpu_torch.render import render_encoded
+    from gennerf_tpu_torch.train.loop import Trainer
+    from gennerf_tpu_torch.train.predict import make_point_tsdf_fn, uses_grid_decode
+    from gennerf_tpu_torch.train.state import make_optimizer
+    from gennerf_tpu_torch.train.step import batch_to_device, train_step
+    from gennerf_tpu_torch.tsdf import tsdf as tsdf_module
+    from gennerf_tpu_torch.utils.config import load_experiment_config
+
+    totals = {k.name: 0 for k in kernels.KERNELS}
+
+    def add_launches():
+        for k in kernels.KERNELS:
+            totals[k.name] += k.launches
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "multigeo")
+        t0 = time.perf_counter()
+        make_multigeo(root, train=DATA_TRAIN_SCENES, frames=DATA_FRAMES, height=HEIGHT,
+                      width=WIDTH, voxel_sizes=(4, 8))
+        write_s = time.perf_counter() - t0
+        cfg = load_experiment_config(EXPERIMENT, "train", [f"paths.data_dir={root}"])
+        data_cfg, trainer_cfg = cfg["data"], cfg["trainer"]
+        if not (data_cfg["random_rotation_3d"] and data_cfg["random_translation_3d"]):
+            raise RuntimeError("the data phase needs the config's augmentation on")
+        datamodule = ScannetDataModule(data_cfg, seed=SEED)
+        train_loader = datamodule.train_dataloader()
+        model = build_model(cfg["model"], dev, SEED)
+        opt = make_optimizer(model.parameters(), model.cfg.optimizer,
+                             trainer_cfg.get("gradient_clip_val"))
+
+        # the fit's first batch, from a second module of the same seed: the
+        # fit's own loader starts at its first epoch
+        t0 = time.perf_counter()
+        first = next(iter(ScannetDataModule(data_cfg, seed=SEED).train_dataloader()))
+        first_batch_s = time.perf_counter() - t0
+
+        # the main path: Trainer.fit over the loaders, counters reset just
+        # before and read just after; TSDF.transform timed in the workers
+        transform_s = []
+        real_transform = tsdf_module.TSDF.transform
+
+        def timed_transform(self, *a, **k):
+            t = time.perf_counter()
+            out = real_transform(self, *a, **k)
+            transform_s.append(time.perf_counter() - t)
+            return out
+
+        # no validation loader: the config validates every 20th epoch
+        trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), None,
+                          max_epochs=DATA_EPOCHS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with mock.patch.object(tsdf_module.TSDF, "transform", timed_transform):
+            t0 = time.perf_counter()
+            trainer.fit(train_loader)
+            fit_s = time.perf_counter() - t0
+        fit_launches = {k.name: k.launches for k in kernels.KERNELS}
+        add_launches()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        steps = trainer.global_step  # fit raises on a non-finite loss
+        waits = [t["data_wait_ms"] for t in trainer.timings]
+        step_ms = [t["step_ms"] for t in trainer.timings]
+        # one profiled loader-fed step: the next batch from a running loader, then the step
+        it = iter(train_loader)
+        next(it)
+        prof = profile_device(
+            torch, lambda: train_step(model, opt, batch_to_device(next(it), dev), trainer.generator),
+            statistics.median(step_ms) + statistics.median(waits), smi)
+        del it
+        emit({"phase": "data", "config": "configs/experiment/seqs_multigeo_4cm.yaml",
+              "dataset": {"train_scenes": DATA_TRAIN_SCENES, "held_out": 2, "frames": DATA_FRAMES,
+                          "image": [HEIGHT, WIDTH], "voxel_sizes_cm": [4, 8],
+                          "write_s": write_s},
+              "loader": {"num_workers": data_cfg.get("num_workers_train"),
+                         "batch_frames": list(first["depth"].shape),
+                         "volume": list(first["vol_%02d_tsdf" % round(
+                             100 * data_cfg["voxel_size"])].shape),
+                         "first_batch_s": first_batch_s},
+              "steps": steps, "epochs": DATA_EPOCHS, "launches": fit_launches,
+              "fit_s": fit_s, "step_ms_median": statistics.median(step_ms),
+              "step_ms_first": step_ms[0], "data_wait_ms_median": statistics.median(waits),
+              "data_wait_ms_mean": statistics.mean(waits), "data_wait_ms_first": waits[0],
+              "transform_ms_per_item": 1e3 * statistics.mean(transform_s),
+              "transform_calls": len(transform_s), "loss_last": trainer.metrics["train_combined"],
+              "peak_memory_bytes": peak_bytes, "card": smi})
+        emit({"phase": "data_profile", "what": "one loader-fed train_step (next batch + step)",
+              "k1_share": prof["fps_kernel_ms"] / max(prof["device_busy_ms"], 1e-9), **prof})
+        if fit_launches["fps"] != steps or steps != DATA_EPOCHS * DATA_TRAIN_SCENES:
+            raise RuntimeError(f"K1 launched {fit_launches['fps']} times in {steps} steps")
+
+        # the held-out scenes from the trained weights: the predict CLI's path
+        model.eval()
+        head_bias = float(model.head_geo.fc.bias.detach()[0])
+        if not uses_grid_decode(model):
+            raise RuntimeError("the trained model does not take the grid decode")
+        # each counted K2 call is kept, to be held against the plain decode
+        decoded = []
+        real_k2 = grid_decode_module.grid_decode_cuda
+
+        def recording_k2(tables, weights):
+            out = real_k2(tables, weights)
+            decoded.append((tables, weights, out))
+            return out
+
+        kernels.reset_launch_counts()
+        with mock.patch.object(grid_decode_module, "grid_decode_cuda", recording_k2):
+            results = predict_split(model, dict(data_cfg), os.path.join(tmp, "pred"), SEED)
+        torch.cuda.synchronize()
+        predict_launches = {k.name: k.launches for k in kernels.KERNELS}
+        add_launches()
+        if not predict_launches["grid_decode"] == len(decoded) == len(results) == 2:
+            raise RuntimeError(f"held-out predict launched K2 {predict_launches['grid_decode']} "
+                               f"times for {len(results)} scenes")
+        # those K2 outputs against the plain bf16-feed decode of the same tables
+        grid_err = []
+        for tables, weights, out in decoded:
+            err = (out - grid_decode_module.separable_grid_decode_plain(
+                tables, weights, bf16_feeds=True)).abs()
+            grid_err.append((float(err.max()), float(err.mean())))
+        grid_max = max(e[0] for e in grid_err)
+        grid_mean = max(e[1] for e in grid_err)
+        voxel_dim = tuple(decoded[0][2].shape)
+        del decoded
+
+        # one held-out view from the trained weights: K3's march against the plain march
+        scene_batch = next(iter(datamodule.predict_dataloader()))
+        scene = scene_batch["scene"][0]
+        frames = {k: torch.as_tensor(scene_batch[k][0]).to(dev)
+                  for k in ("projection", "image", "depth", "intrinsics", "pose")}
+        with torch.no_grad():
+            repr_ = model.encode(frames["projection"][None], frames["image"][None],
+                                 frames["depth"][None], torch.Generator().manual_seed(SEED))
+        render_args = (model, repr_, frames["depth"], frames["intrinsics"], frames["pose"])
+        kernels.reset_launch_counts()
+        rk = render_encoded(*render_args, make_point_tsdf_fn(model, repr_), 1)
+        torch.cuda.synchronize()
+        render_launches = {k.name: k.launches for k in kernels.KERNELS}
+        add_launches()
+        rp = render_encoded(*render_args, make_point_tsdf_fn(model, repr_, plain=True), 1)
+        hk, hp = rk["ray_depth"] > 0, rp["ray_depth"] > 0
+        mask_agree = float((hk == hp).mean())
+        ddiff = np.abs(rk["ray_depth"] - rp["ray_depth"])[hk & hp]
+        depth_agree = float((ddiff <= RENDER_DEPTH_TOL).mean()) if ddiff.size else 1.0
+        emit({"phase": "data_predict", "scenes": results, "head_bias": head_bias,
+              "launches": predict_launches, "voxel_dim": list(voxel_dim),
+              "grid_vs_plain": {"max_abs": grid_max, "mean_abs": grid_mean},
+              "grid_tolerance": {"max_abs": GRID_MAX_ABS_TOL, "mean_abs": GRID_MEAN_ABS_TOL},
+              "render": {"scene": scene, "view": [int(v) for v in rk["views"]],
+                         "image": list(frames["depth"].shape[-2:]),
+                         "launches": render_launches, "hit_share": float(hk.mean()),
+                         "hit_share_plain": float(hp.mean()),
+                         "vs_plain_mask_agree": mask_agree, "vs_plain_depth_agree": depth_agree,
+                         "both_hit_rays": int(ddiff.size)},
+              "render_tolerance": {"mask_agree": RENDER_MASK_AGREE, "depth_m": RENDER_DEPTH_TOL,
+                                   "depth_agree": RENDER_DEPTH_AGREE},
+              "eval_tsdf_l1_16_steps_not_quality": {k: v.get("l1") for k, v in results.items()},
+              "card": smi})
+        if not (grid_max <= GRID_MAX_ABS_TOL and grid_mean <= GRID_MEAN_ABS_TOL):
+            raise RuntimeError(f"K2 on trained weights disagrees: max {grid_max}, mean {grid_mean}")
+        if render_launches["point_decode"] < 1:
+            raise RuntimeError("the held-out render launched no point_decode kernel")
+        if mask_agree < RENDER_MASK_AGREE or depth_agree < RENDER_DEPTH_AGREE:
+            raise RuntimeError(f"K3 march on trained weights disagrees with the plain march: "
+                               f"masks {mask_agree}, depths {depth_agree}")
+
+        # K1 against the plain FPS on the first augmented 480x640 loader batch
+        vs_plain = k1_step_vs_plain(torch, dev, model, batch_to_device(first, dev), SEED)
+        emit({"phase": "data_vs_plain_fps", "vs_plain_fps": vs_plain,
+              "tolerance": {"loss_rel": TRAIN_LOSS_RTOL, "grad_over_max_abs": TRAIN_GRAD_TOL},
+              "card": smi})
+    return totals
 
 
 def main() -> int:
@@ -538,8 +774,7 @@ def main() -> int:
         raise RuntimeError(f"point-decode kernel disagrees: max {point_max}, mean {point_mean}")
 
     # 6. render: a random field need not cross zero, so lin_out's bias moves
-    # along the head until the median pre-tanh head over the grid is 0 (the
-    # head bias stays 0, as the point decode requires)
+    # along the head until the median pre-tanh head over the grid is 0
     d_geo = cfg.mlp.d_out_geo
     with torch.no_grad():
         shift = -math.atanh(float(vol_p.median()) / smoothing)
@@ -627,22 +862,29 @@ def main() -> int:
     # 8. train: the training path, K1 in every step's encode
     train_launches = train_phase(torch, dev, cfg_dict, smi)
 
+    # 9. data: the on-disk dataset through the loaders into training, then
+    # held-out predict and render from the trained weights
+    data_launches = data_phase(torch, dev, smi)
+
     kernel_line = {"kernels": [
         {"name": "fps", "route": "cuda", "source": "gennerf_tpu_torch/csrc/fps.cu",
          "replaces": "gennerf_tpu/ops/pallas/fps.py:33",
-         "launches": launches["fps"] + train_launches["fps"],
+         "launches": (launches["fps"] + render_launches["fps"] + sparse_launches["fps"]
+                      + train_launches["fps"] + data_launches["fps"]),
          "max_abs_err": float((idx_k - idx_p).abs().max()), "ms": fps_ms,
          "plain_ms": fps_plain_ms, "bound_ms": fps_bound, "bound_by": "operations",
          "library_ms": None},
         {"name": "grid_decode", "route": "cuda", "source": "gennerf_tpu_torch/csrc/grid_decode.cu",
          "replaces": "gennerf_tpu/ops/pallas/fused_decoder.py:353",
-         "launches": launches["grid_decode"], "max_abs_err": grid_max, "ms": grid_ms,
+         "launches": launches["grid_decode"] + data_launches["grid_decode"],
+         "max_abs_err": grid_max, "ms": grid_ms,
          "plain_ms": grid_plain_ms, "bound_ms": grid_bound,
          "bound_by": "operations" if grid_flops / PEAK_BF16 >= grid_bytes / PEAK_BYTES else "bytes",
          "library_ms": None},
         {"name": "point_decode", "route": "cuda", "source": "gennerf_tpu_torch/csrc/point_decode.cu",
          "replaces": "gennerf_tpu/ops/pallas/fused_decoder.py:53",
-         "launches": render_launches["point_decode"], "max_abs_err": point_max, "ms": point_ms,
+         "launches": render_launches["point_decode"] + data_launches["point_decode"],
+         "max_abs_err": point_max, "ms": point_ms,
          "plain_ms": point_plain_ms, "bound_ms": point_bound,
          "bound_by": "operations" if point_flops / PEAK_BF16 >= point_bytes / PEAK_BYTES else "bytes",
          "library_ms": None},

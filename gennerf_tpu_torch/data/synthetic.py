@@ -1,19 +1,25 @@
 """Analytic RGB-D frames of a synthetic scene in numpy (the port's own copy
-of `look_at_pose`, `render_scene` and `random_primitives` from
-gennerf_tpu/data/synthetic.py, for the sphere and box primitives over a
-floor plane), plus `ring_frames`, which renders a ring of inward-looking
+of `look_at_pose`, `render_scene`, `random_primitives` and `generate_scene`
+from gennerf_tpu/data/synthetic.py, for the sphere and box primitives over
+a floor plane), plus `ring_frames`, which renders a ring of inward-looking
 cameras for predict drives, and `training_batch`, which adds the ground-
 truth volume, fused from the frames by the port's `tsdf.fusion`, for
-training drives.
+training drives. `generate_scene` writes a scene to disk in the layout the
+loaders read.
 """
 from __future__ import annotations
 
+import json
+import os
+import tarfile
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from ..tsdf.fusion import TSDFFusion
+from ..tsdf.tsdf import TSDF
+from ..utils.image import write_png
 
 
 def look_at_pose(eye, target, up=(0.0, 0.0, 1.0)) -> np.ndarray:
@@ -228,3 +234,67 @@ def training_batch(B: int, T: int, H: int, W: int, voxel_dim, voxel_size: float,
     batch = {k: np.stack(v).astype(np.float32) for k, v in out.items()}
     batch["vol_%02d_tsdf" % int(voxel_size * 100)] = np.stack(vols).astype(np.float32)
     return batch
+
+
+def generate_scene(out_dir: str, scene: str = "scene_synth0", num_frames: int = 24,
+                   H: int = 96, W: int = 128, voxel_sizes=(4, 8, 16), use_tar: bool = False,
+                   camera_radius: float = 2.2, camera_height: float = 1.3,
+                   sphere_center=(0.0, 0.0, 0.5), sphere_radius: float = 0.5, seed: int = 0,
+                   primitives=None) -> str:
+    """Write <out_dir>/scans/<scene>/{info.json, color/i.png, depth/i.png,
+    tsdf_XX.npz} as the reference generator does, from the same seed
+    stream: a ring of `num_frames` cameras around the scene, RGB and depth
+    (millimetres, uint16) PNGs, and the ground truth fused from the
+    rendered depths over the fixed box at origin (-1.6, -1.6, -0.16) m,
+    3.2 x 3.2 x 1.6 m, at each voxel size (cm) with a truncation of 3
+    voxels. The ground truth holds the TSDF channel only (the port's
+    fusion has no colour channel), and there is no mesh_gt.ply: it needs
+    marching cubes, which is not ported (no loader reads it). Returns the
+    info.json path."""
+    rng = np.random.default_rng(seed)
+    scene_dir = os.path.join(out_dir, "scans", scene)
+    color_dir = os.path.join(scene_dir, "color")
+    depth_dir = os.path.join(scene_dir, "depth")
+    os.makedirs(color_dir, exist_ok=True)
+    os.makedirs(depth_dir, exist_ok=True)
+    f = 0.6 * W
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    target = np.asarray(sphere_center) if primitives is None else np.array([0.0, 0.0, 0.4])
+    frames, depths, projections = [], [], []
+    for i in range(num_frames):
+        ang = 2 * np.pi * i / num_frames + 0.01 * rng.standard_normal()
+        eye = np.array([camera_radius * np.cos(ang), camera_radius * np.sin(ang),
+                        camera_height + 0.05 * rng.standard_normal()])
+        pose = look_at_pose(eye, target)
+        depth, color = render_scene(H, W, K, pose, sphere_center, sphere_radius,
+                                    primitives=primitives)
+        img_path = os.path.join(color_dir, f"{i}.png")
+        dep_path = os.path.join(depth_dir, f"{i}.png")
+        write_png(img_path, color)
+        write_png(dep_path, (depth * 1000).astype(np.uint16))
+        frames.append({"file_name_image": img_path, "file_name_depth": dep_path,
+                       "intrinsics": K.tolist(), "pose": pose.tolist()})
+        projections.append((K @ np.linalg.inv(pose)[:3]).astype(np.float32))
+        depths.append(depth)
+    if use_tar:
+        for d, name in ((color_dir, "color"), (depth_dir, "depth")):
+            with tarfile.open(os.path.join(d, name + ".tar"), "w") as tar:
+                for i in range(num_frames):
+                    tar.add(os.path.join(d, f"{i}.png"), arcname=f"{i}.png")
+
+    origin = np.array([-1.6, -1.6, -0.16], np.float32)
+    extent = np.array([3.2, 3.2, 1.6], np.float32)
+    info = {"dataset": "synthetic", "scene": scene, "path": scene_dir, "frames": frames}
+    for vs_cm in voxel_sizes:
+        vs = vs_cm / 100.0
+        voxel_dim = tuple(int(round(e / vs)) for e in extent)
+        fusion = TSDFFusion(voxel_dim, vs, tuple(origin), trunc_ratio=3)
+        for proj, depth in zip(projections, depths):
+            fusion.integrate(torch.from_numpy(proj), torch.from_numpy(depth))
+        npz_path = os.path.join(scene_dir, f"tsdf_{vs_cm:02d}.npz")
+        TSDF(vs, torch.from_numpy(origin).reshape(1, 3), fusion.get_tsdf()).save(npz_path)
+        info[f"file_name_vol_{vs_cm:02d}"] = npz_path
+    info_path = os.path.join(scene_dir, "info.json")
+    with open(info_path, "w") as fjson:
+        json.dump(info, fjson)
+    return info_path

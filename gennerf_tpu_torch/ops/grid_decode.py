@@ -51,9 +51,10 @@ def extract_resnetfc_weights(mlp, head, d_geo: int, head_smoothing: float = 1.0)
     (f32, (in, out) layout, on the modules' device).
 
     lin_out and the head fold into one column, w_last = w_out[:, :d_geo] @
-    w_head, and one scalar b_last = b_out[:d_geo] @ w_head, both taken in
-    f64. The scalars alpha, b_last and the post-tanh smoothing ride along;
-    b_head is returned so callers can require it to be zero."""
+    w_head, and one scalar b_last = b_out[:d_geo] @ w_head + b_head, both
+    taken in f64: tanh(relu(x) @ w_last + b_last) is the head's output for
+    any head bias. The scalars alpha, b_last and the post-tanh smoothing
+    ride along."""
     n_blocks = len(mlp.blocks)
     f32, f64 = torch.float32, torch.float64
 
@@ -63,7 +64,8 @@ def extract_resnetfc_weights(mlp, head, d_geo: int, head_smoothing: float = 1.0)
     w_out = mlp.lin_out.weight.detach().T  # (H, d_out)
     w_head = head.fc.weight.detach().T  # (d_geo, 1)
     w_last = (w_out[:, :d_geo].to(f64) @ w_head.to(f64))[:, 0]
-    b_last = float(mlp.lin_out.bias.detach()[:d_geo].to(f64) @ w_head[:, 0].to(f64))
+    b_last = float(mlp.lin_out.bias.detach()[:d_geo].to(f64) @ w_head[:, 0].to(f64)
+                   + head.fc.bias.detach()[0].to(f64))
     return {
         "w_in": mlp.lin_in.weight.detach().T.to(f32).contiguous(),
         "b_in": mlp.lin_in.bias.detach().to(f32),
@@ -77,7 +79,6 @@ def extract_resnetfc_weights(mlp, head, d_geo: int, head_smoothing: float = 1.0)
         "b_last": b_last,
         "alpha": float(mlp.alpha),
         "smoothing": float(head_smoothing),
-        "b_head": float(head.fc.bias[0]),
     }
 
 

@@ -6,15 +6,26 @@ near-surface band only.
 
     python -m gennerf_tpu_torch.predict --config configs/experiment/seqs_multigeo_4cm.yaml \
         --params params.npz --frames frames.npz --out tsdf.npz
+    python -m gennerf_tpu_torch.predict --config configs/experiment/seqs_multigeo_4cm.yaml \
+        --params params.npz --data-dir D [--split val.txt] --out DIR
 
 `--params` is an npz of the JAX model's `params` tree with '/'-joined keys
-(utils/port_params.py); without it the weights are a seeded random init.
-`--frames` holds `projection` (T, 3, 4), `image` (T, 3, H, W) and `depth`
-(T, H, W). Runs on the card unless `--device cpu` is given.
+(utils/port_params.py), as the train CLI writes it; without it the weights
+are a seeded random init. `--frames` holds `projection` (T, 3, 4), `image`
+(T, 3, H, W) and `depth` (T, H, W). With `--data-dir`, every scene of the
+split (default: data.datasets_test) comes through the data module's
+predict loader (the inference path of ScenesDataset, which moves the scene
+by its origin offset), is reconstructed at voxel_dim_test and saved as
+DIR/{scene}.npz in the TSDF layout with its origin at the offset, and its
+masked TSDF L1 against the scene's ground truth is printed (the scripts/
+predict.py counterpart without the mesh). Runs on the card unless
+`--device cpu` is given.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
 from typing import Optional, Union
 
 import numpy as np
@@ -70,23 +81,65 @@ def reconstruct(model: GenNerf, projection: torch.Tensor, image: torch.Tensor,
     return vol.to(torch.float32)
 
 
-def main(argv=None) -> None:
-    from .utils.config import load_experiment_model_config
+def predict_split(model: GenNerf, data_cfg: dict, out_dir: str, seed: int = 0) -> dict:
+    """Reconstruct every scene of the data config's test split through the
+    predict loader; save out_dir/{scene}.npz (origin at the scene's offset)
+    and return {scene: {"l1": masked TSDF L1 against its ground truth,
+    "offset": (3,) origin}}."""
+    from .data.datamodule import ScannetDataModule
+    from .data.datasets import load_info_json
+    from .eval.metrics import eval_tsdf
+    from .tsdf.tsdf import TSDF
+
+    os.makedirs(out_dir, exist_ok=True)
+    model.eval()
+    loader = ScannetDataModule(data_cfg, seed=seed).predict_dataloader()
+    vs_cm = int(round(model.cfg.voxel_size * 100))
+    results = {}
+    generator = torch.Generator().manual_seed(seed)
+    for info_file, batch in zip(loader.dataset.info_files, loader):
+        scene = batch["scene"][0]
+        vol = reconstruct(model, batch["projection"][0], batch["image"][0], batch["depth"][0],
+                          generator=generator)
+        offset = np.asarray(batch["offset"][0], np.float32).reshape(1, 3)
+        pred = TSDF(model.cfg.voxel_size, torch.from_numpy(offset), vol.cpu())
+        pred.save(os.path.join(out_dir, f"{scene}.npz"))
+        info = load_info_json(info_file)
+        result = {"offset": offset[0].tolist()}
+        if f"file_name_vol_{vs_cm:02d}" in info:
+            result.update(eval_tsdf(pred, TSDF.load(info[f"file_name_vol_{vs_cm:02d}"])))
+        results[scene] = result
+        print(f"{scene}: {json.dumps(result)}", flush=True)
+    return results
+
+
+def main(argv=None):
+    from .utils.config import load_experiment_config
     from .utils.port_params import gen_nerf_params_from_flax, load_params_npz
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config", required=True, help="configs/experiment/<name>.yaml")
     parser.add_argument("--params", help="npz of the JAX params tree ('/'-joined keys)")
-    parser.add_argument("--frames", required=True, help="npz with projection, image, depth")
-    parser.add_argument("--out", required=True, help="output npz (tsdf, voxel_size, origin)")
+    source = parser.add_mutually_exclusive_group(required=True)
+    source.add_argument("--frames", help="npz with projection, image, depth")
+    source.add_argument("--data-dir", help="dataset root: reconstruct the scenes of a split")
+    parser.add_argument("--split", help="split list under --data-dir (default: data.datasets_test)")
+    parser.add_argument("--out", required=True,
+                        help="output npz (tsdf, voxel_size, origin); with --data-dir a directory")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
 
-    model = build_model(load_experiment_model_config(args.config), args.device, args.seed)
+    overrides = [f"paths.data_dir={os.path.abspath(args.data_dir)}"] if args.data_dir else []
+    cfg = load_experiment_config(args.config, "predict", overrides)
+    model = build_model(cfg["model"], args.device, args.seed)
     if args.params:
-        state = gen_nerf_params_from_flax(load_params_npz(args.params))
-        model.load_state_dict(state)
+        model.load_state_dict(gen_nerf_params_from_flax(load_params_npz(args.params)))
+    if args.data_dir:
+        data_cfg = dict(cfg["data"])
+        if args.split:
+            data_cfg["datasets_test"] = [args.split]
+        return predict_split(model, data_cfg, args.out, args.seed)
     with np.load(args.frames) as f:
         frames = {k: f[k] for k in ("projection", "image", "depth")}
     generator = torch.Generator().manual_seed(args.seed)

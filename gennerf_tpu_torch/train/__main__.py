@@ -2,14 +2,21 @@
 the reference's scripts/train.py for GenNerf experiments).
 
     python -m gennerf_tpu_torch.train --config configs/experiment/seqs_multigeo_4cm.yaml \
-        --out runs/multigeo [--batch b.npz] [--params p.npz] [--epochs E] \
-        [--resume dir] [--seed S] [--device cpu]
+        --out runs/multigeo [--data-dir D | --batch b.npz | --synthetic] [--params p.npz] \
+        [--epochs E] [--resume dir] [--seed S] [--device cpu]
 
-Without `--batch` it trains on `data.synthetic.training_batch` built from
-the seed (data.batch_size scenes of data.num_frames_train frames of
-120x160, the repo's multigeo dataset frames, the ground truth fused at
-voxel_dim_train) and validates on one more scene from seed + 1; `--batch`
-is an npz with that batch's keys, which then also serves validation.
+By default it trains on the config's dataset: `ScannetDataModule` builds
+the train and validation loaders from the `data` keys (the dataset lists,
+the sequence windowing, workers, shuffling and the 3D augmentation), with
+the data directory `--data-dir` (else `paths.data_dir`). Two fixed
+batches remain as explicit choices: `--batch`, an npz with a batch's keys,
+which then also serves validation, and `--synthetic`,
+`data.synthetic.training_batch` from the seed (data.batch_size scenes of
+data.num_frames_train frames of 120x160, the ground truth fused at
+voxel_dim_train), validated on one more scene from seed + 1. Neither
+augments, so both raise NotImplementedError when the config asks for
+random_rotation_3d or random_translation_3d.
+
 `--params` starts from a JAX params npz (utils/port_params.py), `--resume`
 continues a run from its checkpoint directory. The trainer settings
 (max_epochs, log_every_n_steps, check_val_every_n_epoch,
@@ -26,6 +33,7 @@ import os
 import numpy as np
 import torch
 
+from ..data.datamodule import ScannetDataModule
 from ..data.synthetic import training_batch
 from ..device import resolve_device, set_reference_precision
 from ..predict import build_model
@@ -36,15 +44,41 @@ from ..utils.port_params import (
 from .loop import Trainer
 from .state import make_optimizer
 
-# the frames of the repo's multigeo dataset (scripts/local/make_multigeo_dataset.py)
+# the frames of the repo's multigeo dataset (data/make_multigeo.py)
 HEIGHT, WIDTH = 120, 160
+AUGMENTATION_KEYS = ("random_rotation_3d", "random_translation_3d")
+
+
+def fixed_batches(args, data_cfg: dict, model_cfg):
+    """The train and validation batches of `--batch` or `--synthetic`;
+    raises NotImplementedError when the config asks for augmentation,
+    which needs the loaders."""
+    asked = [k for k in AUGMENTATION_KEYS if data_cfg.get(k)]
+    if asked:
+        raise NotImplementedError(
+            f"data.{', data.'.join(asked)} augment through the loaders; train from the dataset "
+            "(--data-dir) or turn them off for --batch / --synthetic")
+    if args.batch:
+        with np.load(args.batch) as f:
+            train = [{k: f[k] for k in f.files}]
+        return train, train
+    B = int(data_cfg["batch_size"])
+    dims, vs = model_cfg.voxel_dim_train, model_cfg.voxel_size
+    return ([training_batch(B, int(data_cfg["num_frames_train"]), HEIGHT, WIDTH, dims, vs,
+                            args.seed)],
+            [training_batch(B, int(data_cfg["num_frames_val"]), HEIGHT, WIDTH, dims, vs,
+                            args.seed + 1)])
 
 
 def main(argv=None) -> Trainer:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config", required=True, help="configs/experiment/<name>.yaml")
     parser.add_argument("--out", required=True, help="output directory")
-    parser.add_argument("--batch", help="npz of a training batch (default: synthetic scenes)")
+    source = parser.add_mutually_exclusive_group()
+    source.add_argument("--data-dir", help="dataset root (overrides paths.data_dir)")
+    source.add_argument("--batch", help="npz of one training batch")
+    source.add_argument("--synthetic", action="store_true",
+                        help="one synthetic batch built from the seed")
     parser.add_argument("--params", help="npz of a JAX params tree to start from")
     parser.add_argument("--epochs", type=int, help="max epochs (default: trainer.max_epochs)")
     parser.add_argument("--resume", help="checkpoint, or directory of an earlier run")
@@ -52,7 +86,8 @@ def main(argv=None) -> Trainer:
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
-    cfg = load_experiment_config(args.config, "train")
+    overrides = [f"paths.data_dir={os.path.abspath(args.data_dir)}"] if args.data_dir else []
+    cfg = load_experiment_config(args.config, "train", overrides)
     trainer_cfg, data_cfg = cfg["trainer"], cfg["data"]
     if str(trainer_cfg.get("precision", "32-true")) not in ("32-true", "32"):
         raise NotImplementedError(
@@ -64,23 +99,17 @@ def main(argv=None) -> Trainer:
         model.load_state_dict(gen_nerf_params_from_flax(load_params_npz(args.params)))
     optimizer = make_optimizer(model.parameters(), model.cfg.optimizer,
                                trainer_cfg.get("gradient_clip_val"))
-    if args.batch:
-        with np.load(args.batch) as f:
-            train_batches = [{k: f[k] for k in f.files}]
-        val_batches = train_batches
+    if args.batch or args.synthetic:
+        train_data, val_data = fixed_batches(args, data_cfg, model.cfg)
     else:
-        B = int(data_cfg["batch_size"])
-        dims, vs = model.cfg.voxel_dim_train, model.cfg.voxel_size
-        train_batches = [training_batch(B, int(data_cfg["num_frames_train"]), HEIGHT, WIDTH,
-                                        dims, vs, args.seed)]
-        val_batches = [training_batch(B, int(data_cfg["num_frames_val"]), HEIGHT, WIDTH,
-                                      dims, vs, args.seed + 1)]
+        datamodule = ScannetDataModule(data_cfg, seed=args.seed)
+        train_data, val_data = datamodule.train_dataloader(), datamodule.val_dataloader()
     trainer = Trainer(
         model, optimizer, torch.Generator(device=device).manual_seed(args.seed), args.out,
         max_epochs=args.epochs or int(trainer_cfg["max_epochs"]),
         log_every_n_steps=int(trainer_cfg.get("log_every_n_steps", 50)),
         check_val_every_n_epoch=int(trainer_cfg.get("check_val_every_n_epoch", 1)))
-    metrics = trainer.fit(train_batches, val_batches, ckpt_path=args.resume)
+    metrics = trainer.fit(train_data, val_data, ckpt_path=args.resume)
     save_params_npz(os.path.join(args.out, "params.npz"), flax_params_from_gen_nerf(model.state_dict()))
     print(f"trained {trainer.global_step} steps: "
           + ", ".join(f"{k}={v:.5g}" for k, v in sorted(metrics.items())))

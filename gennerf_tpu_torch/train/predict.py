@@ -2,9 +2,10 @@
 gennerf_tpu/train/predict.py).
 
 `predict_tsdf_volume` makes one static choice from the config: a
-triplane-only decoder the separable formulation supports, with a zero head
-bias, goes to the separable grid decode (the CUDA kernel on the card);
-every other config goes to the chunked per-point `decode_dense`.
+triplane-only decoder the separable formulation supports goes to the
+separable grid decode (the CUDA kernel on the card); every other config
+goes to the chunked per-point `decode_dense`. Both kernels take the head
+bias folded into their last scalar, so trained weights reach them too.
 `predict_tsdf_volume_sparse` decodes only the fusion prior's near-surface
 band. `make_point_tsdf_fn` and `decode_dense_fused` feed the triplane
 gather and the positional code of arbitrary points to the point-decode
@@ -55,13 +56,12 @@ def decode_dense(model: GenNerf, repr_: SceneRepr, points: torch.Tensor,
 
 def uses_grid_decode(model: GenNerf) -> bool:
     """The static dispatch: separable grid decode for triplane-only scenes
-    of a supported decoder with a zero head bias."""
+    of a supported decoder."""
     cfg = model.cfg
     return (
         supports_grid_decode(cfg)
         and set(cfg.encoder.pointnet.plane_type) == {"xz", "xy", "yz"}
         and cfg.encoder.pointnet.sample_mode == "bilinear"
-        and float(model.head_geo.fc.bias.detach()[0]) == 0.0
     )
 
 
@@ -191,11 +191,8 @@ def _point_decode_setup(model: GenNerf) -> dict:
     cfg = model.cfg
     if not supports_fused_decode(cfg):
         raise NotImplementedError("unsupported decoder config")
-    weights = extract_resnetfc_weights(model.mlp, model.head_geo, cfg.mlp.d_out_geo,
-                                       cfg.mlp.head_smoothing)
-    if weights["b_head"] != 0.0:
-        raise NotImplementedError("fused decode assumes zero head bias")
-    return pack_point_weights(weights)
+    return pack_point_weights(extract_resnetfc_weights(model.mlp, model.head_geo,
+                                                       cfg.mlp.d_out_geo, cfg.mlp.head_smoothing))
 
 
 def make_point_tsdf_fn(model: GenNerf, repr_: SceneRepr, plain: bool = False):
@@ -206,8 +203,7 @@ def make_point_tsdf_fn(model: GenNerf, repr_: SceneRepr, plain: bool = False):
     `plain=True` runs the kernel's plain bf16-feed version on any device
     (the reference the kernel's march is held against). Raises
     NotImplementedError for an unsupported decoder, a non-triplane or
-    non-bilinear scene, a non-zero head bias, or a decoder latent other
-    than the plane channels."""
+    non-bilinear scene, or a decoder latent other than the plane channels."""
     cfg = model.cfg
     planes = repr_.planes
     weights = _point_decode_setup(model)

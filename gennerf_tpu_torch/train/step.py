@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..device import set_reference_precision
@@ -37,8 +38,19 @@ class StepDraws(NamedTuple):
 
 
 def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """A batch of numpy arrays (or tensors) as float32 tensors on `device`."""
-    return {k: torch.as_tensor(v, dtype=torch.float32).to(device) for k, v in batch.items()}
+    """The numeric arrays (or tensors) of a batch as float32 tensors on
+    `device`; the loaders' lists (scene names, file names) stay behind. To
+    a CUDA device host arrays go through pinned memory and copy without
+    blocking the host."""
+    to_cuda = torch.device(device).type == "cuda"
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, torch.Tensor) or (isinstance(v, np.ndarray) and v.dtype.kind in "biuf"):
+            t = torch.as_tensor(v, dtype=torch.float32)
+            if to_cuda and t.device.type == "cpu":
+                t = t.pin_memory()
+            out[k] = t.to(device, non_blocking=to_cuda)
+    return out
 
 
 def sample_supervision_points(cfg: GenNerfConfig, batch: Dict[str, torch.Tensor],

@@ -200,16 +200,19 @@ def compose(
     return _resolve_value(copy.deepcopy(cfg), cfg)
 
 
-def load_experiment_config(experiment_yaml: str, config_name: str = "predict") -> Dict[str, Any]:
+def load_experiment_config(experiment_yaml: str, config_name: str = "predict",
+                           overrides: Optional[List[str]] = None) -> Dict[str, Any]:
     """The whole config of `configs/experiment/<name>.yaml` composed under
     the root config `config_name` ('predict' or 'train'), given the yaml's
-    path (the configs tree is its grandparent directory)."""
+    path (the configs tree is its grandparent directory), with dotted
+    `a.b=value` overrides."""
     path = os.path.abspath(experiment_yaml)
     exp_dir = os.path.dirname(path)
     if os.path.basename(exp_dir) != "experiment":
         raise ConfigError(f"{experiment_yaml} is not under a configs/experiment/ directory")
     name = os.path.splitext(os.path.basename(path))[0]
-    return compose(os.path.dirname(exp_dir), config_name, [f"experiment={name}"])
+    return compose(os.path.dirname(exp_dir), config_name,
+                   [f"experiment={name}"] + list(overrides or []))
 
 
 def load_experiment_model_config(experiment_yaml: str) -> Dict[str, Any]:

@@ -96,7 +96,7 @@ def test_extract_resnetfc_weights(decoder):
         np.testing.assert_array_equal(tw[name].numpy(), np.asarray(ref, np.float32), err_msg=name)
     alpha, b_last, smoothing = np.asarray(jw["scal"][0])
     assert (tw["alpha"], np.float32(tw["b_last"]), tw["smoothing"]) == (alpha, b_last, smoothing)
-    assert tw["b_head"] == jw["b_head"] == 0.0
+    assert jw["b_head"] == 0.0  # b_last folds the head bias (zero here)
     # the bf16 kernel feeds are the same roundings of the same values
     np.testing.assert_array_equal(tw["w0"].to(torch.bfloat16).float().numpy(),
                                   np.asarray(jw["w0"].astype(np.float32)))
@@ -171,6 +171,64 @@ def test_plain_bf16_matches_pallas_interpret(decoder, planes):
     # the bf16 feeds matter at this tolerance: the f32 decode is far away
     f32 = gd.separable_grid_decode_plain(tables, tw, bf16_feeds=False).numpy()
     assert np.abs(f32 - np.asarray(ref)).mean() > 100 * err.mean()
+
+
+def test_head_bias_folds_into_b_last(decoder, planes):
+    """A non-zero head bias (every trained model has one) folds into
+    b_last. With it, the bf16-feed plain decode holds against the Pallas
+    grid kernel in interpret mode at the zero-bias bounds above: the JAX
+    kernel takes a zero head bias only, so it runs the equivalent weights
+    with the bias moved into lin_out's bias along the head. The f32 plain
+    decode holds against the JAX f32 separable decode of those weights
+    within 1e-5, the bound of test_plain_f32_matches_separable_xla."""
+    jw, _ = decoder
+    rng = np.random.default_rng(3)
+    mlp_t = ResnetFC(D_IN, 9, NB, D_CODE, H, alpha=0.7)
+    head_t = TSDFHeadSimple(8, smoothing=1.05)
+    with torch.no_grad():
+        for p in list(mlp_t.parameters()) + list(head_t.parameters()):
+            p.copy_(torch.from_numpy(np.asarray(0.2 * rng.standard_normal(p.shape), np.float32)))
+        mlp_t.alpha.fill_(0.7)
+        head_t.fc.bias.fill_(0.3)
+    tw = gd.extract_resnetfc_weights(mlp_t, head_t, 8, head_smoothing=1.05)
+    w_head = head_t.fc.weight[0].detach().double()
+    b_out = mlp_t.lin_out.bias[:8].detach().double()
+    b_head = float(head_t.fc.bias.detach().double()[0])  # 0.3 in f32
+    assert tw["b_last"] == pytest.approx(float(b_out @ w_head) + b_head, abs=1e-12)
+    # the JAX params of the same decoder with the head bias moved into lin_out
+    moved = b_out + 0.3 * w_head / (w_head @ w_head)
+    params = {"lin_in": {"kernel": mlp_t.lin_in.weight.T.detach().numpy(),
+                         "bias": mlp_t.lin_in.bias.detach().numpy()},
+              "lin_out": {"kernel": mlp_t.lin_out.weight.T.detach().numpy(),
+                          "bias": np.concatenate([moved.float().numpy(),
+                                                  mlp_t.lin_out.bias[8:].detach().numpy()])},
+              "alpha": np.asarray(0.7, np.float32)}
+    for b in range(NB):
+        params[f"lin_z_{b}"] = {"kernel": mlp_t.lin_z[b].weight.T.detach().numpy(),
+                                "bias": mlp_t.lin_z[b].bias.detach().numpy()}
+        params[f"block_{b}"] = {
+            name: {"kernel": fc.weight.T.detach().numpy(), "bias": fc.bias.detach().numpy()}
+            for name, fc in (("Dense_0", mlp_t.blocks[b].fc_0), ("Dense_1", mlp_t.blocks[b].fc_1))}
+    head = {"Dense_0": {"kernel": head_t.fc.weight.T.detach().numpy(), "bias": np.zeros(1, np.float32)}}
+    params = jax.tree.map(lambda a: np.array(a, np.float32), params)
+    jw2 = jfd.extract_resnetfc_weights(params, head, NB, 8, head_smoothing=1.05)
+    voxel_dim = (16, 16, 64)
+    common = dict(voxel_dim=voxel_dim, voxel_size=0.08, **PE)
+    origin = np.array([0.05, -0.1, 0.02], np.float32)
+    ref = jfd.fused_grid_decode(*(jnp.asarray(planes[k]) for k in ("xz", "xy", "yz")),
+                                jnp.asarray(origin), jw2, n_blocks=NB, tj=jfd.pick_grid_tile(16, 64),
+                                interpret=True, **common)
+    tables = gd.grid_tables(*(_t(planes[k]) for k in ("xz", "xy", "yz")), _t(origin), tw, **common)
+    ours = gd.separable_grid_decode_plain(tables, tw, bf16_feeds=True).numpy()
+    err = np.abs(ours - np.asarray(ref))
+    assert (err > 1e-4).mean() < 1e-3 and err.mean() < 1e-5 and err.max() < 5e-2, (
+        (err > 1e-4).mean(), err.mean(), err.max())
+    # f32: the plain decode is the module's ResnetFC and head at the grid points
+    f32 = gd.separable_grid_decode_plain(tables, tw, bf16_feeds=False)
+    ref32 = jfd.separable_grid_decode_xla(*(jnp.asarray(planes[k]) for k in ("xz", "xy", "yz")),
+                                          jnp.asarray(origin), jw2, n_blocks=NB, use_bf16=False,
+                                          **common)
+    np.testing.assert_allclose(f32.numpy(), np.asarray(ref32), atol=1e-5, rtol=0)
 
 
 def test_grid_decode_flops():

@@ -117,8 +117,7 @@ def _point_weights(H, nb, d_in, d_code, device, seed=0):
         "wz": rnd(nb, d_code, H, scale=d_code ** -0.5), "bz": rnd(nb, H, scale=0.1),
         "w0": rnd(nb, H, H, scale=H ** -0.5), "w1": rnd(nb, H, H, scale=H ** -0.5),
         "b0": rnd(nb, H, scale=0.1), "b1": rnd(nb, H, scale=0.1),
-        "w_last": rnd(H, scale=H ** -0.5), "b_last": 0.05, "alpha": 0.7, "smoothing": 1.05,
-        "b_head": 0.0})
+        "w_last": rnd(H, scale=H ** -0.5), "b_last": 0.05, "alpha": 0.7, "smoothing": 1.05})
 
 
 @pytest.mark.parametrize("feat_shape,code_shape,dtype,match", [

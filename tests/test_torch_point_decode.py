@@ -43,6 +43,7 @@ from gennerf_tpu_torch.ops.weight_slabs import unpack_decode_weights
 from gennerf_tpu_torch.predict import reconstruct
 from gennerf_tpu_torch.train import predict as tpred
 from gennerf_tpu_torch.tsdf.fusion import apply_fusion_prior
+from gennerf_tpu_torch.utils.port_params import gen_nerf_params_from_flax
 from test_torch_predict import CFG, VOXEL_DIM, _jax_draws, _t, scene, task_pair  # noqa: F401
 
 NB, D_GEO, SMOOTHING = 2, 8, 1.05
@@ -72,6 +73,22 @@ def planes():
     rng = np.random.default_rng(7)
     return {k: (0.5 * rng.standard_normal((1, 8, 16, 16))).astype(np.float32)
             for k in ("xz", "xy", "yz")}
+
+
+def _head_bias_pair(model, tree, bias: float = 0.1):
+    """The port model with a head bias, and the JAX params of the same
+    decoder with that bias moved into lin_out's bias along the head (the
+    JAX point kernel takes a zero head bias only)."""
+    biased = copy.deepcopy(model)
+    with torch.no_grad():
+        biased.head_geo.fc.bias.fill_(bias)
+    w_head = tree["head_geo"]["Dense_0"]["kernel"][:, 0].astype(np.float64)
+    moved = jax.tree.map(np.asarray, tree)
+    lin_out = moved["mlp"]["lin_out"]
+    lin_out["bias"] = lin_out["bias"].copy()
+    lin_out["bias"][:D_GEO] = (lin_out["bias"][:D_GEO] + bias * w_head / (w_head @ w_head)
+                               ).astype(np.float32)
+    return biased, {"params": jax.tree.map(jnp.asarray, moved), "batch_stats": {}}
 
 
 def _close_to_kernel(ours: np.ndarray, ref: np.ndarray) -> float:
@@ -172,13 +189,24 @@ def test_make_point_tsdf_fn_matches_jax(task_pair, planes):
 
 @pytest.mark.parametrize("case", ["head_bias", "decoder", "planes", "channels", "sample_mode"])
 def test_make_point_tsdf_fn_gates(task_pair, planes, case):
-    model = task_pair[-1]
+    """Each unsupported scene or decoder raises. A head bias is supported
+    (it folds into b_last): the decode then holds against the JAX point
+    kernel on the same decoder with the bias moved into lin_out, at the
+    bounds of test_make_point_tsdf_fn_matches_jax."""
+    task, _, _, tree, model = task_pair
     repr_planes = {k: _t(v) for k, v in planes.items()}
     if case == "head_bias":
-        model = copy.deepcopy(model)
-        with torch.no_grad():
-            model.head_geo.fc.bias.fill_(0.1)
-    elif case == "decoder":
+        biased, variables = _head_bias_pair(model, tree)
+        repr_j = JRepr(None, None, {k: jnp.asarray(v) for k, v in planes.items()})
+        jfn = jpred.make_point_tsdf_fn(task.model, variables, repr_j, np.zeros(3), tile=128,
+                                       interpret=True)
+        pts = np.random.default_rng(5).uniform(-0.3, 1.6, (1, 300, 3)).astype(np.float32)
+        ours = tpred.make_point_tsdf_fn(biased, SceneRepr(repr_planes))(_t(pts)).numpy()
+        _close_to_kernel(ours, np.asarray(jfn(jnp.asarray(pts))))
+        unbiased = tpred.make_point_tsdf_fn(model, SceneRepr(repr_planes))(_t(pts)).numpy()
+        assert np.abs(ours - unbiased).max() > 1e-3
+        return
+    if case == "decoder":
         model = GenNerf(config_from_dict(GenNerfConfig, dict(CFG, mlp=dict(CFG["mlp"], beta=10.0))))
     elif case == "planes":
         del repr_planes["yz"]
@@ -212,14 +240,19 @@ def test_decode_dense_fused_matches_composed_jax(task_pair, weights, planes):
 
 
 def test_decode_dense_fused_gates(task_pair, planes):
-    model = copy.deepcopy(task_pair[-1])
+    """Only CUDA and CPU points are taken; a head bias is (folded into
+    b_last): the biased decode matches the unbiased model with the bias
+    moved into lin_out, at the kernel bounds."""
+    _, _, _, tree, model = task_pair
     repr_ = SceneRepr({k: _t(v) for k, v in planes.items()})
     with pytest.raises(NotImplementedError, match="CUDA or the CPU"):
         tpred.decode_dense_fused(model, repr_, torch.zeros(4, 3, device="meta"))
-    with torch.no_grad():
-        model.head_geo.fc.bias.fill_(0.1)
-    with pytest.raises(NotImplementedError, match="head bias"):
-        tpred.decode_dense_fused(model, repr_, torch.zeros(4, 3))
+    biased, variables = _head_bias_pair(model, tree)
+    moved = copy.deepcopy(model)
+    moved.load_state_dict(gen_nerf_params_from_flax(jax.tree.map(np.asarray, variables["params"])))
+    pts = _t(np.random.default_rng(6).uniform(-0.2, 1.4, (200, 3)).astype(np.float32))
+    _close_to_kernel(tpred.decode_dense_fused(biased, repr_, pts).numpy(),
+                     tpred.decode_dense_fused(moved, repr_, pts).numpy())
 
 
 def test_point_decode_flops():

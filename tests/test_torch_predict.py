@@ -152,15 +152,32 @@ def test_predict_tsdf_volume_dense_vs_grid(task_pair, rng):
 
 
 def test_nonzero_head_bias_goes_dense(task_pair, rng):
-    _, _, _, tree, model = task_pair
+    """A trained head has a bias: the grid decode folds it into its last
+    scalar, so the dispatch keeps the grid decode, and the volume matches
+    the JAX f32 decode_dense of the same weights (the bound of
+    test_predict_tsdf_volume_dense_vs_grid)."""
+    task, state, _, tree, model = task_pair
     m2 = GenNerf(model.cfg)
     m2.load_state_dict(model.state_dict())
     with torch.no_grad():
         m2.head_geo.fc.bias.fill_(0.1)
-    assert tpred.uses_grid_decode(model) and not tpred.uses_grid_decode(m2.eval())
-    planes = SceneRepr({k: _t(rng.standard_normal((1, 8, 16, 16)).astype(np.float32)) for k in ("xz", "xy", "yz")})
-    vol = tpred.predict_tsdf_volume(m2, planes, (4, 4, 4), 0.08, torch.zeros(3))
-    assert vol.shape == (4, 4, 4) and torch.isfinite(vol).all()
+    assert tpred.uses_grid_decode(model) and tpred.uses_grid_decode(m2.eval())
+    planes = {k: (rng.standard_normal((1, 8, 16, 16))).astype(np.float32) for k in ("xz", "xy", "yz")}
+    origin = np.array([0.04, -0.02, 0.0], np.float32)
+    vol = tpred.predict_tsdf_volume(m2, SceneRepr({k: _t(v) for k, v in planes.items()}), VOXEL_DIM,
+                                    0.08, _t(origin))
+    params = jax.tree.map(np.asarray, dict(state.params))
+    params["head_geo"] = {"Dense_0": dict(params["head_geo"]["Dense_0"],
+                                          bias=np.full(1, 0.1, np.float32))}
+    variables = {"params": jax.tree.map(jnp.asarray, params), "batch_stats": state.batch_stats}
+    repr_j = JRepr(None, None, {k: jnp.asarray(v) for k, v in planes.items()})
+    with jax.default_matmul_precision("highest"):
+        ref = jpred.decode_dense(task.model, variables, repr_j,
+                                 jpred.dense_grid_points(VOXEL_DIM, 0.08, origin), jnp.asarray(origin))
+    np.testing.assert_allclose(vol.reshape(-1).numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    base = tpred.predict_tsdf_volume(model, SceneRepr({k: _t(v) for k, v in planes.items()}),
+                                     VOXEL_DIM, 0.08, _t(origin))
+    assert (vol - base).abs().max() > 1e-3  # the bias moved the volume
 
 
 def test_fusion_prior_matches_jax(scene, rng):
@@ -208,12 +225,14 @@ def test_cli_on_cpu(task_pair, scene, tmp_path):
 
 def test_port_imports_no_jax():
     """Importing the port and every submodule pulls in no jax, flax or
-    gennerf_tpu module, and chip_smoke.py imports none."""
+    gennerf_tpu module, and no PIL, skimage or cv2 (the card's machine has
+    none of them), and chip_smoke.py imports none."""
     code = (
         "import importlib, pkgutil, sys, gennerf_tpu_torch\n"
         "for m in pkgutil.walk_packages(gennerf_tpu_torch.__path__, 'gennerf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'gennerf_tpu')]\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'flax', 'gennerf_tpu', 'PIL', 'skimage', 'cv2')]\n"
         "print(len([k for k in sys.modules if k.startswith('gennerf_tpu_torch')]), bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -230,4 +249,5 @@ def test_port_imports_no_jax():
         elif isinstance(node, ast.ImportFrom) and node.module:
             names = [node.module]
         for name in names:
-            assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "gennerf_tpu"), name
+            assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "gennerf_tpu", "PIL",
+                                              "skimage", "cv2"), name

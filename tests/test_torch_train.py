@@ -454,7 +454,64 @@ def test_resume_is_bit_identical(jax_params, batch, tmp_path):
     info = load_checkpoint(str(tmp_path / "c" / "checkpoints" / "epoch_0001.pt"), GenNerf(straight.cfg))
     assert info == {"epoch": 1, "step": 4}
     rows = (tmp_path / "a" / "metrics.csv").read_text().splitlines()
-    assert rows[0].split(",")[:3] == ["epoch", "lr", "step"] and len(rows) == 1 + 4 + 2
+    assert (rows[0].split(",")[:5] == ["data_wait_ms", "epoch", "lr", "step", "step_ms"]
+            and len(rows) == 1 + 4 + 2)
+
+
+def test_validation_keeps_training_draws(jax_params, batch, tmp_path):
+    """Validation draws from its own generator: the same seed with
+    validation after every epoch and after every second epoch trains to
+    bit-equal parameters (before, epoch 1 drew from a generator that
+    epoch 0's validation had moved on)."""
+    models = []
+    for every in (1, 2):
+        model = _model(jax_params)
+        opt = make_optimizer(model.parameters(), model.cfg.optimizer, None)
+        trainer = Trainer(model, opt, torch.Generator().manual_seed(0), str(tmp_path / str(every)),
+                          max_epochs=2, log_every_n_steps=1, check_val_every_n_epoch=every)
+        trainer.fit([batch], [batch])
+        assert "val_combined" in trainer.metrics
+        models.append(model)
+    for (name, a), (_, b) in zip(models[0].named_parameters(), models[1].named_parameters()):
+        assert torch.equal(a, b), name
+
+
+def test_fit_reads_the_loss_when_it_logs(jax_params, monkeypatch):
+    """The loop leaves each step's metrics on the device until it logs: the
+    third step's non-finite loss raises at the log of step 3, with the
+    timings of all three steps filled."""
+    from gennerf_tpu_torch.train import loop
+
+    losses = iter([1.0, 2.0, float("nan"), 3.0])
+    monkeypatch.setattr(loop, "train_step", lambda *a: {"combined": torch.tensor(next(losses))})
+    model = _model(jax_params)
+    trainer = Trainer(model, make_optimizer(model.parameters(), model.cfg.optimizer, None),
+                      torch.Generator().manual_seed(0), None, log_every_n_steps=3)
+    with pytest.raises(FloatingPointError, match="at step 3"):
+        trainer.fit([{}] * 4)
+    assert len(trainer.timings) == 3 and trainer.metrics == {}
+    assert {"data_wait_ms", "step_ms"} == set(trainer.timings[0])
+
+
+def test_render_cli_on_trained_params(tmp_path):
+    """The render CLI renders the params.npz the train CLI writes: the
+    trained head has a bias, which the point decode folds in."""
+    from gennerf_tpu_torch.render import main as render_main
+
+    shutil.copytree(os.path.join(REPO, "configs"), tmp_path / "configs")
+    exp = tmp_path / "configs" / "experiment" / "tiny_train.yaml"
+    exp.write_text(TINY_EXPERIMENT)
+    out = tmp_path / "run"
+    trainer = train_main(["--config", str(exp), "--out", str(out), "--epochs", "1",
+                          "--synthetic", "--device", "cpu"])
+    assert float(trainer.model.head_geo.fc.bias.detach()[0]) != 0.0
+    frames = training_batch(1, 2, 24, 32, VOXEL_DIM, 0.08, seed=9)
+    np.savez(tmp_path / "frames.npz", **{k: frames[k][0] for k in
+                                         ("projection", "image", "depth", "intrinsics", "pose")})
+    render_main(["--config", str(exp), "--params", str(out / "params.npz"),
+                 "--frames", str(tmp_path / "frames.npz"), "--out", str(tmp_path / "views"),
+                 "--num-views", "1", "--device", "cpu"])
+    assert any(name.endswith(".png") for name in os.listdir(tmp_path / "views"))
 
 
 def test_train_cli_then_predict_cli(tmp_path):
@@ -465,7 +522,7 @@ def test_train_cli_then_predict_cli(tmp_path):
     exp.write_text(TINY_EXPERIMENT)
     out = tmp_path / "run"
     trainer = train_main(["--config", str(exp), "--out", str(out), "--epochs", "2",
-                          "--device", "cpu"])
+                          "--synthetic", "--device", "cpu"])
     assert trainer.global_step == 2
     assert {"train_combined", "val_combined", "lr"} <= set(trainer.metrics)
     assert (out / "checkpoints" / "last.pt").exists() and (out / "metrics.csv").exists()
@@ -485,7 +542,7 @@ def test_train_cli_then_predict_cli(tmp_path):
     np.testing.assert_array_equal(vol, expect.numpy())
     if not torch.cuda.is_available():  # the card is the default device
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            train_main(["--config", str(exp), "--out", str(tmp_path / "x")])
+            train_main(["--config", str(exp), "--out", str(tmp_path / "x"), "--synthetic"])
 
 
 def test_eval_step_builds_no_graph(jax_params, batch):
