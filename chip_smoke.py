@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/ with nvcc, then:
+Builds the port's CUDA kernels from csrc/ with nvcc and its host library
+from csrc/host/ with the host C++ compiler, then:
   1. device and build: the card's name and power limit (nvidia-smi), the
      build time, each kernel's registers and spill bytes (ptxas) and its
      HGMMA/HMMA counts (cuobjdump, where the toolkit has it); fails if a
      decode kernel spills at H=256 or is not on wgmma, or an FPS kernel
-     instance spills;
+     instance spills; the host library's build seconds and whether it was
+     cached;
   2. fps: the FPS kernel against its plain version on (8, 16384, 3)
      presampled depth clouds with duplicates, npoint 256 (the predict and
      the training shape of seqs_multigeo_4cm), and on (32, 16384, 3) (a
@@ -32,6 +34,12 @@ Builds the port's CUDA kernels from csrc/ with nvcc, then:
   6. render: `render_views` of 4 of the frames (the K3-backed march) with
      the counters reset just before and read just after, held against the
      same march on the plain bf16-feed decode; then a profiled view;
+  6b. mesh: on the render phase's weights, the 96x96x56 volume of
+     `reconstruct` (K2, counters reset just before and read just after) and
+     of the same stages through the plain versions, each meshed by
+     `TSDF.get_mesh`: both non-empty, `eval_mesh(K2 mesh, plain mesh)` at
+     F@5cm >= 0.99; the host ms of marching cubes, eval_mesh and the PLY
+     write and load;
   7. predict_sparse: `reconstruct` with sparse_band_decode, and the band
      decode against the dense gather decode clamped by the prior;
   8. train: the training path of the same config (ray supervision, smooth_log
@@ -48,13 +56,21 @@ Builds the port's CUDA kernels from csrc/ with nvcc, then:
      and 2 held-out scenes of 10 frames of 120x160, ground truth at 4 and
      8 cm) into a temporary directory; ScannetDataModule of the same config
      with its 3D augmentation; 2 epochs (16 steps) of `Trainer.fit` over
-     the loaders with the counters reset just before and read just after
-     (K1 launches must equal the steps, the losses finite), the loader
-     wait and step times, TSDF.transform's time per item, the peak memory
-     and a profiled loader-fed step; then both held-out scenes through the
-     predict CLI's `predict_split` from the trained weights (K2 once per
-     scene, each of those outputs held against the plain bf16-feed decode
-     of its tables; the masked TSDF L1 printed), one held-out view
+     the loaders, validating every epoch with the config's monitored
+     checkpoints (callbacks.model_checkpoint), with the counters reset just
+     before and read just after (K1 launches must equal the steps plus
+     the validation encodes, the losses and val_recon_tsdf_l1 finite,
+     best_epoch() the epoch of the lowest val_combined), the loader wait
+     and step times, TSDF.transform's time per item, the peak memory and a
+     profiled loader-fed step; then
+     data_eval: both held-out scenes through the predict CLI from the run
+     directory (`--ckpt`: the best epoch, selected_by val_combined; K2
+     once per scene, each of those outputs held against the plain
+     bf16-feed decode of its tables; {scene}.npz and .ply), each scene
+     through `evaluation.process` (every metric present and finite, the
+     distances inf only for an empty mesh, the re-fusion on the card) and
+     the oracle (the scene's own 4 cm fused ground truth as the prediction:
+     F@5cm >= 0.99, AbsRel <= 0.02, TSDF L1 0); one held-out view
      rendered through K3, held against the plain march (the hit share
      printed), and one step with K1 against the plain-FPS step on the
      fit's first augmented 480x640 batch;
@@ -106,6 +122,17 @@ DATA_TRAIN_SCENES, DATA_FRAMES, DATA_EPOCHS = 8, 10, 2
 # save, reload into a fresh model and optimizer, one step: the same loss up
 # to the atomics' order
 RESUME_RTOL = 1e-5
+# K2's mesh against the plain stages' mesh, and the oracle evaluation (the
+# ground truth evaluated as its own prediction through the rasterizer, the
+# re-fusion and the KD-tree). The oracle does not reach 1 in either
+# package: their marching tetrahedra split each cube around a face
+# diagonal, which leaves a quarter of the cube untiled, so every mesh has
+# holes that the renders see through to the surface behind
+# (tests/test_torch_eval.py holds the two packages' evaluations equal)
+MESH_FSCORE_MIN, ORACLE_FSCORE_MIN, ORACLE_ABSREL_MAX = 0.99, 0.90, 0.06
+# the evaluation with the re-fusion on the card against the same
+# evaluation with it on the CPU: fused volumes within a few ulps
+EVAL_DEVICE_TOL = 1e-4
 EXPERIMENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "configs", "experiment", "seqs_multigeo_4cm.yaml")
 PRIMITIVES = [
@@ -340,8 +367,13 @@ def data_phase(torch, dev, smi: str) -> dict:
     from gennerf_tpu_torch.data.make_multigeo import make_multigeo
     from gennerf_tpu_torch.ops import grid_decode as grid_decode_module
     from gennerf_tpu_torch.ops import kernels
-    from gennerf_tpu_torch.predict import build_model, predict_split
+    from gennerf_tpu_torch import predict as predict_cli
+    from gennerf_tpu_torch.data.datasets import load_info_json, parse_splits_list
+    from gennerf_tpu_torch.eval import evaluation
+    from gennerf_tpu_torch.predict import build_model
     from gennerf_tpu_torch.render import render_encoded
+    from gennerf_tpu_torch.train import loop as loop_module
+    from gennerf_tpu_torch.train.checkpoints import CheckpointManager
     from gennerf_tpu_torch.train.loop import Trainer
     from gennerf_tpu_torch.train.predict import make_point_tsdf_fn, uses_grid_decode
     from gennerf_tpu_torch.train.state import make_optimizer
@@ -377,8 +409,10 @@ def data_phase(torch, dev, smi: str) -> dict:
         first = next(iter(ScannetDataModule(data_cfg, seed=SEED).train_dataloader()))
         first_batch_s = time.perf_counter() - t0
 
-        # the main path: Trainer.fit over the loaders, counters reset just
-        # before and read just after; TSDF.transform timed in the workers
+        # the main path: Trainer.fit over the loaders, validating every epoch
+        # with the config's monitored checkpoints, counters reset just
+        # before and read just after; TSDF.transform timed in the workers,
+        # the validation encodes (eval steps and reconstruction tails) counted
         transform_s = []
         real_transform = tsdf_module.TSDF.transform
 
@@ -388,15 +422,39 @@ def data_phase(torch, dev, smi: str) -> dict:
             transform_s.append(time.perf_counter() - t)
             return out
 
-        # no validation loader: the config validates every 20th epoch
-        trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), None,
-                          max_epochs=DATA_EPOCHS)
+        val_encodes, val_records = [], []
+
+        def counted(fn):
+            def wrapper(*a, **k):
+                val_encodes.append(fn.__name__)
+                return fn(*a, **k)
+            return wrapper
+
+        real_validate = loop_module.Trainer.validate
+
+        def recorded_validate(self, *a, **k):
+            out = real_validate(self, *a, **k)
+            val_records.append(out)
+            return out
+
+        run_dir = os.path.join(tmp, "run")
+        run_cfg = load_experiment_config(EXPERIMENT, "train", [f"paths.data_dir={root}",
+                                                               f"paths.output_dir={run_dir}"])
+        ckpt_cfg = run_cfg["callbacks"]["model_checkpoint"]
+        checkpoints = CheckpointManager(ckpt_cfg["dirpath"], ckpt_cfg["save_top_k"],
+                                        monitor=ckpt_cfg["monitor"], mode=ckpt_cfg["mode"])
+        trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), run_dir,
+                          max_epochs=DATA_EPOCHS, check_val_every_n_epoch=1,
+                          checkpoints=checkpoints)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        with mock.patch.object(tsdf_module.TSDF, "transform", timed_transform):
+        with mock.patch.object(tsdf_module.TSDF, "transform", timed_transform), \
+                mock.patch.object(loop_module, "eval_step", counted(loop_module.eval_step)), \
+                mock.patch.object(loop_module, "reconstruct", counted(loop_module.reconstruct)), \
+                mock.patch.object(loop_module.Trainer, "validate", recorded_validate):
             t0 = time.perf_counter()
-            trainer.fit(train_loader)
+            trainer.fit(train_loader, datamodule.val_dataloader())
             fit_s = time.perf_counter() - t0
         fit_launches = {k.name: k.launches for k in kernels.KERNELS}
         add_launches()
@@ -411,6 +469,9 @@ def data_phase(torch, dev, smi: str) -> dict:
             torch, lambda: train_step(model, opt, batch_to_device(next(it), dev), trainer.generator),
             statistics.median(step_ms) + statistics.median(waits), smi)
         del it
+        val_combined = [r["val_combined"] for r in val_records]
+        recon_l1 = [r.get("val_recon_tsdf_l1") for r in val_records]
+        best_epoch = checkpoints.best_epoch()
         emit({"phase": "data", "config": "configs/experiment/seqs_multigeo_4cm.yaml",
               "dataset": {"train_scenes": DATA_TRAIN_SCENES, "held_out": 2, "frames": DATA_FRAMES,
                           "image": [HEIGHT, WIDTH], "voxel_sizes_cm": [4, 8],
@@ -421,6 +482,14 @@ def data_phase(torch, dev, smi: str) -> dict:
                              100 * data_cfg["voxel_size"])].shape),
                          "first_batch_s": first_batch_s},
               "steps": steps, "epochs": DATA_EPOCHS, "launches": fit_launches,
+              "validation": {"val_combined": val_combined, "val_recon_tsdf_l1": recon_l1,
+                             "encodes": {n: val_encodes.count(n) for n in set(val_encodes)},
+                             "best_epoch": best_epoch, "kept_epochs": checkpoints.kept_epochs(),
+                             "monitor": ckpt_cfg["monitor"], "save_top_k": ckpt_cfg["save_top_k"],
+                             "local_files": sorted(
+                                 os.path.relpath(os.path.join(d, f), run_dir)
+                                 for d, _, fs in os.walk(os.path.join(run_dir, "local"))
+                                 for f in fs)},
               "fit_s": fit_s, "step_ms_median": statistics.median(step_ms),
               "step_ms_first": step_ms[0], "data_wait_ms_median": statistics.median(waits),
               "data_wait_ms_mean": statistics.mean(waits), "data_wait_ms_first": waits[0],
@@ -429,10 +498,22 @@ def data_phase(torch, dev, smi: str) -> dict:
               "peak_memory_bytes": peak_bytes, "card": smi})
         emit({"phase": "data_profile", "what": "one loader-fed train_step (next batch + step)",
               "k1_share": prof["fps_kernel_ms"] / max(prof["device_busy_ms"], 1e-9), **prof})
-        if fit_launches["fps"] != steps or steps != DATA_EPOCHS * DATA_TRAIN_SCENES:
-            raise RuntimeError(f"K1 launched {fit_launches['fps']} times in {steps} steps")
+        if (fit_launches["fps"] != steps + len(val_encodes)
+                or steps != DATA_EPOCHS * DATA_TRAIN_SCENES):
+            raise RuntimeError(f"K1 launched {fit_launches['fps']} times in {steps} steps and "
+                               f"{len(val_encodes)} validation encodes")
+        if fit_launches["grid_decode"] != DATA_EPOCHS:
+            raise RuntimeError(f"the {DATA_EPOCHS} reconstruction tails launched K2 "
+                               f"{fit_launches['grid_decode']} times")
+        if len(val_records) != DATA_EPOCHS or not all(
+                v is not None and math.isfinite(v) for v in recon_l1):
+            raise RuntimeError(f"validation tail missing or not finite: {recon_l1}")
+        if best_epoch != min(range(DATA_EPOCHS), key=lambda e: (val_combined[e], e)):
+            raise RuntimeError(f"best_epoch {best_epoch} is not the lowest val_combined "
+                               f"{val_combined}")
 
-        # the held-out scenes from the trained weights: the predict CLI's path
+        # data_eval: the held-out scenes through the predict CLI from the run
+        # directory (its best epoch), then the evaluation
         model.eval()
         head_bias = float(model.head_geo.fc.bias.detach()[0])
         if not uses_grid_decode(model):
@@ -446,12 +527,19 @@ def data_phase(torch, dev, smi: str) -> dict:
             decoded.append((tables, weights, out))
             return out
 
+        pred_dir = os.path.join(tmp, "pred")
         kernels.reset_launch_counts()
         with mock.patch.object(grid_decode_module, "grid_decode_cuda", recording_k2):
-            results = predict_split(model, dict(data_cfg), os.path.join(tmp, "pred"), SEED)
+            results = predict_cli.main(["--config", EXPERIMENT, "--ckpt", run_dir, "--data-dir", root,
+                                        "--split", "val.txt", "--out", pred_dir,
+                                        "--device", dev.type])
         torch.cuda.synchronize()
         predict_launches = {k.name: k.launches for k in kernels.KERNELS}
         add_launches()
+        with open(os.path.join(pred_dir, "predict_meta.json")) as f:
+            predict_meta = json.load(f)
+        if (predict_meta["selected_by"], predict_meta["epoch"]) != (ckpt_cfg["monitor"], best_epoch):
+            raise RuntimeError(f"predict restored {predict_meta}, not the best epoch {best_epoch}")
         if not predict_launches["grid_decode"] == len(decoded) == len(results) == 2:
             raise RuntimeError(f"held-out predict launched K2 {predict_launches['grid_decode']} "
                                f"times for {len(results)} scenes")
@@ -465,6 +553,13 @@ def data_phase(torch, dev, smi: str) -> dict:
         grid_mean = max(e[1] for e in grid_err)
         voxel_dim = tuple(decoded[0][2].shape)
         del decoded
+        eval_rec = evaluate_held_out(dev, evaluation, parse_splits_list("val.txt", root),
+                                     pred_dir, os.path.join(tmp, "oracle"), load_info_json)
+        emit({"phase": "data_eval", "predict_meta": predict_meta,
+              "predict_launches": predict_launches, "scenes": eval_rec,
+              "oracle_gates": {"fscore_min": ORACLE_FSCORE_MIN, "AbsRel_max": ORACLE_ABSREL_MAX,
+                               "l1": 0.0},
+              "card": smi})
 
         # one held-out view from the trained weights: K3's march against the plain march
         scene_batch = next(iter(datamodule.predict_dataloader()))
@@ -515,6 +610,138 @@ def data_phase(torch, dev, smi: str) -> dict:
     return totals
 
 
+def evaluate_held_out(dev, evaluation, info_files, pred_dir: str, oracle_dir: str,
+                      load_info_json) -> dict:
+    """`evaluation.process` on each held-out scene's prediction (every
+    metric present and finite, the distances inf only for an empty mesh),
+    with the re-fusion's tensors on `dev` (the card), and on the oracle: the
+    scene's own fused 4 cm ground truth written as the prediction (npz and
+    its mesh), held to F@5cm >= ORACLE_FSCORE_MIN, AbsRel <=
+    ORACLE_ABSREL_MAX and TSDF L1 0. Each evaluation is held against the
+    same one with the re-fusion on the CPU (EVAL_DEVICE_TOL). Returns
+    {scene: {"pred", "oracle", host ms each, the largest CPU difference}}."""
+    from unittest import mock
+
+    from gennerf_tpu_torch.eval.metrics import DEPTH_METRICS
+    from gennerf_tpu_torch.tsdf.tsdf import TSDF
+    from gennerf_tpu_torch.utils.mesh import Mesh
+
+    keys = DEPTH_METRICS + ("l1", "dist1", "dist2", "prec", "recal", "fscore")
+    devices = set()
+
+    class RecordingFusion(evaluation.TSDFFusion):
+        def integrate(self, projection, depth):
+            super().integrate(projection, depth)
+            devices.update(t.device.type for t in (*self.state, projection, depth))
+
+    os.makedirs(oracle_dir)
+    out = {}
+    for info_file in info_files:
+        info = load_info_json(info_file)
+        scene = info["scene"]
+        gt = TSDF.load(info["file_name_vol_04"])
+        gt.save(os.path.join(oracle_dir, f"{scene}.npz"))
+        gt.get_mesh().export(os.path.join(oracle_dir, f"{scene}.ply"))
+        rec = {}
+        for name, results_dir in (("pred", pred_dir), ("oracle", oracle_dir)):
+            t0 = time.perf_counter()
+            with mock.patch.object(evaluation, "TSDFFusion", RecordingFusion):
+                metrics = evaluation.process(info_file, results_dir, device=dev)
+            rec[f"{name}_host_ms"] = (time.perf_counter() - t0) * 1e3
+            rec[name] = metrics
+            empty = Mesh.load(os.path.join(results_dir, f"{scene}.ply")).is_empty
+            rec[f"{name}_mesh_empty"] = empty
+            bad = [k for k in keys if k not in metrics or not (
+                math.isfinite(metrics[k]) or (empty and k in ("dist1", "dist2")
+                                              and metrics[k] == math.inf))]
+            if bad:
+                raise RuntimeError(f"{scene} {name}: metrics missing or not finite: {bad} "
+                                   f"in {metrics}")
+            on_cpu = evaluation.process(info_file, results_dir, device="cpu")
+            diff = max((abs(metrics[k] - on_cpu[k]) for k in keys
+                        if math.isfinite(metrics[k]) or metrics[k] != on_cpu[k]), default=0.0)
+            rec[f"{name}_vs_cpu_max_abs"] = diff
+            if not diff <= EVAL_DEVICE_TOL:
+                raise RuntimeError(f"{scene} {name}: the evaluation on {dev} and on the CPU "
+                                   f"differ by {diff}: {metrics} against {on_cpu}")
+        oracle = rec["oracle"]
+        if not (oracle["fscore"] >= ORACLE_FSCORE_MIN and oracle["AbsRel"] <= ORACLE_ABSREL_MAX
+                and oracle["l1"] == 0.0):
+            raise RuntimeError(f"{scene}: the oracle evaluation fails its gates: {oracle}")
+        out[scene] = rec
+    if devices != {dev.type}:
+        raise RuntimeError(f"the re-fusion ran on {devices}, not on {dev.type}")
+    return out
+
+
+def mesh_phase(torch, dev, model, frames, planes_ref, table_args: dict, smi: str):
+    """Phase 6b (see the module docstring); returns the launch counts of
+    the `reconstruct` it drives and the phase's record."""
+    import tempfile
+
+    import numpy as np
+
+    from gennerf_tpu_torch.eval.metrics import eval_mesh
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.ops.grid_decode import (
+        extract_resnetfc_weights, grid_tables, separable_grid_decode_plain,
+    )
+    from gennerf_tpu_torch.ops.weight_slabs import pack_decode_weights
+    from gennerf_tpu_torch.predict import reconstruct
+    from gennerf_tpu_torch.tsdf.fusion import apply_fusion_prior
+    from gennerf_tpu_torch.tsdf.tsdf import TSDF
+    from gennerf_tpu_torch.utils.mesh import Mesh
+
+    cfg = model.cfg
+    P, image, depth = frames
+    origin = torch.zeros(3, device=dev)
+    kernels.reset_launch_counts()
+    vol_k = reconstruct(model, P, image, depth, VOXEL_DIM, torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    # the same stages through the plain versions: plain FPS (planes_ref),
+    # the plain bf16-feed decode of these weights' tables, the prior
+    weights = pack_decode_weights(extract_resnetfc_weights(
+        model.mlp, model.head_geo, cfg.mlp.d_out_geo, cfg.mlp.head_smoothing), point=False)
+    tables = grid_tables(planes_ref["xz"][0], planes_ref["xy"][0], planes_ref["yz"][0], origin,
+                         weights, **table_args)
+    vol_p = apply_fusion_prior(separable_grid_decode_plain(tables, weights, True),
+                               cfg.voxel_size, origin, P, depth)
+    tsdf_k, tsdf_p = (TSDF(cfg.voxel_size, torch.zeros(1, 3), v.cpu()) for v in (vol_k, vol_p))
+    t0 = time.perf_counter()
+    mesh_k = tsdf_k.get_mesh()
+    mc_ms = (time.perf_counter() - t0) * 1e3
+    mesh_p = tsdf_p.get_mesh()
+    t0 = time.perf_counter()
+    metrics = eval_mesh(mesh_k, mesh_p)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh.ply")
+        t0 = time.perf_counter()
+        mesh_k.export(path)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        loaded = Mesh.load(path)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        ply_bytes = os.path.getsize(path)
+    rec = {"phase": "mesh", "voxel_dim": list(VOXEL_DIM), "launches": launches,
+           "vertices": len(mesh_k), "faces": len(mesh_k.faces),
+           "plain_vertices": len(mesh_p), "plain_faces": len(mesh_p.faces),
+           "kernel_vs_plain": metrics, "fscore_min": MESH_FSCORE_MIN,
+           "marching_cubes_ms": mc_ms, "eval_mesh_ms": eval_ms, "ply_write_ms": write_ms,
+           "ply_load_ms": load_ms, "ply_bytes": ply_bytes, "card": smi}
+    if launches["grid_decode"] != 1:
+        raise RuntimeError(f"the mesh phase's reconstruct launched K2 {launches['grid_decode']} times")
+    if mesh_k.is_empty or mesh_p.is_empty:
+        raise RuntimeError(f"an empty mesh: {rec}")
+    if metrics["fscore"] < MESH_FSCORE_MIN:
+        raise RuntimeError(f"K2's mesh disagrees with the plain mesh: {rec}")
+    if not (np.array_equal(loaded.faces, mesh_k.faces)
+            and np.array_equal(loaded.vertices, mesh_k.vertices.astype(np.float32))):
+        raise RuntimeError("the PLY did not load back as written")
+    return launches, rec
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -548,6 +775,7 @@ def main() -> int:
         predict_tsdf_volume_sparse, triplane_feat_fast, triplane_gather_setup, uses_grid_decode,
     )
     from gennerf_tpu_torch.tsdf.fusion import apply_fusion_prior, prior_classes
+    from gennerf_tpu_torch.utils import native
     from gennerf_tpu_torch.utils.config import load_experiment_model_config
 
     set_reference_precision()
@@ -563,8 +791,13 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.load_library()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.load_library()
+    host_build_s = time.perf_counter() - t0
     report = build_report(kernels.build_info.get("ptxas", ""), kernels.build_info["path"])
     emit({"phase": "build", "seconds": build_s, "cached": kernels.build_info["cached"],
+          "host_library": {"seconds": host_build_s, "cached": native.build_info["cached"],
+                           "flags": native.CXX_FLAGS},
           **report, "card": smi})
     check_build(report)
 
@@ -835,6 +1068,11 @@ def main() -> int:
           **profile_device(torch, lambda: render_encoded(model, repr_r, depth, intrinsics, poses,
                                                          tsdf_k, 1), view_ms, smi)})
 
+    # 6b. mesh: the render phase's weights cross zero inside the grid
+    mesh_launches, mesh_rec = mesh_phase(torch, dev, model, (P, image, depth), planes_ref,
+                                         table_args, smi)
+    emit(mesh_rec)
+
     # 7. predict_sparse: the band decode through the user entry point, then
     # against the dense gather decode clamped by the prior on one encode
     sparse_model = GenNerf(dataclasses.replace(cfg, sparse_band_decode=True))
@@ -869,14 +1107,15 @@ def main() -> int:
     kernel_line = {"kernels": [
         {"name": "fps", "route": "cuda", "source": "gennerf_tpu_torch/csrc/fps.cu",
          "replaces": "gennerf_tpu/ops/pallas/fps.py:33",
-         "launches": (launches["fps"] + render_launches["fps"] + sparse_launches["fps"]
-                      + train_launches["fps"] + data_launches["fps"]),
+         "launches": (launches["fps"] + render_launches["fps"] + mesh_launches["fps"]
+                      + sparse_launches["fps"] + train_launches["fps"] + data_launches["fps"]),
          "max_abs_err": float((idx_k - idx_p).abs().max()), "ms": fps_ms,
          "plain_ms": fps_plain_ms, "bound_ms": fps_bound, "bound_by": "operations",
          "library_ms": None},
         {"name": "grid_decode", "route": "cuda", "source": "gennerf_tpu_torch/csrc/grid_decode.cu",
          "replaces": "gennerf_tpu/ops/pallas/fused_decoder.py:353",
-         "launches": launches["grid_decode"] + data_launches["grid_decode"],
+         "launches": (launches["grid_decode"] + mesh_launches["grid_decode"]
+                      + data_launches["grid_decode"]),
          "max_abs_err": grid_max, "ms": grid_ms,
          "plain_ms": grid_plain_ms, "bound_ms": grid_bound,
          "bound_by": "operations" if grid_flops / PEAK_BF16 >= grid_bytes / PEAK_BYTES else "bytes",

@@ -242,15 +242,15 @@ def generate_scene(out_dir: str, scene: str = "scene_synth0", num_frames: int = 
                    sphere_center=(0.0, 0.0, 0.5), sphere_radius: float = 0.5, seed: int = 0,
                    primitives=None) -> str:
     """Write <out_dir>/scans/<scene>/{info.json, color/i.png, depth/i.png,
-    tsdf_XX.npz} as the reference generator does, from the same seed
-    stream: a ring of `num_frames` cameras around the scene, RGB and depth
-    (millimetres, uint16) PNGs, and the ground truth fused from the
+    tsdf_XX.npz, mesh_gt.ply} as the reference generator does, from the
+    same seed stream: a ring of `num_frames` cameras around the scene, RGB
+    and depth (millimetres, uint16) PNGs, the ground truth fused from the
     rendered depths over the fixed box at origin (-1.6, -1.6, -0.16) m,
     3.2 x 3.2 x 1.6 m, at each voxel size (cm) with a truncation of 3
-    voxels. The ground truth holds the TSDF channel only (the port's
-    fusion has no colour channel), and there is no mesh_gt.ply: it needs
-    marching cubes, which is not ported (no loader reads it). Returns the
-    info.json path."""
+    voxels, and the mesh of the smallest voxel size's volume. The ground
+    truth holds the TSDF channel only (the port's fusion has no colour
+    channel), so the mesh has no vertex colours. Returns the info.json
+    path."""
     rng = np.random.default_rng(seed)
     scene_dir = os.path.join(out_dir, "scans", scene)
     color_dir = os.path.join(scene_dir, "color")
@@ -292,8 +292,13 @@ def generate_scene(out_dir: str, scene: str = "scene_synth0", num_frames: int = 
         for proj, depth in zip(projections, depths):
             fusion.integrate(torch.from_numpy(proj), torch.from_numpy(depth))
         npz_path = os.path.join(scene_dir, f"tsdf_{vs_cm:02d}.npz")
-        TSDF(vs, torch.from_numpy(origin).reshape(1, 3), fusion.get_tsdf()).save(npz_path)
+        tsdf = TSDF(vs, torch.from_numpy(origin).reshape(1, 3), fusion.get_tsdf())
+        tsdf.save(npz_path)
         info[f"file_name_vol_{vs_cm:02d}"] = npz_path
+        if vs_cm == min(voxel_sizes):
+            mesh_path = os.path.join(scene_dir, "mesh_gt.ply")
+            tsdf.get_mesh().export(mesh_path)
+            info["file_name_mesh_gt"] = mesh_path
     info_path = os.path.join(scene_dir, "info.json")
     with open(info_path, "w") as fjson:
         json.dump(info, fjson)

@@ -1,12 +1,16 @@
-"""TSDF and depth metrics (the port's own copy of `eval_tsdf`,
-`_resample_tsdf_to` and `eval_depth` from gennerf_tpu/eval/metrics.py),
-numpy only. Volumes are arrays or `TSDF`s (whose CPU tensors numpy reads).
+"""TSDF, mesh and depth metrics (the port's own copy of
+gennerf_tpu/eval/metrics.py), numpy and the port's host library (the
+KD-tree of `eval_mesh`). Volumes are arrays or `TSDF`s (whose CPU tensors
+numpy reads).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+
+from ..utils.native import nn_distances
+
 
 def eval_tsdf(tsdf_pred, tsdf_trgt, align: bool = False) -> Dict[str, float]:
     """Masked TSDF L1 over the voxels the target observes (trgt < 1).
@@ -71,6 +75,41 @@ def _resample_tsdf_to(tsdf_pred, tsdf_trgt, pred_convention: str = "linspace") -
                                 hi[2] if dz else li[2]]
     out[inb] = acc[inb]
     return out
+
+
+def _sample_surface(mesh, voxel: float = 0.02) -> np.ndarray:
+    """The mesh's vertices downsampled on a `voxel`-metre hash grid: one
+    point, the centroid, per occupied cell (the reference's Open3D
+    `voxel_down_sample`), unbiased on unevenly tessellated meshes."""
+    verts = np.asarray(mesh.vertices, np.float32)
+    if len(verts) == 0:
+        return verts
+    cells = np.floor(verts / voxel).astype(np.int64)
+    _, inv, counts = np.unique(cells, axis=0, return_inverse=True, return_counts=True)
+    sums = np.zeros((len(counts), 3), np.float64)
+    np.add.at(sums, inv.reshape(-1), verts)
+    return (sums / counts[:, None]).astype(np.float32)
+
+
+def eval_mesh(mesh_pred, mesh_trgt, threshold: float = 0.05,
+              down_sample: float = 0.02) -> Dict[str, float]:
+    """Mesh precision, recall and F-score at `threshold` metres over both
+    meshes' vertices downsampled at `down_sample` metres: prec the share of
+    predicted points within the threshold of the target, recal the share of
+    target points within it of the prediction, dist1 / dist2 the mean
+    distances pred -> target / target -> pred. An empty side gives
+    inf distances and zero scores."""
+    pts_pred = _sample_surface(mesh_pred, down_sample)
+    pts_trgt = _sample_surface(mesh_trgt, down_sample)
+    if len(pts_pred) == 0 or len(pts_trgt) == 0:
+        return {"dist1": np.inf, "dist2": np.inf, "prec": 0.0, "recal": 0.0, "fscore": 0.0}
+    d1 = nn_distances(pts_pred, pts_trgt)  # the host library's KD-tree; no fallback
+    d2 = nn_distances(pts_trgt, pts_pred)
+    precision = float((d1 < threshold).mean())
+    recall = float((d2 < threshold).mean())
+    fscore = 2 * precision * recall / max(precision + recall, 1e-12)
+    return {"dist1": float(d1.mean()), "dist2": float(d2.mean()), "prec": precision,
+            "recal": recall, "fscore": float(fscore)}
 
 
 DEPTH_METRICS = ("AbsRel", "AbsDiff", "SqRel", "RMSE", "LogRMSE", "r1", "r2", "r3", "complete")

@@ -1,20 +1,28 @@
 """Render a scene's decoded TSDF field at its own camera views and score the
-depth against the measured depth (counterpart of the per-scene body of
+depth against the measured depth (counterpart of
 scripts/local/render_views.py): encode the frames, march the field through
 the point-decode kernel (`make_point_tsdf_fn`) inside the decode volume's
 box, turn ray distance into z-depth, and run `eval_depth`.
 
     python -m gennerf_tpu_torch.render --config configs/experiment/seqs_multigeo_4cm.yaml \\
+        --ckpt RUN --data-dir D [--split val.txt] --out out_dir [--num-views 4] [--features]
+    python -m gennerf_tpu_torch.render --config configs/experiment/seqs_multigeo_4cm.yaml \\
         --params params.npz --frames frames.npz --out out_dir [--num-views 4] [--features]
 
-`--params` is an npz of the JAX model's `params` tree with '/'-joined keys
-(utils/port_params.py); without it the weights are a seeded random init.
-`--frames` holds `projection` (T, 3, 4), `image` (T, 3, H, W), `depth`
-(T, H, W), `intrinsics` (T, 3, 3) and camera2world `pose` (T, 4, 4). Writes
-one PNG per view (predicted | measured z-depth), with `--features` one
-PNG of the surface features' first three principal components, and
-`render_metrics.json`; prints the mean metrics as one JSON line. Runs on
-the card unless `--device cpu` is given.
+The weights come from `--ckpt` (a checkpoint file, or a training run's
+directory or its `checkpoints/`: the best monitored epoch there, else the
+latest) or `--params` (an npz of the JAX model's `params` tree with
+'/'-joined keys, utils/port_params.py); without either they are a seeded
+random init. With `--data-dir`, every scene of the split (default:
+data.datasets_test) comes through the data module's test loader and
+`--num-views` of its frames are rendered; `--frames` holds one scene's
+`projection` (T, 3, 4), `image` (T, 3, H, W), `depth` (T, H, W),
+`intrinsics` (T, 3, 3) and camera2world `pose` (T, 4, 4). Writes one PNG
+per view (predicted | measured z-depth; `{scene}_viewNNN.png` in split
+mode), with `--features` one PNG of the surface features' first three
+principal components, and `render_metrics.json` (per view, or per scene in
+split mode, and the mean); prints the mean metrics as one JSON line. Runs
+on the card unless `--device cpu` is given.
 """
 from __future__ import annotations
 
@@ -123,17 +131,61 @@ def render_views(model: GenNerf, projection, image, depth, intrinsics, poses,
                           features)
 
 
-def main(argv=None) -> dict:
-    from .predict import build_model
-    from .utils.config import load_experiment_model_config
+def _write_views(out_dir: str, prefix: str, result: dict, depth: np.ndarray,
+                 features: bool) -> None:
+    """One depth panel PNG (predicted | measured, scaled by the measured
+    maximum) per rendered view, and its feature PNG."""
     from .utils.image import write_png
-    from .utils.port_params import gen_nerf_params_from_flax, load_params_npz
+
+    for i, vi in enumerate(result["views"]):
+        gt = depth[vi]
+        vmax = max(float(gt.max()), 1e-6)
+        panel = np.concatenate([np.clip(result["depth"][i], 0, vmax), gt], axis=1)
+        write_png(os.path.join(out_dir, f"{prefix}view{vi:03d}.png"),
+                  (panel / vmax * 255).astype(np.uint8))
+        if features:
+            write_png(os.path.join(out_dir, f"{prefix}view{vi:03d}_feat.png"),
+                      result["feature_rgb"][i])
+
+
+def render_split(model: GenNerf, data_cfg: dict, out_dir: str, num_views: int = 4,
+                 near: float = 0.05, far: float = 5.0, features: bool = False,
+                 seed: int = 0) -> dict:
+    """Render `num_views` views of every scene of the data config's test
+    split (the test loader, one scene a batch); returns {scene: mean depth
+    metrics} and writes the PNGs."""
+    from .data.datamodule import ScannetDataModule
+
+    loader = ScannetDataModule(dict(data_cfg, batch_size=1), seed=seed).test_dataloader()
+    generator = torch.Generator().manual_seed(seed)
+    per_scene = {}
+    for batch in loader:
+        scene = batch["scene"][0]
+        frames = {k: np.asarray(batch[k][0]) for k in
+                  ("projection", "image", "depth", "intrinsics", "pose")}
+        result = render_views(model, frames["projection"], frames["image"], frames["depth"],
+                              frames["intrinsics"], frames["pose"], num_views=num_views,
+                              near=near, far=far, features=features, generator=generator)
+        _write_views(out_dir, f"{scene}_", result, frames["depth"], features)
+        per_scene[scene] = result["mean"]
+        print(f"{scene}: {json.dumps(result['mean'])}", flush=True)
+    return per_scene
+
+
+def main(argv=None) -> dict:
+    from .predict import build_model, load_weights
+    from .utils.config import load_experiment_config
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config", required=True, help="configs/experiment/<name>.yaml")
-    parser.add_argument("--params", help="npz of the JAX params tree ('/'-joined keys)")
-    parser.add_argument("--frames", required=True,
-                        help="npz with projection, image, depth, intrinsics, pose")
+    weights = parser.add_mutually_exclusive_group()
+    weights.add_argument("--ckpt", help="checkpoint file, or a run or checkpoints/ directory "
+                         "(its best monitored epoch, else the latest)")
+    weights.add_argument("--params", help="npz of the JAX params tree ('/'-joined keys)")
+    source = parser.add_mutually_exclusive_group(required=True)
+    source.add_argument("--frames", help="npz with projection, image, depth, intrinsics, pose")
+    source.add_argument("--data-dir", help="dataset root: render the scenes of a split")
+    parser.add_argument("--split", help="split list under --data-dir (default: data.datasets_test)")
     parser.add_argument("--out", required=True, help="output directory")
     parser.add_argument("--num-views", type=int, default=4)
     parser.add_argument("--near", type=float, default=0.05)
@@ -144,29 +196,35 @@ def main(argv=None) -> dict:
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
 
-    model = build_model(load_experiment_model_config(args.config), args.device, args.seed)
-    if args.params:
-        model.load_state_dict(gen_nerf_params_from_flax(load_params_npz(args.params)))
-    with np.load(args.frames) as f:
-        frames = {k: f[k] for k in ("projection", "image", "depth", "intrinsics", "pose")}
-    result = render_views(model, frames["projection"], frames["image"], frames["depth"],
-                          frames["intrinsics"], frames["pose"], num_views=args.num_views,
-                          near=args.near, far=args.far, features=args.features,
-                          generator=torch.Generator().manual_seed(args.seed))
+    overrides = [f"paths.data_dir={os.path.abspath(args.data_dir)}"] if args.data_dir else []
+    cfg = load_experiment_config(args.config, "predict", overrides)
+    model = build_model(cfg["model"], args.device, args.seed)
+    load_weights(model, args.ckpt, args.params)
     os.makedirs(args.out, exist_ok=True)
-    per_view = {}
-    for i, vi in enumerate(result["views"]):
-        gt = frames["depth"][vi]
-        vmax = max(float(gt.max()), 1e-6)
-        panel = np.concatenate([np.clip(result["depth"][i], 0, vmax), gt], axis=1)
-        write_png(os.path.join(args.out, f"view{vi:03d}.png"), (panel / vmax * 255).astype(np.uint8))
-        if args.features:
-            write_png(os.path.join(args.out, f"view{vi:03d}_feat.png"), result["feature_rgb"][i])
-        per_view[int(vi)] = result["metrics"][i]
+    if args.data_dir:
+        data_cfg = dict(cfg["data"])
+        if args.split:
+            data_cfg["datasets_test"] = [args.split]
+        per_scene = render_split(model, data_cfg, args.out, args.num_views, args.near, args.far,
+                                 args.features, args.seed)
+        mean = {k: float(np.mean([m[k] for m in per_scene.values()]))
+                for k in next(iter(per_scene.values()))}
+        record = {"per_scene": per_scene, "mean": mean}
+    else:
+        with np.load(args.frames) as f:
+            frames = {k: f[k] for k in ("projection", "image", "depth", "intrinsics", "pose")}
+        result = render_views(model, frames["projection"], frames["image"], frames["depth"],
+                              frames["intrinsics"], frames["pose"], num_views=args.num_views,
+                              near=args.near, far=args.far, features=args.features,
+                              generator=torch.Generator().manual_seed(args.seed))
+        _write_views(args.out, "", result, frames["depth"], args.features)
+        mean = result["mean"]
+        record = {"per_view": {int(vi): m for vi, m in zip(result["views"], result["metrics"])},
+                  "mean": mean}
     with open(os.path.join(args.out, "render_metrics.json"), "w") as f:
-        json.dump({"per_view": per_view, "mean": result["mean"]}, f, indent=2)
-    print(json.dumps({"renderer_depth_mean": result["mean"]}))
-    return result["mean"]
+        json.dump(record, f, indent=2)
+    print(json.dumps({"renderer_depth_mean": mean}))
+    return mean
 
 
 if __name__ == "__main__":

@@ -20,10 +20,16 @@ random_rotation_3d or random_translation_3d.
 `--params` starts from a JAX params npz (utils/port_params.py), `--resume`
 continues a run from its checkpoint directory. The trainer settings
 (max_epochs, log_every_n_steps, check_val_every_n_epoch,
-gradient_clip_val) come from the config's `trainer`. It writes
-out/metrics.csv, out/checkpoints/ and out/params.npz (the trained model
-as a params tree, which the predict and render CLIs read). Runs on the
-card unless `--device cpu` is given, and raises when there is none.
+gradient_clip_val) come from the config's `trainer`, the checkpoint rule
+(dirpath, monitor, mode, save_top_k, save_last) from
+`callbacks.model_checkpoint`, with paths.output_dir set to `--out`. It
+writes out/metrics.csv, the checkpoints (out/checkpoints/ by default; the
+predict and render CLIs' `--ckpt` pick the best monitored epoch there),
+out/local/ (the validation tail's volumes and meshes) and out/params.npz
+(the last epoch's model as a params tree). When the config sets `test:
+true`, the best monitored epoch (else the last) then runs the test pass
+with its reconstruction tail. Runs on the card unless `--device cpu` is
+given, and raises when there is none.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from ..utils.config import load_experiment_config
 from ..utils.port_params import (
     flax_params_from_gen_nerf, gen_nerf_params_from_flax, load_params_npz, save_params_npz,
 )
+from .checkpoints import CheckpointManager
 from .loop import Trainer
 from .state import make_optimizer
 
@@ -86,7 +93,9 @@ def main(argv=None) -> Trainer:
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
-    overrides = [f"paths.data_dir={os.path.abspath(args.data_dir)}"] if args.data_dir else []
+    overrides = [f"paths.output_dir={os.path.abspath(args.out)}"]
+    if args.data_dir:
+        overrides.append(f"paths.data_dir={os.path.abspath(args.data_dir)}")
     cfg = load_experiment_config(args.config, "train", overrides)
     trainer_cfg, data_cfg = cfg["trainer"], cfg["data"]
     if str(trainer_cfg.get("precision", "32-true")) not in ("32-true", "32"):
@@ -101,18 +110,34 @@ def main(argv=None) -> Trainer:
                                trainer_cfg.get("gradient_clip_val"))
     if args.batch or args.synthetic:
         train_data, val_data = fixed_batches(args, data_cfg, model.cfg)
+        test_data = val_data
     else:
         datamodule = ScannetDataModule(data_cfg, seed=args.seed)
         train_data, val_data = datamodule.train_dataloader(), datamodule.val_dataloader()
+        test_data = datamodule.test_dataloader() if cfg.get("test") else None
+    ckpt_cfg = (cfg.get("callbacks") or {}).get("model_checkpoint") or {}
+    checkpoints = CheckpointManager(
+        ckpt_cfg.get("dirpath") or os.path.join(args.out, "checkpoints"),
+        save_top_k=int(ckpt_cfg.get("save_top_k", -1)),
+        save_last=bool(ckpt_cfg.get("save_last", True)),
+        monitor=ckpt_cfg.get("monitor"), mode=ckpt_cfg.get("mode", "min"))
     trainer = Trainer(
         model, optimizer, torch.Generator(device=device).manual_seed(args.seed), args.out,
         max_epochs=args.epochs or int(trainer_cfg["max_epochs"]),
         log_every_n_steps=int(trainer_cfg.get("log_every_n_steps", 50)),
-        check_val_every_n_epoch=int(trainer_cfg.get("check_val_every_n_epoch", 1)))
+        check_val_every_n_epoch=int(trainer_cfg.get("check_val_every_n_epoch", 1)),
+        checkpoints=checkpoints)
     metrics = trainer.fit(train_data, val_data, ckpt_path=args.resume)
     save_params_npz(os.path.join(args.out, "params.npz"), flax_params_from_gen_nerf(model.state_dict()))
     print(f"trained {trainer.global_step} steps: "
           + ", ".join(f"{k}={v:.5g}" for k, v in sorted(metrics.items())))
+    if cfg.get("test"):
+        best = checkpoints.best_epoch()
+        if best is not None:
+            checkpoints.restore_best(model)
+        metrics = trainer.test(test_data)
+        label = f"epoch {best}, best {checkpoints.monitor}" if best is not None else "last epoch"
+        print(f"test ({label}): " + ", ".join(f"{k}={v:.5g}" for k, v in sorted(metrics.items())))
     return trainer
 
 

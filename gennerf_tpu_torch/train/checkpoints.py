@@ -4,15 +4,27 @@ checkpoints, which reach the port as a params npz; ROADMAP queue 1).
 A checkpoint is one `torch.save` file holding the model and optimizer
 state dicts, the epoch just finished, the global step and the states of
 the step generator and the validation generator, so a resumed run draws
-what the uninterrupted run would have drawn. `CheckpointManager` writes
-one file per epoch plus `last.pt`.
+what the uninterrupted run would have drawn.
+
+`CheckpointManager` keeps the rule of the JAX package's manager
+(gennerf_tpu/train/checkpoints.py): without a `monitor` every epoch is
+ranked and the newest `save_top_k` are kept (-1: all); with a monitor an
+epoch is ranked only when its metrics hold the monitored value, the best
+`save_top_k` by it are kept (`mode` min or max, the earlier epoch first on
+a tie), and an epoch without the value only refreshes `last.pt`, which
+every epoch writes when `save_last`. The ranking lives in
+`checkpoints.json` beside the files, so another process (the predict and
+render CLIs) finds the best epoch.
 """
 from __future__ import annotations
 
+import json
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
+
+RANKING_FILE = "checkpoints.json"
 
 
 def save_checkpoint(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -55,16 +67,140 @@ def resolve_checkpoint(path: str) -> str:
     raise FileNotFoundError(f"no checkpoint at {path}")
 
 
-class CheckpointManager:
-    """epoch_XXXX.pt for every epoch and last.pt in one directory."""
+def select_checkpoint(path: str):
+    """(file, selected_by) for an entry point's `--ckpt`: a file as given
+    ('file'); for a checkpoint directory or a run's output directory the
+    best monitored epoch (selected_by: the monitor), else the latest
+    ('latest')."""
+    if os.path.isfile(path):
+        return path, "file"
+    try:
+        manager = CheckpointManager.open(path)
+    except FileNotFoundError:
+        return resolve_checkpoint(path), "latest"
+    file, _, selected_by = manager.best_or_latest()
+    return file, selected_by
 
-    def __init__(self, directory: str):
-        self.directory = directory
-        os.makedirs(directory, exist_ok=True)
+
+class CheckpointManager:
+    """epoch_XXXX.pt for the kept epochs, last.pt and the ranking in one
+    directory (see the module docstring for the retention rule)."""
+
+    def __init__(self, directory: str, save_top_k: int = -1, save_last: bool = True,
+                 monitor: Optional[str] = None, mode: str = "min"):
+        if mode not in ("min", "max"):
+            raise ValueError(f"monitor mode must be 'min' or 'max', got {mode!r}")
+        self.directory = os.path.abspath(directory)
+        self.save_top_k, self.save_last = int(save_top_k), bool(save_last)
+        self.monitor, self.mode = monitor, mode
+        # kept epoch -> its monitored value (None without a monitor)
+        self.ranked: Dict[int, Optional[float]] = {}
+        self.last_epoch: Optional[int] = None
+        os.makedirs(self.directory, exist_ok=True)
+        path = os.path.join(self.directory, RANKING_FILE)
+        if os.path.exists(path):
+            with open(path) as f:
+                saved = json.load(f)
+            if (saved["monitor"], saved["mode"]) != (monitor, mode):
+                raise ValueError(f"{self.directory} ranks by {saved['monitor']!r} "
+                                 f"({saved['mode']}), not {monitor!r} ({mode})")
+            self.ranked = {int(k): v for k, v in saved["ranked"].items()}
+            self.last_epoch = saved["last_epoch"]
+
+    @classmethod
+    def open(cls, path: str) -> "CheckpointManager":
+        """The manager of an existing checkpoint directory, or of a training
+        run's output directory (its `checkpoints/`), with the monitor and
+        mode its ranking was made with."""
+        for directory in (path, os.path.join(path, "checkpoints")):
+            ranking = os.path.join(directory, RANKING_FILE)
+            if os.path.isfile(ranking):
+                with open(ranking) as f:
+                    saved = json.load(f)
+                return cls(directory, saved["save_top_k"], monitor=saved["monitor"],
+                           mode=saved["mode"])
+        raise FileNotFoundError(f"no {RANKING_FILE} in {path} or {path}/checkpoints")
+
+    def path(self, epoch: int) -> str:
+        return os.path.join(self.directory, f"epoch_{epoch:04d}.pt")
 
     def save(self, epoch: int, step: int, model, optimizer, generator=None,
-             val_generator=None) -> str:
-        path = os.path.join(self.directory, f"epoch_{epoch:04d}.pt")
-        for p in (path, os.path.join(self.directory, "last.pt")):
-            save_checkpoint(p, model, optimizer, epoch, step, generator, val_generator)
-        return path
+             val_generator=None, metrics: Optional[Dict[str, float]] = None) -> str:
+        """Write the epoch's checkpoint where the rule keeps it, refresh
+        last.pt, drop the epochs that left the top k; returns the path of
+        the epoch's file, or of last.pt for an epoch that is not ranked."""
+        args = (model, optimizer, epoch, step, generator, val_generator)
+        ranked = not self.monitor or (metrics is not None and self.monitor in metrics)
+        written = os.path.join(self.directory, "last.pt")
+        if ranked:
+            written = self.path(epoch)
+            save_checkpoint(written, *args)
+            self.ranked[int(epoch)] = float(metrics[self.monitor]) if self.monitor else None
+        if self.save_last or not ranked:
+            save_checkpoint(os.path.join(self.directory, "last.pt"), *args)
+            self.last_epoch = int(epoch)
+        for dropped in set(self.ranked) - set(self._kept()):
+            del self.ranked[dropped]
+            if os.path.exists(self.path(dropped)):
+                os.remove(self.path(dropped))
+        self._write_ranking()
+        return written
+
+    def _order(self):
+        """Ranked epochs, best first: by the monitored value (the earlier
+        epoch first on a tie), else the newest first."""
+        if not self.monitor:
+            return sorted(self.ranked, reverse=True)
+        sign = 1.0 if self.mode == "min" else -1.0
+        return sorted(self.ranked, key=lambda e: (sign * self.ranked[e], e))
+
+    def _kept(self):
+        order = self._order()
+        return order if self.save_top_k == -1 else order[:max(self.save_top_k, 1)]
+
+    def _write_ranking(self) -> None:
+        path = os.path.join(self.directory, RANKING_FILE)
+        tmp = f"{path}.tmp{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump({"monitor": self.monitor, "mode": self.mode, "save_top_k": self.save_top_k,
+                       "ranked": {str(k): v for k, v in sorted(self.ranked.items())},
+                       "last_epoch": self.last_epoch}, f, indent=1)
+        os.replace(tmp, path)
+
+    def kept_epochs(self):
+        """The epochs whose epoch_XXXX.pt is kept, ascending."""
+        return sorted(self.ranked)
+
+    def best_epoch(self) -> Optional[int]:
+        """The epoch with the best monitored value; None without a monitor
+        and None when no epoch was ranked."""
+        if not self.monitor or not self.ranked:
+            return None
+        return self._order()[0]
+
+    def latest_epoch(self) -> Optional[int]:
+        epochs = list(self.ranked) + ([self.last_epoch] if self.last_epoch is not None else [])
+        return max(epochs) if epochs else None
+
+    def checkpoint_path(self, epoch: int) -> str:
+        """The file that holds `epoch`: its epoch file, or last.pt."""
+        if epoch in self.ranked:
+            return self.path(epoch)
+        if epoch == self.last_epoch:
+            return os.path.join(self.directory, "last.pt")
+        raise FileNotFoundError(f"no checkpoint for epoch {epoch} in {self.directory}")
+
+    def best_or_latest(self):
+        """(path, epoch, selected_by) of the best monitored epoch, else of
+        the latest ('latest'); raises when the directory holds none."""
+        best = self.best_epoch()
+        epoch = best if best is not None else self.latest_epoch()
+        if epoch is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        return self.checkpoint_path(epoch), epoch, self.monitor if best is not None else "latest"
+
+    def restore_best(self, model, optimizer=None) -> dict:
+        """Load the best monitored epoch (the latest without one) into
+        `model` (and `optimizer`); returns {'epoch', 'step'}."""
+        path, _, _ = self.best_or_latest()
+        return load_checkpoint(path, model, optimizer)

@@ -1,5 +1,6 @@
-"""Scalar metric logging (the port's copy of `CSVLogger` from
-gennerf_tpu/train/loggers.py)."""
+"""Metric and artifact logging (the port's copy of `CSVLogger` and of the
+local file sink `LocalWriter` from gennerf_tpu/train/loggers.py; no
+tfevents)."""
 from __future__ import annotations
 
 import csv
@@ -38,3 +39,22 @@ class CSVLogger:
                     w.writerow(r)
         with open(self.csv_path, "a", newline="") as f:
             csv.DictWriter(f, fieldnames=self._fieldnames).writerow(row)
+
+
+class LocalWriter:
+    """File artifacts under save_dir/local/: meshes as .ply and TSDFs as
+    .npz, at the tag's path (a later write of a tag replaces the file)."""
+
+    def __init__(self, save_dir: str):
+        self.dir = os.path.join(save_dir, "local")
+
+    def _path(self, rel: str, ext: str) -> str:
+        path = os.path.join(self.dir, rel + ext)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        return path
+
+    def log_mesh(self, mesh, name: str) -> None:
+        mesh.export(self._path(name, ".ply"))
+
+    def log_tsdf(self, tsdf, name: str) -> None:
+        tsdf.save(self._path(name, ".npz"))

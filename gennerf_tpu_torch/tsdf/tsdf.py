@@ -5,8 +5,8 @@ gennerf_tpu/tsdf/tsdf.py).
 `transform` is host pipeline work: the loaders call it in their worker
 threads, as the reference's DataLoader workers do. It runs in float32
 numpy, one core a call, so the loader threads share the host's cores
-instead of each starting torch's intra-op pool on all of them. Marching
-cubes (`get_mesh`) is not ported yet.
+instead of each starting torch's intra-op pool on all of them. `get_mesh`
+runs marching cubes in the port's host C++ library (utils/native.py).
 """
 from __future__ import annotations
 
@@ -15,6 +15,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from ..utils.mesh import Mesh
+from ..utils.native import marching_cubes
 
 
 def _transform_sample_grid(transform: np.ndarray, origin: np.ndarray, old_origin: np.ndarray,
@@ -161,5 +164,34 @@ class TSDF:
         return TSDF(self.voxel_size, torch.from_numpy(origin), torch.from_numpy(vol),
                     attribute_vols, dict(self.attributes))
 
-    def get_mesh(self, *args, **kwargs):
-        raise NotImplementedError("TSDF.get_mesh needs marching cubes, which is not ported yet")
+    def get_mesh(self, attribute: str = "color") -> Mesh:
+        """The zero level set by marching cubes (the host library), in world
+        coordinates (vertices * voxel_size + origin). Voxels at -1 (unknown)
+        count as outside, so no surface closes along the unobserved border;
+        a volume that does not cross 0 gives an empty mesh. Per-vertex
+        'instance' and, with attribute 'color', the colours come from the
+        attribute volumes at the rounded voxel index, and 'semseg' labels
+        where a volume holds them. Colouring by 'semseg' needs label fusion
+        and the NYU40 colormap, which are not ported."""
+        if attribute == "semseg":
+            raise NotImplementedError("semseg colours need label fusion, which is not ported")
+        tsdf_vol = -np.asarray(self.tsdf_vol.detach().cpu(), np.float32)  # positive outside
+        tsdf_vol[tsdf_vol == -1] = 1
+        tsdf_vol = np.clip(tsdf_vol, -1, 1)
+        if tsdf_vol.min() >= 0 or tsdf_vol.max() <= 0:
+            return Mesh(vertices=np.zeros((0, 3)))
+
+        verts, faces = marching_cubes(tsdf_vol, level=0.0)
+        i, j, k = np.round(verts).astype(int).T
+        origin = np.asarray(self.origin.detach().cpu()).reshape(1, 3)
+        verts = verts * self.voxel_size + origin
+
+        vertex_attributes, colors = {}, None
+        for key in ("semseg", "instance"):
+            if key in self.attribute_vols:
+                vertex_attributes[key] = self.attribute_vols[key].cpu().numpy()[i, j, k]
+        if attribute == "color" and "color" in self.attribute_vols:
+            color_vol = np.clip(self.attribute_vols["color"].cpu().numpy(), 0, 255).astype(np.uint8)
+            colors = color_vol[:, i, j, k].T
+        return Mesh(vertices=verts, faces=faces, vertex_colors=colors,
+                    vertex_attributes=vertex_attributes)

@@ -1,0 +1,173 @@
+"""The port's host C++ library (csrc/host/gennerf_native.cpp) through ctypes:
+marching cubes, KD-tree nearest-neighbour distances and the depth
+rasterizer, with the signatures and return conventions of the JAX
+package's native binding.
+
+The library is built on first use with the host C++ compiler (`$CXX`, else
+`g++`) and the flags in `CXX_FLAGS`, into `ops.kernels.build_dir()` (the
+kernels' build directory), keyed by a hash of the source, the flags, the
+compiler's `--version` and the machine; a build writes a temporary file
+renamed into place, so processes that build at once do not collide.
+Nothing is built or loaded when this module is imported. A failed build
+or load raises: there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import platform
+import shutil
+import subprocess
+import threading
+import time
+
+import numpy as np
+
+from ..ops.kernels import build_dir
+
+SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "csrc", "host", "gennerf_native.cpp")
+CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
+LIB_NAME = "libgennerf_torch_host.so"
+
+_lock = threading.Lock()
+_lib = None
+build_info: dict = {}
+
+_F32P, _I32P = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
+_SIGNATURES = {
+    "free_buffer": (None, [ctypes.c_void_p]),
+    "marching_cubes": (ctypes.c_int, [
+        _F32P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.POINTER(_F32P), ctypes.POINTER(_I32P), _I32P, _I32P]),
+    "nn_distances": (None, [_F32P, ctypes.c_int, _F32P, ctypes.c_int, _F32P]),
+    "rasterize_depth": (None, [
+        _F32P, ctypes.c_int, _I32P, ctypes.c_int, _F32P,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, _F32P]),
+}
+
+
+def _compiler() -> str:
+    cxx = os.environ.get("CXX") or "g++"
+    path = shutil.which(cxx)
+    if path is None:
+        raise RuntimeError(f"host C++ compiler {cxx!r} not found: the port's host library "
+                           "(marching cubes, KD-tree, rasterizer) is built with it")
+    return path
+
+
+def build_library() -> str:
+    """Compile the host library if this exact build is not there yet and
+    return its path; records the path, seconds and whether it was cached in
+    `build_info`."""
+    cxx = _compiler()
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True,
+                             check=True).stdout
+    digest = hashlib.sha256()
+    with open(SOURCE, "rb") as f:
+        digest.update(f.read())
+    for part in (" ".join(CXX_FLAGS), version, platform.machine()):
+        digest.update(part.encode())
+    out_dir = os.path.join(build_dir(), "host-" + digest.hexdigest()[:16])
+    lib_path = os.path.join(out_dir, LIB_NAME)
+    if os.path.exists(lib_path):
+        build_info.update(path=lib_path, seconds=0.0, cached=True)
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib_path}.tmp{os.getpid()}"
+    t0 = time.perf_counter()
+    out = subprocess.run([cxx, *CXX_FLAGS, SOURCE, "-o", tmp], capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"building the host library failed:\n{out.stdout}{out.stderr}")
+    os.replace(tmp, lib_path)
+    build_info.update(path=lib_path, seconds=time.perf_counter() - t0, cached=False)
+    return lib_path
+
+
+def load_library() -> ctypes.CDLL:
+    """The loaded host library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build_library())
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = restype, argtypes
+            _lib = lib
+        return _lib
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _rows3(a, dtype, name: str) -> np.ndarray:
+    """`a` as a C-contiguous (n, 3) array of `dtype`; raises for another
+    shape, since the C code reads 3 values a row."""
+    a = np.ascontiguousarray(a, dtype=dtype)
+    if a.ndim != 2 or a.shape[1] != 3:
+        raise ValueError(f"{name}: expected shape (n, 3), got {a.shape}")
+    return a
+
+
+def marching_cubes(volume: np.ndarray, level: float = 0.0):
+    """The `level` isosurface of a (nx, ny, nz) float volume: vertices
+    (V, 3) float32 in voxel coordinates and faces (F, 3) int32."""
+    lib = load_library()
+    vol = np.ascontiguousarray(volume, dtype=np.float32)
+    if vol.ndim != 3:
+        raise ValueError(f"volume: expected 3 dimensions, got {vol.shape}")
+    nx, ny, nz = vol.shape
+    verts_p, faces_p = _F32P(), _I32P()
+    nv, nf = ctypes.c_int(), ctypes.c_int()
+    rc = lib.marching_cubes(_ptr(vol, ctypes.c_float), nx, ny, nz, ctypes.c_float(level),
+                            ctypes.byref(verts_p), ctypes.byref(faces_p),
+                            ctypes.byref(nv), ctypes.byref(nf))
+    try:
+        if rc != 0:
+            raise RuntimeError("marching cubes failed to allocate its output")
+        verts = (np.ctypeslib.as_array(verts_p, shape=(nv.value, 3)).copy() if nv.value
+                 else np.zeros((0, 3), np.float32))
+        faces = (np.ctypeslib.as_array(faces_p, shape=(nf.value, 3)).copy() if nf.value
+                 else np.zeros((0, 3), np.int32))
+    finally:
+        lib.free_buffer(verts_p)
+        lib.free_buffer(faces_p)
+    return verts, faces
+
+
+def rasterize_depth(vertices: np.ndarray, faces: np.ndarray, intrinsics: np.ndarray,
+                    pose: np.ndarray, height: int, width: int) -> np.ndarray:
+    """(H, W) float32 z-depth of a mesh (vertices (V, 3) in world space,
+    faces (F, 3)) seen by a pinhole camera with (3, 3) `intrinsics` and
+    camera-to-world `pose` (4, 4); 0 where no triangle covers the pixel."""
+    lib = load_library()
+    v = _rows3(vertices, np.float32, "vertices")
+    f = _rows3(faces, np.int32, "faces")
+    if len(f) and (f.min() < 0 or f.max() >= len(v)):
+        raise ValueError(f"faces index outside the {len(v)} vertices")
+    pose, K = np.asarray(pose, np.float64), np.asarray(intrinsics, np.float64)
+    if pose.shape != (4, 4) or K.shape != (3, 3):
+        raise ValueError(f"expected a (4, 4) pose and (3, 3) intrinsics, got {pose.shape}, "
+                         f"{K.shape}")
+    w2c = np.ascontiguousarray(np.linalg.inv(pose).astype(np.float32))
+    out = np.zeros((height, width), dtype=np.float32)
+    lib.rasterize_depth(_ptr(v, ctypes.c_float), len(v), _ptr(f, ctypes.c_int), len(f),
+                        _ptr(w2c, ctypes.c_float), ctypes.c_float(K[0, 0]),
+                        ctypes.c_float(K[1, 1]), ctypes.c_float(K[0, 2]),
+                        ctypes.c_float(K[1, 2]), height, width, _ptr(out, ctypes.c_float))
+    return out
+
+
+def nn_distances(queries: np.ndarray, targets: np.ndarray) -> np.ndarray:
+    """(Q,) float32 distance from each query point to its nearest target
+    point (inf when there is no target)."""
+    lib = load_library()
+    q = _rows3(queries, np.float32, "queries")
+    t = _rows3(targets, np.float32, "targets")
+    out = np.empty(len(q), dtype=np.float32)
+    lib.nn_distances(_ptr(q, ctypes.c_float), len(q), _ptr(t, ctypes.c_float), len(t),
+                     _ptr(out, ctypes.c_float))
+    return out

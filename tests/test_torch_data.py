@@ -46,6 +46,7 @@ from gennerf_tpu.data.synthetic import generate_scene as j_generate_scene
 from gennerf_tpu.data.synthetic import random_primitives as j_random_primitives
 from gennerf_tpu.train.step import gen_nerf_forward_loss as j_forward_loss
 from gennerf_tpu.train.tasks import GenNerfTask
+from gennerf_tpu.utils.mesh import Mesh as JMesh
 from gennerf_tpu_torch.data import datamodule as tdm
 from gennerf_tpu_torch.data.datasets import ItemCache, load_info_json, map_frames
 from gennerf_tpu_torch.data.make_multigeo import make_multigeo
@@ -56,6 +57,7 @@ from gennerf_tpu_torch.train.__main__ import main as train_main
 from gennerf_tpu_torch.train.step import batch_to_device, gen_nerf_forward_loss
 from gennerf_tpu_torch.tsdf.tsdf import TSDF
 from gennerf_tpu_torch.utils.image import decode_png, encode_png, resize_bilinear, resize_nearest
+from gennerf_tpu_torch.utils.mesh import Mesh
 from test_torch_predict import _jax_draws, scene, task_pair  # noqa: F401
 from test_torch_predict import CFG as PREDICT_CFG
 from test_torch_train import CFG as TRAIN_CFG
@@ -256,7 +258,12 @@ def _load_jax_writer():
 def test_writer_matches_jax(tmp_path):
     """The port's make_multigeo and the JAX script on the same (small)
     settings: the same split files, scenes, cameras and decoded frames,
-    and the ground truth within 4e-6. The port writes no mesh_gt.ply."""
+    the ground truth within 4e-6, and mesh_gt.ply with the JAX file's faces
+    and vertices: a vertex lies at v_a / (v_a - v_b) along its edge, so the
+    volumes' 4e-6 moves it by up to 4e-6 / |v_a - v_b| of a voxel; at most
+    1% of the vertices move by more than 1e-5 voxel, none by more than
+    1e-3 voxel. The port's mesh has no vertex colours (its fusion has no
+    colour channel)."""
     args = ["--train", "2", "--frames", "3", "--height", "12", "--width", "16", "--voxel-sizes", "8"]
     _load_jax_writer().main(["--out", str(tmp_path / "jax")] + args)
     make_multigeo(str(tmp_path / "port"), train=2, frames=3, height=12, width=16, voxel_sizes=(8,))
@@ -267,7 +274,7 @@ def test_writer_matches_jax(tmp_path):
     for rel in rels["train"] + rels["val"]:
         ji = load_info_json(str(tmp_path / "jax" / rel))
         ti = load_info_json(str(tmp_path / "port" / rel))
-        assert set(ji) - set(ti) == {"file_name_mesh_gt"} and set(ti) <= set(ji)
+        assert set(ji) == set(ti)
         assert ji["scene"] == ti["scene"] and len(ji["frames"]) == len(ti["frames"]) == 3
         for jf, tf in zip(ji["frames"], ti["frames"]):
             assert jf["intrinsics"] == tf["intrinsics"] and jf["pose"] == tf["pose"]
@@ -278,7 +285,12 @@ def test_writer_matches_jax(tmp_path):
         assert tv.voxel_size == jv.voxel_size and tv.tsdf_vol.shape == jv.tsdf_vol.shape
         np.testing.assert_array_equal(tv.origin.numpy(), jv.origin.numpy())
         np.testing.assert_allclose(tv.tsdf_vol.numpy(), jv.tsdf_vol.numpy(), rtol=0, atol=4e-6)
-        assert not os.path.exists(os.path.join(os.path.dirname(ti["file_name_vol_08"]), "mesh_gt.ply"))
+        jm, tm = JMesh.load(ji["file_name_mesh_gt"]), Mesh.load(ti["file_name_mesh_gt"])
+        assert len(tm.faces) > 0 and tm.vertex_colors is None and jm.vertex_colors is not None
+        np.testing.assert_array_equal(tm.faces, jm.faces)
+        moved = np.abs(tm.vertices - jm.vertices).max(axis=1) / 0.08
+        assert (moved > 1e-5).mean() <= 1e-2 and moved.max() <= 1e-3, (int((moved > 1e-5).sum()),
+                                                                       moved.max())
 
 
 def test_tar_frames_read_as_files(tmp_path):

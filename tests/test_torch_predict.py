@@ -223,23 +223,39 @@ def test_cli_on_cpu(task_pair, scene, tmp_path):
     np.testing.assert_array_equal(vol, expect.numpy())
 
 
+FORBIDDEN = ("jax", "jaxlib", "flax", "gennerf_tpu", "PIL", "skimage", "cv2", "scipy")
+
+
 def test_port_imports_no_jax():
     """Importing the port and every submodule pulls in no jax, flax or
-    gennerf_tpu module, and no PIL, skimage or cv2 (the card's machine has
-    none of them), and chip_smoke.py imports none."""
+    gennerf_tpu module, no PIL, skimage or cv2 (the card's machine has
+    none of them) and no scipy; meshing, the KD-tree and the rasterizer
+    then load nothing from the repo's native/ (the port builds its own
+    host library); and chip_smoke.py imports none of them."""
     code = (
-        "import importlib, pkgutil, sys, gennerf_tpu_torch\n"
+        "import importlib, os, pkgutil, sys, numpy as np, gennerf_tpu_torch\n"
         "for m in pkgutil.walk_packages(gennerf_tpu_torch.__path__, 'gennerf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'gennerf_tpu', 'PIL', 'skimage', 'cv2')]\n"
-        "print(len([k for k in sys.modules if k.startswith('gennerf_tpu_torch')]), bad)\n"
+        "from gennerf_tpu_torch.eval.metrics import eval_mesh\n"
+        "from gennerf_tpu_torch.tsdf.tsdf import TSDF\n"
+        "from gennerf_tpu_torch.utils.native import rasterize_depth\n"
+        "import torch\n"
+        "x = torch.linspace(-1, 1, 6)\n"
+        "mesh = TSDF(0.1, torch.zeros(1, 3), (x[:, None, None] + 0 * x[None, :, None]\n"
+        "            + 0 * x[None, None, :]).contiguous()).get_mesh()\n"
+        "eval_mesh(mesh, mesh)\n"
+        "rasterize_depth(mesh.vertices, mesh.faces, np.eye(3), np.eye(4), 4, 4)\n"
+        f"bad = [k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r}]\n"
+        "native = os.path.join(os.getcwd(), 'native') + os.sep\n"
+        "maps = [line.split()[-1] for line in open('/proc/self/maps') if '/' in line]\n"
+        "print(len([k for k in sys.modules if k.startswith('gennerf_tpu_torch')]), len(mesh),\n"
+        "      bad, sorted({m for m in maps if m.startswith(native)}))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120, env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.strip().split(" ", 1)
-    assert int(n_modules) >= 20 and bad == "[]", out.stdout
+    n_modules, n_verts, rest = out.stdout.strip().split(" ", 2)
+    assert int(n_modules) >= 20 and int(n_verts) > 0 and rest == "[] []", out.stdout
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
     for node in ast.walk(tree):
@@ -249,5 +265,4 @@ def test_port_imports_no_jax():
         elif isinstance(node, ast.ImportFrom) and node.module:
             names = [node.module]
         for name in names:
-            assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "gennerf_tpu", "PIL",
-                                              "skimage", "cv2"), name
+            assert name.split(".")[0] not in FORBIDDEN, name

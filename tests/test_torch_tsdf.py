@@ -1,6 +1,7 @@
 """The port's TSDF volume layer on the CPU against the JAX package:
 the transform's sampler, `TSDF.transform` (the ground-truth resample of
-3D augmentation), the npz layout across both packages and `eval_tsdf`.
+3D augmentation), the npz layout across both packages (and the mesh of a
+JAX-written volume) and `eval_tsdf`.
 
 Tolerances:
 - the sampler against grid_sample_3d: 1e-6 absolute (float32 lerps in the
@@ -133,8 +134,11 @@ def test_tsdf_save_load_across_packages(fused, tmp_path):
         np.testing.assert_array_equal(np.asarray(t.attribute_vols["instance"]), attrs["instance"])
     only = TSDF.load(str(tmp_path / "jax.npz"), ["tsdf"])
     assert only.attribute_vols == {}
-    with pytest.raises(NotImplementedError, match="marching cubes"):
-        only.get_mesh()
+    # the volume alone meshes as the JAX package meshes it
+    mesh, ref = only.get_mesh(), JTSDF.load(str(tmp_path / "jax.npz"), ["tsdf"]).get_mesh()
+    assert len(mesh.faces) > 0 and mesh.vertex_colors is None and ref.vertex_colors is None
+    np.testing.assert_array_equal(mesh.faces, ref.faces)
+    np.testing.assert_allclose(mesh.vertices, ref.vertices, rtol=0, atol=1e-5 * VOXEL_SIZE)
 
 
 def test_eval_tsdf_matches_jax(fused):
