@@ -74,6 +74,20 @@ from csrc/host/ with the host C++ compiler, then:
      rendered through K3, held against the plain march (the hit share
      printed), and one step with K1 against the plain-FPS step on the
      fit's first augmented 480x640 batch;
+ 10. spatial: configs/experiment/seqs_multigeo_spatial.yaml at full width
+     (ResNet-34 stem and 3 stages at feature_scale 2.0 on the loaders'
+     480x640 frames, 512 latent channels backprojected into an 80x80x40
+     volume beside the pointnet triplanes, d_in 544, frame_chunk 1 with
+     remat) from the port's `random:resnet34` backbone graft, on the data
+     phase's dataset: one epoch of `Trainer.fit` (8 steps) and its
+     validation, counters reset just before and read just after (K1 =
+     steps + eval batches + tails, K2 0: the volume scene decodes in f32);
+     on one loader batch the remat step against the step without remat
+     (loss, gradients, running statistics, peak memory of each), K1 against
+     the plain FPS, the frame_chunk encode against the one-pass encode in
+     eval mode; timed and profiled train steps; a held-out `reconstruct`
+     at 96x96x56 (K1 once, K2 0, finite, inside the head's range), its
+     total and decode ms and a profile;
 then a `kernels` JSON line, the nvidia-smi line and the final result line.
 Every phase raises on failure. Needs one CUDA card; exits non-zero without.
 """
@@ -84,6 +98,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -135,6 +150,19 @@ MESH_FSCORE_MIN, ORACLE_FSCORE_MIN, ORACLE_ABSREL_MAX = 0.99, 0.90, 0.06
 EVAL_DEVICE_TOL = 1e-4
 EXPERIMENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "configs", "experiment", "seqs_multigeo_4cm.yaml")
+# the spatial phase: the combined pointnet + ResNet-34 encoder at full width
+SPATIAL_EXPERIMENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "configs", "experiment", "seqs_multigeo_spatial.yaml")
+SPATIAL_BACKBONE = "random:resnet34"
+SPATIAL_EPOCHS, SPATIAL_TIMED_STEPS = 1, 5
+# remat against no remat on one batch, same weights and draws: the same
+# arithmetic, recomputed, so the loss and the running statistics agree to
+# the atomics' order of the gathers' backward, the gradients as K1's do
+REMAT_LOSS_RTOL, REMAT_GRAD_TOL, REMAT_STATS_TOL = 1e-5, 1e-4, 1e-6
+# frame_chunk 1 against the one-pass encode in eval mode: the same
+# convolutions on a batch of 1 or of 8 frames (cuDNN may pick another
+# algorithm), the volume summed in the same frame order
+CHUNK_REL_TOL = 1e-5
 PRIMITIVES = [
     {"type": "sphere", "center": (1.45, 1.75, 0.45), "radius": 0.45},
     {"type": "box", "min": (1.75, 1.05, 0.0), "max": (2.25, 1.55, 0.6)},
@@ -355,9 +383,10 @@ def train_phase(torch, dev, cfg_dict: dict, smi: str) -> dict:
     return launches
 
 
-def data_phase(torch, dev, smi: str) -> dict:
-    """Phase 9 (see the module docstring); returns the launch counts of
-    the main-path runs (the fit, the held-out predict, the render)."""
+def data_phase(torch, dev, smi: str, root: str) -> dict:
+    """Phase 9 (see the module docstring): writes the multigeo dataset to
+    `root`; returns the launch counts of the main-path runs (the fit, the
+    held-out predict, the render)."""
     import tempfile
     from unittest import mock
 
@@ -388,7 +417,6 @@ def data_phase(torch, dev, smi: str) -> dict:
             totals[k.name] += k.launches
 
     with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "multigeo")
         t0 = time.perf_counter()
         make_multigeo(root, train=DATA_TRAIN_SCENES, frames=DATA_FRAMES, height=HEIGHT,
                       width=WIDTH, voxel_sizes=(4, 8))
@@ -607,6 +635,246 @@ def data_phase(torch, dev, smi: str) -> dict:
         emit({"phase": "data_vs_plain_fps", "vs_plain_fps": vs_plain,
               "tolerance": {"loss_rel": TRAIN_LOSS_RTOL, "grad_over_max_abs": TRAIN_GRAD_TOL},
               "card": smi})
+    return totals
+
+
+def spatial_phase(torch, dev, smi: str, root: str) -> dict:
+    """Phase 10 (see the module docstring); returns the launch counts of
+    the main-path runs (the fit with its validation, the reconstruct)."""
+    from unittest import mock
+
+    from gennerf_tpu_torch.data.datamodule import ScannetDataModule
+    from gennerf_tpu_torch.models.gen_nerf import GenNerf
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.predict import build_model, reconstruct
+    from gennerf_tpu_torch.tools.port_backbone import main as port_backbone
+    from gennerf_tpu_torch.train import loop as loop_module
+    from gennerf_tpu_torch.train.checkpoints import CheckpointManager
+    from gennerf_tpu_torch.train.loop import Trainer
+    from gennerf_tpu_torch.train.predict import predict_tsdf_volume, uses_grid_decode
+    from gennerf_tpu_torch.train.state import make_optimizer
+    from gennerf_tpu_torch.train.step import StepDraws, batch_to_device, gen_nerf_forward_loss
+    from gennerf_tpu_torch.train.step import train_step
+    from gennerf_tpu_torch.utils.config import load_experiment_config
+
+    totals = {k.name: 0 for k in kernels.KERNELS}
+
+    def read_launches():
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        for name, n in counts.items():
+            totals[name] += n
+        return counts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        backbone = os.path.join(tmp, "backbone.npz")
+        port_backbone([SPATIAL_BACKBONE, backbone])
+        run_dir = os.path.join(tmp, "run")
+        cfg = load_experiment_config(SPATIAL_EXPERIMENT, "train", [
+            f"paths.data_dir={root}", f"paths.output_dir={run_dir}",
+            f"model.encoder.spatial.pretrained_path={backbone}"])
+        data_cfg, trainer_cfg = cfg["data"], cfg["trainer"]
+        datamodule = ScannetDataModule(data_cfg, seed=SEED)
+        model = build_model(cfg["model"], dev, SEED)
+        mcfg = model.cfg
+        if not (mcfg.encoder.use_spatial and mcfg.encoder.use_pointnet and mcfg.remat
+                and mcfg.encoder.spatial.frame_chunk == 1) or uses_grid_decode(model):
+            raise RuntimeError(f"not the spatial drive config: {mcfg.encoder}")
+        opt = make_optimizer(model.parameters(), mcfg.optimizer,
+                             trainer_cfg.get("gradient_clip_val"))
+        ckpt_cfg = cfg["callbacks"]["model_checkpoint"]
+        checkpoints = CheckpointManager(ckpt_cfg["dirpath"], ckpt_cfg["save_top_k"],
+                                        monitor=ckpt_cfg["monitor"], mode=ckpt_cfg["mode"])
+        trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), run_dir,
+                          max_epochs=SPATIAL_EPOCHS, check_val_every_n_epoch=1,
+                          checkpoints=checkpoints)
+        encodes = []
+
+        def counted(fn):
+            def wrapper(*a, **k):
+                encodes.append(fn.__name__)
+                return fn(*a, **k)
+            return wrapper
+
+        # the main path: the fit over the loaders with its validation and
+        # reconstruction tail, counters reset just before and read just after
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with mock.patch.object(loop_module, "eval_step", counted(loop_module.eval_step)), \
+                mock.patch.object(loop_module, "reconstruct", counted(loop_module.reconstruct)):
+            t0 = time.perf_counter()
+            trainer.fit(datamodule.train_dataloader(), datamodule.val_dataloader())
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        fit_launches = read_launches()
+        fit_peak = torch.cuda.max_memory_allocated()
+        steps = trainer.global_step  # fit raises on a non-finite loss
+        step_ms = [t["step_ms"] for t in trainer.timings]
+        waits = [t["data_wait_ms"] for t in trainer.timings]
+        n_eval, n_tail = encodes.count("eval_step"), encodes.count("reconstruct")
+        fit_rec = {"steps": steps, "eval_batches": n_eval, "tails": n_tail,
+                   "launches": fit_launches, "fit_s": fit_s,
+                   "step_ms_median": statistics.median(step_ms), "step_ms_first": step_ms[0],
+                   "data_wait_ms_median": statistics.median(waits),
+                   "loss_last": trainer.metrics["train_combined"],
+                   "val_combined": trainer.metrics.get("val_combined"),
+                   "val_recon_tsdf_l1": trainer.metrics.get("val_recon_tsdf_l1"),
+                   "peak_memory_bytes": fit_peak}
+        if fit_launches["fps"] != steps + n_eval + n_tail or fit_launches["grid_decode"] != 0:
+            raise RuntimeError(f"the spatial fit launched K1 {fit_launches['fps']} times in "
+                               f"{steps} steps, {n_eval} eval batches and {n_tail} tails, K2 "
+                               f"{fit_launches['grid_decode']} times")
+        if not (n_tail == SPATIAL_EPOCHS and math.isfinite(fit_rec["val_recon_tsdf_l1"])):
+            raise RuntimeError(f"the spatial validation tail is missing or not finite: {fit_rec}")
+
+        # one loader batch for the comparisons and the timed steps
+        batch = batch_to_device(next(iter(ScannetDataModule(data_cfg, seed=SEED)
+                                          .train_dataloader())), dev)
+        B, T, H, W = batch["depth"].shape
+        fitted = {k: v.clone() for k, v in model.state_dict().items()}
+
+        # remat against no remat: one forward and backward in training mode
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        presample = mcfg.encoder.pointnet.fps_presample
+        draws = StepDraws(
+            sel=torch.randint(0, H * W, (B * T, presample), generator=g, device=dev),
+            start=torch.randint(0, presample, (B * T,), generator=g, device=dev),
+            scores=torch.rand((B * T, H * W), generator=g, device=dev),
+            noise=torch.randn((B * T, mcfg.ray.num_rays, mcfg.ray.M), generator=g, device=dev))
+        plain = GenNerf(dataclasses.replace(mcfg, remat=False)).to(dev)
+
+        def forward_backward(m):
+            m.load_state_dict(fitted)
+            m.train()
+            m.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            loss, _ = gen_nerf_forward_loss(m, batch, draws=draws)
+            loss.backward()
+            torch.cuda.synchronize()
+            stats = {k: v.clone() for k, v in m.state_dict().items() if "running_" in k}
+            return (float(loss.detach()), {n: p.grad.clone() for n, p in m.named_parameters()},
+                    stats, torch.cuda.max_memory_allocated(), (time.perf_counter() - t) * 1e3)
+
+        loss_r, grads_r, stats_r, peak_r, ms_r = forward_backward(model)
+        loss_p, grads_p, stats_p, peak_p, ms_p = forward_backward(plain)
+        grad_err = {n: float((grads_r[n] - grads_p[n]).abs().max())
+                    / max(float(grads_p[n].abs().max()), 1e-30) for n in grads_p}
+        stats_err = max(float((stats_r[k] - stats_p[k]).abs().max())
+                        / max(float(stats_p[k].abs().max()), 1e-30) for k in stats_p)
+        moved = sum(not torch.equal(stats_r[k], fitted[k]) for k in stats_r)
+        worst = max(grad_err, key=grad_err.get)
+        remat_rec = {"loss_remat": loss_r, "loss_plain": loss_p,
+                     "loss_rel_err": abs(loss_r - loss_p) / abs(loss_p),
+                     "worst_grad": worst, "worst_grad_err_over_max_abs": grad_err[worst],
+                     "running_stats_rel_err": stats_err, "running_stats_moved": moved,
+                     "running_stats": len(stats_r), "peak_memory_bytes_remat": peak_r,
+                     "peak_memory_bytes_no_remat": peak_p, "forward_backward_ms_remat": ms_r,
+                     "forward_backward_ms_no_remat": ms_p,
+                     "tolerance": {"loss_rel": REMAT_LOSS_RTOL, "grad_over_max_abs": REMAT_GRAD_TOL,
+                                   "stats_rel": REMAT_STATS_TOL}}
+        del plain, grads_r, grads_p
+        if not (remat_rec["loss_rel_err"] <= REMAT_LOSS_RTOL and grad_err[worst] <= REMAT_GRAD_TOL
+                and stats_err <= REMAT_STATS_TOL and moved == len(stats_r)):
+            raise RuntimeError(f"the remat step disagrees with the step without remat: {remat_rec}")
+
+        # K1 against the plain FPS on the same batch (deterministic algorithms)
+        model.load_state_dict(fitted)
+        model.train()
+        t0 = time.perf_counter()
+        vs_plain = k1_step_vs_plain(torch, dev, model, batch, SEED)
+        vs_plain["three_deterministic_steps_s"] = time.perf_counter() - t0
+
+        # frame_chunk 1 against the one-pass encode, eval mode
+        model.load_state_dict(fitted)
+        one_pass = GenNerf(dataclasses.replace(mcfg, encoder=dataclasses.replace(
+            mcfg.encoder, spatial=dataclasses.replace(mcfg.encoder.spatial, frame_chunk=0))))
+        one_pass.load_state_dict(fitted)
+        one_pass = one_pass.to(dev).eval()
+        model.eval()
+        enc_args = (batch["projection"], batch["image"], batch["depth"], None, draws.sel,
+                    draws.start, mcfg.voxel_dim_train)
+        with torch.no_grad():
+            chunked_repr = model.encode(*enc_args)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            one_repr = one_pass.encode(*enc_args)
+            torch.cuda.synchronize()
+        one_pass_peak = torch.cuda.max_memory_allocated()
+
+        def rel(a, b):
+            return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+        chunk_rec = {"volume_rel_err": rel(chunked_repr.volume, one_repr.volume),
+                     "valid_equal": bool(torch.equal(chunked_repr.valid, one_repr.valid)),
+                     "planes_rel_err": max(rel(chunked_repr.planes[k], one_repr.planes[k])
+                                           for k in one_repr.planes),
+                     "one_pass_encode_peak_memory_bytes": one_pass_peak,
+                     "tolerance_rel": CHUNK_REL_TOL}
+        del one_pass, one_repr, chunked_repr
+        if not (chunk_rec["volume_rel_err"] <= CHUNK_REL_TOL and chunk_rec["valid_equal"]
+                and chunk_rec["planes_rel_err"] <= CHUNK_REL_TOL):
+            raise RuntimeError(f"chunked and one-pass encodes disagree: {chunk_rec}")
+
+        # timed train steps on the loader batch, and one profiled step
+        model.load_state_dict(fitted)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        train_ms = []
+        for _ in range(2 + SPATIAL_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(model, opt, batch, gen)
+            torch.cuda.synchronize()
+            train_ms.append((time.perf_counter() - t0) * 1e3)
+        med_ms = statistics.median(train_ms[2:])
+        prof = profile_device(torch, lambda: train_step(model, opt, batch, gen), med_ms, smi)
+
+        # predict: one held-out scene at the test grid from the fitted weights
+        model.load_state_dict(fitted)
+        model.eval()
+        scene = next(iter(datamodule.predict_dataloader()))
+        P, image, depth = (torch.as_tensor(scene[k][0]).to(dev)
+                           for k in ("projection", "image", "depth"))
+        voxel_dim = tuple(mcfg.voxel_dim_test)
+        kernels.reset_launch_counts()
+        vol = reconstruct(model, P, image, depth, voxel_dim, torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        predict_launches = read_launches()
+        smoothing = mcfg.mlp.head_smoothing
+        if tuple(vol.shape) != voxel_dim or not torch.isfinite(vol).all() \
+                or float(vol.abs().max()) > max(smoothing, 1.0):
+            raise RuntimeError(f"spatial volume {tuple(vol.shape)} not finite or out of range")
+        if (predict_launches["fps"], predict_launches["grid_decode"]) != (1, 0):
+            raise RuntimeError(f"the spatial reconstruct launched {predict_launches}")
+        total_ms = host_ms(torch, lambda: reconstruct(model, P, image, depth, voxel_dim,
+                                                      torch.Generator().manual_seed(SEED)), 3)
+        origin = torch.zeros(3, device=dev)
+        with torch.no_grad():
+            repr_ = model.encode(P[None], image[None], depth[None],
+                                 torch.Generator().manual_seed(SEED), voxel_dim=voxel_dim)
+        decode_ms = host_ms(torch, lambda: predict_tsdf_volume(model, repr_, voxel_dim,
+                                                               mcfg.voxel_size, origin), 3)
+        predict_prof = profile_device(torch, lambda: reconstruct(
+            model, P, image, depth, voxel_dim, torch.Generator().manual_seed(SEED)), total_ms, smi)
+
+        emit({"phase": "spatial", "config": "configs/experiment/seqs_multigeo_spatial.yaml",
+              "backbone": SPATIAL_BACKBONE, "d_in": mcfg.encoder_latent,
+              "batch": {"frames": [T, H, W], "resnet_input": [2 * H, 2 * W],
+                        "voxel_dim_train": list(mcfg.voxel_dim_train)},
+              "fit": fit_rec, "remat_vs_plain": remat_rec, "vs_plain_fps": vs_plain,
+              "vs_plain_fps_tolerance": {"loss_rel": TRAIN_LOSS_RTOL,
+                                         "grad_over_max_abs": TRAIN_GRAD_TOL},
+              "chunked_vs_one_pass": chunk_rec,
+              "train_step_ms": {"median": med_ms, "all": train_ms},
+              "predict": {"scene": scene["scene"][0], "voxel_dim": list(voxel_dim),
+                          "launches": predict_launches, "total_ms": total_ms,
+                          "decode_ms": decode_ms, "out_abs_max": float(vol.abs().max())},
+              "card": smi})
+        emit({"phase": "spatial_profile", "what": "one loader-batch spatial train_step",
+              "k1_share": prof["fps_kernel_ms"] / max(prof["device_busy_ms"], 1e-9), **prof})
+        emit({"phase": "spatial_predict_profile",
+              "what": "one spatial reconstruct at the test grid", **predict_prof})
     return totals
 
 
@@ -1100,15 +1368,21 @@ def main() -> int:
     # 8. train: the training path, K1 in every step's encode
     train_launches = train_phase(torch, dev, cfg_dict, smi)
 
-    # 9. data: the on-disk dataset through the loaders into training, then
-    # held-out predict and render from the trained weights
-    data_launches = data_phase(torch, dev, smi)
+    with tempfile.TemporaryDirectory() as data_tmp:
+        root = os.path.join(data_tmp, "multigeo")
+        # 9. data: the on-disk dataset through the loaders into training, then
+        # held-out predict and render from the trained weights
+        data_launches = data_phase(torch, dev, smi, root)
+        # 10. spatial: the ResNet feature volume beside the triplanes, trained
+        # on the same dataset, then a held-out reconstruct
+        spatial_launches = spatial_phase(torch, dev, smi, root)
 
     kernel_line = {"kernels": [
         {"name": "fps", "route": "cuda", "source": "gennerf_tpu_torch/csrc/fps.cu",
          "replaces": "gennerf_tpu/ops/pallas/fps.py:33",
          "launches": (launches["fps"] + render_launches["fps"] + mesh_launches["fps"]
-                      + sparse_launches["fps"] + train_launches["fps"] + data_launches["fps"]),
+                      + sparse_launches["fps"] + train_launches["fps"] + data_launches["fps"]
+                      + spatial_launches["fps"]),
          "max_abs_err": float((idx_k - idx_p).abs().max()), "ms": fps_ms,
          "plain_ms": fps_plain_ms, "bound_ms": fps_bound, "bound_by": "operations",
          "library_ms": None},

@@ -1,7 +1,7 @@
 """Frozen model-config dataclasses (counterpart of gennerf_tpu/models/config.py).
 
-Only the fields the predict, render and train paths of the pointnet-only
-GenNerf read are kept; `config_from_dict` ignores every other key of an
+Only the fields the predict, render and train paths of GenNerf (the
+pointnet triplanes, the spatial feature volume, or both) read are kept; `config_from_dict` ignores every other key of an
 experiment yaml (frustum sampling, the eikonal/gradient/distill weights,
 ...), exactly as the reference's does for bookkeeping keys. Defaults are
 the reference's. Options the port does not implement yet are rejected by
@@ -11,7 +11,26 @@ differently.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class SpatialEncoderConfig:
+    backbone: str = "resnet34"  # 'resnet18' | 'resnet34' | 'resnet50'
+    # backbone npz (tools/port_backbone.py) grafted into the ResNet at init
+    pretrained_path: Optional[str] = None
+    num_layers: int = 4
+    upsample_interp: str = "bilinear"
+    feature_scale: float = 2.0
+    use_first_pool: bool = True
+    norm_type: str = "batch"
+    blur_image: bool = True
+    kernel_size: int = 41
+    sigma: float = 10.0
+    # 1x1 conv (with bias) after the stage concat; None keeps the concat
+    out_channels: Optional[int] = None
+    # encode this many frames at a time into the f32 volume (0: all at once)
+    frame_chunk: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +65,7 @@ class PlaneMergerConfig:
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
     use_spatial: bool = True
+    spatial: SpatialEncoderConfig = SpatialEncoderConfig()
     use_pointnet: bool = True
     pointnet: PointnetConfig = PointnetConfig()
     plane_merger: PlaneMergerConfig = PlaneMergerConfig()
@@ -151,6 +171,9 @@ class GenNerfConfig:
     mask_unobserved: bool = True
     # inference: decode only the prior's near-surface band (needs mask_unobserved)
     sparse_band_decode: bool = False
+    # recompute the spatial encoder (or each frame_chunk's encode and
+    # backprojection) in backward instead of keeping its activations
+    remat: bool = False
     sampling_mode: str = "ray"  # 'ray' ('frustum' is not ported)
     ray: RayConfig = RayConfig()
     encoder: EncoderConfig = EncoderConfig()
@@ -164,13 +187,24 @@ class GenNerfConfig:
 
     @property
     def encoder_latent(self) -> int:
-        return self.encoder.pointnet.c_dim  # pointnet-only (check_supported)
+        """The decoder's d_in: the spatial latent, then the plane channels."""
+        from .spatial_encoder import spatial_latent_size
+
+        enc = self.encoder
+        d = 0
+        if enc.use_spatial:
+            s = enc.spatial
+            d += s.out_channels or spatial_latent_size(s.backbone, s.num_layers)
+        if enc.use_pointnet:
+            d += enc.pointnet.c_dim
+        return d
 
 
 def check_supported(cfg: GenNerfConfig) -> None:
     """Raise NotImplementedError for every option this slice of the port
     does not implement (later slices lift these one by one)."""
     enc, p, m, loss = cfg.encoder, cfg.encoder.pointnet, cfg.mlp, cfg.loss
+    s = enc.spatial
     unsupported = {
         "sampling_mode 'frustum'": cfg.sampling_mode != "ray",
         "loss.use_eikonal": loss.use_eikonal,
@@ -180,9 +214,12 @@ def check_supported(cfg: GenNerfConfig) -> None:
         "optimizer.type other than 'Adam'": cfg.optimizer.type != "Adam",
         "scheduler.type other than 'StepLR' or None":
             cfg.scheduler.type not in ("StepLR", "None", None),
-        "encoder.use_spatial": enc.use_spatial,
         "encoder.use_auxiliary": enc.use_auxiliary,
-        "encoder.use_pointnet=False": not enc.use_pointnet,
+        "neither encoder.use_spatial nor encoder.use_pointnet":
+            not (enc.use_spatial or enc.use_pointnet),
+        "spatial.norm_type other than 'batch'": enc.use_spatial and s.norm_type != "batch",
+        "spatial.upsample_interp other than 'bilinear'":
+            enc.use_spatial and s.upsample_interp != "bilinear",
         "pointnet.plane_type 'grid'": "grid" in p.plane_type,
         "pointnet.unet_merge_mode other than 'concat'": p.unet_merge_mode != "concat",
         "pointnet.sparsifier 'voxel_hash'": p.sparsifier != "fps",

@@ -46,3 +46,52 @@ def project_voxels(voxel_dim, voxel_size: float, origin, projection: torch.Tenso
     py = torch.round(camera[:, 1] / safe_z).to(torch.int64)
     valid = (px >= 0) & (py >= 0) & (px < width) & (py < height) & (z > 0)
     return px.clamp(0, width - 1), py.clamp(0, height - 1), z, valid
+
+
+def backproject(voxel_dim, voxel_size: float, origin, projection: torch.Tensor,
+                features: torch.Tensor):
+    """Lift (B, C, H, W) features along camera rays into the voxel grid:
+    each voxel center projects through its frame's (B, 3, 4) world->pixel
+    projection and reads the feature of the pixel it rounds to (one dense
+    gather per voxel, not a scatter).
+
+    Returns volume (B, C, nx, ny, nz), 0 outside the frustum, and valid
+    (B, 1, nx, ny, nz) float {0, 1}."""
+    B, C, H, W = features.shape
+    nx, ny, nz = (int(d) for d in voxel_dim)
+    origin = torch.as_tensor(origin, dtype=torch.float32, device=features.device).reshape(-1)[:3]
+    px, py, _, valid = project_voxels(voxel_dim, voxel_size, origin, projection, H, W)
+    flat_idx = py * W + px  # (B, V)
+    flat = features.reshape(B, C, H * W)
+    # index_select along the pixel axis: its backward is one index_add per
+    # frame (deterministic on CUDA under torch.use_deterministic_algorithms)
+    cols = [flat[b].index_select(1, flat_idx[b]) for b in range(B)]
+    vol = cols[0][None] if B == 1 else torch.stack(cols)
+    vol = torch.where(valid[:, None, :], vol, torch.zeros((), dtype=vol.dtype, device=vol.device))
+    return vol.reshape(B, C, nx, ny, nz), valid.to(features.dtype).reshape(B, 1, nx, ny, nz)
+
+
+def backproject_fold(feat_2d: torch.Tensor, projection: torch.Tensor, image_hw, voxel_dim,
+                     voxel_size: float, origin):
+    """Sum the backprojected features of T frames into one volume.
+
+    Args:
+        feat_2d: (B*T, C, Hf, Wf) features of the folded frame axis.
+        projection: (B, T, 3, 4) world->image-pixel projections, rescaled
+            here to feature pixels by (Wf/W, Hf/H, 1).
+        image_hw: (H, W) of the images the projections address.
+
+    Returns (volume (B, C, nx, ny, nz), valid (B, 1, nx, ny, nz)), both f32
+    running sums accumulated frame by frame."""
+    B, T = projection.shape[:2]
+    C, Hf, Wf = feat_2d.shape[1:]
+    H, W = (int(s) for s in image_hw)
+    scale = torch.tensor([Wf / W, Hf / H, 1.0], dtype=torch.float32,
+                         device=projection.device).reshape(1, 3, 1)
+    feat = feat_2d.to(torch.float32).reshape(B, T, C, Hf, Wf)
+    volume = valid = None
+    for t in range(T):
+        vol, val = backproject(voxel_dim, voxel_size, origin, projection[:, t] * scale, feat[:, t])
+        volume = vol if volume is None else volume + vol
+        valid = val if valid is None else valid + val
+    return volume, valid

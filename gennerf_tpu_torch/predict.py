@@ -13,7 +13,10 @@ The weights come from `--ckpt` (a checkpoint file, or a training run's
 directory or its `checkpoints/`: the best monitored epoch there, else the
 latest) or `--params` (an npz of the JAX model's `params` tree with
 '/'-joined keys, utils/port_params.py, as the train CLI writes it);
-without either they are a seeded random init. `--frames` holds
+without either they are a seeded random init (with the spatial encoder's
+backbone npz grafted when the config names one). A params npz of a model
+with the spatial encoder also holds its BatchNorm running statistics
+under `batch_stats/`. `--frames` holds
 `projection` (T, 3, 4), `image` (T, 3, H, W) and `depth` (T, H, W). With
 `--data-dir`, every scene of the split (default: data.datasets_test) comes
 through the data module's predict loader (the inference path of
@@ -45,12 +48,18 @@ from .tsdf.fusion import apply_fusion_prior
 
 def build_model(model_cfg: Union[dict, GenNerfConfig], device=None, seed: int = 0) -> GenNerf:
     """A GenNerf in eval mode on `device` (the card by default), its
-    weights a random init drawn from `seed`."""
+    weights a random init drawn from `seed`, with the backbone npz of
+    `encoder.spatial.pretrained_path` grafted into the spatial encoder's
+    ResNet when the config names one (tools/port_backbone.py)."""
     device = resolve_device(device)
     cfg = model_cfg if isinstance(model_cfg, GenNerfConfig) else config_from_dict(GenNerfConfig, model_cfg)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = GenNerf(cfg)
+    if cfg.encoder.use_spatial and cfg.encoder.spatial.pretrained_path:
+        from .tools.port_backbone import graft_backbone
+
+        graft_backbone(model, cfg.encoder.spatial.pretrained_path)
     return model.to(device).eval()
 
 
@@ -60,7 +69,8 @@ def reconstruct(model: GenNerf, projection: torch.Tensor, image: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 sel: Optional[torch.Tensor] = None,
                 start: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One scene's (nx, ny, nz) f32 TSDF volume, on the model's device.
+    """One scene's (nx, ny, nz) f32 TSDF volume, on the model's device; a
+    feature volume is encoded on the decode grid, both at origin 0.
 
     Args:
         projection: (T, 3, 4) world->image; image: (T, 3, H, W); depth: (T, H, W).
@@ -75,7 +85,8 @@ def reconstruct(model: GenNerf, projection: torch.Tensor, image: torch.Tensor,
                                 for a in (projection, image, depth))
     voxel_dim = tuple(int(d) for d in (voxel_dim or cfg.voxel_dim_test))
     origin = torch.zeros(3, dtype=torch.float32, device=device)
-    repr_ = model.encode(projection[None], image[None], depth[None], generator, sel, start)
+    repr_ = model.encode(projection[None], image[None], depth[None], generator, sel, start,
+                         voxel_dim, origin)
     if cfg.mask_unobserved and cfg.sparse_band_decode:
         vol = predict_tsdf_volume_sparse(model, repr_, voxel_dim, cfg.voxel_size, origin,
                                          projection, depth)

@@ -1,8 +1,9 @@
 """Render a scene's decoded TSDF field at its own camera views and score the
 depth against the measured depth (counterpart of
 scripts/local/render_views.py): encode the frames, march the field through
-the point-decode kernel (`make_point_tsdf_fn`) inside the decode volume's
-box, turn ray distance into z-depth, and run `eval_depth`.
+the point-decode kernel (`make_point_tsdf_fn`; the f32 `GenNerf.decode` for
+a config with the spatial feature volume) inside the decode volume's box,
+turn ray distance into z-depth, and run `eval_depth`.
 
     python -m gennerf_tpu_torch.render --config configs/experiment/seqs_multigeo_4cm.yaml \\
         --ckpt RUN --data-dir D [--split val.txt] --out out_dir [--num-views 4] [--features]
@@ -74,7 +75,9 @@ def render_encoded(model: GenNerf, repr_: SceneRepr, depth: torch.Tensor,
     cfg = model.cfg
     T, H, W = depth.shape
     vol_size = np.array(cfg.voxel_dim_test, np.float32) * cfg.voxel_size
-    renderer = SurfaceRenderer(lambda pts: model.decode(repr_, pts), near=near, far=far,
+    volume_cl = model.volume_features(repr_)  # once for every march step
+    renderer = SurfaceRenderer(lambda pts: model.decode(repr_, pts, None, volume_cl),
+                               near=near, far=far,
                                tsdf_fn=tsdf_fn, aabb=(np.zeros(3, np.float32), vol_size))
     device = depth.device
     hs, ws = torch.meshgrid(torch.arange(H, device=device, dtype=torch.float32),
@@ -117,7 +120,9 @@ def render_views(model: GenNerf, projection, image, depth, intrinsics, poses,
         depth: (T, H, W) measured z-depth; intrinsics: (T, 3, 3);
         poses: (T, 4, 4) camera2world.
         use_kernel_path: march through `make_point_tsdf_fn` (the point-decode
-            kernel on the card); False marches the f32 `GenNerf.decode`.
+            kernel on the card); False, and every config with the spatial
+            feature volume (which the kernel path does not take, as in the
+            reference), marches the f32 `GenNerf.decode`.
         generator, sel, start: the encoder's draws (see GenNerf.encode).
     """
     set_reference_precision()
@@ -125,7 +130,10 @@ def render_views(model: GenNerf, projection, image, depth, intrinsics, poses,
     projection, image, depth, intrinsics, poses = (
         torch.as_tensor(a, dtype=torch.float32).to(device)
         for a in (projection, image, depth, intrinsics, poses))
-    repr_ = model.encode(projection[None], image[None], depth[None], generator, sel, start)
+    # a feature volume is encoded on the test grid at origin 0, the box the march clips to
+    repr_ = model.encode(projection[None], image[None], depth[None], generator, sel, start,
+                         model.cfg.voxel_dim_test)
+    use_kernel_path = use_kernel_path and not model.cfg.encoder.use_spatial
     tsdf_fn = make_point_tsdf_fn(model, repr_) if use_kernel_path else None
     return render_encoded(model, repr_, depth, intrinsics, poses, tsdf_fn, num_views, near, far,
                           features)

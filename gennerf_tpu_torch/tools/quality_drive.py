@@ -3,10 +3,14 @@
 through the port's command-line entry points, one process each, timed.
 
     python -m gennerf_tpu_torch.tools.quality_drive --work DIR --summary out.json \\
-        [--config configs/experiment/seqs_multigeo_4cm.yaml] [--epochs E] [--device cpu]
+        [--config configs/experiment/seqs_multigeo_4cm.yaml] [--epochs E] [--device cpu] \\
+        [--backbone random:resnet34]
 
 The steps, as a user runs them:
   1. python -m gennerf_tpu_torch.data.make_multigeo --out DIR/data
+     (with --backbone, then python -m gennerf_tpu_torch.tools.port_backbone
+      SPEC DIR/backbone.npz, grafted by step 2 through
+      model.encoder.spatial.pretrained_path=DIR/backbone.npz)
   2. python -m gennerf_tpu_torch.train --config C --data-dir DIR/data --out DIR/run
   3. python -m gennerf_tpu_torch.predict --config C --ckpt DIR/run --data-dir DIR/data
          --split val.txt --out DIR/pred
@@ -65,6 +69,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--config", default=DEFAULT_CONFIG)
     parser.add_argument("--epochs", type=int, help="default: the config's trainer.max_epochs")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--backbone", help="spatial backbone for port_backbone: a torchvision "
+                        ".pth or random:<backbone>")
     args = parser.parse_args(argv)
 
     work = os.path.abspath(args.work)
@@ -77,6 +83,11 @@ def main(argv=None) -> dict:
     train_args = ["--config", config, "--data-dir", data, "--out", run, *device]
     if args.epochs:
         train_args += ["--epochs", str(args.epochs)]
+    if args.backbone:
+        backbone = os.path.join(work, "backbone.npz")
+        seconds["backbone"] = run_step(work, "backbone", "gennerf_tpu_torch.tools.port_backbone",
+                                       [args.backbone, backbone])
+        train_args.append(f"model.encoder.spatial.pretrained_path={backbone}")
     seconds["train"] = run_step(work, "train", "gennerf_tpu_torch.train", train_args)
     seconds["predict"] = run_step(work, "predict", "gennerf_tpu_torch.predict", [
         "--config", config, "--ckpt", run, "--data-dir", data, "--split", "val.txt",
@@ -100,7 +111,8 @@ def main(argv=None) -> dict:
             with open(os.path.join(pred, name)) as f:
                 m = json.load(f)
             scenes[m["scene"]] = m
-    summary = {"config": os.path.relpath(config, REPO), "card": card_line(),
+    summary = {"config": os.path.relpath(config, REPO), "backbone": args.backbone,
+               "card": card_line(),
                "seconds": seconds, "wall_s": sum(seconds.values()), "epochs": epochs,
                "train_s_per_epoch": seconds["train"] / epochs, "predict_meta": meta,
                "validations": val, "scenes": scenes, "mean": mean}

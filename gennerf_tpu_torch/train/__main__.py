@@ -1,9 +1,15 @@
-"""Train the pointnet-only GenNerf of an experiment config (counterpart of
-the reference's scripts/train.py for GenNerf experiments).
+"""Train the GenNerf of an experiment config (counterpart of the
+reference's scripts/train.py for GenNerf experiments).
 
     python -m gennerf_tpu_torch.train --config configs/experiment/seqs_multigeo_4cm.yaml \
         --out runs/multigeo [--data-dir D | --batch b.npz | --synthetic] [--params p.npz] \
-        [--epochs E] [--resume dir] [--seed S] [--device cpu]
+        [--epochs E] [--resume dir] [--seed S] [--device cpu] [key.path=value ...]
+    python -m gennerf_tpu_torch.train --config configs/experiment/seqs_multigeo_spatial.yaml \
+        --out runs/spatial --data-dir D model.encoder.spatial.pretrained_path=backbone.npz
+
+Trailing `a.b.c=value` arguments override the composed config, as the
+reference's command line does (above: the backbone npz of
+tools/port_backbone.py grafted into the spatial encoder at init).
 
 By default it trains on the config's dataset: `ScannetDataModule` builds
 the train and validation loaders from the `data` keys (the dataset lists,
@@ -26,8 +32,9 @@ gradient_clip_val) come from the config's `trainer`, the checkpoint rule
 writes out/metrics.csv, the checkpoints (out/checkpoints/ by default; the
 predict and render CLIs' `--ckpt` pick the best monitored epoch there),
 out/local/ (the validation tail's volumes and meshes) and out/params.npz
-(the last epoch's model as a params tree). When the config sets `test:
-true`, the best monitored epoch (else the last) then runs the test pass
+(the last epoch's model as a params tree, with the spatial encoder's
+BatchNorm running statistics under batch_stats/). When the config sets
+`test: true`, the best monitored epoch (else the last) then runs the test pass
 with its reconstruction tail. Runs on the card unless `--device cpu` is
 given, and raises when there is none.
 """
@@ -45,7 +52,7 @@ from ..device import resolve_device, set_reference_precision
 from ..predict import build_model
 from ..utils.config import load_experiment_config
 from ..utils.port_params import (
-    flax_params_from_gen_nerf, gen_nerf_params_from_flax, load_params_npz, save_params_npz,
+    gen_nerf_npz_tree, gen_nerf_params_from_flax, load_params_npz, save_params_npz,
 )
 from .checkpoints import CheckpointManager
 from .loop import Trainer
@@ -91,11 +98,13 @@ def main(argv=None) -> Trainer:
     parser.add_argument("--resume", help="checkpoint, or directory of an earlier run")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("overrides", nargs="*", help="config overrides a.b.c=value")
     args = parser.parse_args(argv)
 
     overrides = [f"paths.output_dir={os.path.abspath(args.out)}"]
     if args.data_dir:
         overrides.append(f"paths.data_dir={os.path.abspath(args.data_dir)}")
+    overrides += args.overrides
     cfg = load_experiment_config(args.config, "train", overrides)
     trainer_cfg, data_cfg = cfg["trainer"], cfg["data"]
     if str(trainer_cfg.get("precision", "32-true")) not in ("32-true", "32"):
@@ -128,7 +137,7 @@ def main(argv=None) -> Trainer:
         check_val_every_n_epoch=int(trainer_cfg.get("check_val_every_n_epoch", 1)),
         checkpoints=checkpoints)
     metrics = trainer.fit(train_data, val_data, ckpt_path=args.resume)
-    save_params_npz(os.path.join(args.out, "params.npz"), flax_params_from_gen_nerf(model.state_dict()))
+    save_params_npz(os.path.join(args.out, "params.npz"), gen_nerf_npz_tree(model.state_dict()))
     print(f"trained {trainer.global_step} steps: "
           + ", ".join(f"{k}={v:.5g}" for k, v in sorted(metrics.items())))
     if cfg.get("test"):

@@ -1,10 +1,12 @@
 """Training checkpoints in the port's own format (the reference writes orbax
 checkpoints, which reach the port as a params npz; ROADMAP queue 1).
 
-A checkpoint is one `torch.save` file holding the model and optimizer
-state dicts, the epoch just finished, the global step and the states of
-the step generator and the validation generator, so a resumed run draws
-what the uninterrupted run would have drawn.
+A checkpoint is one `torch.save` file holding the model state dict (with
+the spatial encoder's BatchNorm running statistics, so a resume restores
+them exactly), the optimizer state dict, the epoch just finished, the
+global step and the states of the step generator and the validation
+generator, so a resumed run draws what the uninterrupted run would have
+drawn.
 
 `CheckpointManager` keeps the rule of the JAX package's manager
 (gennerf_tpu/train/checkpoints.py): without a `monitor` every epoch is

@@ -13,8 +13,9 @@ until then, and a non-finite loss raises there.
 Validation draws from its own generator (the run seed + 1), so how often
 it runs does not change the training draws. It ends with the reference's
 reconstruction tail: batch element 0 of the last batch is reconstructed at
-its ground truth's grid (`predict.reconstruct`, the encoder's draws from
-the validation generator), `{mode}_recon_tsdf_l1` is the unmasked mean
+its ground truth's grid (`predict.reconstruct`, which also encodes a
+feature volume on that grid; the encoder's draws from the validation
+generator), `{mode}_recon_tsdf_l1` is the unmasked mean
 |pred - target| over that grid, and with an output directory the two
 TSDFs (.npz) and their meshes (.ply, empty ones too) go to its local/ sink.
 

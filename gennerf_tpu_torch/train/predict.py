@@ -3,8 +3,9 @@ gennerf_tpu/train/predict.py).
 
 `predict_tsdf_volume` makes one static choice from the config: a
 triplane-only decoder the separable formulation supports goes to the
-separable grid decode (the CUDA kernel on the card); every other config
-goes to the chunked per-point `decode_dense`. Both kernels take the head
+separable grid decode (the CUDA kernel on the card); every other config,
+among them every config with the spatial feature volume, goes to the
+chunked f32 per-point `decode_dense`. Both kernels take the head
 bias folded into their last scalar, so trained weights reach them too.
 `predict_tsdf_volume_sparse` decodes only the fusion prior's near-surface
 band. `make_point_tsdf_fn` and `decode_dense_fused` feed the triplane
@@ -46,10 +47,13 @@ def dense_grid_points(voxel_dim, voxel_size: float, origin, device=None) -> torc
 
 
 @torch.no_grad()
-def decode_dense(model: GenNerf, repr_: SceneRepr, points: torch.Tensor,
+def decode_dense(model: GenNerf, repr_: SceneRepr, points: torch.Tensor, origin=None,
                  chunk_size: int = 32768) -> torch.Tensor:
-    """TSDF at (N, 3) points of one scene, chunk by chunk -> (N,) f32."""
-    out = [model.decode(repr_, chunk[None])["tsdf"][0, :, 0]
+    """TSDF at (N, 3) points of one scene, chunk by chunk -> (N,) f32;
+    `origin` places the feature volume (default 0), whose mean features are
+    computed once for all chunks."""
+    volume_cl = model.volume_features(repr_)
+    out = [model.decode(repr_, chunk[None], origin, volume_cl)["tsdf"][0, :, 0]
            for chunk in torch.split(points, chunk_size)]
     return torch.cat(out).to(torch.float32)
 
@@ -60,6 +64,7 @@ def uses_grid_decode(model: GenNerf) -> bool:
     cfg = model.cfg
     return (
         supports_grid_decode(cfg)
+        and cfg.encoder.use_pointnet and not cfg.encoder.use_spatial
         and set(cfg.encoder.pointnet.plane_type) == {"xz", "xy", "yz"}
         and cfg.encoder.pointnet.sample_mode == "bilinear"
     )
@@ -93,12 +98,14 @@ def decode_grid(model: GenNerf, repr_: SceneRepr, voxel_dim, voxel_size: float,
 @torch.no_grad()
 def predict_tsdf_volume(model: GenNerf, repr_: SceneRepr, voxel_dim: Tuple[int, int, int],
                         voxel_size: float, origin, chunk_size: int = 32768) -> torch.Tensor:
-    """Dense (nx, ny, nz) f32 TSDF volume of one scene."""
-    device = repr_.planes["xz"].device
+    """Dense (nx, ny, nz) f32 TSDF volume of one scene on the grid at
+    `origin` (which also places the feature volume)."""
     if uses_grid_decode(model):
         return decode_grid(model, repr_, voxel_dim, voxel_size, origin)
+    device = next(model.parameters()).device
     pts = dense_grid_points(voxel_dim, voxel_size, origin, device)
-    return decode_dense(model, repr_, pts, chunk_size).reshape(tuple(int(d) for d in voxel_dim))
+    return decode_dense(model, repr_, pts, origin, chunk_size).reshape(
+        tuple(int(d) for d in voxel_dim))
 
 
 @torch.no_grad()
@@ -127,7 +134,7 @@ def predict_tsdf_volume_sparse(model: GenNerf, repr_: SceneRepr, voxel_dim, voxe
         step = torch.tensor([voxel_size * n / max(n - 1, 1) for n in (nx, ny, nz)],
                             dtype=torch.float32, device=device)
         pts = ijk.to(torch.float32) * step + origin
-        out[idx] = decode_dense(model, repr_, pts, chunk_size)
+        out[idx] = decode_dense(model, repr_, pts, origin, chunk_size)
     return out.reshape(nx, ny, nz)
 
 
@@ -203,10 +210,13 @@ def make_point_tsdf_fn(model: GenNerf, repr_: SceneRepr, plain: bool = False):
     `plain=True` runs the kernel's plain bf16-feed version on any device
     (the reference the kernel's march is held against). Raises
     NotImplementedError for an unsupported decoder, a non-triplane or
-    non-bilinear scene, or a decoder latent other than the plane channels."""
+    non-bilinear scene, a scene with a feature volume, or a decoder latent
+    other than the plane channels."""
     cfg = model.cfg
     planes = repr_.planes
     weights = _point_decode_setup(model)
+    if repr_.volume is not None or planes is None:
+        raise NotImplementedError("fused point decode supports triplane-only scenes")
     if set(planes) != set(_PLANES) or cfg.encoder.pointnet.sample_mode != "bilinear":
         raise NotImplementedError("fused point decode supports bilinear triplane-only scenes")
     if weights["w_in"].shape[0] != planes["xz"].shape[1]:
@@ -226,10 +236,11 @@ def make_point_tsdf_fn(model: GenNerf, repr_: SceneRepr, plain: bool = False):
 
 
 @torch.no_grad()
-def decode_dense_fused(model: GenNerf, repr_: SceneRepr, points: torch.Tensor,
+def decode_dense_fused(model: GenNerf, repr_: SceneRepr, points: torch.Tensor, origin=None,
                        chunk: int = 1 << 20) -> torch.Tensor:
     """TSDF at (N, 3) points of one scene -> (N,) f32: the feature gather
-    (`GenNerf.map_features`) and the positional code in chunks of `chunk`
+    (`GenNerf.map_features`, the feature volume at `origin`) and the
+    positional code in chunks of `chunk`
     points, then one point-decode launch over the whole set (the kernel on
     the card, its plain bf16-feed version on the CPU)."""
     device = points.device
@@ -237,9 +248,10 @@ def decode_dense_fused(model: GenNerf, repr_: SceneRepr, points: torch.Tensor,
         raise NotImplementedError(f"fused decode runs on CUDA or the CPU, not {device}")
     weights = _point_decode_setup(model)
     code_cfg = model.cfg.code
+    volume_cl = model.volume_features(repr_)
     feats, codes = [], []
     for p in torch.split(points, chunk):
-        feats.append(model.map_features(repr_, p[None])[0])
+        feats.append(model.map_features(repr_, p[None], origin, volume_cl)[0])
         codes.append(positional_encoding(p, code_cfg.num_freqs, code_cfg.freq_factor,
                                          code_cfg.include_input))
     return fused_resnetfc_tsdf(torch.cat(feats), torch.cat(codes), weights)

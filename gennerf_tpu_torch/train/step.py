@@ -9,6 +9,9 @@ ground-truth volume and computes the loss. As in the reference, the T
 frames are sampled and decoded at once and the loss is the per-frame mean
 summed over frames, i.e. the mean times T.
 
+With the spatial encoder the step also backprojects every frame's ResNet
+features into the feature volume (models/gen_nerf.py).
+
 The random draws come from one torch.Generator in a fixed order (presample,
 FPS start, pixel scores, ray noise), or are injected (`StepDraws`): tests
 pass the draws of the reference's key splits.
@@ -82,25 +85,30 @@ def sample_supervision_points(cfg: GenNerfConfig, batch: Dict[str, torch.Tensor]
 
 def gen_nerf_forward_loss(model: GenNerf, batch: Dict[str, torch.Tensor],
                           generator: Optional[torch.Generator] = None,
-                          draws: StepDraws = StepDraws()
+                          draws: StepDraws = StepDraws(), voxel_dim=None
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Encode, sample supervision, decode, loss; the targets come from
-    the batch's ground-truth volume with its voxel 0 at the world origin
-    (the unaugmented crop).
+    """Encode (the feature volume, if any, at `voxel_dim`, default the
+    config's voxel_dim_train), sample supervision, decode, loss; the volume
+    and the targets from the batch's ground truth share the origin
+    `origin_zero` (world position of voxel 0; the unaugmented crop's 0
+    when the batch has none).
 
     Returns (the loss to backpropagate, metrics): every metric is the
     masked mean times T, except the *_coverage fractions; the loss is
     metrics['combined']."""
     cfg = model.cfg
     B, T = batch["image"].shape[:2]
+    origin = batch.get("origin_zero")
+    if origin is None:
+        origin = torch.zeros(3, dtype=torch.float32, device=batch["image"].device)
     repr_ = model.encode(batch["projection"], batch["image"], batch["depth"], generator,
-                         draws.sel, draws.start)
+                         draws.sel, draws.start, voxel_dim or cfg.voxel_dim_train, origin)
     sup = sample_supervision_points(cfg, batch, generator, draws.scores, draws.noise)
     BT, S = B * T, sup["points_per_frame"]
     xyz = sup["xyz"].reshape(B, T * S, 3)
-    outputs = model.decode(repr_, xyz)
+    outputs = model.decode(repr_, xyz, origin)
     tsdf_vol = batch["vol_%02d_tsdf" % int(cfg.voxel_size * 100)]  # (B, 1, nx, ny, nz)
-    target = trilinear_interpolation(tsdf_vol.permute(0, 2, 3, 4, 1), xyz, (0.0, 0.0, 0.0),
+    target = trilinear_interpolation(tsdf_vol.permute(0, 2, 3, 4, 1), xyz, origin,
                                      cfg.voxel_size)
     outputs_bt = {k: v.reshape(BT, S, -1) for k, v in outputs.items()}
     targets_bt = {"tsdf": target.reshape(BT, S, 1), "valid": sup["valid"]}
@@ -112,7 +120,9 @@ def gen_nerf_forward_loss(model: GenNerf, batch: Dict[str, torch.Tensor],
 def train_step(model: GenNerf, optimizer: torch.optim.Optimizer, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
                draws: StepDraws = StepDraws()) -> Dict[str, torch.Tensor]:
-    """Forward, backward and one optimizer step; returns the detached
+    """Forward (the feature volume at voxel_dim_train), backward and one
+    optimizer step; in training mode the spatial encoder's running
+    BatchNorm statistics move once per frame chunk. Returns the detached
     metrics (device tensors: reading them waits for the step)."""
     set_reference_precision()
     model.train()
@@ -127,7 +137,9 @@ def train_step(model: GenNerf, optimizer: torch.optim.Optimizer, batch: Dict[str
 def eval_step(model: GenNerf, batch: Dict[str, torch.Tensor],
               generator: Optional[torch.Generator] = None,
               draws: StepDraws = StepDraws()) -> Dict[str, torch.Tensor]:
-    """The forward and loss of a step without gradients; returns the metrics."""
+    """The forward and loss of a step without gradients (the feature
+    volume at voxel_dim_val, BatchNorm on its running statistics); returns
+    the metrics."""
     set_reference_precision()
     model.eval()
-    return gen_nerf_forward_loss(model, batch, generator, draws)[1]
+    return gen_nerf_forward_loss(model, batch, generator, draws, model.cfg.voxel_dim_val)[1]

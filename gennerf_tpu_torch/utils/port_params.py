@@ -1,16 +1,26 @@
-"""JAX/flax GenNerf parameters <-> the port's state_dict.
+"""JAX/flax GenNerf variables <-> the port's state_dict.
 
-The input is the flax `params` tree as nested dicts of numpy arrays (no
-JAX needed to read it). Dense kernels (in, out) transpose to torch's
-(out, in); Conv kernels (kh, kw, I, O) become (O, I, kh, kw); flax's
-ConvTranspose kernel is the spatial flip of torch's ConvTranspose2d
-weight (I, O, kh, kw). ResnetFC's `alpha` and the TSDF head carry over.
-Reading orbax checkpoints is left to the JAX side: save `params` to an
-npz with `save_params_npz` there, load it here with `load_params_npz`.
+The input is the flax `params` tree (and, with the spatial encoder, its
+`batch_stats` tree) as nested dicts of numpy arrays (no JAX needed to read
+them). Dense kernels (in, out) transpose to torch's (out, in); Conv kernels
+(kh, kw, I, O) become (O, I, kh, kw); flax's ConvTranspose kernel is the
+spatial flip of torch's ConvTranspose2d weight (I, O, kh, kw). ResnetFC's
+`alpha` and the TSDF head carry over. The spatial encoder's ResNet maps
+onto torchvision's names: `layer{s}_{b}` -> `layer{s}.{b}`,
+`down_conv`/`down_bn` -> `downsample.0`/`downsample.1`, BatchNorm
+`scale`/`bias` -> `weight`/`bias` and its batch_stats `mean`/`var` ->
+`running_mean`/`running_var`.
+
+A params npz ('/'-joined keys, `save_params_npz`) holds the params tree at
+its root and, for a model with running statistics, the batch_stats tree
+under `batch_stats/` (`gen_nerf_npz_tree` builds both). Reading orbax
+checkpoints is left to the JAX side: save `params` (and `batch_stats`) to
+an npz with `save_params_npz` there, load it here with `load_params_npz`.
 """
 from __future__ import annotations
 
-from typing import Dict
+import re
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -24,7 +34,40 @@ def _dense(out: Dict, prefix: str, p: dict) -> None:
 
 def _conv(out: Dict, prefix: str, p: dict) -> None:
     out[prefix + ".weight"] = np.asarray(p["kernel"], np.float32).transpose(3, 2, 0, 1)
+    if "bias" in p:
+        out[prefix + ".bias"] = np.asarray(p["bias"], np.float32)
+
+
+def _batch_norm(out: Dict, prefix: str, p: dict, stats: Optional[dict]) -> None:
+    out[prefix + ".weight"] = np.asarray(p["scale"], np.float32)
     out[prefix + ".bias"] = np.asarray(p["bias"], np.float32)
+    if stats is not None:
+        out[prefix + ".running_mean"] = np.asarray(stats["mean"], np.float32)
+        out[prefix + ".running_var"] = np.asarray(stats["var"], np.float32)
+
+
+_BLOCK = re.compile(r"layer(\d+)_(\d+)")
+
+
+def resnet_state_from_flax(params: dict, stats: Optional[dict], prefix: str = "") -> Dict:
+    """flax ResNetStages params (and batch_stats) -> {torchvision name: array}."""
+    out: Dict[str, np.ndarray] = {}
+    stats = stats or {}
+    for name, node in params.items():
+        if name == "conv1":
+            _conv(out, prefix + "conv1", node)
+        elif name == "bn1":
+            _batch_norm(out, prefix + "bn1", node, stats.get("bn1"))
+        else:
+            stage, block = _BLOCK.fullmatch(name).groups()
+            pre = f"{prefix}layer{stage}.{block}."
+            for sub, p in node.items():
+                key = pre + {"down_conv": "downsample.0", "down_bn": "downsample.1"}.get(sub, sub)
+                if "kernel" in p:
+                    _conv(out, key, p)
+                else:
+                    _batch_norm(out, key, p, stats.get(name, {}).get(sub))
+    return out
 
 
 def _conv_transpose(out: Dict, prefix: str, p: dict) -> None:
@@ -40,10 +83,29 @@ def _block(out: Dict, prefix: str, p: dict) -> None:
         _dense(out, prefix + ".shortcut", p["Dense_2"])
 
 
-def gen_nerf_params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
-    """flax GenNerf `params` (nested dicts of arrays) -> GenNerf state_dict."""
+def gen_nerf_params_from_flax(tree: dict, batch_stats: Optional[dict] = None
+                              ) -> Dict[str, torch.Tensor]:
+    """flax GenNerf `params` (nested dicts of arrays) and `batch_stats` ->
+    GenNerf state_dict. A `batch_stats` branch inside `tree` (the npz
+    layout) serves when `batch_stats` is not given."""
+    if "batch_stats" in tree:
+        tree = dict(tree)
+        stats = tree.pop("batch_stats")
+        batch_stats = stats if batch_stats is None else batch_stats
     out: Dict[str, np.ndarray] = {}
-    pn = tree["pointnet"]
+    if "spatial" in tree:
+        sp = tree["spatial"]
+        out.update(resnet_state_from_flax(sp["resnet"], ((batch_stats or {}).get("spatial") or {})
+                                          .get("resnet"), "spatial.resnet."))
+        if "proj" in sp:
+            _conv(out, "spatial.proj", sp["proj"])
+    if "pointnet" in tree:
+        _pointnet(out, tree["pointnet"])
+    _mlp_and_head(out, tree)
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
+
+
+def _pointnet(out: Dict, pn: dict) -> None:
     _dense(out, "pointnet.fc_pos", pn["fc_pos"])
     _dense(out, "pointnet.fc_c", pn["fc_c"])
     i = 0
@@ -65,6 +127,9 @@ def gen_nerf_params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
             _conv(out, f"pointnet.unet.up_convs.{i}.conv2", up["Conv_1"])
             i += 1
         _conv(out, "pointnet.unet.conv_final", un["conv_final"])
+
+
+def _mlp_and_head(out: Dict, tree: dict) -> None:
     mlp = tree["mlp"]
     _dense(out, "mlp.lin_in", mlp["lin_in"])
     _dense(out, "mlp.lin_out", mlp["lin_out"])
@@ -76,7 +141,6 @@ def gen_nerf_params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
             _dense(out, f"mlp.lin_z.{i}", mlp[f"lin_z_{i}"])
         i += 1
     _dense(out, "head_geo.fc", tree["head_geo"]["Dense_0"])
-    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
 
 
 def _arr(state: Dict, key: str) -> np.ndarray:
@@ -91,8 +155,40 @@ def _dense_inv(state: Dict, prefix: str) -> dict:
 
 
 def _conv_inv(state: Dict, prefix: str) -> dict:
-    return {"kernel": np.ascontiguousarray(_arr(state, prefix + ".weight").transpose(2, 3, 1, 0)),
-            "bias": _arr(state, prefix + ".bias")}
+    p = {"kernel": np.ascontiguousarray(_arr(state, prefix + ".weight").transpose(2, 3, 1, 0))}
+    if prefix + ".bias" in state:
+        p["bias"] = _arr(state, prefix + ".bias")
+    return p
+
+
+def _resnet_inv(state: Dict, prefix: str):
+    """(params, batch_stats) of the flax ResNetStages under `prefix`."""
+    params, stats = {}, {}
+    for key in state:
+        if not key.startswith(prefix):
+            continue
+        parts = key[len(prefix):].split(".")
+        if parts[-1] == "weight" and parts[0] == "conv1":
+            params["conv1"] = _conv_inv(state, prefix + "conv1")
+        elif parts[-1] == "running_mean":
+            module = ".".join(parts[:-1])
+            bn = {"scale": _arr(state, prefix + module + ".weight"),
+                  "bias": _arr(state, prefix + module + ".bias")}
+            st = {"mean": _arr(state, prefix + module + ".running_mean"),
+                  "var": _arr(state, prefix + module + ".running_var")}
+            if len(parts) == 2:  # the stem's bn1
+                params[parts[0]], stats[parts[0]] = bn, st
+            else:
+                block = f"{parts[0]}_{parts[1]}"
+                sub = "down_bn" if parts[2] == "downsample" else parts[2]
+                params.setdefault(block, {})[sub] = bn
+                stats.setdefault(block, {})[sub] = st
+        elif parts[-1] == "weight" and len(parts) > 2 and (
+                parts[2].startswith("conv") or parts[2:4] == ["downsample", "0"]):
+            block = f"{parts[0]}_{parts[1]}"
+            sub = "down_conv" if parts[2] == "downsample" else parts[2]
+            params.setdefault(block, {})[sub] = _conv_inv(state, prefix + ".".join(parts[:-1]))
+    return params, stats
 
 
 def _conv_transpose_inv(state: Dict, prefix: str) -> dict:
@@ -107,11 +203,40 @@ def _block_inv(state: Dict, prefix: str) -> dict:
     return p
 
 
+def flax_variables_from_gen_nerf(state: Dict[str, torch.Tensor]):
+    """GenNerf state_dict -> (the flax `params` tree, the `batch_stats`
+    tree) as nested dicts of numpy float32 arrays, the inverse of
+    `gen_nerf_params_from_flax`; batch_stats is {} without the spatial
+    encoder."""
+    params, stats = {}, {}
+    if "spatial.resnet.conv1.weight" in state:
+        resnet, resnet_stats = _resnet_inv(state, "spatial.resnet.")
+        params["spatial"] = {"resnet": resnet}
+        stats["spatial"] = {"resnet": resnet_stats}
+        if "spatial.proj.weight" in state:
+            params["spatial"]["proj"] = _conv_inv(state, "spatial.proj")
+    if "pointnet.fc_pos.weight" in state:
+        params["pointnet"] = _pointnet_inv(state)
+    params.update(_mlp_and_head_inv(state))
+    return params, stats
+
+
 def flax_params_from_gen_nerf(state: Dict[str, torch.Tensor]) -> dict:
-    """GenNerf state_dict -> the flax `params` tree (nested dicts of numpy
-    float32 arrays), the inverse of `gen_nerf_params_from_flax`: a model
-    the port trains is written with `save_params_npz` as the npz the
-    predict and render CLIs (and the JAX side) read."""
+    """GenNerf state_dict -> the flax `params` tree (see
+    flax_variables_from_gen_nerf)."""
+    return flax_variables_from_gen_nerf(state)[0]
+
+
+def gen_nerf_npz_tree(state: Dict[str, torch.Tensor]) -> dict:
+    """The tree `save_params_npz` writes for a model the port trains: the
+    params at the root and, when the model has running statistics, a
+    `batch_stats` branch beside them. The predict and render CLIs read it
+    back with `gen_nerf_params_from_flax(load_params_npz(path))`."""
+    params, stats = flax_variables_from_gen_nerf(state)
+    return {**params, "batch_stats": stats} if stats else params
+
+
+def _pointnet_inv(state: Dict) -> dict:
     pn = {"fc_pos": _dense_inv(state, "pointnet.fc_pos"), "fc_c": _dense_inv(state, "pointnet.fc_c")}
     i = 0
     while f"pointnet.blocks.{i}.fc_0.weight" in state:
@@ -132,6 +257,10 @@ def flax_params_from_gen_nerf(state: Dict[str, torch.Tensor]) -> dict:
                              "Conv_1": _conv_inv(state, pre + ".conv2")}
             i += 1
         pn["unet"] = un
+    return pn
+
+
+def _mlp_and_head_inv(state: Dict) -> dict:
     mlp = {"lin_in": _dense_inv(state, "mlp.lin_in"), "lin_out": _dense_inv(state, "mlp.lin_out"),
            "alpha": _arr(state, "mlp.alpha").reshape(())}
     i = 0
@@ -140,7 +269,7 @@ def flax_params_from_gen_nerf(state: Dict[str, torch.Tensor]) -> dict:
         if f"mlp.lin_z.{i}.weight" in state:
             mlp[f"lin_z_{i}"] = _dense_inv(state, f"mlp.lin_z.{i}")
         i += 1
-    return {"pointnet": pn, "mlp": mlp, "head_geo": {"Dense_0": _dense_inv(state, "head_geo.fc")}}
+    return {"mlp": mlp, "head_geo": {"Dense_0": _dense_inv(state, "head_geo.fc")}}
 
 
 def flatten_params(tree: dict, prefix: str = "") -> Dict[str, np.ndarray]:

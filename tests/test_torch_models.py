@@ -224,7 +224,7 @@ def test_config_fields_match_jax():
 
 
 @pytest.mark.parametrize("override", [
-    {"encoder": {"use_spatial": True}},
+    {"encoder": {"use_spatial": True, "spatial": {"norm_type": "sync_batch"}}},
     {"encoder": {"use_auxiliary": True}},
     {"encoder": {"pointnet": {"plane_type": ["grid"]}}},
     {"encoder": {"pointnet": {"sparsifier": "voxel_hash"}}},

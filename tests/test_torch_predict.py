@@ -223,13 +223,14 @@ def test_cli_on_cpu(task_pair, scene, tmp_path):
     np.testing.assert_array_equal(vol, expect.numpy())
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "gennerf_tpu", "PIL", "skimage", "cv2", "scipy")
+FORBIDDEN = ("jax", "jaxlib", "flax", "gennerf_tpu", "PIL", "skimage", "cv2", "scipy",
+             "torchvision")
 
 
 def test_port_imports_no_jax():
     """Importing the port and every submodule pulls in no jax, flax or
     gennerf_tpu module, no PIL, skimage or cv2 (the card's machine has
-    none of them) and no scipy; meshing, the KD-tree and the rasterizer
+    none of them), no scipy and no torchvision; meshing, the KD-tree and the rasterizer
     then load nothing from the repo's native/ (the port builds its own
     host library); and chip_smoke.py imports none of them."""
     code = (
