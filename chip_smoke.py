@@ -88,6 +88,23 @@ from csrc/host/ with the host C++ compiler, then:
      eval mode; timed and profiled train steps; a held-out `reconstruct`
      at 96x96x56 (K1 once, K2 0, finite, inside the head's range), its
      total and decode ms and a profile;
+ 11. voxelnet: configs/experiment/seqs_multigeo_voxelnet.yaml at full width
+     in the precision it asks for, bf16-mixed (ResNet-18 stem and 2 stages
+     at feature_scale 2.0 on the loaders' 480x640 frames, 32 channels
+     backprojected into an 80x80x40 volume, the 3D encoder-decoder with
+     channels [32, 64, 128], the 8 and 4 cm heads), on the data phase's
+     dataset: one epoch of `Trainer.fit` (8 steps) with its validation
+     (val_tsdf_loss-monitored top-3, the tail's val_recon_tsdf_l1 finite),
+     the kernel counters reset before the phase and all 0 after it (the
+     JAX VoxelNet runs no Pallas kernel); on one loader batch the float32
+     model's forward and loss on the card (TF32 off) against the CPU, the
+     precision discipline (parameters and running statistics float32
+     after a bf16 step; the ResNet's output bf16, the volume, the 3D
+     backbone's and the heads' outputs float32; the bf16 loss near the
+     float32 loss), a remat step against the step without remat; timed and
+     profiled bf16 steps; the held-out scenes through the predict CLI from
+     the run directory and `evaluation.process` (metrics finite, meshes
+     non-empty);
 then a `kernels` JSON line, the nvidia-smi line and the final result line.
 Every phase raises on failure. Needs one CUDA card; exits non-zero without.
 """
@@ -163,6 +180,20 @@ REMAT_LOSS_RTOL, REMAT_GRAD_TOL, REMAT_STATS_TOL = 1e-5, 1e-4, 1e-6
 # convolutions on a batch of 1 or of 8 frames (cuDNN may pick another
 # algorithm), the volume summed in the same frame order
 CHUNK_REL_TOL = 1e-5
+# the voxelnet phase: seqs_multigeo_voxelnet (bf16-mixed) on the data phase's dataset
+VOXELNET_EXPERIMENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   "configs", "experiment", "seqs_multigeo_voxelnet.yaml")
+VOXELNET_EPOCHS, VOXELNET_WARMUP, VOXELNET_TIMED_STEPS = 1, 3, 7
+# the float32 forward on the card (TF32 off) against the CPU, eval mode:
+# cuDNN and the CPU sum each convolution in another order (1e-6 relative a
+# layer); a voxel whose coarse prediction lies within that noise of the
+# sparse threshold may take the other branch, so 99.99% of the voxels of
+# each output must agree within 1e-4 of its largest magnitude
+VOXELNET_DEVICE_TOL, VOXELNET_DEVICE_SHARE, VOXELNET_DEVICE_LOSS_RTOL = 1e-4, 0.9999, 1e-4
+# the bf16-mixed loss against the float32 loss of the same weights and
+# batch: each bf16 rounding is 2^-9 relative and the loss averages the
+# volume's voxels, so 2e-2 is several bf16 steps
+VOXELNET_BF16_LOSS_RTOL = 2e-2
 PRIMITIVES = [
     {"type": "sphere", "center": (1.45, 1.75, 0.45), "radius": 0.45},
     {"type": "box", "min": (1.75, 1.05, 0.0), "max": (2.25, 1.55, 0.6)},
@@ -878,6 +909,252 @@ def spatial_phase(torch, dev, smi: str, root: str) -> dict:
     return totals
 
 
+def voxelnet_phase(torch, dev, smi: str, root: str) -> dict:
+    """Phase 11 (see the module docstring); returns the launch counts of the
+    whole phase (all 0: VoxelNet's path has no TPU kernel)."""
+    from gennerf_tpu_torch import predict as predict_cli
+    from gennerf_tpu_torch import set_reference_precision
+    from gennerf_tpu_torch.data.datamodule import ScannetDataModule
+    from gennerf_tpu_torch.data.datasets import load_info_json, parse_splits_list
+    from gennerf_tpu_torch.eval import evaluation
+    from gennerf_tpu_torch.models.voxel_net import VoxelNet
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.predict import build_model
+    from gennerf_tpu_torch.train.checkpoints import CheckpointManager
+    from gennerf_tpu_torch.train.loop import Trainer
+    from gennerf_tpu_torch.train.state import make_optimizer
+    from gennerf_tpu_torch.train.step import batch_to_device, train_step, voxel_net_forward_loss
+    from gennerf_tpu_torch.utils.config import load_experiment_config
+
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        cfg = load_experiment_config(VOXELNET_EXPERIMENT, "train", [
+            f"paths.data_dir={root}", f"paths.output_dir={run_dir}"])
+        data_cfg, trainer_cfg = cfg["data"], cfg["trainer"]
+        precision = str(trainer_cfg["precision"])
+        datamodule = ScannetDataModule(data_cfg, seed=SEED)
+        model = build_model(cfg["model"], dev, SEED, precision)
+        mcfg = model.cfg
+        if not (isinstance(model, VoxelNet) and model.dtype == torch.bfloat16
+                and mcfg.voxel_sizes == (4, 8) and mcfg.backbone3d.channels == (32, 64, 128)):
+            raise RuntimeError(f"not the VoxelNet drive config: {precision}, {mcfg}")
+        opt = make_optimizer(model.parameters(), mcfg.optimizer,
+                             trainer_cfg.get("gradient_clip_val"))
+        ckpt_cfg = cfg["callbacks"]["model_checkpoint"]
+        checkpoints = CheckpointManager(ckpt_cfg["dirpath"], ckpt_cfg["save_top_k"],
+                                        monitor=ckpt_cfg["monitor"], mode=ckpt_cfg["mode"])
+        trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), run_dir,
+                          max_epochs=VOXELNET_EPOCHS, check_val_every_n_epoch=1,
+                          checkpoints=checkpoints)
+
+        # the main path: the fit over the loaders with its validation and
+        # reconstruction tail, in bf16-mixed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.fit(datamodule.train_dataloader(), datamodule.val_dataloader())
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        step_ms = [t["step_ms"] for t in trainer.timings]
+        fit_rec = {"steps": trainer.global_step, "fit_s": fit_s,
+                   "step_ms_median": statistics.median(step_ms), "step_ms_first": step_ms[0],
+                   "data_wait_ms_median": statistics.median(
+                       t["data_wait_ms"] for t in trainer.timings),
+                   "loss_last": trainer.metrics["train_tsdf_loss"],
+                   "val_tsdf_loss": trainer.metrics.get("val_tsdf_loss"),
+                   "val_recon_tsdf_l1": trainer.metrics.get("val_recon_tsdf_l1"),
+                   "best_epoch": checkpoints.best_epoch(),
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        if not (fit_rec["steps"] == 8 * VOXELNET_EPOCHS and fit_rec["best_epoch"] is not None
+                and math.isfinite(fit_rec["val_tsdf_loss"] or math.nan)
+                and math.isfinite(fit_rec["val_recon_tsdf_l1"] or math.nan)):
+            raise RuntimeError(f"the VoxelNet fit or its validation failed: {fit_rec}")
+
+        # one loader batch for the comparisons and the timed steps
+        batch = batch_to_device(next(iter(ScannetDataModule(data_cfg, seed=SEED)
+                                          .train_dataloader())), dev)
+        B, T, H, W = batch["depth"].shape
+        fitted = {k: v.clone() for k, v in model.state_dict().items()}
+
+        def fresh(device, dtype, **changes):
+            m = VoxelNet(dataclasses.replace(mcfg, **changes), dtype=dtype)
+            m.load_state_dict(fitted)
+            return m.to(device)
+
+        # the float32 forward and loss on the card (TF32 off) against the CPU, eval mode
+        set_reference_precision()
+        outs = {}
+        for device in (dev, torch.device("cpu")):
+            m = fresh(device, torch.float32).eval()
+            with torch.no_grad():
+                out, losses = m(*(batch[k].to(device) for k in ("projection", "image")),
+                                mcfg.voxel_dim_train, None,
+                                {k: batch[k].to(device) for k in
+                                 ("vol_%02d_tsdf" % vs for vs in mcfg.voxel_sizes)})
+            outs[device.type] = ({k: v.cpu() for k, v in out.items()},
+                                 {k: float(v) for k, v in losses.items()})
+            del m
+        device_rec = {}
+        for k, ref in outs["cpu"][0].items():
+            err = (outs[dev.type][0][k] - ref).abs()
+            device_rec[k] = {"max_abs": float(err.max()), "out_abs_max": float(ref.abs().max()),
+                             "share_within": float((err <= VOXELNET_DEVICE_TOL
+                                                    * ref.abs().max()).float().mean())}
+        loss_err = max(abs(outs[dev.type][1][k] - v) / abs(v) for k, v in outs["cpu"][1].items())
+        device_rec["loss_rel_err"] = loss_err
+        device_rec["tolerance"] = {"over_max_abs": VOXELNET_DEVICE_TOL,
+                                   "share": VOXELNET_DEVICE_SHARE,
+                                   "loss_rel": VOXELNET_DEVICE_LOSS_RTOL}
+        if not (loss_err <= VOXELNET_DEVICE_LOSS_RTOL and all(
+                r["share_within"] >= VOXELNET_DEVICE_SHARE for k, r in device_rec.items()
+                if k.startswith("vol_"))):
+            raise RuntimeError(f"the float32 VoxelNet on the card and on the CPU disagree: "
+                               f"{device_rec}")
+        del outs
+
+        # precision discipline: dtypes at the boundaries of a bf16 forward,
+        # the bf16 loss against the float32 loss, the state after a bf16 step
+        seen = {}
+
+        def record(name):
+            def hook(module, args, out):
+                tensors = out if isinstance(out, (list, tuple)) else [out]
+                seen[name] = sorted({str(t.dtype) for x in tensors
+                                     for t in (x.values() if isinstance(x, dict) else [x])})
+            return hook
+
+        hooks = [mod.register_forward_hook(record(name))
+                 for name, mod in (("resnet", model.spatial.resnet), ("spatial", model.spatial),
+                                   ("backbone3d", model.backbone3d), ("heads3d", model.heads3d))]
+        model.load_state_dict(fitted)
+        model.train()
+        with torch.no_grad():
+            repr_ = model.encode(batch["projection"], batch["image"], mcfg.voxel_dim_train)
+            seen["volume"] = [str(repr_.volume.dtype)]
+            del repr_
+        for h in hooks[:2]:
+            h.remove()
+        model.load_state_dict(fitted)
+        with torch.no_grad():
+            loss16, _ = voxel_net_forward_loss(model, batch)
+        for h in hooks[2:]:
+            h.remove()
+        m32 = fresh(dev, torch.float32).train()
+        with torch.no_grad():
+            loss32, _ = voxel_net_forward_loss(m32, batch)
+        del m32
+        model.load_state_dict(fitted)
+        train_step(model, opt, batch)
+        state_dtypes = sorted({str(v.dtype) for v in model.state_dict().values()}
+                              | {str(p.grad.dtype) for p in model.parameters()})
+        precision_rec = {"dtypes": seen, "state_dtypes_after_bf16_step": state_dtypes,
+                         "loss_bf16": float(loss16), "loss_f32": float(loss32),
+                         "loss_rel_diff": abs(float(loss16) - float(loss32)) / abs(float(loss32)),
+                         "tolerance_rel": VOXELNET_BF16_LOSS_RTOL}
+        expect = {"resnet": ["torch.bfloat16"], "spatial": ["torch.bfloat16"],
+                  "volume": ["torch.float32"], "backbone3d": ["torch.float32"],
+                  "heads3d": ["torch.float32"]}
+        if not (seen == expect and state_dtypes == ["torch.float32"]
+                and precision_rec["loss_rel_diff"] <= VOXELNET_BF16_LOSS_RTOL):
+            raise RuntimeError(f"the bf16-mixed policy is broken: {precision_rec}")
+
+        # remat against no remat: one bf16 forward and backward in training
+        # mode, deterministic algorithms where torch has them (the gather's
+        # backward adds with atomics; the trilinear upsample's backward has
+        # no deterministic version, warn only)
+        def forward_backward(m):
+            m.train()
+            m.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            loss, _ = voxel_net_forward_loss(m, batch)
+            loss.backward()
+            torch.cuda.synchronize()
+            return (float(loss.detach()), {n: p.grad.clone() for n, p in m.named_parameters()},
+                    {k: v.clone() for k, v in m.state_dict().items() if "running_" in k},
+                    torch.cuda.max_memory_allocated(), (time.perf_counter() - t) * 1e3)
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            loss_r, grads_r, stats_r, peak_r, ms_r = forward_backward(
+                fresh(dev, torch.bfloat16, remat=True))
+            loss_p, grads_p, stats_p, peak_p, ms_p = forward_backward(fresh(dev, torch.bfloat16))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        grad_err = {n: float((grads_r[n] - grads_p[n]).abs().max())
+                    / max(float(grads_p[n].abs().max()), 1e-30) for n in grads_p}
+        stats_err = max(float((stats_r[k] - stats_p[k]).abs().max())
+                        / max(float(stats_p[k].abs().max()), 1e-30) for k in stats_p)
+        moved = sum(not torch.equal(stats_r[k], fitted[k]) for k in stats_r)
+        worst = max(grad_err, key=grad_err.get)
+        remat_rec = {"loss_remat": loss_r, "loss_plain": loss_p,
+                     "loss_rel_err": abs(loss_r - loss_p) / abs(loss_p),
+                     "worst_grad": worst, "worst_grad_err_over_max_abs": grad_err[worst],
+                     "running_stats_rel_err": stats_err, "running_stats_moved": moved,
+                     "running_stats": len(stats_r), "peak_memory_bytes_remat": peak_r,
+                     "peak_memory_bytes_no_remat": peak_p, "forward_backward_ms_remat": ms_r,
+                     "forward_backward_ms_no_remat": ms_p,
+                     "tolerance": {"loss_rel": REMAT_LOSS_RTOL, "grad_over_max_abs": REMAT_GRAD_TOL,
+                                   "stats_rel": REMAT_STATS_TOL}}
+        del grads_r, grads_p
+        if not (remat_rec["loss_rel_err"] <= REMAT_LOSS_RTOL and grad_err[worst] <= REMAT_GRAD_TOL
+                and stats_err <= REMAT_STATS_TOL and moved == len(stats_r)):
+            raise RuntimeError(f"the VoxelNet remat step disagrees with the step without remat: "
+                               f"{remat_rec}")
+
+        # timed bf16 train steps on the loader batch, and one profiled step
+        model.load_state_dict(fitted)
+        train_ms = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(VOXELNET_WARMUP + VOXELNET_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(model, opt, batch)
+            torch.cuda.synchronize()
+            train_ms.append((time.perf_counter() - t0) * 1e3)
+        step_peak = torch.cuda.max_memory_allocated()
+        med_ms = statistics.median(train_ms[VOXELNET_WARMUP:])
+        prof = profile_device(torch, lambda: train_step(model, opt, batch), med_ms, smi)
+
+        # held-out predict from the run directory (its best epoch, the
+        # training precision) and the evaluation of both scenes
+        pred_dir = os.path.join(tmp, "pred")
+        t0 = time.perf_counter()
+        results = predict_cli.main(["--config", VOXELNET_EXPERIMENT, "--ckpt", run_dir,
+                                    "--data-dir", root, "--split", "val.txt", "--out", pred_dir,
+                                    "--device", dev.type])
+        predict_s = time.perf_counter() - t0
+        with open(os.path.join(pred_dir, "predict_meta.json")) as f:
+            predict_meta = json.load(f)
+        if (predict_meta["precision"], predict_meta["selected_by"], len(results)) != (
+                precision, ckpt_cfg["monitor"], 2):
+            raise RuntimeError(f"held-out predict: {predict_meta}, {len(results)} scenes")
+        eval_rec = evaluate_held_out(dev, evaluation, parse_splits_list("val.txt", root),
+                                     pred_dir, os.path.join(tmp, "oracle"), load_info_json)
+        empty = [scene for scene, rec in eval_rec.items() if rec["pred_mesh_empty"]]
+        if empty:
+            raise RuntimeError(f"empty held-out meshes: {empty}")
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        if any(launches.values()):
+            raise RuntimeError(f"the VoxelNet phase launched TPU-kernel ports: {launches}")
+        emit({"phase": "voxelnet", "config": "configs/experiment/seqs_multigeo_voxelnet.yaml",
+              "precision": precision,
+              "batch": {"frames": [T, H, W], "resnet_input": [2 * H, 2 * W],
+                        "voxel_dim_train": list(mcfg.voxel_dim_train)},
+              "fit": fit_rec, "launches": launches, "card_vs_cpu_f32": device_rec,
+              "precision_discipline": precision_rec, "remat_vs_plain": remat_rec,
+              "train_step_ms": {"median": med_ms, "all": train_ms,
+                                "peak_memory_bytes": step_peak},
+              "predict": {"meta": predict_meta, "seconds": predict_s, "scenes": results},
+              "eval": {scene: rec["pred"] for scene, rec in eval_rec.items()},
+              "card": smi})
+        emit({"phase": "voxelnet_profile", "what": "one loader-batch bf16-mixed VoxelNet train_step",
+              **prof})
+    return launches
+
+
 def evaluate_held_out(dev, evaluation, info_files, pred_dir: str, oracle_dir: str,
                       load_info_json) -> dict:
     """`evaluation.process` on each held-out scene's prediction (every
@@ -1376,27 +1653,31 @@ def main() -> int:
         # 10. spatial: the ResNet feature volume beside the triplanes, trained
         # on the same dataset, then a held-out reconstruct
         spatial_launches = spatial_phase(torch, dev, smi, root)
+        # 11. voxelnet: the second model family in bf16-mixed on the same
+        # dataset, then a held-out predict and evaluation
+        voxelnet_launches = voxelnet_phase(torch, dev, smi, root)
 
     kernel_line = {"kernels": [
         {"name": "fps", "route": "cuda", "source": "gennerf_tpu_torch/csrc/fps.cu",
          "replaces": "gennerf_tpu/ops/pallas/fps.py:33",
          "launches": (launches["fps"] + render_launches["fps"] + mesh_launches["fps"]
                       + sparse_launches["fps"] + train_launches["fps"] + data_launches["fps"]
-                      + spatial_launches["fps"]),
+                      + spatial_launches["fps"] + voxelnet_launches["fps"]),
          "max_abs_err": float((idx_k - idx_p).abs().max()), "ms": fps_ms,
          "plain_ms": fps_plain_ms, "bound_ms": fps_bound, "bound_by": "operations",
          "library_ms": None},
         {"name": "grid_decode", "route": "cuda", "source": "gennerf_tpu_torch/csrc/grid_decode.cu",
          "replaces": "gennerf_tpu/ops/pallas/fused_decoder.py:353",
          "launches": (launches["grid_decode"] + mesh_launches["grid_decode"]
-                      + data_launches["grid_decode"]),
+                      + data_launches["grid_decode"] + voxelnet_launches["grid_decode"]),
          "max_abs_err": grid_max, "ms": grid_ms,
          "plain_ms": grid_plain_ms, "bound_ms": grid_bound,
          "bound_by": "operations" if grid_flops / PEAK_BF16 >= grid_bytes / PEAK_BYTES else "bytes",
          "library_ms": None},
         {"name": "point_decode", "route": "cuda", "source": "gennerf_tpu_torch/csrc/point_decode.cu",
          "replaces": "gennerf_tpu/ops/pallas/fused_decoder.py:53",
-         "launches": render_launches["point_decode"] + data_launches["point_decode"],
+         "launches": (render_launches["point_decode"] + data_launches["point_decode"]
+                      + voxelnet_launches["point_decode"]),
          "max_abs_err": point_max, "ms": point_ms,
          "plain_ms": point_plain_ms, "bound_ms": point_bound,
          "bound_by": "operations" if point_flops / PEAK_BF16 >= point_bytes / PEAK_BYTES else "bytes",

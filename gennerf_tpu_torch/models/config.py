@@ -1,12 +1,13 @@
 """Frozen model-config dataclasses (counterpart of gennerf_tpu/models/config.py).
 
 Only the fields the predict, render and train paths of GenNerf (the
-pointnet triplanes, the spatial feature volume, or both) read are kept; `config_from_dict` ignores every other key of an
+pointnet triplanes, the spatial feature volume, or both) and of VoxelNet
+read are kept; `config_from_dict` ignores every other key of an
 experiment yaml (frustum sampling, the eikonal/gradient/distill weights,
 ...), exactly as the reference's does for bookkeeping keys. Defaults are
 the reference's. Options the port does not implement yet are rejected by
-`check_supported`, called at model construction, rather than computed
-differently.
+`check_supported` / `check_supported_voxel_net`, called at model
+construction, rather than computed differently.
 """
 from __future__ import annotations
 
@@ -200,6 +201,85 @@ class GenNerfConfig:
         return d
 
 
+@dataclasses.dataclass(frozen=True)
+class Backbone3dConfig:
+    channels: Tuple[int, ...] = (32, 64, 128, 256)
+    layers_down: Tuple[int, ...] = (1, 2, 3, 4)
+    layers: Tuple[int, ...] = (3, 2, 1)
+    norm: str = "BN"  # 'BN' | 'nnSyncBN' (alike on one card) | '' ('GN' is not ported)
+    drop: float = 0.0
+    conditional_skip: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadsConfig:
+    use_tsdf: bool = True
+    tsdf_multi_scale: bool = True
+    tsdf_loss_weight: float = 1.0
+    tsdf_label_smoothing: float = 1.05
+    tsdf_loss_split: str = "pred"  # 'none' | 'pred'
+    tsdf_loss_log_transform: bool = True
+    tsdf_loss_log_transform_shift: float = 1.0
+    tsdf_sparse_threshold: Tuple[float, ...] = (0.99, 0.99, 0.99)
+
+
+@dataclasses.dataclass(frozen=True)
+class VoxelNetConfig:
+    type: str = "VoxelNet"
+    voxel_size: float = 0.04
+    voxel_dim_train: Tuple[int, int, int] = (160, 160, 64)
+    voxel_dim_val: Tuple[int, int, int] = (256, 256, 96)
+    voxel_dim_test: Tuple[int, int, int] = (416, 416, 128)
+    # inference: clamp voxels no input frame touches to the fusion prior
+    mask_unobserved: bool = True
+    # recompute the encode fold and every 3D residual block in backward
+    remat: bool = False
+    encoder: EncoderConfig = EncoderConfig(
+        use_pointnet=False, spatial=SpatialEncoderConfig(blur_image=False))
+    backbone3d: Backbone3dConfig = Backbone3dConfig()
+    heads: HeadsConfig = HeadsConfig()
+    optimizer: OptimizerConfig = OptimizerConfig()
+    scheduler: SchedulerConfig = SchedulerConfig()
+
+    @property
+    def voxel_sizes(self) -> Tuple[int, ...]:
+        """The head scales in cm, finest first (the ground truth keys
+        vol_XX_tsdf the steps read)."""
+        final = int(self.voxel_size * 100)
+        return tuple(final * 2 ** i for i in range(len(self.backbone3d.layers_down) - 1))
+
+
+def _raise_unsupported(unsupported: dict) -> None:
+    bad = [name for name, on in unsupported.items() if on]
+    if bad:
+        raise NotImplementedError(
+            f"gennerf_tpu_torch does not implement: {', '.join(bad)}"
+        )
+
+
+def check_supported_voxel_net(cfg: VoxelNetConfig) -> None:
+    """Raise NotImplementedError for every VoxelNet option the port does
+    not implement. 'BN' and 'nnSyncBN' are alike on one card (the JAX
+    norm syncs only under a bound axis name)."""
+    b, s = cfg.backbone3d, cfg.encoder.spatial
+    _raise_unsupported({
+        # flax's GroupNorm takes epsilon 1e-6, torch's 1e-5
+        "backbone3d.norm 'GN'": b.norm not in ("BN", "nnSyncBN", ""),
+        # the JAX dropout draws from a key
+        "backbone3d.drop > 0": b.drop > 0,
+        "heads.use_tsdf false": not cfg.heads.use_tsdf,
+        "heads.tsdf_loss_split other than 'pred' or 'none'":
+            cfg.heads.tsdf_loss_split not in ("pred", "none"),
+        "encoder.use_pointnet": cfg.encoder.use_pointnet,
+        "encoder.use_spatial false": not cfg.encoder.use_spatial,
+        "spatial.norm_type other than 'batch'": s.norm_type != "batch",
+        "spatial.upsample_interp other than 'bilinear'": s.upsample_interp != "bilinear",
+        "optimizer.type other than 'Adam'": cfg.optimizer.type != "Adam",
+        "scheduler.type other than 'StepLR' or None":
+            cfg.scheduler.type not in ("StepLR", "None", None),
+    })
+
+
 def check_supported(cfg: GenNerfConfig) -> None:
     """Raise NotImplementedError for every option this slice of the port
     does not implement (later slices lift these one by one)."""
@@ -227,17 +307,14 @@ def check_supported(cfg: GenNerfConfig) -> None:
         "mlp.use_spade": m.use_spade,
         "mlp.use_layer_norm": m.use_layer_norm,
     }
-    bad = [name for name, on in unsupported.items() if on]
-    if bad:
-        raise NotImplementedError(
-            f"gennerf_tpu_torch does not implement: {', '.join(bad)}"
-        )
+    _raise_unsupported(unsupported)
 
 
 def config_from_dict(cls, d: dict):
     """Recursively build a frozen config dataclass from a (nested) dict,
     ignoring unknown keys and flattening `unet_kwargs` onto `unet_*` fields
-    (reference gennerf_tpu/models/config.py:358-390)."""
+    and any other nested dict onto prefixed fields (`heads.tsdf.multi_scale`
+    -> `tsdf_multi_scale`; reference gennerf_tpu/models/config.py:358-390)."""
     kwargs = {}
     fields = {f.name: f for f in dataclasses.fields(cls)}
     for key, value in dict(d).items():

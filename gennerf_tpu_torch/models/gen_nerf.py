@@ -59,6 +59,49 @@ def _remat(fn: Callable, *args):
     return checkpoint(run, *args, use_reentrant=False)
 
 
+def encode_feature_volume(spatial: nn.Module, projection: torch.Tensor, image: torch.Tensor,
+                          voxel_dim, voxel_size: float, origin=None, frame_chunk: int = 0,
+                          remat: bool = False):
+    """The spatial encoder's features of T frames backprojected and summed
+    into the f32 (B, C, nx, ny, nz) volume and its (B, 1, ...) observation
+    count at `origin` (default 0), `frame_chunk` frames at a time (0: all
+    at once); with `remat` (and gradients on) each chunk's encode and
+    backprojection, or without chunks the encoder, is a checkpoint region."""
+    if voxel_dim is None:
+        raise ValueError("the spatial encoder needs the feature volume's voxel_dim")
+    voxel_dim = tuple(int(d) for d in voxel_dim)
+    if origin is None:
+        origin = torch.zeros(3, dtype=torch.float32, device=projection.device)
+    B, T = projection.shape[:2]
+    hw = image.shape[-2:]
+    remat = remat and torch.is_grad_enabled()
+
+    def fold(imgs, proj, update_stats=True):
+        return backproject_fold(spatial(imgs, update_stats), proj, hw, voxel_dim, voxel_size,
+                                origin)
+
+    if not 0 < frame_chunk < T:
+        imgs = image.reshape(B * T, *image.shape[2:])
+        feat = _remat(spatial, imgs) if remat else spatial(imgs)
+        return backproject_fold(feat, projection, hw, voxel_dim, voxel_size, origin)
+    volume = valid = None
+    for t0 in range(0, T, frame_chunk):
+        t1 = min(t0 + frame_chunk, T)
+        imgs = image[:, t0:t1].reshape(B * (t1 - t0), *image.shape[2:])
+        vol, val = _remat(fold, imgs, projection[:, t0:t1]) if remat else fold(
+            imgs, projection[:, t0:t1])
+        volume = vol if volume is None else volume + vol
+        valid = val if valid is None else valid + val
+    return volume, valid
+
+
+def normalized_volume(volume: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The summed volume over its observation count, 0 where no frame saw
+    the voxel."""
+    vol = volume / valid.clamp_min(1e-12)
+    return torch.where(valid > 0, vol, torch.zeros((), dtype=vol.dtype, device=vol.device))
+
+
 class GenNerf(nn.Module):
     def __init__(self, cfg: GenNerfConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -127,40 +170,12 @@ class GenNerf(nn.Module):
         enc = self.cfg.encoder
         volume = valid = planes = None
         if enc.use_spatial:
-            volume, valid = self._encode_volume(projection, image, voxel_dim, origin)
+            volume, valid = encode_feature_volume(
+                self.spatial, projection, image, voxel_dim, self.cfg.voxel_size, origin,
+                enc.spatial.frame_chunk, self.cfg.remat)
         if enc.use_pointnet:
             planes = self._encode_planes(projection, depth, generator, sel, start)
         return SceneRepr(planes, volume, valid)
-
-    def _encode_volume(self, projection, image, voxel_dim, origin):
-        cfg = self.cfg
-        if voxel_dim is None:
-            raise ValueError("the spatial encoder needs the feature volume's voxel_dim")
-        voxel_dim = tuple(int(d) for d in voxel_dim)
-        if origin is None:
-            origin = torch.zeros(3, dtype=torch.float32, device=projection.device)
-        B, T = projection.shape[:2]
-        hw = image.shape[-2:]
-        remat = cfg.remat and torch.is_grad_enabled()
-        chunk = cfg.encoder.spatial.frame_chunk
-
-        def fold(imgs, proj, update_stats=True):
-            return backproject_fold(self.spatial(imgs, update_stats), proj, hw, voxel_dim,
-                                    cfg.voxel_size, origin)
-
-        if not 0 < chunk < T:
-            imgs = image.reshape(B * T, *image.shape[2:])
-            feat = _remat(self.spatial, imgs) if remat else self.spatial(imgs)
-            return backproject_fold(feat, projection, hw, voxel_dim, cfg.voxel_size, origin)
-        volume = valid = None
-        for t0 in range(0, T, chunk):
-            t1 = min(t0 + chunk, T)
-            imgs = image[:, t0:t1].reshape(B * (t1 - t0), *image.shape[2:])
-            vol, val = _remat(fold, imgs, projection[:, t0:t1]) if remat else fold(
-                imgs, projection[:, t0:t1])
-            volume = vol if volume is None else volume + vol
-            valid = val if valid is None else valid + val
-        return volume, valid
 
     def _encode_planes(self, projection, depth, generator, sel, start):
         B, T = projection.shape[:2]
@@ -191,9 +206,7 @@ class GenNerf(nn.Module):
         one scene in many chunks computes it once and passes it on."""
         if repr_.volume is None:
             return None
-        vol = repr_.volume / repr_.valid.clamp_min(1e-12)
-        vol = torch.where(repr_.valid > 0, vol, torch.zeros((), dtype=vol.dtype, device=vol.device))
-        return vol.permute(0, 2, 3, 4, 1).contiguous()
+        return normalized_volume(repr_.volume, repr_.valid).permute(0, 2, 3, 4, 1).contiguous()
 
     def map_features(self, repr_: SceneRepr, xyz: torch.Tensor, origin=None,
                      volume_cl: Optional[torch.Tensor] = None) -> torch.Tensor:

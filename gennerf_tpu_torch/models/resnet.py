@@ -16,6 +16,13 @@ recompute in backward passes it, so a step updates them once, as flax's
 
 Convolutions start from flax's default (lecun_normal: a normal truncated at
 two standard deviations, variance 1/fan_in), BatchNorm from scale 1, bias 0.
+
+Mixed precision follows flax's `dtype=`: every module takes a compute
+`dtype`; a convolution casts its input and weight to it (a bias is added
+after the convolution, in that dtype, as flax does), BatchNorm computes
+its statistics and the normalization in float32 and returns the compute
+dtype (`float_output` returns float32, the 3D norm's rule). Parameters and
+running statistics stay float32.
 """
 from __future__ import annotations
 
@@ -38,52 +45,117 @@ def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
     return nn.init.trunc_normal_(weight, std=std, a=-2.0 * std, b=2.0 * std)
 
 
+class _CastConv:
+    """A convolution computing in `compute_dtype` (flax's nn.Conv with
+    `dtype=`): input and weight cast to it, the bias added afterwards.
+    None computes in the weight's dtype (a float64 copy of a float32 model
+    computes in float64)."""
+
+    compute_dtype = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        if self.bias is not None:
+            y = y + self.bias.to(dt).reshape(-1, *([1] * (y.dim() - 2)))
+        return y
+
+
+class Conv2d(_CastConv, nn.Conv2d):
+    pass
+
+
+class Conv3d(_CastConv, nn.Conv3d):
+    pass
+
+
 def conv2d(in_ch: int, out_ch: int, kernel: int, stride: int = 1, padding: int = 0,
-           bias: bool = False) -> nn.Conv2d:
-    conv = nn.Conv2d(in_ch, out_ch, kernel, stride, padding, bias=bias)
+           bias: bool = False, dtype: torch.dtype = torch.float32) -> Conv2d:
+    conv = Conv2d(in_ch, out_ch, kernel, stride, padding, bias=bias)
+    conv.compute_dtype = None if dtype == torch.float32 else dtype
     lecun_normal_(conv.weight)
     if bias:
         nn.init.zeros_(conv.bias)
     return conv
 
 
-class BatchNorm2d(nn.Module):
-    """flax-semantics BatchNorm over (B, C, H, W) (see the module docstring)."""
+def conv3d(in_ch: int, out_ch: int, kernel: int, stride: int = 1, padding: int = 0,
+           bias: bool = False, dtype: torch.dtype = torch.float32) -> Conv3d:
+    conv = Conv3d(in_ch, out_ch, kernel, stride, padding, bias=bias)
+    conv.compute_dtype = None if dtype == torch.float32 else dtype
+    lecun_normal_(conv.weight)
+    if bias:
+        nn.init.zeros_(conv.bias)
+    return conv
 
-    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
+
+class BatchNorm(nn.Module):
+    """flax-semantics BatchNorm over (B, C, ...) of any rank (see the module
+    docstring): statistics and normalization in float32 (float64 stays
+    float64), the result in the compute dtype `dtype`, or in float32 at
+    least with `float_output`. `zero_init` starts the scale at 0.
+
+    Under a narrower compute dtype the statistics and the normalization
+    take flax's own expressions (mean and E[x^2] - E[x]^2; (x - mean) *
+    (rsqrt(var + eps) * scale) + bias, op by op), so that the float32 values
+    that feed the next bf16 rounding are flax's; in float32 the two-pass
+    variance and the fused F.batch_norm serve."""
+
+    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32, float_output: bool = False,
+                 zero_init: bool = False):
         super().__init__()
         self.momentum, self.eps = momentum, eps
-        self.weight = nn.Parameter(torch.ones(channels))
+        self.out_dtype = torch.promote_types(dtype, torch.float32) if float_output else dtype
+        self.flax_expressions = torch.promote_types(dtype, torch.float32) != dtype
+        self.weight = nn.Parameter(torch.zeros(channels) if zero_init else torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                                False, 0.0, self.eps)
+            mean, var = self.running_mean, self.running_var
+            if not self.flax_expressions:
+                return F.batch_norm(x, mean, var, self.weight, self.bias, False, 0.0, self.eps)
+        elif self.flax_expressions:
+            dims = (0,) + tuple(range(2, x.dim()))
+            mean = x.mean(dims)
+            var = torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
+            self._update(mean, var, update_stats)
+        else:
+            var, mean = torch.var_mean(x, dim=(0,) + tuple(range(2, x.dim())), unbiased=False)
+            self._update(mean, var, update_stats)
+            return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+        return y.to(self.out_dtype)
+
+    @torch.no_grad()
+    def _update(self, mean: torch.Tensor, var: torch.Tensor, update_stats: bool) -> None:
         if update_stats:
-            with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-                self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
-                self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
-        state_dict.pop(prefix + "num_batches_tracked", None)  # torchvision's counter
+        state_dict.pop(prefix + "num_batches_tracked", None)  # torch's counter
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = conv2d(inplanes, planes, 3, stride, 1)
-        self.bn1 = BatchNorm2d(planes)
-        self.conv2 = conv2d(planes, planes, 3, 1, 1)
-        self.bn2 = BatchNorm2d(planes)
-        self.downsample = (nn.ModuleList([conv2d(inplanes, planes, 1, stride), BatchNorm2d(planes)])
+        self.conv1 = conv2d(inplanes, planes, 3, stride, 1, dtype=dtype)
+        self.bn1 = BatchNorm(planes, dtype=dtype)
+        self.conv2 = conv2d(planes, planes, 3, 1, 1, dtype=dtype)
+        self.bn2 = BatchNorm(planes, dtype=dtype)
+        self.downsample = (nn.ModuleList([conv2d(inplanes, planes, 1, stride, dtype=dtype),
+                                          BatchNorm(planes, dtype=dtype)])
                            if downsample else None)
 
     def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
@@ -97,16 +169,18 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = conv2d(inplanes, planes, 1)
-        self.bn1 = BatchNorm2d(planes)
-        self.conv2 = conv2d(planes, planes, 3, stride, 1)
-        self.bn2 = BatchNorm2d(planes)
-        self.conv3 = conv2d(planes, planes * 4, 1)
-        self.bn3 = BatchNorm2d(planes * 4)
-        self.downsample = (nn.ModuleList([conv2d(inplanes, planes * 4, 1, stride),
-                                          BatchNorm2d(planes * 4)]) if downsample else None)
+        self.conv1 = conv2d(inplanes, planes, 1, dtype=dtype)
+        self.bn1 = BatchNorm(planes, dtype=dtype)
+        self.conv2 = conv2d(planes, planes, 3, stride, 1, dtype=dtype)
+        self.bn2 = BatchNorm(planes, dtype=dtype)
+        self.conv3 = conv2d(planes, planes * 4, 1, dtype=dtype)
+        self.bn3 = BatchNorm(planes * 4, dtype=dtype)
+        self.downsample = (nn.ModuleList([conv2d(inplanes, planes * 4, 1, stride, dtype=dtype),
+                                          BatchNorm(planes * 4, dtype=dtype)])
+                           if downsample else None)
 
     def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x), update_stats))
@@ -126,15 +200,16 @@ RESNET_SPECS = {
 
 class ResNetStages(nn.Module):
     """The stem and the first `num_stages` residual stages; forward returns
-    [stem, stage1, ..., stage_num_stages] (B, C, H, W) maps."""
+    [stem, stage1, ..., stage_num_stages] (B, C, H, W) maps in the compute
+    dtype."""
 
     def __init__(self, backbone: str = "resnet34", num_stages: int = 4,
-                 use_first_pool: bool = True):
+                 use_first_pool: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         block_cls, layer_counts = RESNET_SPECS[backbone]
         self.use_first_pool = use_first_pool
-        self.conv1 = conv2d(3, 64, 7, 2, 3)
-        self.bn1 = BatchNorm2d(64)
+        self.conv1 = conv2d(3, 64, 7, 2, 3, dtype=dtype)
+        self.bn1 = BatchNorm(64, dtype=dtype)
         self.stages = []
         inplanes, planes = 64, 64
         for stage in range(num_stages):
@@ -143,7 +218,8 @@ class ResNetStages(nn.Module):
                 stride = (1 if stage == 0 else 2) if b == 0 else 1
                 out = planes * block_cls.expansion
                 blocks.append(block_cls(inplanes, planes, stride,
-                                        downsample=b == 0 and (stride != 1 or inplanes != out)))
+                                        downsample=b == 0 and (stride != 1 or inplanes != out),
+                                        dtype=dtype))
                 inplanes = out
             setattr(self, f"layer{stage + 1}", blocks)
             self.stages.append(f"layer{stage + 1}")

@@ -5,6 +5,9 @@ align-corners bilinear up; < 1: average pooling down), the ResNet stem and
 its first `num_layers - 1` stages, every map resized to the stem's
 resolution (align-corners bilinear) and concatenated along channels, and an
 optional 1x1 `proj` conv (with bias) to `out_channels`. NCHW throughout.
+Under a compute `dtype` (bf16-mixed) the ResNet and `proj` compute in it
+and the stage resizes weight in their input's dtype, as the JAX encoder's;
+the input image and its rescale stay float32.
 """
 from __future__ import annotations
 
@@ -54,14 +57,15 @@ class SpatialEncoder(nn.Module):
     def __init__(self, backbone: str = "resnet34", num_layers: int = 4,
                  feature_scale: float = 1.0, use_first_pool: bool = True,
                  blur_image: bool = False, kernel_size: int = 5, sigma: float = 1.0,
-                 out_channels: Optional[int] = None):
+                 out_channels: Optional[int] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.feature_scale = float(feature_scale)
         self.blur_image, self.kernel_size, self.sigma = blur_image, kernel_size, sigma
         # the stem counts as the first map
-        self.resnet = ResNetStages(backbone, num_layers - 1, use_first_pool)
+        self.resnet = ResNetStages(backbone, num_layers - 1, use_first_pool, dtype)
         latent = spatial_latent_size(backbone, num_layers)
-        self.proj = conv2d(latent, out_channels, 1, bias=True) if out_channels else None
+        self.proj = (conv2d(latent, out_channels, 1, bias=True, dtype=dtype)
+                     if out_channels else None)
         self.latent_size = out_channels or latent
 
     def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:

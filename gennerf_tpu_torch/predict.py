@@ -1,13 +1,18 @@
 """Reconstruct a dense TSDF volume from posed RGB-D frames (counterpart of
-GenNerfTask.reconstruct in gennerf_tpu/train/tasks.py and of
-scripts/predict.py): encode, then the dense decode and the fusion-prior
-clamp, or with `sparse_band_decode` (and `mask_unobserved`) the decode of
-the prior's near-surface band only.
+GenNerfTask.reconstruct / VoxelNetTask.reconstruct in
+gennerf_tpu/train/tasks.py and of scripts/predict.py). GenNerf: encode,
+then the dense decode and the fusion-prior clamp, or with
+`sparse_band_decode` (and `mask_unobserved`) the decode of the prior's
+near-surface band only. VoxelNet: encode the feature volume on the decode
+grid, refine it, take the finest scale's volume and clamp it with the
+fusion prior under `mask_unobserved`.
 
     python -m gennerf_tpu_torch.predict --config configs/experiment/seqs_multigeo_4cm.yaml \
         --ckpt RUN --data-dir D [--split val.txt] --out DIR
     python -m gennerf_tpu_torch.predict --config configs/experiment/seqs_multigeo_4cm.yaml \
         --params params.npz --frames frames.npz --out tsdf.npz
+    python -m gennerf_tpu_torch.predict --config configs/experiment/seqs_multigeo_voxelnet.yaml \
+        --ckpt RUN --data-dir D --split val.txt --out DIR [trainer.precision=32-true]
 
 The weights come from `--ckpt` (a checkpoint file, or a training run's
 directory or its `checkpoints/`: the best monitored epoch there, else the
@@ -25,8 +30,9 @@ reconstructed at voxel_dim_test and saved as DIR/{scene}.npz in the TSDF
 layout with its origin at the offset and its mesh as DIR/{scene}.ply (a
 warning when it is empty); its masked TSDF L1 against the scene's ground
 truth is printed, and DIR/predict_meta.json records the checkpoint, its
-epoch, how it was selected and the precision. Runs on the card unless
-`--device cpu` is given.
+epoch, how it was selected and the precision. The model computes in the
+training precision (the config's trainer.precision: bf16-mixed for the
+VoxelNet drive). Runs on the card unless `--device cpu` is given.
 """
 from __future__ import annotations
 
@@ -40,22 +46,27 @@ import numpy as np
 import torch
 
 from .device import resolve_device, set_reference_precision
-from .models.config import GenNerfConfig, config_from_dict
+from .models.config import GenNerfConfig, VoxelNetConfig
 from .models.gen_nerf import GenNerf
+from .models.voxel_net import VoxelNet
 from .train.predict import predict_tsdf_volume, predict_tsdf_volume_sparse
+from .train.tasks import dtype_for_precision, model_config, task_for
 from .tsdf.fusion import apply_fusion_prior
 
 
-def build_model(model_cfg: Union[dict, GenNerfConfig], device=None, seed: int = 0) -> GenNerf:
-    """A GenNerf in eval mode on `device` (the card by default), its
-    weights a random init drawn from `seed`, with the backbone npz of
-    `encoder.spatial.pretrained_path` grafted into the spatial encoder's
-    ResNet when the config names one (tools/port_backbone.py)."""
+def build_model(model_cfg: Union[dict, GenNerfConfig, VoxelNetConfig], device=None,
+                seed: int = 0, precision=None) -> Union[GenNerf, VoxelNet]:
+    """The model of the config's `type` (GenNerf or VoxelNet) in eval mode
+    on `device` (the card by default) computing in `precision`'s dtype
+    (trainer.precision; default float32), its weights a random init drawn
+    from `seed`, with the backbone npz of `encoder.spatial.pretrained_path`
+    grafted into the spatial encoder's ResNet when the config names one
+    (tools/port_backbone.py)."""
     device = resolve_device(device)
-    cfg = model_cfg if isinstance(model_cfg, GenNerfConfig) else config_from_dict(GenNerfConfig, model_cfg)
+    cfg = model_config(model_cfg)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = GenNerf(cfg)
+        model = task_for(cfg).model_cls(cfg, dtype=dtype_for_precision(precision))
     if cfg.encoder.use_spatial and cfg.encoder.spatial.pretrained_path:
         from .tools.port_backbone import graft_backbone
 
@@ -64,7 +75,7 @@ def build_model(model_cfg: Union[dict, GenNerfConfig], device=None, seed: int = 
 
 
 @torch.no_grad()
-def reconstruct(model: GenNerf, projection: torch.Tensor, image: torch.Tensor,
+def reconstruct(model: Union[GenNerf, VoxelNet], projection: torch.Tensor, image: torch.Tensor,
                 depth: torch.Tensor, voxel_dim=None,
                 generator: Optional[torch.Generator] = None,
                 sel: Optional[torch.Tensor] = None,
@@ -76,7 +87,8 @@ def reconstruct(model: GenNerf, projection: torch.Tensor, image: torch.Tensor,
         projection: (T, 3, 4) world->image; image: (T, 3, H, W); depth: (T, H, W).
         voxel_dim: decode grid, default the config's voxel_dim_test.
         generator: source of the encoder's presample and FPS start draws.
-        sel, start: injected encoder draws (see GenNerf.encode).
+        sel, start: injected encoder draws (see GenNerf.encode; VoxelNet
+            draws nothing).
     """
     set_reference_precision()
     cfg = model.cfg
@@ -85,6 +97,13 @@ def reconstruct(model: GenNerf, projection: torch.Tensor, image: torch.Tensor,
                                 for a in (projection, image, depth))
     voxel_dim = tuple(int(d) for d in (voxel_dim or cfg.voxel_dim_test))
     origin = torch.zeros(3, dtype=torch.float32, device=device)
+    if isinstance(model, VoxelNet):
+        model.eval()
+        outputs, _ = model(projection[None], image[None], voxel_dim, origin)
+        vol = outputs["vol_%02d_tsdf" % cfg.voxel_sizes[0]][0, 0]
+        if cfg.mask_unobserved:
+            vol = apply_fusion_prior(vol, cfg.voxel_size, origin, projection, depth)
+        return vol.to(torch.float32)
     repr_ = model.encode(projection[None], image[None], depth[None], generator, sel, start,
                          voxel_dim, origin)
     if cfg.mask_unobserved and cfg.sparse_band_decode:
@@ -135,23 +154,23 @@ def predict_split(model: GenNerf, data_cfg: dict, out_dir: str, seed: int = 0) -
     return results
 
 
-def load_weights(model: GenNerf, ckpt: Optional[str] = None,
-                 params: Optional[str] = None) -> dict:
+def load_weights(model: Union[GenNerf, VoxelNet], ckpt: Optional[str] = None,
+                 params: Optional[str] = None, precision: str = "32-true") -> dict:
     """Load the weights an entry point was given into `model`: the
     checkpoint `select_checkpoint` picks for `ckpt`, or a params npz, or
     none (the seeded init). Returns predict_meta.json's record: the file,
-    its epoch, how it was selected and the precision the port runs in."""
+    its epoch, how it was selected and the precision the model runs in."""
     from .train.checkpoints import load_checkpoint, select_checkpoint
-    from .utils.port_params import gen_nerf_params_from_flax, load_params_npz
+    from .utils.port_params import load_params_npz
 
-    meta = {"ckpt_path": None, "epoch": None, "selected_by": None, "precision": "32-true"}
+    meta = {"ckpt_path": None, "epoch": None, "selected_by": None, "precision": precision}
     if ckpt:
         path, selected_by = select_checkpoint(ckpt)
         epoch = load_checkpoint(path, model)["epoch"]
         meta.update(ckpt_path=os.path.abspath(path), epoch=epoch, selected_by=selected_by)
         print(f"loaded {path} (epoch {epoch}, selected by {selected_by})", flush=True)
     elif params:
-        model.load_state_dict(gen_nerf_params_from_flax(load_params_npz(params)))
+        model.load_state_dict(task_for(model).params_from_flax(load_params_npz(params)))
         meta.update(ckpt_path=os.path.abspath(params), selected_by="params")
     return meta
 
@@ -173,12 +192,15 @@ def main(argv=None):
                         help="output npz (tsdf, voxel_size, origin); with --data-dir a directory")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("overrides", nargs="*", help="config overrides a.b.c=value "
+                        "(trainer.precision=32-true for a float32 run)")
     args = parser.parse_args(argv)
 
     overrides = [f"paths.data_dir={os.path.abspath(args.data_dir)}"] if args.data_dir else []
-    cfg = load_experiment_config(args.config, "predict", overrides)
-    model = build_model(cfg["model"], args.device, args.seed)
-    meta = load_weights(model, args.ckpt, args.params)
+    cfg = load_experiment_config(args.config, "predict", overrides + args.overrides)
+    precision = str((cfg.get("trainer") or {}).get("precision", "32-true"))
+    model = build_model(cfg["model"], args.device, args.seed, precision)
+    meta = load_weights(model, args.ckpt, args.params, precision)
     if args.data_dir:
         data_cfg = dict(cfg["data"])
         if args.split:

@@ -23,7 +23,8 @@ per view (predicted | measured z-depth; `{scene}_viewNNN.png` in split
 mode), with `--features` one PNG of the surface features' first three
 principal components, and `render_metrics.json` (per view, or per scene in
 split mode, and the mean); prints the mean metrics as one JSON line. Runs
-on the card unless `--device cpu` is given.
+on the card unless `--device cpu` is given. It renders a GenNerf field
+only: a VoxelNet config raises, as the JAX render script exits.
 """
 from __future__ import annotations
 
@@ -206,8 +207,12 @@ def main(argv=None) -> dict:
 
     overrides = [f"paths.data_dir={os.path.abspath(args.data_dir)}"] if args.data_dir else []
     cfg = load_experiment_config(args.config, "predict", overrides)
-    model = build_model(cfg["model"], args.device, args.seed)
-    load_weights(model, args.ckpt, args.params)
+    if cfg["model"].get("type", "GenNerf") != "GenNerf":
+        raise SystemExit("render drives the GenNerf field renderer only; "
+                         f"the config's model is {cfg['model']['type']}")
+    precision = str((cfg.get("trainer") or {}).get("precision", "32-true"))
+    model = build_model(cfg["model"], args.device, args.seed, precision)
+    load_weights(model, args.ckpt, args.params, precision)
     os.makedirs(args.out, exist_ok=True)
     if args.data_dir:
         data_cfg = dict(cfg["data"])

@@ -4,22 +4,27 @@ through the port's command-line entry points, one process each, timed.
 
     python -m gennerf_tpu_torch.tools.quality_drive --work DIR --summary out.json \\
         [--config configs/experiment/seqs_multigeo_4cm.yaml] [--epochs E] [--device cpu] \\
-        [--backbone random:resnet34]
+        [--backbone random:resnet34] [key.path=value ...]
+    python -m gennerf_tpu_torch.tools.quality_drive --work DIR --summary out.json \\
+        --config configs/experiment/seqs_multigeo_voxelnet.yaml [trainer.precision=32-true]
 
 The steps, as a user runs them:
   1. python -m gennerf_tpu_torch.data.make_multigeo --out DIR/data
      (with --backbone, then python -m gennerf_tpu_torch.tools.port_backbone
       SPEC DIR/backbone.npz, grafted by step 2 through
       model.encoder.spatial.pretrained_path=DIR/backbone.npz)
-  2. python -m gennerf_tpu_torch.train --config C --data-dir DIR/data --out DIR/run
+  2. python -m gennerf_tpu_torch.train --config C --data-dir DIR/data --out DIR/run [key=value]
   3. python -m gennerf_tpu_torch.predict --config C --ckpt DIR/run --data-dir DIR/data
-         --split val.txt --out DIR/pred
+         --split val.txt --out DIR/pred [key=value]
   4. python -m gennerf_tpu_torch.eval.evaluation --results DIR/pred --dataset val.txt
          --data-dir DIR/data
-The summary holds each step's wall seconds, the epochs and seconds per
-epoch, the best epoch and its monitored value, the per-scene and mean
-metrics, and the card's name and power limit (nvidia-smi). Each step's
-output goes to DIR/<step>.log.
+Trailing `key=value` overrides go to both the train and the predict CLI
+(a VoxelNet control in float32: trainer.precision=32-true). The summary
+holds each step's wall seconds, the epochs and seconds per epoch, the
+median step and loader wait (metrics.csv), the validations (every val_*
+column), the predict record (the best epoch, how it was selected, the
+precision), the per-scene and mean metrics, and the card's name and power
+limit (nvidia-smi). Each step's output goes to DIR/<step>.log.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import argparse
 import csv
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -71,6 +77,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--backbone", help="spatial backbone for port_backbone: a torchvision "
                         ".pth or random:<backbone>")
+    parser.add_argument("overrides", nargs="*", help="config overrides a.b.c=value")
     args = parser.parse_args(argv)
 
     work = os.path.abspath(args.work)
@@ -88,19 +95,21 @@ def main(argv=None) -> dict:
         seconds["backbone"] = run_step(work, "backbone", "gennerf_tpu_torch.tools.port_backbone",
                                        [args.backbone, backbone])
         train_args.append(f"model.encoder.spatial.pretrained_path={backbone}")
-    seconds["train"] = run_step(work, "train", "gennerf_tpu_torch.train", train_args)
+    seconds["train"] = run_step(work, "train", "gennerf_tpu_torch.train",
+                                train_args + args.overrides)
     seconds["predict"] = run_step(work, "predict", "gennerf_tpu_torch.predict", [
         "--config", config, "--ckpt", run, "--data-dir", data, "--split", "val.txt",
-        "--out", pred, *device])
+        "--out", pred, *device, *args.overrides])
     seconds["evaluate"] = run_step(work, "evaluate", "gennerf_tpu_torch.eval.evaluation", [
         "--results", pred, "--dataset", "val.txt", "--data-dir", data, *device])
 
     with open(os.path.join(run, "metrics.csv")) as f:
         rows = list(csv.DictReader(f))
     epochs = 1 + max(int(float(r["epoch"])) for r in rows if r.get("epoch"))
-    val = [{k: float(v) for k, v in r.items() if v and k in ("step", "val_combined",
-                                                             "val_recon_tsdf_l1")}
-           for r in rows if r.get("val_combined")]
+    val = [{k: float(v) for k, v in r.items() if v and (k == "step" or k.startswith("val_"))}
+           for r in rows if any(v and k.startswith("val_") for k, v in r.items())]
+    steps = [float(r["step_ms"]) for r in rows if r.get("step_ms")]
+    waits = [float(r["data_wait_ms"]) for r in rows if r.get("data_wait_ms")]
     with open(os.path.join(pred, "predict_meta.json")) as f:
         meta = json.load(f)
     with open(os.path.join(pred, "metrics_mean.json")) as f:
@@ -112,9 +121,12 @@ def main(argv=None) -> dict:
                 m = json.load(f)
             scenes[m["scene"]] = m
     summary = {"config": os.path.relpath(config, REPO), "backbone": args.backbone,
-               "card": card_line(),
+               "overrides": args.overrides, "card": card_line(),
                "seconds": seconds, "wall_s": sum(seconds.values()), "epochs": epochs,
-               "train_s_per_epoch": seconds["train"] / epochs, "predict_meta": meta,
+               "train_s_per_epoch": seconds["train"] / epochs,
+               "step_ms_median_logged": statistics.median(steps) if steps else None,
+               "data_wait_ms_median_logged": statistics.median(waits) if waits else None,
+               "predict_meta": meta,
                "validations": val, "scenes": scenes, "mean": mean}
     os.makedirs(os.path.dirname(os.path.abspath(args.summary)), exist_ok=True)
     with open(args.summary, "w") as f:

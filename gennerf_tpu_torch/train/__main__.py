@@ -1,11 +1,13 @@
-"""Train the GenNerf of an experiment config (counterpart of the
-reference's scripts/train.py for GenNerf experiments).
+"""Train the model of an experiment config, GenNerf or VoxelNet (counterpart
+of the reference's scripts/train.py).
 
     python -m gennerf_tpu_torch.train --config configs/experiment/seqs_multigeo_4cm.yaml \
         --out runs/multigeo [--data-dir D | --batch b.npz | --synthetic] [--params p.npz] \
         [--epochs E] [--resume dir] [--seed S] [--device cpu] [key.path=value ...]
     python -m gennerf_tpu_torch.train --config configs/experiment/seqs_multigeo_spatial.yaml \
         --out runs/spatial --data-dir D model.encoder.spatial.pretrained_path=backbone.npz
+    python -m gennerf_tpu_torch.train --config configs/experiment/seqs_multigeo_voxelnet.yaml \
+        --out runs/voxelnet --data-dir D [trainer.precision=32-true]
 
 Trailing `a.b.c=value` arguments override the composed config, as the
 reference's command line does (above: the backbone npz of
@@ -32,8 +34,11 @@ gradient_clip_val) come from the config's `trainer`, the checkpoint rule
 writes out/metrics.csv, the checkpoints (out/checkpoints/ by default; the
 predict and render CLIs' `--ckpt` pick the best monitored epoch there),
 out/local/ (the validation tail's volumes and meshes) and out/params.npz
-(the last epoch's model as a params tree, with the spatial encoder's
-BatchNorm running statistics under batch_stats/). When the config sets
+(the last epoch's model as a params tree, with the BatchNorm running
+statistics under batch_stats/). The model computes in trainer.precision's
+dtype (train/tasks.py): '32-true', or 'bf16-mixed' / '16-mixed' for a
+VoxelNet (a GenNerf under either raises NotImplementedError: it runs
+float32 only so far). When the config sets
 `test: true`, the best monitored epoch (else the last) then runs the test pass
 with its reconstruction tail. Runs on the card unless `--device cpu` is
 given, and raises when there is none.
@@ -51,12 +56,11 @@ from ..data.synthetic import training_batch
 from ..device import resolve_device, set_reference_precision
 from ..predict import build_model
 from ..utils.config import load_experiment_config
-from ..utils.port_params import (
-    gen_nerf_npz_tree, gen_nerf_params_from_flax, load_params_npz, save_params_npz,
-)
+from ..utils.port_params import load_params_npz, save_params_npz
 from .checkpoints import CheckpointManager
 from .loop import Trainer
 from .state import make_optimizer
+from .tasks import task_for
 
 # the frames of the repo's multigeo dataset (data/make_multigeo.py)
 HEIGHT, WIDTH = 120, 160
@@ -107,14 +111,13 @@ def main(argv=None) -> Trainer:
     overrides += args.overrides
     cfg = load_experiment_config(args.config, "train", overrides)
     trainer_cfg, data_cfg = cfg["trainer"], cfg["data"]
-    if str(trainer_cfg.get("precision", "32-true")) not in ("32-true", "32"):
-        raise NotImplementedError(
-            f"trainer.precision {trainer_cfg['precision']!r}: the port trains in float32 only")
     device = resolve_device(args.device)
     set_reference_precision()
-    model = build_model(cfg["model"], device, args.seed)
+    model = build_model(cfg["model"], device, args.seed,
+                        str(trainer_cfg.get("precision", "32-true")))
+    task = task_for(model)
     if args.params:
-        model.load_state_dict(gen_nerf_params_from_flax(load_params_npz(args.params)))
+        model.load_state_dict(task.params_from_flax(load_params_npz(args.params)))
     optimizer = make_optimizer(model.parameters(), model.cfg.optimizer,
                                trainer_cfg.get("gradient_clip_val"))
     if args.batch or args.synthetic:
@@ -137,7 +140,7 @@ def main(argv=None) -> Trainer:
         check_val_every_n_epoch=int(trainer_cfg.get("check_val_every_n_epoch", 1)),
         checkpoints=checkpoints)
     metrics = trainer.fit(train_data, val_data, ckpt_path=args.resume)
-    save_params_npz(os.path.join(args.out, "params.npz"), gen_nerf_npz_tree(model.state_dict()))
+    save_params_npz(os.path.join(args.out, "params.npz"), task.npz_tree(model.state_dict()))
     print(f"trained {trainer.global_step} steps: "
           + ", ".join(f"{k}={v:.5g}" for k, v in sorted(metrics.items())))
     if cfg.get("test"):

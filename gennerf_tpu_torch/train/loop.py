@@ -1,5 +1,7 @@
 """A minimal training loop (counterpart of gennerf_tpu/train/loop.py
-`Trainer.fit`): epochs over a train loader with the learning rate set per
+`Trainer.fit`) for either model family (its task, train/tasks.py: the
+steps take either model, the finite check reads the task's loss key):
+epochs over a train loader with the learning rate set per
 epoch, each batch moved to the model's device as it comes, a CSV row every
 `log_every_n_steps`, validation every `check_val_every_n_epoch`, a
 checkpoint every epoch (kept by `CheckpointManager`'s rule, ranked by the
@@ -15,7 +17,8 @@ it runs does not change the training draws. It ends with the reference's
 reconstruction tail: batch element 0 of the last batch is reconstructed at
 its ground truth's grid (`predict.reconstruct`, which also encodes a
 feature volume on that grid; the encoder's draws from the validation
-generator), `{mode}_recon_tsdf_l1` is the unmasked mean
+generator; a VoxelNet's finest-scale volume, clamped by the fusion prior
+under mask_unobserved), `{mode}_recon_tsdf_l1` is the unmasked mean
 |pred - target| over that grid, and with an output directory the two
 TSDFs (.npz) and their meshes (.ply, empty ones too) go to its local/ sink.
 
@@ -32,17 +35,17 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.gen_nerf import GenNerf
 from ..predict import reconstruct
 from ..tsdf.tsdf import TSDF
 from .checkpoints import CheckpointManager, load_checkpoint, resolve_checkpoint
 from .loggers import CSVLogger, LocalWriter
 from .state import lr_for_epoch, set_learning_rate
 from .step import batch_to_device, eval_step, train_step
+from .tasks import task_for
 
 
 class Trainer:
-    def __init__(self, model: GenNerf, optimizer: torch.optim.Optimizer,
+    def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  generator: torch.Generator, out_dir: Optional[str] = None,
                  max_epochs: int = 1, log_every_n_steps: int = 50,
                  check_val_every_n_epoch: int = 1,
@@ -53,6 +56,7 @@ class Trainer:
         files to out_dir/local/ and checkpoints through `checkpoints`
         (default: every epoch kept in out_dir/checkpoints/)."""
         self.model, self.optimizer, self.generator = model, optimizer, generator
+        self.task = task_for(model)
         self.val_generator = torch.Generator(device=generator.device).manual_seed(
             generator.initial_seed() + 1)
         self.max_epochs = max_epochs
@@ -128,8 +132,9 @@ class Trainer:
             self.timings.append({"data_wait_ms": wait_ms, "step_ms": _elapsed_ms(begin, end)})
         self._pending.clear()
         row = {f"train_{k}": float(v) for k, v in metrics.items()}
-        if not math.isfinite(row["train_combined"]):
-            raise FloatingPointError(f"loss {row['train_combined']} at step {self.global_step}")
+        loss = row[f"train_{self.task.loss_key}"]
+        if not math.isfinite(loss):
+            raise FloatingPointError(f"loss {loss} at step {self.global_step}")
         self._log({**row, **self.timings[-1], "lr": lr, "epoch": epoch})
 
     def validate(self, loader: Iterable[Dict], mode: str = "val") -> Dict[str, float]:

@@ -1,5 +1,6 @@
-"""The GenNerf train and eval steps (counterpart of gennerf_tpu/train/step.py,
-ray-mode supervision without distillation).
+"""The train and eval steps of both model families (counterpart of
+gennerf_tpu/train/step.py; GenNerf with ray-mode supervision without
+distillation).
 
 A step encodes the batch's frames (presample and FPS: the FPS kernel on the
 card), samples supervision rays on every frame's valid depth pixels, decodes
@@ -15,6 +16,12 @@ features into the feature volume (models/gen_nerf.py).
 The random draws come from one torch.Generator in a fixed order (presample,
 FPS start, pixel scores, ray noise), or are injected (`StepDraws`): tests
 pass the draws of the reference's key splits.
+
+A VoxelNet step encodes the frames into the feature volume at origin 0,
+refines it into the multi-scale TSDF volumes and sums the per-scale losses
+against the batch's ground truth at each scale (vol_08_tsdf, vol_04_tsdf,
+...); it draws nothing. Its metrics are each `vol_XX_tsdf_loss` and their
+sum `tsdf_loss`, the loss.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch
 from ..device import set_reference_precision
 from ..models.config import GenNerfConfig
 from ..models.gen_nerf import GenNerf
+from ..models.voxel_net import VoxelNet
 from ..models.losses import calculate_loss
 from ..ops.interpolation import trilinear_interpolation
 from ..ops.sampling import sample_points_on_rays, sample_valid_depth_pixels
@@ -117,24 +125,48 @@ def gen_nerf_forward_loss(model: GenNerf, batch: Dict[str, torch.Tensor],
     return metrics["combined"], metrics
 
 
-def train_step(model: GenNerf, optimizer: torch.optim.Optimizer, batch: Dict[str, torch.Tensor],
+def voxel_net_forward_loss(model: VoxelNet, batch: Dict[str, torch.Tensor], voxel_dim=None
+                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Encode at `voxel_dim` (default voxel_dim_train) and origin 0, refine,
+    and the per-scale losses against the batch's ground truth volumes
+    (every scale's key must be present). Returns (the summed loss,
+    metrics): each vol_XX_tsdf_loss and tsdf_loss."""
+    cfg = model.cfg
+    origin = torch.zeros(3, dtype=torch.float32, device=batch["image"].device)
+    targets = {k: batch[k] for k in ("vol_%02d_tsdf" % vs for vs in model.cfg.voxel_sizes)}
+    _, losses = model(batch["projection"], batch["image"], voxel_dim or cfg.voxel_dim_train,
+                      origin, targets)
+    loss = sum(losses.values())
+    return loss, {**losses, "tsdf_loss": loss}
+
+
+def forward_loss(model, batch: Dict[str, torch.Tensor], generator=None,
+                 draws: StepDraws = StepDraws(), voxel_dim=None):
+    """The family's forward and loss: (loss, metrics)."""
+    if isinstance(model, VoxelNet):
+        return voxel_net_forward_loss(model, batch, voxel_dim)
+    return gen_nerf_forward_loss(model, batch, generator, draws, voxel_dim)
+
+
+def train_step(model, optimizer: torch.optim.Optimizer, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
                draws: StepDraws = StepDraws()) -> Dict[str, torch.Tensor]:
     """Forward (the feature volume at voxel_dim_train), backward and one
-    optimizer step; in training mode the spatial encoder's running
-    BatchNorm statistics move once per frame chunk. Returns the detached
-    metrics (device tensors: reading them waits for the step)."""
+    optimizer step of a GenNerf or a VoxelNet; in training mode the
+    spatial encoder's (and the 3D backbone's) running BatchNorm statistics
+    move once per step (per frame chunk for the encoder). Returns the
+    detached metrics (device tensors: reading them waits for the step)."""
     set_reference_precision()
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    loss, metrics = gen_nerf_forward_loss(model, batch, generator, draws)
+    loss, metrics = forward_loss(model, batch, generator, draws)
     loss.backward()
     optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}
 
 
 @torch.no_grad()
-def eval_step(model: GenNerf, batch: Dict[str, torch.Tensor],
+def eval_step(model, batch: Dict[str, torch.Tensor],
               generator: Optional[torch.Generator] = None,
               draws: StepDraws = StepDraws()) -> Dict[str, torch.Tensor]:
     """The forward and loss of a step without gradients (the feature
@@ -142,4 +174,4 @@ def eval_step(model: GenNerf, batch: Dict[str, torch.Tensor],
     the metrics."""
     set_reference_precision()
     model.eval()
-    return gen_nerf_forward_loss(model, batch, generator, draws, model.cfg.voxel_dim_val)[1]
+    return forward_loss(model, batch, generator, draws, model.cfg.voxel_dim_val)[1]

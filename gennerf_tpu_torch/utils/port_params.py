@@ -1,4 +1,4 @@
-"""JAX/flax GenNerf variables <-> the port's state_dict.
+"""JAX/flax GenNerf and VoxelNet variables <-> the port's state_dict.
 
 The input is the flax `params` tree (and, with the spatial encoder, its
 `batch_stats` tree) as nested dicts of numpy arrays (no JAX needed to read
@@ -11,9 +11,20 @@ onto torchvision's names: `layer{s}_{b}` -> `layer{s}.{b}`,
 `scale`/`bias` -> `weight`/`bias` and its batch_stats `mean`/`var` ->
 `running_mean`/`running_var`.
 
+VoxelNet's 3D backbone maps the JAX module names onto the reference's:
+`down0_b{j}` -> `layers_down.0.{j}`, `down{i}_conv` / `down{i}_norm` ->
+`layers_down.{i}.0` / `.1`, `down{i}_b{j}` -> `layers_down.{i}.{4+j}`,
+`up{i}_conv` -> `layers_up_conv.{i}`, `proj{i}` -> `proj.{i}`, `up{i}_b{j}`
+-> `layers_up_res.{i}.{j}`, a block's `down` -> `downsample` (each norm's
+`BatchNorm_0` level dropped); Conv3d kernels (kd, kh, kw, I, O) become (O,
+I, kd, kh, kw); the head's `tsdf_head/decoder_{i}` Dense kernel (C, 1)
+becomes the 1x1x1 Conv3d weight `heads3d.heads.0.decoders.{i}` (1, C, 1,
+1, 1).
+
 A params npz ('/'-joined keys, `save_params_npz`) holds the params tree at
 its root and, for a model with running statistics, the batch_stats tree
-under `batch_stats/` (`gen_nerf_npz_tree` builds both). Reading orbax
+under `batch_stats/` (`gen_nerf_npz_tree` / `voxel_net_npz_tree` build
+both). Reading orbax
 checkpoints is left to the JAX side: save `params` (and `batch_stats`) to
 an npz with `save_params_npz` there, load it here with `load_params_npz`.
 """
@@ -270,6 +281,126 @@ def _mlp_and_head_inv(state: Dict) -> dict:
             mlp[f"lin_z_{i}"] = _dense_inv(state, f"mlp.lin_z.{i}")
         i += 1
     return {"mlp": mlp, "head_geo": {"Dense_0": _dense_inv(state, "head_geo.fc")}}
+
+
+_B3D_FLAX = [  # (flax name under backbone3d, its torch prefix), both ways
+    (re.compile(r"down0_b(\d+)"), "layers_down.0.{0}"),
+    (re.compile(r"down(\d+)_conv"), "layers_down.{0}.0"),
+    (re.compile(r"down(\d+)_norm"), "layers_down.{0}.1"),
+    (re.compile(r"down(\d+)_b(\d+)"), None),  # layers_down.{i}.{4 + j}
+    (re.compile(r"up(\d+)_conv"), "layers_up_conv.{0}"),
+    (re.compile(r"proj(\d+)"), "proj.{0}"),
+    (re.compile(r"up(\d+)_b(\d+)"), "layers_up_res.{0}.{1}"),
+]
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean",
+         "var": "running_var"}
+
+
+def _b3d_prefix(name: str) -> str:
+    for pattern, fmt in _B3D_FLAX:
+        m = pattern.fullmatch(name)
+        if m:
+            return (f"layers_down.{m[1]}.{4 + int(m[2])}" if fmt is None
+                    else fmt.format(*m.groups()))
+    raise KeyError(f"unknown backbone3d module {name!r}")
+
+
+def _b3d_flax_name(parts) -> tuple:
+    """torch key parts under backbone3d (without the leaf) -> flax path."""
+    if parts[0] == "layers_down":
+        i, k = int(parts[1]), int(parts[2])
+        if i == 0:
+            return (f"down0_b{k}",) + _b3d_sub(parts[3:])
+        if k < 2:
+            return (f"down{i}_{'conv' if k == 0 else 'norm'}",) + _b3d_sub(parts[3:], k == 1)
+        return (f"down{i}_b{k - 4}",) + _b3d_sub(parts[3:])
+    if parts[0] == "layers_up_conv":
+        return (f"up{parts[1]}_conv",)
+    if parts[0] == "proj":
+        return (f"proj{parts[1]}",) + _b3d_sub(parts[2:])
+    if parts[0] == "layers_up_res":
+        return (f"up{parts[1]}_b{parts[2]}",) + _b3d_sub(parts[3:])
+    raise KeyError(".".join(parts))
+
+
+def _b3d_sub(parts, norm: bool = False) -> tuple:
+    """Sub-module names inside a block / projection: norms gain flax's
+    BatchNorm_0 level, `downsample` is `down`."""
+    if not parts:
+        return ("BatchNorm_0",) if norm else ()
+    name = {"downsample": "down"}.get(parts[0], parts[0])
+    return (name, "BatchNorm_0") if name.startswith(("bn", "norm")) else (name,)
+
+
+def _leaves(tree: dict, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def voxel_net_params_from_flax(tree: dict, batch_stats: Optional[dict] = None
+                               ) -> Dict[str, torch.Tensor]:
+    """flax VoxelNet `params` and `batch_stats` (a `batch_stats` branch of
+    `tree`, the npz layout, serves when not given) -> VoxelNet state_dict."""
+    tree = dict(tree)
+    stats = tree.pop("batch_stats", None)
+    batch_stats = stats if batch_stats is None else batch_stats
+    batch_stats = batch_stats or {}
+    out: Dict[str, np.ndarray] = {}
+    sp = tree["spatial"]
+    out.update(resnet_state_from_flax(sp["resnet"], (batch_stats.get("spatial") or {})
+                                      .get("resnet"), "spatial.resnet."))
+    _conv(out, "spatial.proj", sp["proj"])
+    for branch in (tree["backbone3d"], batch_stats.get("backbone3d") or {}):
+        for path, v in _leaves(branch):
+            sub = [p for p in path[1:-1] if p != "BatchNorm_0"]
+            key = ".".join(["backbone3d", _b3d_prefix(path[0])] + [
+                {"down": "downsample"}.get(p, p) for p in sub] + [_LEAF[path[-1]]])
+            v = np.asarray(v, np.float32)
+            out[key] = v.transpose(4, 3, 0, 1, 2) if path[-1] == "kernel" else v
+    for name, p in tree["heads3d"]["tsdf_head"].items():
+        i = int(name.removeprefix("decoder_"))
+        k = np.asarray(p["kernel"], np.float32)  # (C, 1)
+        out[f"heads3d.heads.0.decoders.{i}.weight"] = k.T.reshape(1, -1, 1, 1, 1)
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
+
+
+def flax_variables_from_voxel_net(state: Dict[str, torch.Tensor]):
+    """VoxelNet state_dict -> (the flax `params` tree, the `batch_stats`
+    tree), the inverse of `voxel_net_params_from_flax`."""
+    resnet, resnet_stats = _resnet_inv(state, "spatial.resnet.")
+    params = {"spatial": {"resnet": resnet, "proj": _conv_inv(state, "spatial.proj")},
+              "backbone3d": {}, "heads3d": {"tsdf_head": {}}}
+    stats = {"spatial": {"resnet": resnet_stats}, "backbone3d": {}}
+    inverse = {v: k for k, v in _LEAF.items() if k != "scale"}
+    for key in state:
+        parts = key.split(".")
+        if parts[0] == "backbone3d":
+            leaf = parts[-1]
+            if leaf == "num_batches_tracked":
+                continue
+            path = _b3d_flax_name(parts[1:-1])
+            is_norm = path[-1] == "BatchNorm_0"
+            name = ("scale" if is_norm and leaf == "weight" else inverse[leaf])
+            node = (stats if leaf.startswith("running_") else params)["backbone3d"]
+            for p in path:
+                node = node.setdefault(p, {})
+            v = _arr(state, key)
+            node[name] = np.ascontiguousarray(v.transpose(2, 3, 4, 1, 0)) if name == "kernel" else v
+        elif parts[0] == "heads3d" and parts[-1] == "weight":
+            w = _arr(state, key)  # (1, C, 1, 1, 1)
+            params["heads3d"]["tsdf_head"][f"decoder_{parts[-2]}"] = {
+                "kernel": np.ascontiguousarray(w.reshape(1, -1).T)}
+    return params, stats
+
+
+def voxel_net_npz_tree(state: Dict[str, torch.Tensor]) -> dict:
+    """The tree `save_params_npz` writes for a VoxelNet: the params at the
+    root, the running statistics under `batch_stats`."""
+    params, stats = flax_variables_from_voxel_net(state)
+    return {**params, "batch_stats": stats}
 
 
 def flatten_params(tree: dict, prefix: str = "") -> Dict[str, np.ndarray]:
