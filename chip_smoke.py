@@ -105,6 +105,41 @@ from csrc/host/ with the host C++ compiler, then:
      profiled bf16 steps; the held-out scenes through the predict CLI from
      the run directory and `evaluation.process` (metrics finite, meshes
      non-empty);
+ 12. flagship_bf16: configs/experiment/seq1_frames8_evenspaced_pointnet.yaml
+     at full width in the precision it asks for, bf16-mixed (pointnet c_dim
+     64, 4 blocks, 128x128 planes, UNet depth 3, 512 sparse points, raw
+     world coordinates; ResnetFC H 256, 5 blocks; 100 rays of 1 + 20 + 8
+     samples; Adam 1e-4), its one cut the data keys of seqs_multigeo_4cm
+     (FLAGSHIP_DATA_KEYS), on the data phase's dataset: one epoch of
+     `Trainer.fit` with its validation (K1 = steps + eval batches + tails,
+     K2 = tails); K1 at npoint 512 on the batch's presampled clouds against
+     its plain version (0 mismatches, plan, ms, bound); a bf16 step with K1
+     against the plain-FPS step; the bf16 loss against the float32 loss of
+     the same weights, batch and draws (2e-2), the state float32 after a
+     bf16 step, the planes and TSDF bf16, the features float32; the float32
+     planes and loss on the card against the CPU (1e-4); timed and profiled
+     bf16 steps (K1 once a step) and the same in float32; an epoch and a
+     validation of the eikonal child in bf16 (the eikonal term finite and
+     above 0), for 4 draws its float32 step on the card and on the CPU and
+     its bf16 step on the card against the CPU's float64 step (the loss
+     within 1e-5 of the CPU's float32 loss; the card's float32 gradients at
+     most EIKONAL_NOISE_FACTOR times as far from float64 as the CPU's, the
+     bf16 step's beyond that), its step ms against the flagship's; one
+     bf16 step of the frustumN child and one with the gradient loss (every
+     term and gradient finite, K1 once); the share of the step's samples,
+     the encoded clouds and the grids whose plane coordinates are clamped;
+     the held-out scenes through the predict CLI from the run directory in
+     bf16 (recorded in predict_meta.json), K2 once a scene within the grid
+     tolerance of the plain bf16-feed decode, `evaluation.process` finite;
+     the field centred on the flagship's 190x180x50 grid (lin_out's bias
+     moved so that the median pre-tanh head there is 0), one `reconstruct`
+     at that grid (K2 against the plain decode with a tenth of its voxels
+     live, its ms and bound); the field centred on a held-out view's box,
+     K3 at d_in 64 on that view's bf16 planes against its plain bf16-feed
+     version at 2^20 points (half over the planes' whole domain), and the
+     view through K3 against the plain march (a tenth of the rays hitting,
+     masks and depths agreeing); one bf16 step of seqs_multigeo_spatial
+     (K1 once, the loss within 2e-2 of the float32 loss);
 then a `kernels` JSON line, the nvidia-smi line and the final result line.
 Every phase raises on failure. Needs one CUDA card; exits non-zero without.
 """
@@ -194,6 +229,50 @@ VOXELNET_DEVICE_TOL, VOXELNET_DEVICE_SHARE, VOXELNET_DEVICE_LOSS_RTOL = 1e-4, 0.
 # batch: each bf16 rounding is 2^-9 relative and the loss averages the
 # volume's voxels, so 2e-2 is several bf16 steps
 VOXELNET_BF16_LOSS_RTOL = 2e-2
+# the flagship_bf16 phase: the flagship GenNerf and its eikonal and frustum
+# children in bf16-mixed (their /trainer: tpu) on the data phase's dataset
+_CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "experiment")
+FLAGSHIP_EXPERIMENT = os.path.join(_CONFIGS, "seq1_frames8_evenspaced_pointnet.yaml")
+EIKONAL_EXPERIMENT = os.path.join(_CONFIGS, "seq1_frames8_evenspaced_eikonal.yaml")
+FRUSTUM_EXPERIMENT = os.path.join(_CONFIGS, "train_tsdf_one_scene_seqs1_framesN.yaml")
+# the one cut: the flagship's ScanNet scene is not in the repository, so
+# these data keys come from seqs_multigeo_4cm (the multigeo dataset, 10-frame
+# sequences, every window of a scene, 80x80x40 augmented crops, 96x96x56
+# held-out grids); the frustumN child's 0.1 of each scene's 300-frame
+# windows would leave none of a 10-frame scene
+FLAGSHIP_DATA_KEYS = ("datasets_train", "datasets_val", "datasets_test", "cache_items",
+                      "sequence_length", "sequence_amount_train", "sequence_amount_val",
+                      "sequence_amount_test", "voxel_dim_train", "voxel_dim_val",
+                      "voxel_dim_test", "random_rotation_3d", "random_translation_3d",
+                      "pad_xy_3d", "pad_z_3d")
+FLAGSHIP_EPOCHS, FLAGSHIP_WARMUP, FLAGSHIP_TIMED_STEPS = 1, 3, 10
+# the flagship's widths (the phase checks the composed config against them)
+FLAGSHIP_SHAPE = {"c_dim": 64, "hidden_dim": 32, "n_blocks": 4, "plane_resolution": 128,
+                  "unet_depth": 3, "num_sparse_points": 512, "normalize_coords": False,
+                  "d_hidden": 256, "mlp_blocks": 5, "num_rays": 100,
+                  "voxel_dim_train": (80, 80, 40)}
+# the flagship's own decode grid (voxel_dim_test), 1.71 M voxels
+FLAGSHIP_GRID = (190, 180, 50)
+# bf16-mixed against float32 on the same weights, batch and draws (as VoxelNet's)
+FLAGSHIP_BF16_LOSS_RTOL = 2e-2
+# the float32 forward on the card against the CPU: the planes over their
+# max-abs and the loss, relative (cuDNN and the CPU sum in other orders)
+FLAGSHIP_DEVICE_TOL = 1e-4
+# the float32 eikonal step on the card against the same step on the CPU in
+# float64, for each of EIKONAL_SEEDS draws: the step's weight gradients sum
+# 23,200 samples' double-backward terms that cancel, so a float32 step in
+# any summation order is off float64 by 1e-4 to 7e-4 of max-abs, the CPU's
+# as well as the card's; the card's distance may be at most
+# EIKONAL_NOISE_FACTOR times the CPU's float32 distance of the same draws,
+# and the card's bf16-mixed step (the control a fault must look like) must
+# lie beyond that limit; the loss is held to the CPU's float32 loss
+# (TRAIN_LOSS_RTOL)
+EIKONAL_SEEDS, EIKONAL_NOISE_FACTOR = 4, 5.0
+# a field sample counts as live below 0.9 of the head's bound (tanh not
+# saturated); a kernel check or a march on the flagship needs a tenth of
+# its samples live and a tenth of the rays hitting, ten times the rays the
+# mask gate lets disagree
+FIELD_LIVE, FIELD_MIN_LIVE_SHARE, RENDER_MIN_HIT_SHARE = 0.9, 0.1, 0.1
 PRIMITIVES = [
     {"type": "sphere", "center": (1.45, 1.75, 0.45), "radius": 0.45},
     {"type": "box", "min": (1.75, 1.05, 0.0), "max": (2.25, 1.55, 0.6)},
@@ -249,6 +328,66 @@ def profile_device(torch, fn, total_ms: float, card: str) -> dict:
             "card": card}
 
 
+def ray_draws(torch, dev, cfg, batch: dict, seed: int):
+    """One ray-mode step's draws (presample, FPS starts, pixel scores, ray
+    noise) on `dev` from `seed`, to run the same step twice. The pixel
+    scores are a random permutation of each frame's pixels over H*W, all
+    distinct: uniform float32 draws over 307,200 pixels tie about once
+    among a frame's top 100, and the card's and the CPU's top-k break a
+    tie differently."""
+    from gennerf_tpu_torch.train.step import StepDraws
+
+    B, T, H, W = batch["depth"].shape
+    BT, HW = B * T, H * W
+    presample = cfg.encoder.pointnet.fps_presample
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return StepDraws(sel=torch.randint(0, HW, (BT, presample), generator=g, device=dev),
+                     start=torch.randint(0, presample, (BT,), generator=g, device=dev),
+                     scores=torch.argsort(torch.rand((BT, HW), generator=g, device=dev),
+                                          dim=1).to(torch.float32) / HW,
+                     noise=torch.randn((BT, cfg.ray.num_rays, cfg.ray.M), generator=g, device=dev))
+
+
+def center_field(torch, model, repr_, points, chunk: int = 1 << 16) -> float:
+    """Moves lin_out's geometry bias along the head's weight so that the
+    median pre-tanh head over `points` (N, 3) of the scene `repr_` is 0, so
+    that the field crosses zero there: the field of random or barely
+    trained weights may be saturated over a whole box, and a kernel
+    compared, or a march, on a saturated field shows little. Returns the
+    shift of the pre-tanh head."""
+    with torch.no_grad():
+        geo = torch.cat([model.decode(repr_, c[None])["feat_geo"][0].double()
+                         for c in points.split(chunk)])
+        fc = model.head_geo.fc
+        w = fc.weight[0].double()
+        shift = -float((geo @ w + fc.bias.double()[0]).median())
+        bias = model.mlp.lin_out.bias
+        bias[:model.cfg.mlp.d_out_geo] += (shift * w / (w @ w)).to(bias.dtype)
+    return shift
+
+
+def plane_coverage(torch, model, points) -> dict:
+    """Where (N, 3) world points fall on the triplanes: for each plane the
+    share of points whose plane coordinate lies outside [0, 1] on either
+    axis and on both (normalize_coordinate clamps those onto the border
+    and the corners), and the share of the plane's cells (the pointnet's
+    scatter targets) that the points fall in."""
+    from gennerf_tpu_torch.ops.coords import coordinate2index, normalize_coordinate
+
+    p = model.cfg.encoder.pointnet
+    xyz = model.plane_coords(points.reshape(-1, 3).to(torch.float32))
+    out = {}
+    for plane, axes in (("xz", [0, 2]), ("xy", [0, 1]), ("yz", [1, 2])):
+        uv = xyz[:, axes] / (1.0 + p.padding + 10e-6) + 0.5
+        outside = (uv < 0) | (uv > 1 - 10e-6)
+        cells = coordinate2index(normalize_coordinate(xyz, p.padding, plane),
+                                  p.plane_resolution)
+        out[plane] = {"outside_either": float(outside.any(1).double().mean()),
+                      "outside_both": float(outside.all(1).double().mean()),
+                      "cells_reached": cells.unique().numel() / p.plane_resolution ** 2}
+    return out
+
+
 def k1_step_vs_plain(torch, dev, model, batch: dict, seed: int) -> dict:
     """One train step's loss and gradients with K1 against the same step
     with the plain FPS patched into the encoder, on the same weights and
@@ -264,18 +403,9 @@ def k1_step_vs_plain(torch, dev, model, batch: dict, seed: int) -> dict:
     from gennerf_tpu_torch.models import gen_nerf as gen_nerf_module
     from gennerf_tpu_torch.ops import kernels
     from gennerf_tpu_torch.ops.sampling import farthest_point_sample_plain
-    from gennerf_tpu_torch.train.step import StepDraws, gen_nerf_forward_loss
+    from gennerf_tpu_torch.train.step import gen_nerf_forward_loss
 
-    cfg = model.cfg
-    B, T, H, W = batch["depth"].shape
-    BT, HW = B * T, H * W
-    R = cfg.ray.num_rays
-    presample = cfg.encoder.pointnet.fps_presample
-    g = torch.Generator(device=dev).manual_seed(seed)
-    draws = StepDraws(sel=torch.randint(0, HW, (BT, presample), generator=g, device=dev),
-                      start=torch.randint(0, presample, (BT,), generator=g, device=dev),
-                      scores=torch.rand((BT, HW), generator=g, device=dev),
-                      noise=torch.randn((BT, R, cfg.ray.M), generator=g, device=dev))
+    draws = ray_draws(torch, dev, model.cfg, batch, seed)
 
     def plain_fps(xyz, npoint, generator=None, start=None):
         idx = farthest_point_sample_plain(xyz, npoint, start)
@@ -311,7 +441,8 @@ def k1_step_vs_plain(torch, dev, model, batch: dict, seed: int) -> dict:
     model.zero_grad(set_to_none=True)
     err = grad_err(grads_k, grads_p)
     worst = max(err, key=err.get)
-    vs_plain = {"frames": [T, H, W], "loss_kernel": loss_k, "loss_plain": loss_p,
+    vs_plain = {"frames": list(batch["depth"].shape[1:]), "loss_kernel": loss_k,
+                "loss_plain": loss_p,
                 "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
                 "worst_grad": worst, "worst_grad_err_over_max_abs": err[worst],
                 "kernel_repeat_worst_grad_err": max(grad_err(grads_k2, grads_k).values()),
@@ -1155,6 +1286,678 @@ def voxelnet_phase(torch, dev, smi: str, root: str) -> dict:
     return launches
 
 
+def flagship_overrides(root: str) -> list:
+    """The flagship's one cut as config overrides: its ScanNet scene is not
+    in the repository, so the dataset keys (FLAGSHIP_DATA_KEYS) come from
+    seqs_multigeo_4cm's data block, on the multigeo dataset at `root`."""
+    data = experiment_config(EXPERIMENT, [f"paths.data_dir={root}"])["data"]
+    return [f"data.{k}={json.dumps(data[k])}" for k in FLAGSHIP_DATA_KEYS]
+
+
+def experiment_config(path: str, overrides: list) -> dict:
+    """The composed train config of an experiment yaml with overrides."""
+    from gennerf_tpu_torch.utils.config import load_experiment_config
+
+    return load_experiment_config(path, "train", overrides)
+
+
+def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
+    """Phase 12 (see the module docstring); returns the launch counts of
+    the main-path runs (the fits with their validations, the timed bf16
+    steps, the frustum, gradient and spatial steps, the held-out predict,
+    the reconstruct at the flagship's grid, the render) and each kernel's
+    largest error against its plain version in the phase."""
+    from unittest import mock
+
+    import numpy as np
+
+    from gennerf_tpu_torch import predict as predict_cli
+    from gennerf_tpu_torch.data.datamodule import ScannetDataModule
+    from gennerf_tpu_torch.data.datasets import load_info_json, parse_splits_list
+    from gennerf_tpu_torch.data.synthetic import ring_frames
+    from gennerf_tpu_torch.eval import evaluation
+    from gennerf_tpu_torch.models import gen_nerf as gen_nerf_module
+    from gennerf_tpu_torch.models.gen_nerf import GenNerf
+    from gennerf_tpu_torch.ops import grid_decode as grid_decode_module
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.ops.projection import get_3d_points
+    from gennerf_tpu_torch.ops.sampling import (
+        farthest_point_sample_plain, fps_cuda, uniform_presample,
+    )
+    from gennerf_tpu_torch.predict import build_model, reconstruct
+    from gennerf_tpu_torch.render import render_encoded
+    from gennerf_tpu_torch.tools.measure import FPS_INNER, cuda_ms
+    from gennerf_tpu_torch.train import loop as loop_module
+    from gennerf_tpu_torch.train.checkpoints import CheckpointManager
+    from gennerf_tpu_torch.train.loop import Trainer
+    from gennerf_tpu_torch.models.positional_encoding import positional_encoding
+    from gennerf_tpu_torch.ops.grid_decode import extract_resnetfc_weights, grid_decode_flops
+    from gennerf_tpu_torch.ops.point_decode import (
+        fused_resnetfc_tsdf_cuda, fused_resnetfc_tsdf_plain, pack_point_weights,
+    )
+    from gennerf_tpu_torch.train.predict import (
+        dense_grid_points, make_point_tsdf_fn, triplane_feat_fast, triplane_gather_setup,
+        uses_grid_decode,
+    )
+    from gennerf_tpu_torch.train import step as step_module
+    from gennerf_tpu_torch.train.state import make_optimizer
+    from gennerf_tpu_torch.train.step import batch_to_device, gen_nerf_forward_loss, train_step
+
+    totals = {k.name: 0 for k in kernels.KERNELS}
+
+    def read_launches():
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        for name, n in counts.items():
+            totals[name] += n
+        return counts
+
+    data_overrides = flagship_overrides(root)
+
+    def config(path, run_dir=None, extra=()):
+        over = [f"paths.data_dir={root}"] + data_overrides + list(extra)
+        if run_dir:
+            over.append(f"paths.output_dir={run_dir}")
+        return experiment_config(path, over)
+
+    def first_batch(data_cfg):
+        return batch_to_device(next(iter(ScannetDataModule(data_cfg, seed=SEED)
+                                         .train_dataloader())), dev)
+
+    def fit(path, run_dir, extra=()):
+        """Trainer.fit of the config in its precision over the loaders, one
+        epoch validating at its end; counters reset just before and read
+        just after. Returns (model, trainer, record)."""
+        cfg = config(path, run_dir, extra)
+        precision = str(cfg["trainer"]["precision"])
+        model = build_model(cfg["model"], dev, SEED, precision)
+        opt = make_optimizer(model.parameters(), model.cfg.optimizer,
+                             cfg["trainer"].get("gradient_clip_val"))
+        ckpt_cfg = cfg["callbacks"]["model_checkpoint"]
+        checkpoints = CheckpointManager(ckpt_cfg["dirpath"], ckpt_cfg["save_top_k"],
+                                        monitor=ckpt_cfg["monitor"],
+                                        mode=ckpt_cfg.get("mode", "min"))
+        trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), run_dir,
+                          max_epochs=FLAGSHIP_EPOCHS, check_val_every_n_epoch=1,
+                          checkpoints=checkpoints, precision=precision)
+        datamodule = ScannetDataModule(cfg["data"], seed=SEED)
+        encodes = []
+
+        def counted(fn):
+            def wrapper(*a, **k):
+                encodes.append(fn.__name__)
+                return fn(*a, **k)
+            return wrapper
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with mock.patch.object(loop_module, "eval_step", counted(loop_module.eval_step)), \
+                mock.patch.object(loop_module, "reconstruct", counted(loop_module.reconstruct)):
+            t0 = time.perf_counter()
+            trainer.fit(datamodule.train_dataloader(), datamodule.val_dataloader())
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        launches = read_launches()
+        steps = trainer.global_step  # fit raises on a non-finite loss
+        n_eval, n_tail = encodes.count("eval_step"), encodes.count("reconstruct")
+        step_ms = [t["step_ms"] for t in trainer.timings]
+        rec = {"precision": precision, "steps": steps, "eval_batches": n_eval, "tails": n_tail,
+               "launches": launches, "fit_s": fit_s,
+               "step_ms_median": statistics.median(step_ms), "step_ms_first": step_ms[0],
+               "data_wait_ms_median": statistics.median(
+                   t["data_wait_ms"] for t in trainer.timings),
+               "metrics": dict(trainer.metrics),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        if not (launches["fps"] == steps + n_eval + n_tail and launches["grid_decode"] == n_tail
+                == FLAGSHIP_EPOCHS and math.isfinite(rec["metrics"].get("val_recon_tsdf_l1",
+                                                                         math.nan))):
+            raise RuntimeError(f"the {os.path.basename(path)} fit or its validation failed: {rec}")
+        return model, trainer, cfg, rec
+
+    def timed_steps(model, opt, batch, n, main_path=True):
+        """`FLAGSHIP_WARMUP` + n synchronized train steps from one generator
+        (counters reset just before, read just after, and counted on the
+        main path), then a profiled step. Returns (step ms, launches,
+        profile, peak bytes, losses)."""
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        ms, losses = [], []
+        for _ in range(FLAGSHIP_WARMUP + n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = train_step(model, opt, batch, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["combined"]))
+        launches = (read_launches() if main_path
+                    else {k.name: k.launches for k in kernels.KERNELS})
+        peak = torch.cuda.max_memory_allocated()
+        med = statistics.median(ms[FLAGSHIP_WARMUP:])
+        prof = profile_device(torch, lambda: train_step(model, opt, batch, gen), med, smi)
+        return ms, launches, prof, peak, losses
+
+    def grads_finite(model):
+        return all(p.grad is None or bool(torch.isfinite(p.grad).all())
+                   for p in model.parameters())
+
+    def cpu_inputs(cfg_, batch_, draws_):
+        """A context factory in which the encoder's sparse points (its FPS
+        picks of the CPU's clouds) and the step's supervision points are the
+        CPU's, on either device, for the card-against-CPU comparisons. Each
+        device unprojects the clouds and the rays itself (its own matrix
+        inverse and products, an ulp apart), which can flip a near-tie of
+        FPS and so the point set, and move a point across a plane cell, a
+        texel, a voxel or the eikonal gate, where the planes, the decoded
+        gradient and the loss jump; the count of K1's picks on the card's
+        own clouds that differ is returned beside it."""
+        import contextlib
+
+        B_, T_, H_, W_ = batch_["depth"].shape
+        pn = cfg_.encoder.pointnet
+        cpu = torch.device("cpu")
+
+        def clouds(device):
+            c = get_3d_points(batch_["depth"].to(device).reshape(B_ * T_, H_, W_),
+                              batch_["projection"].to(device).reshape(B_ * T_, 3, 4))
+            return uniform_presample(c.reshape(B_ * T_, -1, 3), pn.fps_presample,
+                                     sel=draws_.sel.to(device)).contiguous()
+
+        cloud = clouds(cpu)
+        idx = farthest_point_sample_plain(cloud, pn.num_sparse_points, draws_.start.cpu())
+        sparse = torch.gather(cloud, 1, idx.long()[..., None].expand(-1, -1, 3))
+        on_card = fps_cuda(clouds(dev), pn.num_sparse_points, draws_.start.to(dev, torch.int32))
+        mismatches = int((on_card.cpu() != idx).sum())
+        sup = step_module.sample_supervision_points(
+            cfg_, {k: v.to(cpu) for k, v in batch_.items()},
+            draws=draws_._replace(**{k: getattr(draws_, k).to(cpu) for k in draws_._fields
+                                     if getattr(draws_, k) is not None}))
+
+        def fps(xyz, npoint, generator=None, start=None):
+            return sparse.to(xyz.device, xyz.dtype), idx.to(xyz.device)
+
+        def supervision(cfg__, b, generator=None, draws=None):
+            def to(v):
+                return v.to(b["depth"].device, b["depth"].dtype) if v.is_floating_point() else \
+                    v.to(b["depth"].device)
+            return {k: to(v) if isinstance(v, torch.Tensor) else v for k, v in sup.items()}
+
+        def patched():
+            stack = contextlib.ExitStack()
+            stack.enter_context(mock.patch.object(gen_nerf_module, "farthest_point_sample", fps))
+            stack.enter_context(mock.patch.object(step_module, "sample_supervision_points",
+                                                  supervision))
+            return stack
+
+        return patched, mismatches
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the main path: one epoch of the flagship over the loaders in bf16-mixed
+        run_dir = os.path.join(tmp, "run")
+        model, trainer, cfg, fit_rec = fit(FLAGSHIP_EXPERIMENT, run_dir)
+        mcfg, data_cfg = model.cfg, cfg["data"]
+        p = mcfg.encoder.pointnet
+        shape = {"c_dim": p.c_dim, "hidden_dim": p.hidden_dim, "n_blocks": p.n_blocks,
+                 "plane_resolution": p.plane_resolution, "unet_depth": p.unet_depth,
+                 "num_sparse_points": p.num_sparse_points,
+                 "normalize_coords": p.normalize_coords, "d_hidden": mcfg.mlp.d_hidden,
+                 "mlp_blocks": mcfg.mlp.n_blocks, "num_rays": mcfg.ray.num_rays,
+                 "voxel_dim_train": tuple(mcfg.voxel_dim_train)}
+        if not (model.dtype == torch.bfloat16 and uses_grid_decode(model)
+                and shape == FLAGSHIP_SHAPE):
+            raise RuntimeError(f"not the flagship config in bf16: {model.dtype}, {shape}")
+        opt = trainer.optimizer
+        fitted = {k: v.clone() for k, v in model.state_dict().items()}
+        batch = first_batch(data_cfg)
+        B, T, H, W = batch["depth"].shape
+
+        def fresh(device, dtype, cfg_=None, state=None):
+            m = GenNerf(cfg_ or mcfg, dtype=dtype)
+            m.load_state_dict(state or fitted)
+            return m.to(device)
+
+        # K1 against its plain version at (B*T, 16384), npoint 512, on the
+        # batch's presampled clouds (a comparison, not the main path)
+        gen = torch.Generator().manual_seed(SEED)
+        cloud = get_3d_points(batch["depth"].reshape(B * T, H, W),
+                              batch["projection"].reshape(B * T, 3, 4)).reshape(B * T, -1, 3)
+        xyz = uniform_presample(cloud, p.fps_presample, gen).contiguous()
+        start = torch.randint(0, xyz.shape[1], (B * T,), generator=gen).to(dev, torch.int32)
+        npoint = p.num_sparse_points
+        idx_k = fps_cuda(xyz, npoint, start)
+        k1_plan = dict(kernels.FPS.last_launch)
+        idx_p = farthest_point_sample_plain(xyz, npoint, start)
+        k1_ms = cuda_ms(torch, lambda: fps_cuda(xyz, npoint, start), reps=20, inner=FPS_INNER)
+        k1_rec = {"shape": list(xyz.shape), "npoint": npoint, "plan": k1_plan,
+                  "index_mismatches": int((idx_k != idx_p).sum()), "ms": k1_ms,
+                  "single_call_ms": cuda_ms(torch, lambda: fps_cuda(xyz, npoint, start), reps=20),
+                  "plain_ms": cuda_ms(torch, lambda: farthest_point_sample_plain(
+                      xyz, npoint, start), reps=3),
+                  "bound_ms": max(10 * xyz.shape[0] * xyz.shape[1] * npoint / PEAK_F32,
+                                  (xyz.numel() * 4 + xyz.shape[0] * 4 * (1 + npoint))
+                                  / PEAK_BYTES) * 1e3,
+                  "bound_by": "operations"}
+        if k1_rec["index_mismatches"]:
+            raise RuntimeError(f"K1 at npoint {npoint} disagrees with its plain version: {k1_rec}")
+
+        # one bf16 loader-batch step with K1 against the same step with the plain FPS
+        model.load_state_dict(fitted)
+        vs_plain = k1_step_vs_plain(torch, dev, model, batch, SEED)
+
+        # bf16 against float32: the same weights, batch and draws; the state
+        # after a bf16 step
+        draws = ray_draws(torch, dev, mcfg, batch, SEED + 1)
+        m32 = fresh(dev, torch.float32).train()
+        model.train()
+        with torch.no_grad():
+            loss16 = float(gen_nerf_forward_loss(model, batch, draws=draws)[0])
+            loss32 = float(gen_nerf_forward_loss(m32, batch, draws=draws)[0])
+        train_step(model, opt, batch, draws=draws)
+        state_dtypes = sorted({str(v.dtype) for v in model.state_dict().values()}
+                              | {str(q.grad.dtype) for q in model.parameters()}
+                              | {str(t.dtype) for st in opt.state.values() for t in st.values()
+                                 if isinstance(t, torch.Tensor) and t.is_floating_point()})
+        with torch.no_grad():
+            repr16 = model.encode(batch["projection"], batch["image"], batch["depth"],
+                                  sel=draws.sel, start=draws.start)
+            out16 = model.decode(repr16, batch["pose"][:, :, :3, 3].reshape(B, -1, 3) * 0.5)
+        dtypes = {"planes": str(repr16.planes["xz"].dtype), "tsdf": str(out16["tsdf"].dtype),
+                  "feat": str(out16["feat"].dtype), "feat_geo": str(out16["feat_geo"].dtype)}
+        del repr16, out16
+        precision_rec = {"loss_bf16": loss16, "loss_f32": loss32,
+                         "loss_rel_diff": abs(loss16 - loss32) / abs(loss32),
+                         "tolerance_rel": FLAGSHIP_BF16_LOSS_RTOL,
+                         "state_dtypes_after_bf16_step": state_dtypes, "dtypes": dtypes}
+        if not (precision_rec["loss_rel_diff"] <= FLAGSHIP_BF16_LOSS_RTOL
+                and state_dtypes == ["torch.float32"]
+                and dtypes == {"planes": "torch.bfloat16", "tsdf": "torch.bfloat16",
+                               "feat": "torch.float32", "feat_geo": "torch.float32"}):
+            raise RuntimeError(f"the bf16-mixed policy is broken: {precision_rec}")
+
+        # the float32 forward on the card (TF32 off) against the CPU, train
+        # mode, on the CPU's FPS picks
+        same_inputs, fps_flips = cpu_inputs(mcfg, batch, draws)
+        outs = {}
+        for device in (dev, torch.device("cpu")):
+            m = fresh(device, torch.float32).train()
+            d = draws._replace(**{k: getattr(draws, k).to(device) for k in draws._fields
+                                  if getattr(draws, k) is not None})
+            b = {k: v.to(device) for k, v in batch.items()}
+            with torch.no_grad(), same_inputs():
+                repr_ = m.encode(b["projection"], b["image"], b["depth"], sel=d.sel, start=d.start)
+                loss, _ = gen_nerf_forward_loss(m, b, draws=d)
+            outs[device.type] = ({k: v.cpu() for k, v in repr_.planes.items()}, float(loss))
+            del m, repr_
+        device_rec = {k: float((outs[dev.type][0][k] - v).abs().max()) / float(v.abs().max())
+                      for k, v in outs["cpu"][0].items()}
+        device_rec["loss_rel_err"] = abs(outs[dev.type][1] - outs["cpu"][1]) / abs(outs["cpu"][1])
+        device_rec_tol = max(device_rec.values())
+        device_rec["k1_on_card_clouds_index_mismatches"] = fps_flips
+        if not device_rec_tol <= FLAGSHIP_DEVICE_TOL:
+            raise RuntimeError(f"the float32 flagship on the card and on the CPU disagree: "
+                               f"{device_rec}")
+        del outs
+
+        # timed bf16 steps on the loader batch (the main path), then the same in float32
+        model.load_state_dict(fitted)
+        ms16, launches16, prof16, peak16, losses16 = timed_steps(
+            model, opt, batch, FLAGSHIP_TIMED_STEPS)
+        n16 = FLAGSHIP_WARMUP + FLAGSHIP_TIMED_STEPS
+        if launches16["fps"] != n16 or not all(math.isfinite(x) for x in losses16):
+            raise RuntimeError(f"the timed bf16 steps: K1 {launches16['fps']} in {n16} steps, "
+                               f"losses {losses16}")
+        m32 = fresh(dev, torch.float32)
+        opt32 = make_optimizer(m32.parameters(), mcfg.optimizer)
+        ms32, launches32, prof32, peak32, _ = timed_steps(m32, opt32, batch, FLAGSHIP_TIMED_STEPS,
+                                                          main_path=False)
+        del m32, opt32
+        steps_rec = {
+            "bf16": {"step_ms_median": statistics.median(ms16[FLAGSHIP_WARMUP:]),
+                     "step_ms_all": ms16, "launches": launches16, "peak_memory_bytes": peak16,
+                     "device_busy_ms": prof16["device_busy_ms"],
+                     "device_idle_share": prof16["device_idle_share"]},
+            "f32": {"step_ms_median": statistics.median(ms32[FLAGSHIP_WARMUP:]),
+                    "step_ms_all": ms32, "launches": launches32, "peak_memory_bytes": peak32,
+                    "device_busy_ms": prof32["device_busy_ms"],
+                    "device_idle_share": prof32["device_idle_share"]}}
+
+        # eikonal: one epoch and its validation in bf16, decode_with_grad on the card
+        eik_dir = os.path.join(tmp, "eikonal")
+        eik_model, eik_trainer, _, eik_rec = fit(EIKONAL_EXPERIMENT, eik_dir)
+        eik_metrics = eik_rec["metrics"]
+        if not (eik_model.cfg.loss.use_eikonal and all(
+                math.isfinite(eik_metrics.get(k, math.nan)) and eik_metrics[k] > 0
+                for k in ("train_eikonal", "val_eikonal"))):
+            raise RuntimeError(f"the eikonal term is missing, not finite or 0: {eik_metrics}")
+        eik_state = {k: v.clone() for k, v in eik_model.state_dict().items()}
+        # its float32 step on the card and on the CPU against float64 on the
+        # CPU, on the same inputs, and the card's bf16-mixed step as the
+        # control, for EIKONAL_SEEDS draws (deterministic algorithms on the card)
+        cpu = torch.device("cpu")
+        f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+        runs = (("card", dev, f32, f32), ("cpu", cpu, f32, f32), ("cpu_f64", cpu, f64, f32),
+                ("card_bf16", dev, f32, bf16))
+        eik_seeds = []
+        deterministic = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for seed in range(SEED + 2, SEED + 2 + EIKONAL_SEEDS):
+                eik_draws = ray_draws(torch, cpu, eik_model.cfg, batch, seed)
+                same_inputs, eik_fps_flips = cpu_inputs(eik_model.cfg, batch, eik_draws)
+                steps_ = {}
+                for name, device, dtype, compute in runs:
+                    m = fresh(device, compute, eik_model.cfg, eik_state).to(dtype).train()
+
+                    def to(v):
+                        return v.to(device, dtype) if v.is_floating_point() else v.to(device)
+
+                    d = eik_draws._replace(**{k: to(getattr(eik_draws, k))
+                                              for k in eik_draws._fields
+                                              if getattr(eik_draws, k) is not None})
+                    with same_inputs():
+                        loss, metrics = gen_nerf_forward_loss(
+                            m, {k: to(v) for k, v in batch.items()}, draws=d)
+                    loss.backward()
+                    steps_[name] = (float(loss.detach()), float(metrics["eikonal"].detach()),
+                                    {n: q.grad.cpu().double() for n, q in m.named_parameters()})
+                    del m
+
+                def to_f64(a):
+                    errs = {n: float((steps_[a][2][n] - g).abs().max())
+                            / max(float(g.abs().max()), 1e-30)
+                            for n, g in steps_["cpu_f64"][2].items()}
+                    worst = max(errs, key=errs.get)
+                    return errs[worst], worst
+
+                dist = {k: to_f64(k) for k in ("card", "cpu", "card_bf16")}
+                eik_seeds.append({
+                    "seed": seed, "loss_card": steps_["card"][0], "loss_cpu": steps_["cpu"][0],
+                    "loss_cpu_f64": steps_["cpu_f64"][0], "eikonal_card": steps_["card"][1],
+                    "eikonal_cpu": steps_["cpu"][1],
+                    "loss_rel_err": abs(steps_["card"][0] - steps_["cpu"][0])
+                    / abs(steps_["cpu"][0]),
+                    "grad_vs_f64_over_max_abs": {k: v[0] for k, v in dist.items()},
+                    "worst_grad": {k: v[1] for k, v in dist.items()},
+                    "ratio_to_cpu_f32": {k: dist[k][0] / dist["cpu"][0]
+                                         for k in ("card", "card_bf16")},
+                    "k1_on_card_clouds_index_mismatches": eik_fps_flips})
+                del steps_
+        finally:
+            torch.use_deterministic_algorithms(deterministic)
+        if not all(r["loss_rel_err"] <= TRAIN_LOSS_RTOL
+                   and r["ratio_to_cpu_f32"]["card"] <= EIKONAL_NOISE_FACTOR
+                   < r["ratio_to_cpu_f32"]["card_bf16"] for r in eik_seeds):
+            raise RuntimeError(f"the float32 eikonal step on the card and on the CPU disagree, "
+                               f"or the gate cannot tell a bf16 step from float32: {eik_seeds}")
+        # the eikonal bf16 step against the flagship's bf16 step
+        eik_opt = eik_trainer.optimizer
+        eik_gen = torch.Generator(device=dev).manual_seed(SEED)
+        kernels.reset_launch_counts()
+        eik_ms = host_ms(torch, lambda: train_step(eik_model, eik_opt, batch, eik_gen), 5)
+        read_launches()
+        eik_rec.update(vs_f64=eik_seeds, step_ms=eik_ms,
+                       plain_step_ms=steps_rec["bf16"]["step_ms_median"])
+        del eik_model, eik_trainer, eik_opt
+
+        # frustum supervision (the frustumN child) and the gradient loss, one bf16 step each
+        side = {}
+        for name, path, extra in (
+                ("frustum", FRUSTUM_EXPERIMENT, ()),
+                ("gradient", FLAGSHIP_EXPERIMENT, ("model.loss.use_gradient=true",))):
+            cfg_ = config(path, extra=extra)
+            m = build_model(cfg_["model"], dev, SEED, str(cfg_["trainer"]["precision"]))
+            o = make_optimizer(m.parameters(), m.cfg.optimizer)
+            b = first_batch(cfg_["data"])
+            kernels.reset_launch_counts()
+            metrics = train_step(m, o, b, torch.Generator(device=dev).manual_seed(SEED))
+            torch.cuda.synchronize()
+            launches = read_launches()
+            side[name] = {"precision": str(cfg_["trainer"]["precision"]),
+                          "sampling_mode": m.cfg.sampling_mode,
+                          "frames": list(b["depth"].shape[1:]),
+                          "frustum": dataclasses.asdict(m.cfg.frustum),
+                          "metrics": {k: float(v) for k, v in metrics.items()},
+                          "launches": launches, "grads_finite": grads_finite(m)}
+            if not (m.dtype == torch.bfloat16 and side[name]["grads_finite"]
+                    and all(math.isfinite(v) for v in side[name]["metrics"].values())
+                    and launches["fps"] == 1 and (name != "gradient"
+                                                  or "gradient" in side[name]["metrics"])):
+                raise RuntimeError(f"the bf16 {name} step failed: {side[name]}")
+            del m, o, b
+
+        # held-out predict through the predict CLI from the run directory
+        # (bf16, recorded), each K2 output against the plain bf16-feed decode
+        model.load_state_dict(fitted)
+        model.eval()
+        decoded = []
+        real_k2 = grid_decode_module.grid_decode_cuda
+
+        def recording_k2(tables, weights):
+            out = real_k2(tables, weights)
+            decoded.append((tables, weights, out))
+            return out
+
+        bound = mcfg.mlp.head_smoothing
+
+        def k2_vs_plain():
+            """(max, mean abs error, least live share) over the recorded K2 calls."""
+            errs = []
+            for tables, weights, out in decoded:
+                err = (out - grid_decode_module.separable_grid_decode_plain(
+                    tables, weights, bf16_feeds=True)).abs()
+                errs.append((float(err.max()), float(err.mean()),
+                             float((out.abs() < FIELD_LIVE * bound).double().mean())))
+            return tuple(f(e[i] for e in errs) for i, f in enumerate((max, max, min)))
+
+        pred_dir = os.path.join(tmp, "pred")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(grid_decode_module, "grid_decode_cuda", recording_k2):
+            results = predict_cli.main(["--config", FLAGSHIP_EXPERIMENT, "--ckpt", run_dir,
+                                        "--data-dir", root, "--split", "val.txt",
+                                        "--out", pred_dir, "--device", dev.type,
+                                        *data_overrides])
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        predict_launches = read_launches()
+        with open(os.path.join(pred_dir, "predict_meta.json")) as f:
+            predict_meta = json.load(f)
+        if not (predict_meta["precision"] == "bf16-mixed"
+                and predict_launches["grid_decode"] == len(decoded) == len(results) == 2):
+            raise RuntimeError(f"held-out predict: {predict_meta}, K2 "
+                               f"{predict_launches['grid_decode']} for {len(results)} scenes")
+        pred_grid = k2_vs_plain()
+        decoded.clear()
+        eval_rec = evaluate_held_out(dev, evaluation, parse_splits_list("val.txt", root),
+                                     pred_dir, os.path.join(tmp, "oracle"), load_info_json)
+
+        # where the step's samples, the encoded clouds and the grids fall on
+        # the planes: the raw world coordinates (normalize_coords false) of a
+        # crop placed at origin 0 reach the planes' [0, 1] only within
+        # (1 + padding) / 2 of the origin, and normalize_coordinate clamps
+        # the rest onto the border; the flagship's own 190x180x50 grid at
+        # origin 0 beside them
+        sup = step_module.sample_supervision_points(mcfg, batch, draws=draws)
+        coverage = {
+            "step_samples": plane_coverage(torch, model, sup["xyz"]),
+            "presampled_clouds": plane_coverage(torch, model, xyz),
+            "held_out_grid": plane_coverage(torch, model, dense_grid_points(
+                mcfg.voxel_dim_test, mcfg.voxel_size, (0, 0, 0), dev)),
+            "flagship_grid": plane_coverage(torch, model, dense_grid_points(
+                FLAGSHIP_GRID, mcfg.voxel_size, (0, 0, 0), dev))}
+        del sup
+
+        # one reconstruct at the flagship's own grid on the synthetic frames,
+        # the field first centred on that grid
+        frames = [torch.from_numpy(a).to(dev) for a in ring_frames(
+            NUM_FRAMES, HEIGHT, WIDTH, SCENE_CENTER, PRIMITIVES, seed=SEED)]
+        with torch.no_grad():
+            repr_ = model.encode(*(f[None] for f in frames), torch.Generator().manual_seed(SEED))
+        grid_pts = dense_grid_points(FLAGSHIP_GRID, mcfg.voxel_size, (0, 0, 0), dev)
+        recon_shift = center_field(torch, model, repr_, grid_pts[::7])
+        del repr_, grid_pts
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(grid_decode_module, "grid_decode_cuda", recording_k2):
+            vol = reconstruct(model, *frames, FLAGSHIP_GRID, torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        recon_ms = (time.perf_counter() - t0) * 1e3
+        recon_launches = read_launches()
+        tables, weights, _ = decoded[0]
+        recon_grid = k2_vs_plain()
+        decoded.clear()
+        k2_ms = cuda_ms(torch, lambda: real_k2(tables, weights), reps=10)
+        k2_plain_ms = cuda_ms(torch, lambda: grid_decode_module.separable_grid_decode_plain(
+            tables, weights, bf16_feeds=True), reps=2)
+        H_, nb = weights["w0"].shape[-1], weights["w0"].shape[0]
+        k2_flops = grid_decode_flops(FLAGSHIP_GRID, H_, nb)
+        k2_bytes = (sum(t.numel() for t in tables) * 4 + sum(
+            weights[k].numel() * weights[k].element_size()
+            for k in ("k_slabs", "k_b0", "k_b1", "k_w_last")) + math.prod(FLAGSHIP_GRID) * 4)
+        k2_rec = {"voxel_dim": list(FLAGSHIP_GRID), "d_in": int(weights["w_in"].shape[0]),
+                  "H": H_, "n_blocks": nb, "ms": k2_ms, "plain_ms": k2_plain_ms,
+                  "flops": k2_flops, "bytes": k2_bytes,
+                  "bound_ms": max(k2_flops / PEAK_BF16, k2_bytes / PEAK_BYTES) * 1e3,
+                  "bound_by": "operations" if k2_flops / PEAK_BF16 >= k2_bytes / PEAK_BYTES
+                  else "bytes", "tflops_per_s": k2_flops / k2_ms / 1e9,
+                  "max_abs_err": recon_grid[0], "mean_abs_err": recon_grid[1],
+                  "live_share": recon_grid[2], "field_shift": recon_shift,
+                  "negative_share": float((vol < 0).double().mean()),
+                  "reconstruct_ms": recon_ms, "launches": recon_launches}
+        del tables, weights
+        if not (recon_launches["grid_decode"] == 1 and recon_launches["fps"] == 1
+                and tuple(vol.shape) == FLAGSHIP_GRID and bool(torch.isfinite(vol).all())
+                and max(pred_grid[0], recon_grid[0]) <= GRID_MAX_ABS_TOL
+                and max(pred_grid[1], recon_grid[1]) <= GRID_MEAN_ABS_TOL
+                and recon_grid[2] >= FIELD_MIN_LIVE_SHARE):
+            raise RuntimeError(f"K2 on the bf16 flagship: predict {pred_grid}, {k2_rec}")
+        del vol
+
+        # one held-out view from the bf16 model, the field centred on the
+        # box the march clips to
+        scene_batch = next(iter(ScannetDataModule(data_cfg, seed=SEED).predict_dataloader()))
+        view = {k: torch.as_tensor(scene_batch[k][0]).to(dev)
+                for k in ("projection", "image", "depth", "intrinsics", "pose")}
+        with torch.no_grad():
+            repr_ = model.encode(view["projection"][None], view["image"][None],
+                                 view["depth"][None], torch.Generator().manual_seed(SEED))
+        box = np.array(mcfg.voxel_dim_test, np.float32) * mcfg.voxel_size
+        render_shift = center_field(torch, model, repr_, dense_grid_points(
+            mcfg.voxel_dim_test, mcfg.voxel_size, (0, 0, 0), dev)[::7])
+
+        # K3 against its plain bf16-feed version at d_in 64 on the view's bf16
+        # planes: half the points over the planes' own domain (every texel),
+        # half in the march's box (a comparison, not the main path)
+        reach = 0.5 * (1.0 + p.padding)
+        rng = np.random.default_rng(SEED)
+        pts = torch.from_numpy(np.concatenate([
+            rng.uniform(-reach, reach, (N_POINTS // 2, 3)),
+            rng.uniform(0, box, (N_POINTS // 2, 3))]).astype(np.float32)).to(dev)
+        feat = triplane_feat_fast(*triplane_gather_setup(model, repr_.planes), pts[None])[0]
+        code = positional_encoding(pts, mcfg.code.num_freqs, mcfg.code.freq_factor,
+                                   mcfg.code.include_input)
+        pweights = pack_point_weights(extract_resnetfc_weights(
+            model.mlp, model.head_geo, mcfg.mlp.d_out_geo, bound))
+        pk = fused_resnetfc_tsdf_cuda(feat, code, pweights)
+        pp = fused_resnetfc_tsdf_plain(feat, code, pweights, bf16_feeds=True)
+        perr = (pk - pp).abs()
+        k3_rec = {"points": N_POINTS, "d_in": int(feat.shape[1]), "d_code": int(code.shape[1]),
+                  "max_abs_err": float(perr.max()),
+                  "mean_abs_err": float(perr.mean()), "out_abs_max": float(pp.abs().max()),
+                  "live_share": float((pp.abs() < FIELD_LIVE * bound).double().mean()),
+                  "field_shift": render_shift}
+        del pts, feat, code, pk, pp, perr
+        if not (k3_rec["max_abs_err"] <= POINT_MAX_ABS_TOL
+                and k3_rec["mean_abs_err"] <= POINT_MEAN_ABS_TOL
+                and k3_rec["live_share"] >= FIELD_MIN_LIVE_SHARE):
+            raise RuntimeError(f"K3 at d_in 64 on the bf16 flagship's planes: {k3_rec}")
+
+        # the view through K3 (the main path), against the plain march
+        render_args = (model, repr_, view["depth"], view["intrinsics"], view["pose"])
+        kernels.reset_launch_counts()
+        rk = render_encoded(*render_args, make_point_tsdf_fn(model, repr_), 1)
+        torch.cuda.synchronize()
+        render_launches = read_launches()
+        rp = render_encoded(*render_args, make_point_tsdf_fn(model, repr_, plain=True), 1)
+        hk, hp = rk["ray_depth"] > 0, rp["ray_depth"] > 0
+        ddiff = np.abs(rk["ray_depth"] - rp["ray_depth"])[hk & hp]
+        render_rec = {"scene": scene_batch["scene"][0], "launches": render_launches,
+                      "field_shift": render_shift,
+                      "hit_share": float(hk.mean()), "hit_share_plain": float(hp.mean()),
+                      "vs_plain_mask_agree": float((hk == hp).mean()),
+                      "vs_plain_depth_agree": float((ddiff <= RENDER_DEPTH_TOL).mean())
+                      if ddiff.size else 0.0, "both_hit_rays": int(ddiff.size)}
+        if not (render_launches["point_decode"] >= 1
+                and render_rec["hit_share"] >= RENDER_MIN_HIT_SHARE
+                and render_rec["vs_plain_mask_agree"] >= RENDER_MASK_AGREE
+                and render_rec["vs_plain_depth_agree"] >= RENDER_DEPTH_AGREE):
+            raise RuntimeError(f"the bf16 render through K3: {render_rec}")
+        del repr_, rk, rp
+
+        # the spatial path in bf16: one step of seqs_multigeo_spatial on its
+        # loader batch, its loss against the float32 loss of the same weights
+        scfg = experiment_config(SPATIAL_EXPERIMENT, [f"paths.data_dir={root}"])
+        s16 = build_model(scfg["model"], dev, SEED, "bf16-mixed").train()
+        s32 = GenNerf(s16.cfg).to(dev).train()
+        s32.load_state_dict(s16.state_dict())
+        sbatch = first_batch(scfg["data"])
+        sdraws = ray_draws(torch, dev, s16.cfg, sbatch, SEED + 3)
+        with torch.no_grad():
+            sloss32 = float(gen_nerf_forward_loss(s32, sbatch, draws=sdraws)[0])
+        del s32
+        s_opt = make_optimizer(s16.parameters(), s16.cfg.optimizer)
+        kernels.reset_launch_counts()
+        smetrics = train_step(s16, s_opt, sbatch, draws=sdraws)
+        torch.cuda.synchronize()
+        spatial_launches = read_launches()
+        spatial_rec = {"loss_bf16": float(smetrics["combined"]), "loss_f32": sloss32,
+                       "loss_rel_diff": abs(float(smetrics["combined"]) - sloss32) / abs(sloss32),
+                       "launches": spatial_launches, "grads_finite": grads_finite(s16)}
+        if not (spatial_launches["fps"] == 1 and spatial_rec["grads_finite"]
+                and spatial_rec["loss_rel_diff"] <= FLAGSHIP_BF16_LOSS_RTOL):
+            raise RuntimeError(f"the bf16 spatial step: {spatial_rec}")
+        del s16, s_opt, sbatch
+
+        emit({"phase": "flagship_bf16",
+              "config": "configs/experiment/seq1_frames8_evenspaced_pointnet.yaml",
+              "data_cut": data_overrides, "precision": fit_rec["precision"],
+              "batch": {"frames": [T, H, W], "voxel_dim_train": list(mcfg.voxel_dim_train),
+                        "points_per_step": B * T * mcfg.ray.num_rays
+                        * (1 + mcfg.ray.N + mcfg.ray.M)},
+              "fit": fit_rec, "k1_npoint_512": k1_rec, "vs_plain_fps": vs_plain,
+              "precision_discipline": precision_rec, "card_vs_cpu_f32": device_rec,
+              "train_steps": steps_rec, "eikonal": eik_rec, **side,
+              "predict": {"meta": predict_meta, "seconds": predict_s, "scenes": results,
+                          "launches": predict_launches,
+                          "grid_vs_plain": {"max_abs": pred_grid[0], "mean_abs": pred_grid[1],
+                                            "live_share": pred_grid[2]},
+                          "eval": {s_: rec["pred"] for s_, rec in eval_rec.items()}},
+              "plane_coverage": coverage, "k2_flagship_grid": k2_rec, "k3_d_in_64": k3_rec,
+              "render": render_rec, "spatial_bf16": spatial_rec,
+              "tolerance": {"loss_rel": TRAIN_LOSS_RTOL, "grad_over_max_abs": TRAIN_GRAD_TOL,
+                            "eikonal_grad_vs_f64_over_cpu_f32": EIKONAL_NOISE_FACTOR,
+                            "bf16_loss_rel": FLAGSHIP_BF16_LOSS_RTOL,
+                            "device_over_max_abs": FLAGSHIP_DEVICE_TOL,
+                            "grid": {"max_abs": GRID_MAX_ABS_TOL, "mean_abs": GRID_MEAN_ABS_TOL},
+                            "point": {"max_abs": POINT_MAX_ABS_TOL,
+                                      "mean_abs": POINT_MEAN_ABS_TOL},
+                            "live": FIELD_LIVE, "min_live_share": FIELD_MIN_LIVE_SHARE,
+                            "render": {"mask_agree": RENDER_MASK_AGREE,
+                                       "depth_m": RENDER_DEPTH_TOL,
+                                       "depth_agree": RENDER_DEPTH_AGREE,
+                                       "min_hit_share": RENDER_MIN_HIT_SHARE}},
+              "card": smi})
+        emit({"phase": "flagship_bf16_profile", "what": "one loader-batch bf16-mixed train_step",
+              **prof16})
+        emit({"phase": "flagship_f32_profile", "what": "the same train_step in float32",
+              **prof32})
+    # each kernel's largest error against its plain version at this path's shapes
+    errors = {"fps": float((idx_k - idx_p).abs().max()),
+              "grid_decode": max(pred_grid[0], recon_grid[0]),
+              "point_decode": k3_rec["max_abs_err"]}
+    return totals, errors
+
+
 def evaluate_held_out(dev, evaluation, info_files, pred_dir: str, oracle_dir: str,
                       load_info_json) -> dict:
     """`evaluation.process` on each held-out scene's prediction (every
@@ -1656,29 +2459,36 @@ def main() -> int:
         # 11. voxelnet: the second model family in bf16-mixed on the same
         # dataset, then a held-out predict and evaluation
         voxelnet_launches = voxelnet_phase(torch, dev, smi, root)
+        # 12. flagship_bf16: the flagship GenNerf in bf16-mixed, its eikonal
+        # and frustum children and the gradient loss on the same dataset,
+        # then a held-out predict, the flagship's grid, a render
+        flagship_launches, flagship_errors = flagship_bf16_phase(torch, dev, smi, root)
 
     kernel_line = {"kernels": [
         {"name": "fps", "route": "cuda", "source": "gennerf_tpu_torch/csrc/fps.cu",
          "replaces": "gennerf_tpu/ops/pallas/fps.py:33",
          "launches": (launches["fps"] + render_launches["fps"] + mesh_launches["fps"]
                       + sparse_launches["fps"] + train_launches["fps"] + data_launches["fps"]
-                      + spatial_launches["fps"] + voxelnet_launches["fps"]),
-         "max_abs_err": float((idx_k - idx_p).abs().max()), "ms": fps_ms,
+                      + spatial_launches["fps"] + voxelnet_launches["fps"]
+                      + flagship_launches["fps"]),
+         "max_abs_err": max(float((idx_k - idx_p).abs().max()), flagship_errors["fps"]),
+         "ms": fps_ms,
          "plain_ms": fps_plain_ms, "bound_ms": fps_bound, "bound_by": "operations",
          "library_ms": None},
         {"name": "grid_decode", "route": "cuda", "source": "gennerf_tpu_torch/csrc/grid_decode.cu",
          "replaces": "gennerf_tpu/ops/pallas/fused_decoder.py:353",
          "launches": (launches["grid_decode"] + mesh_launches["grid_decode"]
-                      + data_launches["grid_decode"] + voxelnet_launches["grid_decode"]),
-         "max_abs_err": grid_max, "ms": grid_ms,
+                      + data_launches["grid_decode"] + voxelnet_launches["grid_decode"]
+                      + flagship_launches["grid_decode"]),
+         "max_abs_err": max(grid_max, flagship_errors["grid_decode"]), "ms": grid_ms,
          "plain_ms": grid_plain_ms, "bound_ms": grid_bound,
          "bound_by": "operations" if grid_flops / PEAK_BF16 >= grid_bytes / PEAK_BYTES else "bytes",
          "library_ms": None},
         {"name": "point_decode", "route": "cuda", "source": "gennerf_tpu_torch/csrc/point_decode.cu",
          "replaces": "gennerf_tpu/ops/pallas/fused_decoder.py:53",
          "launches": (render_launches["point_decode"] + data_launches["point_decode"]
-                      + voxelnet_launches["point_decode"]),
-         "max_abs_err": point_max, "ms": point_ms,
+                      + voxelnet_launches["point_decode"] + flagship_launches["point_decode"]),
+         "max_abs_err": max(point_max, flagship_errors["point_decode"]), "ms": point_ms,
          "plain_ms": point_plain_ms, "bound_ms": point_bound,
          "bound_by": "operations" if point_flops / PEAK_BF16 >= point_bytes / PEAK_BYTES else "bytes",
          "library_ms": None},

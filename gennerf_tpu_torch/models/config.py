@@ -3,9 +3,9 @@
 Only the fields the predict, render and train paths of GenNerf (the
 pointnet triplanes, the spatial feature volume, or both) and of VoxelNet
 read are kept; `config_from_dict` ignores every other key of an
-experiment yaml (frustum sampling, the eikonal/gradient/distill weights,
-...), exactly as the reference's does for bookkeeping keys. Defaults are
-the reference's. Options the port does not implement yet are rejected by
+experiment yaml (the distillation settings, the teacher's, a frustum's
+`N` and `M`, ...), exactly as the reference's does for bookkeeping keys.
+Defaults are the reference's. Options the port does not implement yet are rejected by
 `check_supported` / `check_supported_voxel_net`, called at model
 construction, rather than computed differently.
 """
@@ -110,6 +110,21 @@ class RayConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class FrustumConfig:
+    """Frustum-mode supervision per frame: N_surf surface points, N_near
+    surface points moved by sigma * noise and N_free points uniform in the
+    frustum volume between d_min and d_max. An experiment's `N` and `M`
+    keys are not fields: the reference ignores them too."""
+
+    N_free: int = 384
+    N_near: int = 128
+    N_surf: int = 128
+    sigma: float = 0.1
+    d_min: float = 0.5
+    d_max: float = 4.0
+
+
+@dataclasses.dataclass(frozen=True)
 class TsdfLossConfig:
     weight: float = 1.0
     transform: str = "smooth_log"  # 'log' | 'smooth_log' | 'none'
@@ -125,6 +140,17 @@ class IsdfLossConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EikonalLossConfig:
+    weight: float = 0.25
+    apply_distance: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class GradientLossConfig:
+    weight: float = 0.02
+
+
+@dataclasses.dataclass(frozen=True)
 class FeatureLossConfig:
     weight: float = 0.1
 
@@ -135,11 +161,13 @@ class LossConfig:
     tsdf: TsdfLossConfig = TsdfLossConfig()
     use_isdf: bool = False
     isdf: IsdfLossConfig = IsdfLossConfig()
+    use_eikonal: bool = False
+    eikonal: EikonalLossConfig = EikonalLossConfig()
+    use_gradient: bool = False
+    gradient: GradientLossConfig = GradientLossConfig()
     use_feature: bool = False
     feature: FeatureLossConfig = FeatureLossConfig()
     # not ported (check_supported raises when set)
-    use_eikonal: bool = False
-    use_gradient: bool = False
     use_distill: bool = False
 
 
@@ -175,8 +203,9 @@ class GenNerfConfig:
     # recompute the spatial encoder (or each frame_chunk's encode and
     # backprojection) in backward instead of keeping its activations
     remat: bool = False
-    sampling_mode: str = "ray"  # 'ray' ('frustum' is not ported)
+    sampling_mode: str = "ray"  # 'ray' | 'frustum'
     ray: RayConfig = RayConfig()
+    frustum: FrustumConfig = FrustumConfig()
     encoder: EncoderConfig = EncoderConfig()
     mlp: MlpConfig = MlpConfig()
     use_code: bool = True
@@ -286,9 +315,11 @@ def check_supported(cfg: GenNerfConfig) -> None:
     enc, p, m, loss = cfg.encoder, cfg.encoder.pointnet, cfg.mlp, cfg.loss
     s = enc.spatial
     unsupported = {
-        "sampling_mode 'frustum'": cfg.sampling_mode != "ray",
-        "loss.use_eikonal": loss.use_eikonal,
-        "loss.use_gradient": loss.use_gradient,
+        "sampling_mode other than 'ray' or 'frustum'":
+            cfg.sampling_mode not in ("ray", "frustum"),
+        # the frustum samples carry no normals (the reference fails there too)
+        "loss.use_gradient under sampling_mode 'frustum'":
+            loss.use_gradient and cfg.sampling_mode != "ray",
         "loss.use_distill": loss.use_distill,
         "teacher.type other than 'none'": cfg.teacher.type != "none",
         "optimizer.type other than 'Adam'": cfg.optimizer.type != "Adam",

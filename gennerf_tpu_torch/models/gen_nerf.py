@@ -13,7 +13,17 @@ chunks, the encoder) is a `torch.utils.checkpoint` region whose running
 BatchNorm statistics move once, in the forward pass.
 decode: sample the triplanes bilinearly and the count-normalized volume
 trilinearly at query points, concatenate the positional code and those
-features, run ResnetFC and the TSDF head.
+features, run ResnetFC and the TSDF head. decode_with_grad adds
+d(tsdf)/d(xyz) for the gradient losses, by autograd with a graph (the
+training step's backward is then a double backward through the gathers,
+the positional code and ResnetFC).
+
+Precision: the model computes in `dtype` where the JAX GenNerf does
+(bf16-mixed: the ResNet, the pointnet, its UNet, ResnetFC and the head);
+parameters, running statistics, the volume and its counts stay float32.
+The planes come out in the compute dtype and are sampled with float32
+weights, so the decoder's features are float32, as are its outputs but
+the TSDF, which is in the compute dtype (the losses cast it).
 
 The JAX `key` becomes an explicit torch.Generator; the presample and FPS
 start draws can also be passed in (`sel`, `start`) to replay another run's.
@@ -106,22 +116,22 @@ class GenNerf(nn.Module):
     def __init__(self, cfg: GenNerfConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         check_supported(cfg)
-        if dtype != torch.float32:
-            raise NotImplementedError("gennerf_tpu_torch runs float32 only (no bf16 precision yet)")
-        self.cfg = cfg
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise NotImplementedError(f"GenNerf computes in float32 or bfloat16, not {dtype}")
+        self.cfg, self.dtype = cfg, dtype
         enc = cfg.encoder
         if enc.use_spatial:
             s = enc.spatial
             self.spatial = SpatialEncoder(
                 s.backbone, s.num_layers, s.feature_scale, s.use_first_pool, s.blur_image,
-                s.kernel_size, s.sigma, s.out_channels)
+                s.kernel_size, s.sigma, s.out_channels, dtype=dtype)
         if enc.use_pointnet:
             p = enc.pointnet
             self.pointnet = LocalPoolPointnet(
                 c_dim=p.c_dim, dim=p.dim, hidden_dim=p.hidden_dim, scatter_type=p.scatter_type,
                 use_unet=p.unet, unet_depth=p.unet_depth, unet_start_filts=p.unet_start_filts,
                 plane_resolution=p.plane_resolution, plane_type=p.plane_type,
-                padding=p.padding, n_blocks=p.n_blocks,
+                padding=p.padding, n_blocks=p.n_blocks, dtype=dtype,
             )
             self.merger = FeaturePlaneMerger(enc.plane_merger.strategy, enc.plane_merger.alpha)
         d_code = (positional_encoding_dim(cfg.code.num_freqs, 3, cfg.code.include_input)
@@ -130,9 +140,9 @@ class GenNerf(nn.Module):
         self.mlp = ResnetFC(
             d_in=cfg.encoder_latent, d_out=m.d_out_geo + m.d_out_sem, n_blocks=m.n_blocks,
             d_latent=d_code, d_hidden=m.d_hidden, beta=m.beta,
-            combine_layer=m.combine_layer, alpha=m.alpha,
+            combine_layer=m.combine_layer, alpha=m.alpha, dtype=dtype,
         )
-        self.head_geo = TSDFHeadSimple(m.d_out_geo, smoothing=m.head_smoothing)
+        self.head_geo = TSDFHeadSimple(m.d_out_geo, smoothing=m.head_smoothing, dtype=dtype)
 
     def plane_coords(self, xyz: torch.Tensor) -> torch.Tensor:
         """World points -> the frame the triplanes see: with
@@ -250,3 +260,19 @@ class GenNerf(nn.Module):
         feat_geo = out[..., :d_geo]
         return {"feat_geo": feat_geo, "feat_sem": out[..., d_geo:],
                 "tsdf": self.head_geo(feat_geo), "feat": feat}
+
+    def decode_with_grad(self, repr_: SceneRepr, xyz: torch.Tensor, origin=None,
+                         volume_cl: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """decode plus `grad`, d(tsdf)/d(xyz) (B, N, 3) in xyz's dtype: the
+        vector-Jacobian product of a ones cotangent (in the TSDF's dtype)
+        on the TSDF alone, as the reference's jax.vjp. Under autograd the
+        gradient keeps its graph, so a loss on it trains the model; under
+        no_grad it is computed all the same and returned detached."""
+        training = torch.is_grad_enabled()
+        with torch.enable_grad():
+            p = xyz.detach().requires_grad_(True)
+            out = self.decode(repr_, p, origin, volume_cl)
+            tsdf = out["tsdf"]
+            (grad,) = torch.autograd.grad(tsdf, p, torch.ones_like(tsdf), create_graph=training)
+        out = dict(out, grad=grad)
+        return out if training else {k: v.detach() for k, v in out.items()}

@@ -10,22 +10,28 @@ from torch import nn
 
 from ..ops.value_transforms import log_transform
 from .resnet import conv3d
+from .resnetfc import linear
 
 
 class TSDFHeadSimple(nn.Module):
     """Linear -> tanh, scaled by `smoothing` after the tanh (1.0 leaves the
-    reference head math unchanged)."""
+    reference head math unchanged). Under a compute `dtype` the layer runs
+    in it (flax's Dense with dtype=), so the TSDF comes out in it, and the
+    smoothing constant is a tensor of that dtype, as JAX rounds a
+    weak-typed float to the array's dtype."""
 
-    def __init__(self, d_in: int, smoothing: float = 1.0):
+    def __init__(self, d_in: int, smoothing: float = 1.0, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc = nn.Linear(d_in, 1)
+        self.fc = linear(d_in, 1, dtype=dtype)
         nn.init.xavier_uniform_(self.fc.weight, gain=5.0 / 3.0)
         nn.init.zeros_(self.fc.bias)
         self.smoothing = float(smoothing)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.tanh(self.fc(x))
-        return y if self.smoothing == 1.0 else y * self.smoothing
+        if self.smoothing == 1.0:
+            return y
+        return y * torch.tensor(self.smoothing, dtype=y.dtype, device=y.device)
 
 
 def upsample2x_nearest3d(x: torch.Tensor) -> torch.Tensor:

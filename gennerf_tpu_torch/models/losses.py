@@ -1,8 +1,8 @@
 """GenNerf loss terms (counterpart of gennerf_tpu/models/losses.py).
 
 Per-element loss matrices plus the aggregated dict; all loss math runs in
-float32. The eikonal, gradient and distillation terms are not ported:
-`calculate_loss` raises when their flags are set (as does
+float32 (a bf16 model's outputs are cast first). The distillation term is
+not ported: `calculate_loss` raises when its flag is set (as does
 `check_supported` at model construction).
 """
 from __future__ import annotations
@@ -48,6 +48,34 @@ def loss_isdf(cfg: LossConfig, outputs, targets) -> torch.Tensor:
     return mask * loss_near + (1 - mask) * loss_free
 
 
+def loss_eikonal(cfg: LossConfig, outputs, targets) -> torch.Tensor:
+    """|‖d tsdf / d xyz‖ - 1|, zeroed where the fused target is below
+    eikonal.apply_distance (the reference's gate: the term acts at and
+    behind the surface ramp, the clamped +1 region included)."""
+    loss = torch.abs(_safe_norm(outputs["grad"], dim=-1) - 1.0)[..., None]
+    return torch.where(targets["tsdf"] < cfg.eikonal.apply_distance,
+                       torch.zeros((), dtype=loss.dtype, device=loss.device), loss)
+
+
+def _cos(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    num = (a * b).sum(-1)
+    return num / torch.clamp(_safe_norm(a, dim=-1) * _safe_norm(b, dim=-1), min=1e-6)
+
+
+def loss_gradient(cfg: LossConfig, outputs, targets, num_rays: int) -> torch.Tensor:
+    """Cosine distance of the TSDF gradients to the surface normal at each
+    ray's surface sample and to the ray-bound gradient (`grad_vec`, the
+    sampled normal where that is NaN) at its other samples -> (B, R*S, 1)."""
+    normals = targets["sampled_normals"]  # (B, R, 3)
+    grad_vec = targets["grad_vec"]  # (B, R, S-1, 3)
+    B = normals.shape[0]
+    grad = outputs["grad"].reshape(B, num_rays, -1, 3)
+    surf_loss = 1.0 - _cos(normals, grad[:, :, 0])
+    grad_vec = torch.where(torch.isnan(grad_vec[..., :1]), normals[:, :, None], grad_vec)
+    grad_loss = 1.0 - _cos(grad_vec, grad[:, :, 1:])
+    return torch.cat([surf_loss[:, :, None], grad_loss], dim=2).reshape(B, -1, 1)
+
+
 def loss_feat(cfg: LossConfig, outputs, targets) -> torch.Tensor:
     """Encourage non-degenerate encoder features: 1 / mean feature norm."""
     contribution = _safe_norm(outputs["feat"], dim=-1).mean()
@@ -63,18 +91,19 @@ def _masked_mean(m: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor
 
 
 def calculate_loss(cfg: LossConfig, outputs: Dict[str, torch.Tensor],
-                   targets: Dict[str, torch.Tensor]
+                   targets: Dict[str, torch.Tensor], num_rays: int = 0
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Weighted sum of the enabled terms. With targets['valid'] ((B, N, 1)
-    float) every point-wise term averages over valid samples only.
+    float) every point-wise term averages over valid samples only. The
+    eikonal and gradient terms read outputs['grad']; the gradient term also
+    targets['sampled_normals'] and ['grad_vec'] of `num_rays` rays.
 
     Returns (combined loss, dict of per-term means incl. 'combined' and,
     with a mask, 'valid_coverage')."""
     if not (cfg.use_tsdf or cfg.use_isdf):
         raise ValueError("the loss needs use_tsdf or use_isdf")
-    for flag in ("use_eikonal", "use_gradient", "use_distill"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"loss.{flag} is not ported")
+    if cfg.use_distill:
+        raise NotImplementedError("loss.use_distill is not ported")
     outputs = {k: v.to(torch.float32) for k, v in outputs.items()}
     targets = {k: v.to(torch.float32) if v.is_floating_point() else v for k, v in targets.items()}
     valid = targets.get("valid")
@@ -89,6 +118,14 @@ def calculate_loss(cfg: LossConfig, outputs: Dict[str, torch.Tensor],
         m = loss_isdf(cfg, outputs, targets)
         losses["isdf"] = _masked_mean(m, valid)
         loss_mat = loss_mat + cfg.isdf.weight * m
+    if cfg.use_eikonal:
+        m = loss_eikonal(cfg, outputs, targets)
+        losses["eikonal"] = _masked_mean(m, valid)
+        loss_mat = loss_mat + cfg.eikonal.weight * m
+    if cfg.use_gradient:
+        m = loss_gradient(cfg, outputs, targets, num_rays)
+        losses["gradient"] = _masked_mean(m, valid)
+        loss_mat = loss_mat + cfg.gradient.weight * m
     if cfg.use_feature:
         m = loss_feat(cfg, outputs, targets)
         losses["feature"] = m

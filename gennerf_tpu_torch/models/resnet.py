@@ -33,6 +33,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from .resnetfc import compute_dtype_of
+
 # flax's truncated_normal keeps the variance: its stddev is divided by the
 # standard deviation of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -49,12 +51,14 @@ class _CastConv:
     """A convolution computing in `compute_dtype` (flax's nn.Conv with
     `dtype=`): input and weight cast to it, the bias added afterwards.
     None computes in the weight's dtype (a float64 copy of a float32 model
-    computes in float64)."""
+    computes in float64), the bias fused as in the torch convolution."""
 
     compute_dtype = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype or self.weight.dtype
+        dt = self.compute_dtype
+        if dt is None:
+            return self._conv_forward(x.to(self.weight.dtype), self.weight, self.bias)
         y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
         if self.bias is not None:
             y = y + self.bias.to(dt).reshape(-1, *([1] * (y.dim() - 2)))
@@ -69,24 +73,37 @@ class Conv3d(_CastConv, nn.Conv3d):
     pass
 
 
-def conv2d(in_ch: int, out_ch: int, kernel: int, stride: int = 1, padding: int = 0,
-           bias: bool = False, dtype: torch.dtype = torch.float32) -> Conv2d:
-    conv = Conv2d(in_ch, out_ch, kernel, stride, padding, bias=bias)
-    conv.compute_dtype = None if dtype == torch.float32 else dtype
+class ConvTranspose2d(_CastConv, nn.ConvTranspose2d):
+    def _conv_forward(self, x, weight, bias):
+        return F.conv_transpose2d(x, weight, bias, self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
+
+
+def cast_conv(cls, *args, dtype: torch.dtype = torch.float32, **kwargs):
+    """`cls(*args, **kwargs)`, one of the cast convolutions, computing in
+    `dtype` (torch's initialization)."""
+    conv = cls(*args, **kwargs)
+    conv.compute_dtype = compute_dtype_of(dtype)
+    return conv
+
+
+def _lecun_conv(cls, in_ch: int, out_ch: int, kernel: int, stride: int, padding: int,
+                bias: bool, dtype: torch.dtype):
+    conv = cast_conv(cls, in_ch, out_ch, kernel, stride, padding, bias=bias, dtype=dtype)
     lecun_normal_(conv.weight)
     if bias:
         nn.init.zeros_(conv.bias)
     return conv
+
+
+def conv2d(in_ch: int, out_ch: int, kernel: int, stride: int = 1, padding: int = 0,
+           bias: bool = False, dtype: torch.dtype = torch.float32) -> Conv2d:
+    return _lecun_conv(Conv2d, in_ch, out_ch, kernel, stride, padding, bias, dtype)
 
 
 def conv3d(in_ch: int, out_ch: int, kernel: int, stride: int = 1, padding: int = 0,
            bias: bool = False, dtype: torch.dtype = torch.float32) -> Conv3d:
-    conv = Conv3d(in_ch, out_ch, kernel, stride, padding, bias=bias)
-    conv.compute_dtype = None if dtype == torch.float32 else dtype
-    lecun_normal_(conv.weight)
-    if bias:
-        nn.init.zeros_(conv.bias)
-    return conv
+    return _lecun_conv(Conv3d, in_ch, out_ch, kernel, stride, padding, bias, dtype)
 
 
 class BatchNorm(nn.Module):

@@ -7,6 +7,11 @@ a final 1x1 conv. Parameter names follow the
 reference (down_convs.{i}.conv1|conv2, up_convs.{i}.upconv|conv1|conv2,
 conv_final). flax's ConvTranspose kernel is the spatial flip of torch's
 (utils/port_params.py maps it).
+
+Every convolution computes as flax's nn.Conv / nn.ConvTranspose with
+`dtype=` do (models/resnet.py's cast convolutions): input and weight in
+the compute `dtype` (bf16-mixed; float32 by default), the bias added
+afterwards in it; the output is in it too. Parameters stay float32.
 """
 from __future__ import annotations
 
@@ -14,12 +19,15 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from .resnet import Conv2d, ConvTranspose2d, cast_conv
+
 
 class _DownConv(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int, pooling: bool):
+    def __init__(self, in_channels: int, out_channels: int, pooling: bool,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv1 = cast_conv(Conv2d, in_channels, out_channels, 3, padding=1, dtype=dtype)
+        self.conv2 = cast_conv(Conv2d, out_channels, out_channels, 3, padding=1, dtype=dtype)
         self.pooling = pooling
 
     def forward(self, x):
@@ -32,11 +40,12 @@ class _DownConv(nn.Module):
 
 
 class _UpConv(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.upconv = nn.ConvTranspose2d(in_channels, out_channels, 2, stride=2)
-        self.conv1 = nn.Conv2d(2 * out_channels, out_channels, 3, padding=1)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.upconv = cast_conv(ConvTranspose2d, in_channels, out_channels, 2, stride=2,
+                                dtype=dtype)
+        self.conv1 = cast_conv(Conv2d, 2 * out_channels, out_channels, 3, padding=1, dtype=dtype)
+        self.conv2 = cast_conv(Conv2d, out_channels, out_channels, 3, padding=1, dtype=dtype)
 
     def forward(self, from_down, from_up):
         x = torch.cat([self.upconv(from_up), from_down], dim=1)
@@ -46,18 +55,18 @@ class _UpConv(nn.Module):
 
 class UNet(nn.Module):
     def __init__(self, num_classes: int, in_channels: int, depth: int = 5,
-                 start_filts: int = 64):
+                 start_filts: int = 64, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.down_convs = nn.ModuleList()
         outs = in_channels
         for i in range(depth):
             ins, outs = outs, start_filts * 2**i
-            self.down_convs.append(_DownConv(ins, outs, pooling=i < depth - 1))
+            self.down_convs.append(_DownConv(ins, outs, pooling=i < depth - 1, dtype=dtype))
         self.up_convs = nn.ModuleList()
         for _ in range(depth - 1):
             ins, outs = outs, outs // 2
-            self.up_convs.append(_UpConv(ins, outs))
-        self.conv_final = nn.Conv2d(outs, num_classes, 1)
+            self.up_convs.append(_UpConv(ins, outs, dtype))
+        self.conv_final = cast_conv(Conv2d, outs, num_classes, 1, dtype=dtype)
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 nn.init.xavier_normal_(m.weight)

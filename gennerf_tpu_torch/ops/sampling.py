@@ -1,7 +1,8 @@
 """Point sampling (counterpart of gennerf_tpu/ops/sampling.py and the
 presample in gennerf_tpu/models/gen_nerf.py:256-267): the encoder's
 uniform presample and farthest-point sampling, and the training
-supervision's valid-pixel and ray samplers.
+supervision's valid-pixel, ray and frustum samplers and the ray samples'
+distance bounds (iSDF) with their gradients.
 
 `farthest_point_sample` launches the CUDA kernel (csrc/fps.cu, the port of
 ops/pallas/fps.py::_fps_kernel) for a CUDA tensor and runs its plain
@@ -74,6 +75,15 @@ def sample_valid_depth_pixels(depth: torch.Tensor, num_samples: int,
     return sample_valid_pixels_masked(depth != 0, num_samples, generator, scores)
 
 
+def sample_valid_pixels(depth: torch.Tensor, normals: torch.Tensor, num_samples: int,
+                        generator: Optional[torch.Generator] = None,
+                        scores: Optional[torch.Tensor] = None):
+    """Pixels with nonzero depth and a finite (B, H, W, 3) normal (see
+    sample_valid_pixels_masked)."""
+    valid = (depth != 0) & ~torch.isnan(normals).any(dim=-1)
+    return sample_valid_pixels_masked(valid, num_samples, generator, scores)
+
+
 def _pixels_to_camera_dirs(h: torch.Tensor, w: torch.Tensor, intrinsics: torch.Tensor):
     """Normalized image coords ((v - cy)/fy, (u - cx)/fx) of (B, n) pixels."""
     fx, fy = intrinsics[:, 0, 0][:, None], intrinsics[:, 1, 1][:, None]
@@ -86,6 +96,44 @@ def _camera_to_world(xyz_camera: torch.Tensor, pose: torch.Tensor) -> torch.Tens
     h = torch.cat([xyz_camera, torch.ones_like(xyz_camera[..., :1])], dim=-1)
     world_h = torch.einsum("bij,bnj->bni", pose, h)
     return world_h[..., :3] / world_h[..., 3:4]
+
+
+def sample_points_in_frustum(h: torch.Tensor, w: torch.Tensor, intrinsics: torch.Tensor,
+                             pose: torch.Tensor, min_dist: float, max_dist: float,
+                             generator: Optional[torch.Generator] = None,
+                             u: Optional[torch.Tensor] = None):
+    """Points through (B, n) pixels at depth sqrt(u) * (max - min) + min,
+    u uniform in [0, 1): uniform in the frustum's volume. `u` (B, n)
+    injects the draw. Returns xyz_world (B, n, 3) and z (B, n)."""
+    if u is None:
+        u = draw_uniform(h.shape, generator, h.device)
+    z = torch.sqrt(u.to(h.device, torch.float32)) * (max_dist - min_dist) + min_dist
+    h_norm, w_norm = _pixels_to_camera_dirs(h.to(z.dtype), w.to(z.dtype), intrinsics)
+    xyz_camera = torch.stack([w_norm * z, h_norm * z, z], dim=-1)
+    return _camera_to_world(xyz_camera, pose), z
+
+
+def bounds_pc_batch(pc: torch.Tensor, z_vals: torch.Tensor, depth_sample: torch.Tensor):
+    """Distance bounds of ray samples to the set of surface samples (iSDF).
+
+    pc (B, R, S, 3) ray samples, the surface sample first on each ray;
+    z_vals (B, R, S) their depths; depth_sample (B, R) each ray's surface
+    depth. Returns bounds (B, R, S), the distance to the nearest surface
+    sample of any ray of the frame, negated behind the surface, and grad
+    (B, R, S-1, 3), the unit vector from that surface sample to each
+    non-surface sample (negated behind the surface; NaN where the two
+    coincide). Builds a (B, R, S, R, 3) difference tensor."""
+    surf = pc[:, :, 0]
+    diff = pc[:, :, :, None, :] - surf[:, None, None, :, :]
+    dists = torch.sqrt((diff * diff).sum(-1))  # (B, R, S, R)
+    min_dists, closest = dists.min(dim=-1)
+    behind = z_vals > depth_sample[:, :, None]
+    bounds = torch.where(behind, -min_dists, min_dists)
+    idx = closest[..., None, None].expand(*closest.shape, 1, 3)
+    grad = torch.gather(diff, 3, idx)[..., 0, :][:, :, 1:]
+    grad = grad / torch.sqrt((grad * grad).sum(-1, keepdim=True))
+    grad = torch.where(behind[:, :, 1:, None], -grad, grad)
+    return bounds, grad
 
 
 def sample_points_on_rays(h: torch.Tensor, w: torch.Tensor, depths: torch.Tensor,

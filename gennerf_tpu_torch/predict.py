@@ -13,6 +13,9 @@ fusion prior under `mask_unobserved`.
         --params params.npz --frames frames.npz --out tsdf.npz
     python -m gennerf_tpu_torch.predict --config configs/experiment/seqs_multigeo_voxelnet.yaml \
         --ckpt RUN --data-dir D --split val.txt --out DIR [trainer.precision=32-true]
+    python -m gennerf_tpu_torch.predict \
+        --config configs/experiment/seq1_frames8_evenspaced_pointnet.yaml --ckpt RUN \
+        --data-dir D --split val.txt --out DIR data.voxel_dim_test=[96,96,56] ...
 
 The weights come from `--ckpt` (a checkpoint file, or a training run's
 directory or its `checkpoints/`: the best monitored epoch there, else the
@@ -32,7 +35,10 @@ warning when it is empty); its masked TSDF L1 against the scene's ground
 truth is printed, and DIR/predict_meta.json records the checkpoint, its
 epoch, how it was selected and the precision. The model computes in the
 training precision (the config's trainer.precision: bf16-mixed for the
-VoxelNet drive). Runs on the card unless `--device cpu` is given.
+VoxelNet drive and for the GenNerf configs under `/trainer: tpu`, among
+them the flagship seq1_frames8_evenspaced_pointnet; a checkpoint trained
+in bf16 holds float32 parameters and reloads into the bf16 model). Runs on
+the card unless `--device cpu` is given.
 """
 from __future__ import annotations
 

@@ -23,8 +23,11 @@ per view (predicted | measured z-depth; `{scene}_viewNNN.png` in split
 mode), with `--features` one PNG of the surface features' first three
 principal components, and `render_metrics.json` (per view, or per scene in
 split mode, and the mean); prints the mean metrics as one JSON line. Runs
-on the card unless `--device cpu` is given. It renders a GenNerf field
-only: a VoxelNet config raises, as the JAX render script exits.
+on the card unless `--device cpu` is given. The model computes in the
+config's trainer.precision (bf16-mixed for the GenNerf configs under
+`/trainer: tpu`); trailing `a.b=value` arguments override the config. It
+renders a GenNerf field only: a VoxelNet config raises, as the JAX render
+script exits.
 """
 from __future__ import annotations
 
@@ -203,10 +206,11 @@ def main(argv=None) -> dict:
                         help="also write the surface features' PCA image per view")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("overrides", nargs="*", help="config overrides a.b.c=value")
     args = parser.parse_args(argv)
 
     overrides = [f"paths.data_dir={os.path.abspath(args.data_dir)}"] if args.data_dir else []
-    cfg = load_experiment_config(args.config, "predict", overrides)
+    cfg = load_experiment_config(args.config, "predict", overrides + args.overrides)
     if cfg["model"].get("type", "GenNerf") != "GenNerf":
         raise SystemExit("render drives the GenNerf field renderer only; "
                          f"the config's model is {cfg['model']['type']}")

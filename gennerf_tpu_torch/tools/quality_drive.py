@@ -7,6 +7,8 @@ through the port's command-line entry points, one process each, timed.
         [--backbone random:resnet34] [key.path=value ...]
     python -m gennerf_tpu_torch.tools.quality_drive --work DIR --summary out.json \\
         --config configs/experiment/seqs_multigeo_voxelnet.yaml [trainer.precision=32-true]
+    python -m gennerf_tpu_torch.tools.quality_drive --work DIR --summary out.json \\
+        --config configs/experiment/seqs_multigeo_4cm.yaml trainer.precision=bf16-mixed
 
 The steps, as a user runs them:
   1. python -m gennerf_tpu_torch.data.make_multigeo --out DIR/data
@@ -19,7 +21,8 @@ The steps, as a user runs them:
   4. python -m gennerf_tpu_torch.eval.evaluation --results DIR/pred --dataset val.txt
          --data-dir DIR/data
 Trailing `key=value` overrides go to both the train and the predict CLI
-(a VoxelNet control in float32: trainer.precision=32-true). The summary
+(a VoxelNet control in float32: trainer.precision=32-true; the pointnet
+drive in bf16-mixed: trainer.precision=bf16-mixed). The summary
 holds each step's wall seconds, the epochs and seconds per epoch, the
 median step and loader wait (metrics.csv), the validations (every val_*
 column), the predict record (the best epoch, how it was selected, the

@@ -8,6 +8,10 @@ of the reference's scripts/train.py).
         --out runs/spatial --data-dir D model.encoder.spatial.pretrained_path=backbone.npz
     python -m gennerf_tpu_torch.train --config configs/experiment/seqs_multigeo_voxelnet.yaml \
         --out runs/voxelnet --data-dir D [trainer.precision=32-true]
+    python -m gennerf_tpu_torch.train \
+        --config configs/experiment/seq1_frames8_evenspaced_pointnet.yaml --out runs/flagship \
+        --data-dir D data.datasets_train=[train.txt] data.datasets_val=[val.txt] \
+        data.datasets_test=[val.txt] data.sequence_length=10 ...  (README: the whole line)
 
 Trailing `a.b.c=value` arguments override the composed config, as the
 reference's command line does (above: the backbone npz of
@@ -36,9 +40,8 @@ predict and render CLIs' `--ckpt` pick the best monitored epoch there),
 out/local/ (the validation tail's volumes and meshes) and out/params.npz
 (the last epoch's model as a params tree, with the BatchNorm running
 statistics under batch_stats/). The model computes in trainer.precision's
-dtype (train/tasks.py): '32-true', or 'bf16-mixed' / '16-mixed' for a
-VoxelNet (a GenNerf under either raises NotImplementedError: it runs
-float32 only so far). When the config sets
+dtype (train/tasks.py): float32 under '32-true', bfloat16 under
+'bf16-mixed' / '16-mixed' (either family). When the config sets
 `test: true`, the best monitored epoch (else the last) then runs the test pass
 with its reconstruction tail. Runs on the card unless `--device cpu` is
 given, and raises when there is none.
@@ -138,7 +141,7 @@ def main(argv=None) -> Trainer:
         max_epochs=args.epochs or int(trainer_cfg["max_epochs"]),
         log_every_n_steps=int(trainer_cfg.get("log_every_n_steps", 50)),
         check_val_every_n_epoch=int(trainer_cfg.get("check_val_every_n_epoch", 1)),
-        checkpoints=checkpoints)
+        checkpoints=checkpoints, precision=trainer_cfg.get("precision", "32-true"))
     metrics = trainer.fit(train_data, val_data, ckpt_path=args.resume)
     save_params_npz(os.path.join(args.out, "params.npz"), task.npz_tree(model.state_dict()))
     print(f"trained {trainer.global_step} steps: "

@@ -22,6 +22,11 @@ under mask_unobserved), `{mode}_recon_tsdf_l1` is the unmasked mean
 |pred - target| over that grid, and with an output directory the two
 TSDFs (.npz) and their meshes (.ply, empty ones too) go to its local/ sink.
 
+Given the run's `precision` (trainer.precision), the trainer refuses a
+model computing in another dtype than that precision's, the rule the
+reference's loop checks for (it warns; the port raises, since a
+silently float32 run is not the run the config asks for).
+
 Not ported: the rendered comparison images of the tail, early stopping,
 preemption, the profiler and multi-device runs.
 """
@@ -41,7 +46,7 @@ from .checkpoints import CheckpointManager, load_checkpoint, resolve_checkpoint
 from .loggers import CSVLogger, LocalWriter
 from .state import lr_for_epoch, set_learning_rate
 from .step import batch_to_device, eval_step, train_step
-from .tasks import task_for
+from .tasks import dtype_for_precision, task_for
 
 
 class Trainer:
@@ -49,14 +54,19 @@ class Trainer:
                  generator: torch.Generator, out_dir: Optional[str] = None,
                  max_epochs: int = 1, log_every_n_steps: int = 50,
                  check_val_every_n_epoch: int = 1,
-                 checkpoints: Optional[CheckpointManager] = None):
+                 checkpoints: Optional[CheckpointManager] = None, precision=None):
         """`generator` supplies every train step's draws, a second generator
         seeded with its initial seed + 1 the validation draws; with
         `out_dir`, metrics go to out_dir/metrics.csv, the validation tail's
         files to out_dir/local/ and checkpoints through `checkpoints`
-        (default: every epoch kept in out_dir/checkpoints/)."""
+        (default: every epoch kept in out_dir/checkpoints/). With
+        `precision`, a model computing in another dtype raises ValueError."""
         self.model, self.optimizer, self.generator = model, optimizer, generator
         self.task = task_for(model)
+        if precision is not None and dtype_for_precision(precision) != model.dtype:
+            raise ValueError(f"trainer.precision={precision!r} maps to "
+                             f"{dtype_for_precision(precision)}, but the {self.task.name} "
+                             f"computes in {model.dtype}")
         self.val_generator = torch.Generator(device=generator.device).manual_seed(
             generator.initial_seed() + 1)
         self.max_epochs = max_epochs

@@ -51,7 +51,14 @@ def decode_dense(model: GenNerf, repr_: SceneRepr, points: torch.Tensor, origin=
                  chunk_size: int = 32768) -> torch.Tensor:
     """TSDF at (N, 3) points of one scene, chunk by chunk -> (N,) f32;
     `origin` places the feature volume (default 0), whose mean features are
-    computed once for all chunks."""
+    computed once for all chunks. A model computing in another dtype than
+    float32 samples its planes and volume in that dtype (the counts stay
+    as they are), as the reference's decode_dense does."""
+    dt = model.dtype
+    if dt != torch.float32:
+        repr_ = SceneRepr(
+            None if repr_.planes is None else {k: v.to(dt) for k, v in repr_.planes.items()},
+            None if repr_.volume is None else repr_.volume.to(dt), repr_.valid)
     volume_cl = model.volume_features(repr_)
     out = [model.decode(repr_, chunk[None], origin, volume_cl)["tsdf"][0, :, 0]
            for chunk in torch.split(points, chunk_size)]

@@ -1,10 +1,13 @@
 """The train and eval steps of both model families (counterpart of
-gennerf_tpu/train/step.py; GenNerf with ray-mode supervision without
-distillation).
+gennerf_tpu/train/step.py; GenNerf with ray- or frustum-mode supervision
+and the gradient losses, without distillation).
 
 A step encodes the batch's frames (presample and FPS: the FPS kernel on the
-card), samples supervision rays on every frame's valid depth pixels, decodes
-the ray points through the f32 per-point path (`GenNerf.decode`: the point
+card), samples supervision points on every frame (ray mode: rays through
+valid depth pixels, with the gradient loss through pixels of finite
+normals too; frustum mode: surface, near-surface and free-space points),
+decodes them through the per-point path (`GenNerf.decode`, or
+`decode_with_grad` when the eikonal or gradient loss is on: the point
 kernel has no backward), interpolates their targets from the fused
 ground-truth volume and computes the loss. As in the reference, the T
 frames are sampled and decoded at once and the loss is the per-frame mean
@@ -14,8 +17,9 @@ With the spatial encoder the step also backprojects every frame's ResNet
 features into the feature volume (models/gen_nerf.py).
 
 The random draws come from one torch.Generator in a fixed order (presample,
-FPS start, pixel scores, ray noise), or are injected (`StepDraws`): tests
-pass the draws of the reference's key splits.
+FPS start, pixel scores, then the ray noise, or the frustum depths and the
+near-surface noise), or are injected (`StepDraws`): tests pass the draws
+of the reference's key splits.
 
 A VoxelNet step encodes the frames into the feature volume at origin 0,
 refines it into the multi-scale TSDF volumes and sums the per-scale losses
@@ -36,7 +40,12 @@ from ..models.gen_nerf import GenNerf
 from ..models.voxel_net import VoxelNet
 from ..models.losses import calculate_loss
 from ..ops.interpolation import trilinear_interpolation
-from ..ops.sampling import sample_points_on_rays, sample_valid_depth_pixels
+from ..ops.normals import estimate_pointcloud_normals
+from ..ops.projection import get_3d_points
+from ..ops.sampling import (
+    bounds_pc_batch, draw_normal, sample_points_in_frustum, sample_points_on_rays,
+    sample_valid_depth_pixels, sample_valid_pixels,
+)
 
 
 class StepDraws(NamedTuple):
@@ -44,8 +53,10 @@ class StepDraws(NamedTuple):
 
     sel: Optional[torch.Tensor] = None     # (B*T, presample) presample indices
     start: Optional[torch.Tensor] = None   # (B*T,) FPS start indices
-    scores: Optional[torch.Tensor] = None  # (B*T, H*W) uniform pixel scores
+    scores: Optional[torch.Tensor] = None  # (B*T, H*W) uniform pixel scores (either mode)
     noise: Optional[torch.Tensor] = None   # (B*T, num_rays, M) standard normal
+    frustum_u: Optional[torch.Tensor] = None   # (B*T, N_free) uniform frustum depths
+    near_noise: Optional[torch.Tensor] = None  # (B*T, N_near, 3) standard normal
 
 
 def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
@@ -66,29 +77,61 @@ def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
 
 def sample_supervision_points(cfg: GenNerfConfig, batch: Dict[str, torch.Tensor],
                               generator: Optional[torch.Generator] = None,
-                              scores: Optional[torch.Tensor] = None,
-                              noise: Optional[torch.Tensor] = None) -> Dict:
-    """Ray-mode supervision points of every frame.
+                              draws: StepDraws = StepDraws()) -> Dict:
+    """Supervision points of every frame, in the config's sampling mode.
 
-    Returns xyz (B*T, R*S, 3) world points, S = 1 + N + M per ray, valid
-    (B*T, R*S, 1) float (each sample inherits its pixel's validity, so rays
-    backfilled from invalid pixels drop out of the loss) and
-    points_per_frame R*S."""
-    if cfg.sampling_mode != "ray":
-        raise NotImplementedError(f"sampling_mode {cfg.sampling_mode!r} is not ported")
+    Returns xyz (B*T, P, 3) world points and valid (B*T, P, 1) float,
+    P = points_per_frame. Ray mode: P = R*S, S = 1 + N + M samples a ray,
+    each inheriting its pixel's validity (rays backfilled from invalid
+    pixels drop out of the loss); with loss.use_gradient the pixels also
+    need a finite normal, and sampled_normals (B*T, R, 3) and grad_vec
+    (B*T, R, S-1, 3) (the negated bound gradients) come along. Frustum
+    mode: P = N_surf + N_near + N_free, the surface and near points valid
+    where their pixel's depth is, the free points always."""
     depth = batch["depth"]
     B, T, H, W = depth.shape
     BT = B * T
+    depth_bt = depth.reshape(BT, H, W)
+    intr_bt = batch["intrinsics"].reshape(BT, 3, 3)
+    pose_bt = batch["pose"].reshape(BT, 4, 4)
+    if cfg.sampling_mode == "frustum":
+        f = cfg.frustum
+        n_near = f.N_free + f.N_near
+        b, h, w, ok = sample_valid_depth_pixels(depth_bt, n_near + f.N_surf, generator,
+                                                draws.scores)
+        free_xyz, _ = sample_points_in_frustum(h[:, :f.N_free], w[:, :f.N_free], intr_bt, pose_bt,
+                                               f.d_min, f.d_max, generator, draws.frustum_u)
+        surface = get_3d_points(depth_bt, batch["projection"].reshape(BT, 3, 4))
+        surf_xyz = surface[b, h[:, n_near:], w[:, n_near:]]
+        near_xyz = surface[b, h[:, f.N_free:n_near], w[:, f.N_free:n_near]]
+        noise = draws.near_noise
+        if noise is None:
+            noise = draw_normal(near_xyz.shape, generator, near_xyz.device)
+        near_xyz = near_xyz + f.sigma * noise.to(near_xyz.device, near_xyz.dtype)
+        valid = torch.cat([ok[:, n_near:], ok[:, f.N_free:n_near],
+                           torch.ones_like(ok[:, :f.N_free])], dim=1)
+        return {"xyz": torch.cat([surf_xyz, near_xyz, free_xyz], dim=1),
+                "valid": valid[..., None].to(torch.float32), "points_per_frame": n_near + f.N_surf}
+    if cfg.sampling_mode != "ray":
+        raise NotImplementedError(f"sampling_mode {cfg.sampling_mode!r} is not ported")
     ray = cfg.ray
     R, S = ray.num_rays, 1 + ray.N + ray.M
-    depth_bt = depth.reshape(BT, H, W)
-    b, h, w, ok = sample_valid_depth_pixels(depth_bt, R, generator, scores)
-    xyz, _ = sample_points_on_rays(
-        h, w, depth_bt[b, h, w], batch["intrinsics"].reshape(BT, 3, 3),
-        batch["pose"].reshape(BT, 4, 4), N=ray.N, M=ray.M, delta=ray.delta,
-        min_dist=ray.d_min, sigma=ray.sigma, generator=generator, noise=noise)
+    out = {}
+    if cfg.loss.use_gradient:
+        normals = estimate_pointcloud_normals(
+            get_3d_points(depth_bt, batch["projection"].reshape(BT, 3, 4)))
+        b, h, w, ok = sample_valid_pixels(depth_bt, normals, R, generator, draws.scores)
+        out["sampled_normals"] = normals[b, h, w]
+    else:
+        b, h, w, ok = sample_valid_depth_pixels(depth_bt, R, generator, draws.scores)
+    sampled_depth = depth_bt[b, h, w]
+    xyz, z = sample_points_on_rays(
+        h, w, sampled_depth, intr_bt, pose_bt, N=ray.N, M=ray.M, delta=ray.delta,
+        min_dist=ray.d_min, sigma=ray.sigma, generator=generator, noise=draws.noise)
+    if cfg.loss.use_gradient:
+        out["grad_vec"] = -bounds_pc_batch(xyz, z, sampled_depth)[1]
     valid = ok[:, :, None].expand(BT, R, S).reshape(BT, R * S, 1).to(torch.float32)
-    return {"xyz": xyz.reshape(BT, R * S, 3), "valid": valid, "points_per_frame": R * S}
+    return {**out, "xyz": xyz.reshape(BT, R * S, 3), "valid": valid, "points_per_frame": R * S}
 
 
 def gen_nerf_forward_loss(model: GenNerf, batch: Dict[str, torch.Tensor],
@@ -111,16 +154,22 @@ def gen_nerf_forward_loss(model: GenNerf, batch: Dict[str, torch.Tensor],
         origin = torch.zeros(3, dtype=torch.float32, device=batch["image"].device)
     repr_ = model.encode(batch["projection"], batch["image"], batch["depth"], generator,
                          draws.sel, draws.start, voxel_dim or cfg.voxel_dim_train, origin)
-    sup = sample_supervision_points(cfg, batch, generator, draws.scores, draws.noise)
+    sup = sample_supervision_points(cfg, batch, generator, draws)
     BT, S = B * T, sup["points_per_frame"]
     xyz = sup["xyz"].reshape(B, T * S, 3)
-    outputs = model.decode(repr_, xyz, origin)
+    if cfg.loss.use_eikonal or cfg.loss.use_gradient:
+        outputs = model.decode_with_grad(repr_, xyz, origin)
+    else:
+        outputs = model.decode(repr_, xyz, origin)
     tsdf_vol = batch["vol_%02d_tsdf" % int(cfg.voxel_size * 100)]  # (B, 1, nx, ny, nz)
     target = trilinear_interpolation(tsdf_vol.permute(0, 2, 3, 4, 1), xyz, origin,
                                      cfg.voxel_size)
     outputs_bt = {k: v.reshape(BT, S, -1) for k, v in outputs.items()}
     targets_bt = {"tsdf": target.reshape(BT, S, 1), "valid": sup["valid"]}
-    _, losses = calculate_loss(cfg.loss, outputs_bt, targets_bt)
+    if cfg.loss.use_gradient:
+        targets_bt["sampled_normals"] = sup["sampled_normals"]
+        targets_bt["grad_vec"] = sup["grad_vec"]
+    _, losses = calculate_loss(cfg.loss, outputs_bt, targets_bt, num_rays=cfg.ray.num_rays)
     metrics = {k: v if k.endswith("_coverage") else v * T for k, v in losses.items()}
     return metrics["combined"], metrics
 

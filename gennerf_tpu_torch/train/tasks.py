@@ -11,7 +11,7 @@ Precision: `dtype_for_precision` maps trainer.precision onto the model's
 compute dtype. Under bf16-mixed the model computes in bfloat16 where flax
 does (explicit casts in each module, not torch.autocast, whose casts fall
 elsewhere); parameters, running statistics, the volume accumulator and
-the losses stay float32. GenNerf runs float32 only in this port so far.
+the losses stay float32. Both families take either precision.
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ def dtype_for_precision(precision) -> torch.dtype:
 class Task:
     name: str
     config_cls: type
-    model_cls: type  # model_cls(cfg, dtype=...); GenNerf raises for bfloat16
+    model_cls: type  # model_cls(cfg, dtype=...): float32 or bfloat16
     loss_key: str
     params_from_flax: Callable
     npz_tree: Callable

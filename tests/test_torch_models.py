@@ -233,9 +233,9 @@ def test_config_fields_match_jax():
     {"mlp": {"use_layer_norm": True}},
     {"encoder": {"pointnet": {"unet_kwargs": {"merge_mode": "add"}}}},
     {"encoder": {"use_pointnet": False}},
-    {"sampling_mode": "frustum"},
-    {"loss": {"use_eikonal": True}},
-    {"loss": {"use_gradient": True}},
+    {"sampling_mode": "grid"},
+    {"sampling_mode": "frustum", "loss": {"use_gradient": True}},
+    {"encoder": {"use_spatial": True, "spatial": {"upsample_interp": "nearest"}}},
     {"loss": {"use_distill": True}},
     {"teacher": {"type": "random_projection"}},
     {"optimizer": {"type": "SGD"}},
@@ -256,5 +256,9 @@ def test_unsupported_options_raise(override):
 
 
 def test_bf16_precision_raises():
-    with pytest.raises(NotImplementedError):
-        GenNerf(config_from_dict(GenNerfConfig, SMALL_CFG), dtype=torch.bfloat16)
+    """GenNerf computes in float32 or bfloat16 (bf16-mixed; the JAX
+    package maps 16-mixed onto bf16 too): float16 raises, bf16 builds."""
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        GenNerf(config_from_dict(GenNerfConfig, SMALL_CFG), dtype=torch.float16)
+    assert GenNerf(config_from_dict(GenNerfConfig, SMALL_CFG), dtype=torch.bfloat16).dtype == \
+        torch.bfloat16

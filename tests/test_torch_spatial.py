@@ -691,7 +691,7 @@ def test_check_supported_spatial_configs():
         with pytest.raises(NotImplementedError, match=match):
             GenNerf(config_from_dict(GenNerfConfig, cfg))
     with pytest.raises(NotImplementedError, match="float32"):
-        GenNerf(config_from_dict(GenNerfConfig, base), dtype=torch.bfloat16)
+        GenNerf(config_from_dict(GenNerfConfig, base), dtype=torch.float16)
     with pytest.raises(ValueError, match="voxel_dim"):
         GenNerf(config_from_dict(GenNerfConfig, base)).encode(
             torch.zeros(1, 1, 3, 4), torch.zeros(1, 1, 3, 8, 8), torch.zeros(1, 1, 8, 8))

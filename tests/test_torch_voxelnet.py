@@ -89,7 +89,7 @@ from gennerf_tpu_torch.models.config import (
 from gennerf_tpu_torch.models.heads import VoxelHeads, upsample2x_nearest3d
 from gennerf_tpu_torch.models.voxel_net import VoxelNet
 from gennerf_tpu_torch.predict import main as predict_main
-from gennerf_tpu_torch.predict import reconstruct
+from gennerf_tpu_torch.predict import build_model, reconstruct
 from gennerf_tpu_torch.render import main as render_main
 from gennerf_tpu_torch.train.__main__ import main as train_main
 from gennerf_tpu_torch.train.state import make_optimizer
@@ -273,16 +273,20 @@ def test_drive_config_is_supported():
 
 @pytest.mark.parametrize("precision", ["bf16-mixed", "16-mixed"])
 def test_gen_nerf_under_bf16_still_raises(tmp_path, precision):
-    """GenNerf's bf16 path is the next slice: the train and predict CLIs
-    refuse a GenNerf config under a mixed precision."""
+    """A GenNerf config under a mixed precision builds in bf16 now
+    (tests/test_torch_gennerf_bf16.py); an option still unported raises
+    under it as under float32, in the train and predict CLIs alike."""
     exp = os.path.join(REPO, "configs", "experiment", "seqs_multigeo_4cm.yaml")
-    with pytest.raises(NotImplementedError):
+    unported = "model.loss.use_distill=true"
+    with pytest.raises(NotImplementedError, match="use_distill"):
         train_main(["--config", exp, "--out", str(tmp_path / "run"), "--synthetic",
-                    "--device", "cpu", f"trainer.precision={precision}"])
-    with pytest.raises(NotImplementedError):
+                    "--device", "cpu", f"trainer.precision={precision}", unported])
+    with pytest.raises(NotImplementedError, match="use_distill"):
         predict_main(["--config", exp, "--frames", str(tmp_path / "f.npz"),
                       "--out", str(tmp_path / "o.npz"), "--device", "cpu",
-                      f"trainer.precision={precision}"])
+                      f"trainer.precision={precision}", unported])
+    model = build_model(load_experiment_model_config(exp), "cpu", 0, precision)
+    assert model.dtype == torch.bfloat16
 
 
 def test_render_cli_refuses_voxel_net(tmp_path):
