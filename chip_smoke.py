@@ -83,11 +83,12 @@ from csrc/host/ with the host C++ compiler, then:
      validation, counters reset just before and read just after (K1 =
      steps + eval batches + tails, K2 0: the volume scene decodes in f32);
      on one loader batch the remat step against the step without remat
-     (loss, gradients, running statistics, peak memory of each), K1 against
-     the plain FPS, the frame_chunk encode against the one-pass encode in
-     eval mode; timed and profiled train steps; a held-out `reconstruct`
-     at 96x96x56 (K1 once, K2 0, finite, inside the head's range), its
-     total and decode ms and a profile;
+     under deterministic algorithms (loss, gradients, running statistics,
+     peak memory of each), K1 against the plain FPS, the frame_chunk
+     encode against the one-pass encode in eval mode; timed and profiled
+     train steps; a held-out `reconstruct` at 96x96x56 (K1 once, K2 0,
+     finite, inside the head's range), its total and decode ms and a
+     profile;
  11. voxelnet: configs/experiment/seqs_multigeo_voxelnet.yaml at full width
      in the precision it asks for, bf16-mixed (ResNet-18 stem and 2 stages
      at feature_scale 2.0 on the loaders' 480x640 frames, 32 channels
@@ -140,9 +141,34 @@ from csrc/host/ with the host C++ compiler, then:
      view through K3 against the plain march (a tenth of the rays hitting,
      masks and depths agreeing); one bf16 step of seqs_multigeo_spatial
      (K1 once, the loss within 2e-2 of the float32 loss);
+ 13. distill: scans/scene_synth0 (24 frames) written by the port's
+     `generate_scene`; configs/experiment/distill_synthetic.yaml and
+     distill_render_synthetic.yaml at their own width (pointnet c_dim 32,
+     64x64 planes, UNet depth 3, 256 sparse points; ResnetFC H 256 x 5
+     with d_out_geo 64 + d_out_sem 64; the random-projection teacher, 64
+     channels; float32) each through the train CLI for its 10 epochs,
+     validating every 5, counters reset just before and read just after
+     (K1 = steps + eval batches + tails, K2 = tails), every epoch's
+     train_distill, distill_coverage (> 0 in every epoch), valid_coverage,
+     train_tsdf and, in render mode, render_hit_rate, and the validations'
+     val_distill; for each mode one float32 step's loss on the card
+     against the CPU on the CPU's sparse and supervision points (and, in
+     render mode, the CPU's march) within 1e-5, the card's own march
+     against the CPU's (99% of the hit masks agree, the crossings within
+     1e-3 m); timed and profiled steps of each mode; on the trained
+     surface model's head (d_geo 64, lin_out 128 wide) K2 through
+     `reconstruct` of the scene's test frames against the plain bf16-feed
+     decode (the field centred first if a tenth of it is not live), K3 at
+     2^18 points against its plain version and a test view through K3
+     against the plain march; the surface experiment with use_auxiliary
+     (the teacher's 64 channels backprojected beside the planes, d_in 96):
+     one step, the card against the CPU, and a `reconstruct` and a
+     `render_views` launching K1 twice and K2 and K3 0 times;
 then a `kernels` JSON line, the nvidia-smi line and the final result line.
 Every phase raises on failure. Needs one CUDA card; exits non-zero without.
 """
+import contextlib
+import csv
 import dataclasses
 import json
 import math
@@ -207,9 +233,10 @@ SPATIAL_EXPERIMENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "configs", "experiment", "seqs_multigeo_spatial.yaml")
 SPATIAL_BACKBONE = "random:resnet34"
 SPATIAL_EPOCHS, SPATIAL_TIMED_STEPS = 1, 5
-# remat against no remat on one batch, same weights and draws: the same
-# arithmetic, recomputed, so the loss and the running statistics agree to
-# the atomics' order of the gathers' backward, the gradients as K1's do
+# remat against no remat on one batch, same weights and draws, under
+# deterministic algorithms: the same arithmetic, recomputed, so the loss,
+# the gradients and the running statistics agree but for the ops that
+# have no deterministic version
 REMAT_LOSS_RTOL, REMAT_GRAD_TOL, REMAT_STATS_TOL = 1e-5, 1e-4, 1e-6
 # frame_chunk 1 against the one-pass encode in eval mode: the same
 # convolutions on a batch of 1 or of 8 frames (cuDNN may pick another
@@ -268,6 +295,14 @@ FLAGSHIP_DEVICE_TOL = 1e-4
 # lie beyond that limit; the loss is held to the CPU's float32 loss
 # (TRAIN_LOSS_RTOL)
 EIKONAL_SEEDS, EIKONAL_NOISE_FACTOR = 4, 5.0
+# the distill phase: both distillation experiments at their own widths on
+# their scene (scans/scene_synth0, 24 frames as their sequence_length asks),
+# timed steps of each mode, and the surface experiment with the teacher's
+# features backprojected into a volume beside the planes (use_auxiliary)
+DISTILL_EXPERIMENT = os.path.join(_CONFIGS, "distill_synthetic.yaml")
+DISTILL_RENDER_EXPERIMENT = os.path.join(_CONFIGS, "distill_render_synthetic.yaml")
+DISTILL_FRAMES, DISTILL_WARMUP, DISTILL_TIMED_STEPS = 24, 2, 8
+AUX_OVERRIDES = ("model.encoder.use_auxiliary=true", "model.encoder.auxiliary_dim=64")
 # a field sample counts as live below 0.9 of the head's bound (tanh not
 # saturated); a kernel check or a march on the flagship needs a tenth of
 # its samples live and a tenth of the rays hitting, ten times the rays the
@@ -296,6 +331,25 @@ def host_ms(torch, fn, reps: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """torch's deterministic algorithms (warn only, for the ops that have
+    none) and cuDNN's inside, the previous settings restored on exit.
+    Without them scatter_add's and index_put's atomics add in any order,
+    which a gradient that cancels to a small sum, like a bias's on a
+    480x640 batch, magnifies to 1e-3 of its max-abs."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled(),
+              torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        torch.backends.cudnn.deterministic = before[2]
 
 
 def profile_device(torch, fn, total_ms: float, card: str) -> dict:
@@ -388,16 +442,71 @@ def plane_coverage(torch, model, points) -> dict:
     return out
 
 
+def cpu_inputs(torch, dev, cfg_, batch_, draws_):
+    """A context factory in which the encoder's sparse points (its FPS
+    picks of the CPU's clouds) and the step's supervision points are the
+    CPU's, on either device, for the card-against-CPU comparisons. Each
+    device unprojects the clouds and the rays itself (its own matrix
+    inverse and products, an ulp apart), which can flip a near-tie of
+    FPS and so the point set, and move a point across a plane cell, a
+    texel, a voxel or the eikonal gate, where the planes, the decoded
+    gradient and the loss jump; the count of K1's picks on the card's
+    own clouds that differ is returned beside it."""
+    from unittest import mock
+
+    from gennerf_tpu_torch.models import gen_nerf as gen_nerf_module
+    from gennerf_tpu_torch.ops.projection import get_3d_points
+    from gennerf_tpu_torch.ops.sampling import (
+        farthest_point_sample_plain, fps_cuda, uniform_presample,
+    )
+    from gennerf_tpu_torch.train import step as step_module
+
+    B_, T_, H_, W_ = batch_["depth"].shape
+    pn = cfg_.encoder.pointnet
+    cpu = torch.device("cpu")
+
+    def clouds(device):
+        c = get_3d_points(batch_["depth"].to(device).reshape(B_ * T_, H_, W_),
+                          batch_["projection"].to(device).reshape(B_ * T_, 3, 4))
+        return uniform_presample(c.reshape(B_ * T_, -1, 3), pn.fps_presample,
+                                 sel=draws_.sel.to(device)).contiguous()
+
+    cloud = clouds(cpu)
+    idx = farthest_point_sample_plain(cloud, pn.num_sparse_points, draws_.start.cpu())
+    sparse = torch.gather(cloud, 1, idx.long()[..., None].expand(-1, -1, 3))
+    on_card = fps_cuda(clouds(dev), pn.num_sparse_points, draws_.start.to(dev, torch.int32))
+    mismatches = int((on_card.cpu() != idx).sum())
+    sup = step_module.sample_supervision_points(
+        cfg_, {k: v.to(cpu) for k, v in batch_.items()},
+        draws=draws_._replace(**{k: getattr(draws_, k).to(cpu) for k in draws_._fields
+                                 if getattr(draws_, k) is not None}))
+
+    def fps(xyz, npoint, generator=None, start=None):
+        return sparse.to(xyz.device, xyz.dtype), idx.to(xyz.device)
+
+    def supervision(cfg__, b, generator=None, draws=None):
+        def to(v):
+            return v.to(b["depth"].device, b["depth"].dtype) if v.is_floating_point() else \
+                v.to(b["depth"].device)
+        return {k: to(v) if isinstance(v, torch.Tensor) else v for k, v in sup.items()}
+
+    def patched():
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(gen_nerf_module, "farthest_point_sample", fps))
+        stack.enter_context(mock.patch.object(step_module, "sample_supervision_points",
+                                              supervision))
+        return stack
+
+    return patched, mismatches
+
+
 def k1_step_vs_plain(torch, dev, model, batch: dict, seed: int) -> dict:
     """One train step's loss and gradients with K1 against the same step
     with the plain FPS patched into the encoder, on the same weights and
     draws; raises when they disagree beyond TRAIN_LOSS_RTOL and
-    TRAIN_GRAD_TOL. The steps run with torch's deterministic algorithms
-    (scatter_add's atomics otherwise add in any order, which a gradient
-    that cancels to a small sum, like a UNet bias's on a 480x640 batch,
-    magnifies to 1e-3 of its max-abs); the K1 step runs twice to show that
-    floor. These launches are a comparison, not the main path."""
-    import contextlib
+    TRAIN_GRAD_TOL. The steps run under `deterministic_algorithms`; the K1
+    step runs twice to show that floor. These launches are a comparison,
+    not the main path."""
     from unittest import mock
 
     from gennerf_tpu_torch.models import gen_nerf as gen_nerf_module
@@ -427,17 +536,10 @@ def k1_step_vs_plain(torch, dev, model, batch: dict, seed: int) -> dict:
         return {n: float((a[n] - b[n]).abs().max()) / max(float(b[n].abs().max()), 1e-30)
                 for n in b}
 
-    deterministic = (torch.are_deterministic_algorithms_enabled(),
-                     torch.backends.cudnn.deterministic)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.deterministic = True
-    try:
+    with deterministic_algorithms(torch):
         loss_k, grads_k, k1_kernel = one_step(plain=False)
         _, grads_k2, _ = one_step(plain=False)
         loss_p, grads_p, k1_plain = one_step(plain=True)
-    finally:
-        torch.use_deterministic_algorithms(deterministic[0])
-        torch.backends.cudnn.deterministic = deterministic[1]
     model.zero_grad(set_to_none=True)
     err = grad_err(grads_k, grads_p)
     worst = max(err, key=err.get)
@@ -635,7 +737,7 @@ def data_phase(torch, dev, smi: str, root: str) -> dict:
                                         monitor=ckpt_cfg["monitor"], mode=ckpt_cfg["mode"])
         trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), run_dir,
                           max_epochs=DATA_EPOCHS, check_val_every_n_epoch=1,
-                          checkpoints=checkpoints)
+                          checkpoints=checkpoints, num_sanity_val_steps=0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
@@ -848,7 +950,7 @@ def spatial_phase(torch, dev, smi: str, root: str) -> dict:
                                         monitor=ckpt_cfg["monitor"], mode=ckpt_cfg["mode"])
         trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), run_dir,
                           max_epochs=SPATIAL_EPOCHS, check_val_every_n_epoch=1,
-                          checkpoints=checkpoints)
+                          checkpoints=checkpoints, num_sanity_val_steps=0)
         encodes = []
 
         def counted(fn):
@@ -895,7 +997,8 @@ def spatial_phase(torch, dev, smi: str, root: str) -> dict:
         B, T, H, W = batch["depth"].shape
         fitted = {k: v.clone() for k, v in model.state_dict().items()}
 
-        # remat against no remat: one forward and backward in training mode
+        # remat against no remat: one forward and backward in training mode,
+        # deterministic algorithms where torch has them
         g = torch.Generator(device=dev).manual_seed(SEED)
         presample = mcfg.encoder.pointnet.fps_presample
         draws = StepDraws(
@@ -919,8 +1022,9 @@ def spatial_phase(torch, dev, smi: str, root: str) -> dict:
             return (float(loss.detach()), {n: p.grad.clone() for n, p in m.named_parameters()},
                     stats, torch.cuda.max_memory_allocated(), (time.perf_counter() - t) * 1e3)
 
-        loss_r, grads_r, stats_r, peak_r, ms_r = forward_backward(model)
-        loss_p, grads_p, stats_p, peak_p, ms_p = forward_backward(plain)
+        with deterministic_algorithms(torch):
+            loss_r, grads_r, stats_r, peak_r, ms_r = forward_backward(model)
+            loss_p, grads_p, stats_p, peak_p, ms_p = forward_backward(plain)
         grad_err = {n: float((grads_r[n] - grads_p[n]).abs().max())
                     / max(float(grads_p[n].abs().max()), 1e-30) for n in grads_p}
         stats_err = max(float((stats_r[k] - stats_p[k]).abs().max())
@@ -1077,7 +1181,7 @@ def voxelnet_phase(torch, dev, smi: str, root: str) -> dict:
                                         monitor=ckpt_cfg["monitor"], mode=ckpt_cfg["mode"])
         trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), run_dir,
                           max_epochs=VOXELNET_EPOCHS, check_val_every_n_epoch=1,
-                          checkpoints=checkpoints)
+                          checkpoints=checkpoints, num_sanity_val_steps=0)
 
         # the main path: the fit over the loaders with its validation and
         # reconstruction tail, in bf16-mixed
@@ -1207,13 +1311,10 @@ def voxelnet_phase(torch, dev, smi: str, root: str) -> dict:
                     {k: v.clone() for k, v in m.state_dict().items() if "running_" in k},
                     torch.cuda.max_memory_allocated(), (time.perf_counter() - t) * 1e3)
 
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
+        with deterministic_algorithms(torch):
             loss_r, grads_r, stats_r, peak_r, ms_r = forward_backward(
                 fresh(dev, torch.bfloat16, remat=True))
             loss_p, grads_p, stats_p, peak_p, ms_p = forward_backward(fresh(dev, torch.bfloat16))
-        finally:
-            torch.use_deterministic_algorithms(False)
         grad_err = {n: float((grads_r[n] - grads_p[n]).abs().max())
                     / max(float(grads_p[n].abs().max()), 1e-30) for n in grads_p}
         stats_err = max(float((stats_r[k] - stats_p[k]).abs().max())
@@ -1316,7 +1417,6 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
     from gennerf_tpu_torch.data.datasets import load_info_json, parse_splits_list
     from gennerf_tpu_torch.data.synthetic import ring_frames
     from gennerf_tpu_torch.eval import evaluation
-    from gennerf_tpu_torch.models import gen_nerf as gen_nerf_module
     from gennerf_tpu_torch.models.gen_nerf import GenNerf
     from gennerf_tpu_torch.ops import grid_decode as grid_decode_module
     from gennerf_tpu_torch.ops import kernels
@@ -1378,7 +1478,8 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
                                         mode=ckpt_cfg.get("mode", "min"))
         trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), run_dir,
                           max_epochs=FLAGSHIP_EPOCHS, check_val_every_n_epoch=1,
-                          checkpoints=checkpoints, precision=precision)
+                          checkpoints=checkpoints, precision=precision,
+                          num_sanity_val_steps=0)
         datamodule = ScannetDataModule(cfg["data"], seed=SEED)
         encodes = []
 
@@ -1440,56 +1541,6 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
     def grads_finite(model):
         return all(p.grad is None or bool(torch.isfinite(p.grad).all())
                    for p in model.parameters())
-
-    def cpu_inputs(cfg_, batch_, draws_):
-        """A context factory in which the encoder's sparse points (its FPS
-        picks of the CPU's clouds) and the step's supervision points are the
-        CPU's, on either device, for the card-against-CPU comparisons. Each
-        device unprojects the clouds and the rays itself (its own matrix
-        inverse and products, an ulp apart), which can flip a near-tie of
-        FPS and so the point set, and move a point across a plane cell, a
-        texel, a voxel or the eikonal gate, where the planes, the decoded
-        gradient and the loss jump; the count of K1's picks on the card's
-        own clouds that differ is returned beside it."""
-        import contextlib
-
-        B_, T_, H_, W_ = batch_["depth"].shape
-        pn = cfg_.encoder.pointnet
-        cpu = torch.device("cpu")
-
-        def clouds(device):
-            c = get_3d_points(batch_["depth"].to(device).reshape(B_ * T_, H_, W_),
-                              batch_["projection"].to(device).reshape(B_ * T_, 3, 4))
-            return uniform_presample(c.reshape(B_ * T_, -1, 3), pn.fps_presample,
-                                     sel=draws_.sel.to(device)).contiguous()
-
-        cloud = clouds(cpu)
-        idx = farthest_point_sample_plain(cloud, pn.num_sparse_points, draws_.start.cpu())
-        sparse = torch.gather(cloud, 1, idx.long()[..., None].expand(-1, -1, 3))
-        on_card = fps_cuda(clouds(dev), pn.num_sparse_points, draws_.start.to(dev, torch.int32))
-        mismatches = int((on_card.cpu() != idx).sum())
-        sup = step_module.sample_supervision_points(
-            cfg_, {k: v.to(cpu) for k, v in batch_.items()},
-            draws=draws_._replace(**{k: getattr(draws_, k).to(cpu) for k in draws_._fields
-                                     if getattr(draws_, k) is not None}))
-
-        def fps(xyz, npoint, generator=None, start=None):
-            return sparse.to(xyz.device, xyz.dtype), idx.to(xyz.device)
-
-        def supervision(cfg__, b, generator=None, draws=None):
-            def to(v):
-                return v.to(b["depth"].device, b["depth"].dtype) if v.is_floating_point() else \
-                    v.to(b["depth"].device)
-            return {k: to(v) if isinstance(v, torch.Tensor) else v for k, v in sup.items()}
-
-        def patched():
-            stack = contextlib.ExitStack()
-            stack.enter_context(mock.patch.object(gen_nerf_module, "farthest_point_sample", fps))
-            stack.enter_context(mock.patch.object(step_module, "sample_supervision_points",
-                                                  supervision))
-            return stack
-
-        return patched, mismatches
 
     with tempfile.TemporaryDirectory() as tmp:
         # the main path: one epoch of the flagship over the loaders in bf16-mixed
@@ -1576,7 +1627,7 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
 
         # the float32 forward on the card (TF32 off) against the CPU, train
         # mode, on the CPU's FPS picks
-        same_inputs, fps_flips = cpu_inputs(mcfg, batch, draws)
+        same_inputs, fps_flips = cpu_inputs(torch, dev, mcfg, batch, draws)
         outs = {}
         for device in (dev, torch.device("cpu")):
             m = fresh(device, torch.float32).train()
@@ -1638,12 +1689,11 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
         runs = (("card", dev, f32, f32), ("cpu", cpu, f32, f32), ("cpu_f64", cpu, f64, f32),
                 ("card_bf16", dev, f32, bf16))
         eik_seeds = []
-        deterministic = torch.are_deterministic_algorithms_enabled()
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
+        with deterministic_algorithms(torch):
             for seed in range(SEED + 2, SEED + 2 + EIKONAL_SEEDS):
                 eik_draws = ray_draws(torch, cpu, eik_model.cfg, batch, seed)
-                same_inputs, eik_fps_flips = cpu_inputs(eik_model.cfg, batch, eik_draws)
+                same_inputs, eik_fps_flips = cpu_inputs(torch, dev, eik_model.cfg, batch,
+                                                         eik_draws)
                 steps_ = {}
                 for name, device, dtype, compute in runs:
                     m = fresh(device, compute, eik_model.cfg, eik_state).to(dtype).train()
@@ -1682,8 +1732,6 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
                                          for k in ("card", "card_bf16")},
                     "k1_on_card_clouds_index_mismatches": eik_fps_flips})
                 del steps_
-        finally:
-            torch.use_deterministic_algorithms(deterministic)
         if not all(r["loss_rel_err"] <= TRAIN_LOSS_RTOL
                    and r["ratio_to_cpu_f32"]["card"] <= EIKONAL_NOISE_FACTOR
                    < r["ratio_to_cpu_f32"]["card_bf16"] for r in eik_seeds):
@@ -1955,6 +2003,363 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
     errors = {"fps": float((idx_k - idx_p).abs().max()),
               "grid_decode": max(pred_grid[0], recon_grid[0]),
               "point_decode": k3_rec["max_abs_err"]}
+    return totals, errors
+
+
+def distill_phase(torch, dev, smi: str, root: str) -> tuple:
+    """Phase 13 (see the module docstring); returns the launch counts of
+    the main-path runs (the two fits through the train CLI, the timed
+    steps of each mode, the trained model's reconstruct and its held-out
+    view through K3, the use_auxiliary step, reconstruct and render) and
+    K2's and K3's largest errors against their plain versions in the
+    phase."""
+    from unittest import mock
+
+    import numpy as np
+
+    from gennerf_tpu_torch.data.datamodule import ScannetDataModule
+    from gennerf_tpu_torch.data.synthetic import generate_scene
+    from gennerf_tpu_torch.models.positional_encoding import positional_encoding
+    from gennerf_tpu_torch.ops import grid_decode as grid_decode_module
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.ops.grid_decode import extract_resnetfc_weights
+    from gennerf_tpu_torch.ops.point_decode import (
+        fused_resnetfc_tsdf_cuda, fused_resnetfc_tsdf_plain, pack_point_weights,
+    )
+    from gennerf_tpu_torch.predict import build_model, reconstruct
+    from gennerf_tpu_torch.render import render_encoded, render_views
+    from gennerf_tpu_torch.train import loop as loop_module
+    from gennerf_tpu_torch.train import step as step_module
+    from gennerf_tpu_torch.train.__main__ import main as train_main
+    from gennerf_tpu_torch.train.predict import (
+        dense_grid_points, make_point_tsdf_fn, triplane_feat_fast, triplane_gather_setup,
+        uses_grid_decode,
+    )
+    from gennerf_tpu_torch.train.state import make_optimizer
+    from gennerf_tpu_torch.train.step import batch_to_device, gen_nerf_forward_loss, train_step
+
+    totals = {k.name: 0 for k in kernels.KERNELS}
+
+    def read_launches():
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        for name, n in counts.items():
+            totals[name] += n
+        return counts
+
+    t0 = time.perf_counter()
+    info = generate_scene(root, num_frames=DISTILL_FRAMES)
+    scene_s = time.perf_counter() - t0
+    cpu = torch.device("cpu")
+
+    def fit(path, run_dir):
+        """The train CLI on the config (its 10 epochs, validation every 5),
+        counters reset just before and read just after; each epoch's row
+        of metrics.csv. Returns (trainer, record)."""
+        evals = []
+
+        def counted(fn):
+            def wrapper(*a, **k):
+                evals.append(fn.__name__)
+                return fn(*a, **k)
+            return wrapper
+
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with mock.patch.object(loop_module, "eval_step", counted(loop_module.eval_step)), \
+                mock.patch.object(loop_module, "reconstruct", counted(loop_module.reconstruct)):
+            t0 = time.perf_counter()
+            trainer = train_main(["--config", path, "--data-dir", root, "--out", run_dir,
+                                  "--device", dev.type])
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        launches = read_launches()
+        with open(os.path.join(run_dir, "metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        keys = ("train_tsdf", "train_distill", "train_distill_coverage",
+                "train_valid_coverage", "train_render_hit_rate", "train_combined")
+        last = {int(float(r["epoch"])): r for r in rows if r.get("step_ms")}  # an epoch's last row
+        epochs = [{k: float(last[e][k]) for k in keys if last[e].get(k)} for e in sorted(last)]
+        val = [{k: float(v) for k, v in r.items() if v and k.startswith("val_")}
+               for r in rows if r.get("val_distill")]
+        n_eval, n_tail = evals.count("eval_step"), evals.count("reconstruct")
+        steps = trainer.global_step
+        rec = {"steps": steps, "eval_batches": n_eval, "tails": n_tail, "launches": launches,
+               "fit_s": fit_s, "epochs": epochs, "validations": val,
+               "step_ms_median": statistics.median(t["step_ms"] for t in trainer.timings),
+               "data_wait_ms_median": statistics.median(
+                   t["data_wait_ms"] for t in trainer.timings)}
+        losses = [v for e in epochs + val for k, v in e.items() if not k.endswith("_rate")]
+        if not (len(epochs) == trainer.max_epochs and val and all(map(math.isfinite, losses))
+                and all(e["train_distill_coverage"] > 0 for e in epochs)
+                and launches["fps"] == steps + n_eval + n_tail
+                and launches["grid_decode"] == n_tail):
+            raise RuntimeError(f"the {os.path.basename(path)} fit: {rec}")
+        return trainer, rec
+
+    def draws_for(model, batch, seed):
+        """ray_draws plus distinct render-pixel scores."""
+        B, T, H, W = batch["depth"].shape
+        g = torch.Generator(device=dev).manual_seed(seed + 100)
+        return ray_draws(torch, dev, model.cfg, batch, seed)._replace(
+            render_scores=torch.argsort(torch.rand((B * T, H * W), generator=g, device=dev),
+                                        dim=1).to(torch.float32) / (H * W))
+
+    def card_vs_cpu(model, batch, seed):
+        """The float32 forward loss of one train-mode step on the card and
+        on the CPU, both on the CPU's sparse and supervision points and,
+        in render mode, the CPU's march; the card's own march against the
+        CPU's (hit masks, and depths where both hit)."""
+        draws = draws_for(model, batch, seed)
+        same_inputs, fps_flips = cpu_inputs(torch, dev, model.cfg, batch, draws)
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        real_march = step_module.render_distill_points
+        marches = {}
+        losses = {}
+        for device in (cpu, dev):
+            m = build_model(model.cfg, device)
+            m.load_state_dict(state)
+            m.train()
+            d = draws._replace(**{k: getattr(draws, k).to(device) for k in draws._fields
+                                  if getattr(draws, k) is not None})
+
+            def march(*a, _device=device, **k):
+                own = real_march(*a, **k)
+                marches[_device.type] = [t.cpu() for t in own]
+                return tuple(t.to(_device) for t in marches["cpu"])
+
+            with torch.no_grad(), same_inputs(), \
+                    mock.patch.object(step_module, "render_distill_points", march):
+                loss, metrics = gen_nerf_forward_loss(
+                    m, {k: v.to(device) for k, v in batch.items()}, draws=d)
+            losses[device.type] = (float(loss), {k: float(v) for k, v in metrics.items()})
+            del m
+        rec = {"loss_cpu": losses["cpu"][0], "loss_card": losses[dev.type][0],
+               "loss_rel_err": abs(losses[dev.type][0] - losses["cpu"][0])
+               / abs(losses["cpu"][0]),
+               "metrics_card": losses[dev.type][1],
+               "k1_on_card_clouds_index_mismatches": fps_flips}
+        if marches:
+            (p_c, _, _, _, hit_c), (p_d, _, _, _, hit_d) = marches["cpu"], marches[dev.type]
+            both = (hit_c & hit_d).reshape(-1)
+            dist = (p_c.reshape(-1, 3) - p_d.reshape(-1, 3)).norm(dim=-1)[both]
+            rec.update(hit_agree=float((hit_c == hit_d).double().mean()),
+                       hit_share_cpu=float(hit_c.double().mean()),
+                       both_hit_rays=int(both.sum()),
+                       point_dist_max_m=float(dist.max()) if dist.numel() else 0.0)
+        if not (rec["loss_rel_err"] <= TRAIN_LOSS_RTOL
+                and rec.get("hit_agree", 1.0) >= RENDER_MASK_AGREE
+                and rec.get("point_dist_max_m", 0.0) <= RENDER_DEPTH_TOL):
+            raise RuntimeError(f"a distillation step on the card and on the CPU disagree: {rec}")
+        return rec
+
+    def timed_steps(model, opt, batch):
+        """DISTILL_WARMUP + DISTILL_TIMED_STEPS synchronized train steps
+        (counters reset just before and read just after), then a profiled
+        step."""
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        kernels.reset_launch_counts()
+        ms = []
+        for _ in range(DISTILL_WARMUP + DISTILL_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = train_step(model, opt, batch, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches()
+        med = statistics.median(ms[DISTILL_WARMUP:])
+        prof = profile_device(torch, lambda: train_step(model, opt, batch, gen), med, smi)
+        rec = {"step_ms_median": med, "step_ms_all": ms, "launches": launches,
+               "metrics": {k: float(v) for k, v in metrics.items()},
+               "device_busy_ms": prof["device_busy_ms"],
+               "device_idle_share": prof["device_idle_share"], "top": prof["top"][:6]}
+        if launches["fps"] != len(ms) or not all(map(math.isfinite, rec["metrics"].values())):
+            raise RuntimeError(f"the timed distillation steps: {rec}")
+        return rec
+
+    with tempfile.TemporaryDirectory() as tmp:
+        modes, steps_rec, device_rec = {}, {}, {}
+        trained = data_cfg = None
+        for name, path in (("surface", DISTILL_EXPERIMENT),
+                           ("render", DISTILL_RENDER_EXPERIMENT)):
+            trainer, modes[name] = fit(path, os.path.join(tmp, name))
+            model = trainer.model
+            if not (model.teacher is not None and model.cfg.loss.distill.mode == name
+                    and model.cfg.mlp.d_out_geo == 64 and model.cfg.mlp.d_out_sem == 64
+                    and uses_grid_decode(model)):
+                raise RuntimeError(f"not the {name} distillation model: {model.cfg}")
+            cfg = experiment_config(path, [f"paths.data_dir={root}"])
+            batch = batch_to_device(next(iter(ScannetDataModule(cfg["data"], seed=SEED)
+                                              .train_dataloader())), dev)
+            device_rec[name] = card_vs_cpu(model, batch, SEED + 5)
+            steps_rec[name] = timed_steps(model, trainer.optimizer, batch)
+            if name == "surface":
+                trained, data_cfg = model, cfg["data"]
+            else:
+                del model
+            del trainer
+        model = trained.eval()
+        mcfg = model.cfg
+        bound = mcfg.mlp.head_smoothing
+
+        # K2 on the trained distillation head (d_geo 64, lin_out 128 wide):
+        # the scene's test frames through reconstruct, the field centred
+        # first if it is saturated there
+        scene_batch = next(iter(ScannetDataModule(data_cfg, seed=SEED).predict_dataloader()))
+        view = {k: torch.as_tensor(scene_batch[k][0]).to(dev)
+                for k in ("projection", "image", "depth", "intrinsics", "pose")}
+        frames = (view["projection"], view["image"], view["depth"])
+        decoded = []
+        real_k2 = grid_decode_module.grid_decode_cuda
+
+        def recording_k2(tables, weights):
+            out = real_k2(tables, weights)
+            decoded.append((tables, weights, out))
+            return out
+
+        def k2_reconstruct():
+            decoded.clear()
+            kernels.reset_launch_counts()
+            with mock.patch.object(grid_decode_module, "grid_decode_cuda", recording_k2):
+                vol = reconstruct(model, *frames, mcfg.voxel_dim_test,
+                                  torch.Generator().manual_seed(SEED))
+            torch.cuda.synchronize()
+            launches = read_launches()
+            tables, weights, out = decoded[0]
+            err = (out - grid_decode_module.separable_grid_decode_plain(
+                tables, weights, bf16_feeds=True)).abs()
+            return {"launches": launches, "max_abs_err": float(err.max()),
+                    "mean_abs_err": float(err.mean()),
+                    "live_share": float((out.abs() < FIELD_LIVE * bound).double().mean()),
+                    "finite": bool(torch.isfinite(vol).all()),
+                    "d_in": int(weights["w_in"].shape[0])}
+
+        k2_rec = {"trained": k2_reconstruct(), "field_shift": 0.0}
+        k2_final = k2_rec["trained"]
+        grid_pts = dense_grid_points(mcfg.voxel_dim_test, mcfg.voxel_size, (0, 0, 0), dev)
+        if k2_final["live_share"] < FIELD_MIN_LIVE_SHARE:
+            with torch.no_grad():
+                repr_ = model.encode(*(f[None] for f in frames),
+                                     torch.Generator().manual_seed(SEED))
+            k2_rec["field_shift"] = center_field(torch, model, repr_, grid_pts)
+            k2_rec["centred"] = k2_final = k2_reconstruct()
+        if not (k2_final["launches"]["grid_decode"] == 1 and k2_final["launches"]["fps"] == 1
+                and k2_final["finite"] and k2_final["live_share"] >= FIELD_MIN_LIVE_SHARE
+                and max(r["max_abs_err"] for r in k2_rec.values() if isinstance(r, dict))
+                <= GRID_MAX_ABS_TOL
+                and max(r["mean_abs_err"] for r in k2_rec.values() if isinstance(r, dict))
+                <= GRID_MEAN_ABS_TOL):
+            raise RuntimeError(f"K2 on the distillation head: {k2_rec}")
+
+        # K3 on the same head: points in the test box on the view's planes
+        # against its plain bf16-feed version (a comparison, not counted),
+        # then the view through K3 (the main path, counted apart from the
+        # encode's K1) against the plain march; the field
+        # centred on the box first if a tenth of it is not live or a tenth
+        # of the rays does not hit
+        box = np.array(mcfg.voxel_dim_test, np.float32) * mcfg.voxel_size
+        pts = torch.from_numpy(np.random.default_rng(SEED).uniform(0, box, (N_POINTS // 4, 3))
+                               .astype(np.float32)).to(dev)
+        code = positional_encoding(pts, mcfg.code.num_freqs, mcfg.code.freq_factor,
+                                   mcfg.code.include_input)
+
+        def k3_view():
+            kernels.reset_launch_counts()
+            with torch.no_grad():
+                repr_ = model.encode(*(f[None] for f in frames),
+                                     torch.Generator().manual_seed(SEED))
+            torch.cuda.synchronize()
+            encode_launches = read_launches()
+            feat = triplane_feat_fast(*triplane_gather_setup(model, repr_.planes), pts[None])[0]
+            pweights = pack_point_weights(extract_resnetfc_weights(
+                model.mlp, model.head_geo, mcfg.mlp.d_out_geo, bound))
+            pk = fused_resnetfc_tsdf_cuda(feat, code, pweights)
+            pp = fused_resnetfc_tsdf_plain(feat, code, pweights, bf16_feeds=True)
+            perr = (pk - pp).abs()
+            rec = {"points": int(pts.shape[0]), "d_in": int(feat.shape[1]),
+                   "max_abs_err": float(perr.max()), "mean_abs_err": float(perr.mean()),
+                   "live_share": float((pp.abs() < FIELD_LIVE * bound).double().mean()),
+                   "encode_launches": encode_launches}
+            render_args = (model, repr_, view["depth"], view["intrinsics"], view["pose"])
+            kernels.reset_launch_counts()
+            rk = render_encoded(*render_args, make_point_tsdf_fn(model, repr_), 1)
+            torch.cuda.synchronize()
+            rec["launches"] = read_launches()
+            rp = render_encoded(*render_args, make_point_tsdf_fn(model, repr_, plain=True), 1)
+            hk, hp = rk["ray_depth"] > 0, rp["ray_depth"] > 0
+            ddiff = np.abs(rk["ray_depth"] - rp["ray_depth"])[hk & hp]
+            rec.update(hit_share=float(hk.mean()), vs_plain_mask_agree=float((hk == hp).mean()),
+                       vs_plain_depth_agree=float((ddiff <= RENDER_DEPTH_TOL).mean())
+                       if ddiff.size else 0.0)
+            return rec, repr_
+
+        k3_rec = {"field_shift": 0.0}
+        k3_final, repr_ = k3_view()
+        k3_rec["trained" if k2_rec["field_shift"] == 0.0 else "centred_for_k2"] = k3_final
+        if (k3_final["live_share"] < FIELD_MIN_LIVE_SHARE
+                or k3_final["hit_share"] < RENDER_MIN_HIT_SHARE):
+            k3_rec["field_shift"] = center_field(torch, model, repr_, grid_pts)
+            k3_rec["centred"] = k3_final = k3_view()[0]
+        del repr_, pts, code
+        k3_runs = [r for r in k3_rec.values() if isinstance(r, dict)]
+        if not (k3_final["launches"]["point_decode"] >= 1 and k3_final["launches"]["fps"] == 0
+                and k3_final["encode_launches"] == {"fps": 1, "grid_decode": 0, "point_decode": 0}
+                and max(r["max_abs_err"] for r in k3_runs) <= POINT_MAX_ABS_TOL
+                and max(r["mean_abs_err"] for r in k3_runs) <= POINT_MEAN_ABS_TOL
+                and k3_final["live_share"] >= FIELD_MIN_LIVE_SHARE
+                and k3_final["hit_share"] >= RENDER_MIN_HIT_SHARE
+                and k3_final["vs_plain_mask_agree"] >= RENDER_MASK_AGREE
+                and k3_final["vs_plain_depth_agree"] >= RENDER_DEPTH_AGREE):
+            raise RuntimeError(f"K3 on the distillation head: {k3_rec}")
+        del model, trained
+
+        # use_auxiliary: the teacher's features backprojected into a volume
+        # beside the planes; one train step, the card against the CPU, and a
+        # reconstruct and a render that take neither K2 nor K3
+        acfg = experiment_config(DISTILL_EXPERIMENT, [f"paths.data_dir={root}", *AUX_OVERRIDES])
+        aux = build_model(acfg["model"], dev, SEED)
+        abatch = batch_to_device(next(iter(ScannetDataModule(acfg["data"], seed=SEED)
+                                           .train_dataloader())), dev)
+        aux_rec = {"card_vs_cpu": card_vs_cpu(aux, abatch, SEED + 6)}
+        aopt = make_optimizer(aux.parameters(), aux.cfg.optimizer)
+        kernels.reset_launch_counts()
+        metrics = train_step(aux, aopt, abatch, torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        aux_rec["step"] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                           "launches": read_launches()}
+        aux.eval()
+        kernels.reset_launch_counts()
+        vol = reconstruct(aux, *frames, mcfg.voxel_dim_test, torch.Generator().manual_seed(SEED))
+        out = render_views(aux, *frames, view["intrinsics"], view["pose"], num_views=1,
+                           generator=torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        aux_rec.update(launches=read_launches(), volume_finite=bool(torch.isfinite(vol).all()),
+                       render_hit_share=float((out["ray_depth"] > 0).mean()),
+                       d_in=aux.cfg.encoder_latent)
+        del aux, aopt, abatch, vol, out
+        if not (aux_rec["launches"] == {"fps": 2, "grid_decode": 0, "point_decode": 0}
+                and aux_rec["step"]["launches"]["fps"] == 1 and aux_rec["volume_finite"]
+                and all(map(math.isfinite, aux_rec["step"]["metrics"].values()))):
+            raise RuntimeError(f"the use_auxiliary model: {aux_rec}")
+
+        emit({"phase": "distill", "configs": ["configs/experiment/distill_synthetic.yaml",
+                                              "configs/experiment/distill_render_synthetic.yaml"],
+              "scene": {"info": os.path.relpath(info, root), "frames": DISTILL_FRAMES,
+                        "seconds": scene_s},
+              "batch": {"frames": list(batch["depth"].shape[1:])},
+              "surface": {**modes["surface"], "steps": steps_rec["surface"],
+                          "card_vs_cpu_f32": device_rec["surface"]},
+              "render": {**modes["render"], "steps": steps_rec["render"],
+                         "card_vs_cpu_f32": device_rec["render"]},
+              "k2_distill_head": k2_rec, "k3_distill_head": k3_rec, "use_auxiliary": aux_rec,
+              "tolerance": {"loss_rel": TRAIN_LOSS_RTOL, "hit_agree": RENDER_MASK_AGREE,
+                            "march_point_m": RENDER_DEPTH_TOL,
+                            "grid": {"max_abs": GRID_MAX_ABS_TOL, "mean_abs": GRID_MEAN_ABS_TOL},
+                            "point": {"max_abs": POINT_MAX_ABS_TOL,
+                                      "mean_abs": POINT_MEAN_ABS_TOL},
+                            "min_live_share": FIELD_MIN_LIVE_SHARE},
+              "card": smi})
+    errors = {"grid_decode": max(r["max_abs_err"] for r in k2_rec.values() if isinstance(r, dict)),
+              "point_decode": max(r["max_abs_err"] for r in k3_runs)}
     return totals, errors
 
 
@@ -2463,6 +2868,10 @@ def main() -> int:
         # and frustum children and the gradient loss on the same dataset,
         # then a held-out predict, the flagship's grid, a render
         flagship_launches, flagship_errors = flagship_bf16_phase(torch, dev, smi, root)
+        # 13. distill: both distillation experiments through the train CLI on
+        # their synthetic scene, K2 and K3 on the trained head, use_auxiliary
+        distill_launches, distill_errors = distill_phase(
+            torch, dev, smi, os.path.join(data_tmp, "synth0"))
 
     kernel_line = {"kernels": [
         {"name": "fps", "route": "cuda", "source": "gennerf_tpu_torch/csrc/fps.cu",
@@ -2470,7 +2879,7 @@ def main() -> int:
          "launches": (launches["fps"] + render_launches["fps"] + mesh_launches["fps"]
                       + sparse_launches["fps"] + train_launches["fps"] + data_launches["fps"]
                       + spatial_launches["fps"] + voxelnet_launches["fps"]
-                      + flagship_launches["fps"]),
+                      + flagship_launches["fps"] + distill_launches["fps"]),
          "max_abs_err": max(float((idx_k - idx_p).abs().max()), flagship_errors["fps"]),
          "ms": fps_ms,
          "plain_ms": fps_plain_ms, "bound_ms": fps_bound, "bound_by": "operations",
@@ -2479,16 +2888,19 @@ def main() -> int:
          "replaces": "gennerf_tpu/ops/pallas/fused_decoder.py:353",
          "launches": (launches["grid_decode"] + mesh_launches["grid_decode"]
                       + data_launches["grid_decode"] + voxelnet_launches["grid_decode"]
-                      + flagship_launches["grid_decode"]),
-         "max_abs_err": max(grid_max, flagship_errors["grid_decode"]), "ms": grid_ms,
+                      + flagship_launches["grid_decode"] + distill_launches["grid_decode"]),
+         "max_abs_err": max(grid_max, flagship_errors["grid_decode"],
+                            distill_errors["grid_decode"]), "ms": grid_ms,
          "plain_ms": grid_plain_ms, "bound_ms": grid_bound,
          "bound_by": "operations" if grid_flops / PEAK_BF16 >= grid_bytes / PEAK_BYTES else "bytes",
          "library_ms": None},
         {"name": "point_decode", "route": "cuda", "source": "gennerf_tpu_torch/csrc/point_decode.cu",
          "replaces": "gennerf_tpu/ops/pallas/fused_decoder.py:53",
          "launches": (render_launches["point_decode"] + data_launches["point_decode"]
-                      + voxelnet_launches["point_decode"] + flagship_launches["point_decode"]),
-         "max_abs_err": max(point_max, flagship_errors["point_decode"]), "ms": point_ms,
+                      + voxelnet_launches["point_decode"] + flagship_launches["point_decode"]
+                      + distill_launches["point_decode"]),
+         "max_abs_err": max(point_max, flagship_errors["point_decode"],
+                            distill_errors["point_decode"]), "ms": point_ms,
          "plain_ms": point_plain_ms, "bound_ms": point_bound,
          "bound_by": "operations" if point_flops / PEAK_BF16 >= point_bytes / PEAK_BYTES else "bytes",
          "library_ms": None},

@@ -5,10 +5,14 @@ a floor plane), plus `ring_frames`, which renders a ring of inward-looking
 cameras for predict drives, and `training_batch`, which adds the ground-
 truth volume, fused from the frames by the port's `tsdf.fusion`, for
 training drives. `generate_scene` writes a scene to disk in the layout the
-loaders read.
+loaders read; as a command it writes the distillation experiments' scene
+(configs/experiment/distill_*synthetic.yaml read scans/scene_synth0):
+
+    python -m gennerf_tpu_torch.data.synthetic --out DIR
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import tarfile
@@ -303,3 +307,15 @@ def generate_scene(out_dir: str, scene: str = "scene_synth0", num_frames: int = 
     with open(info_path, "w") as fjson:
         json.dump(info, fjson)
     return info_path
+
+
+def main(argv=None) -> str:
+    parser = argparse.ArgumentParser(description="write scene_synth0 (24 frames) under DIR/scans")
+    parser.add_argument("--out", required=True)
+    info = generate_scene(parser.parse_args(argv).out)
+    print(info)
+    return info
+
+
+if __name__ == "__main__":
+    main()

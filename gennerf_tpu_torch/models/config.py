@@ -1,10 +1,10 @@
 """Frozen model-config dataclasses (counterpart of gennerf_tpu/models/config.py).
 
 Only the fields the predict, render and train paths of GenNerf (the
-pointnet triplanes, the spatial feature volume, or both) and of VoxelNet
-read are kept; `config_from_dict` ignores every other key of an
-experiment yaml (the distillation settings, the teacher's, a frustum's
-`N` and `M`, ...), exactly as the reference's does for bookkeeping keys.
+pointnet triplanes, the spatial feature volume, the teacher's features,
+or a mix) and of VoxelNet read are kept; `config_from_dict` ignores every
+other key of an experiment yaml (a frustum's `N` and `M`, ...), exactly as
+the reference's does for bookkeeping keys.
 Defaults are the reference's. Options the port does not implement yet are rejected by
 `check_supported` / `check_supported_voxel_net`, called at model
 construction, rather than computed differently.
@@ -70,7 +70,9 @@ class EncoderConfig:
     use_pointnet: bool = True
     pointnet: PointnetConfig = PointnetConfig()
     plane_merger: PlaneMergerConfig = PlaneMergerConfig()
+    # the teacher's 2D features backprojected into the feature volume
     use_auxiliary: bool = False
+    auxiliary_dim: int = 0  # the teacher's channels when use_auxiliary
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +158,26 @@ class FeatureLossConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DistillLossConfig:
+    """Distillation of feat_sem toward the 2D teacher's features. 'surface'
+    supervises each ray's surface sample (ray mode only); 'render' marches
+    `render_rays` rays a frame through the current field (no gradient) and
+    supervises the first crossing, or with `gt_warmstart` the ground-truth
+    depth's point where a ray has none."""
+
+    weight: float = 1.0
+    metric: str = "cosine"  # 'cosine' | 'l2'
+    mode: str = "surface"  # 'surface' | 'render'
+    gt_warmstart: bool = True
+    render_rays: int = 32
+    render_steps: int = 16
+    render_fine: int = 8
+    render_secant: int = 4
+    render_near: float = 0.05
+    render_far: float = 5.0
+
+
+@dataclasses.dataclass(frozen=True)
 class LossConfig:
     use_tsdf: bool = True
     tsdf: TsdfLossConfig = TsdfLossConfig()
@@ -167,8 +189,8 @@ class LossConfig:
     gradient: GradientLossConfig = GradientLossConfig()
     use_feature: bool = False
     feature: FeatureLossConfig = FeatureLossConfig()
-    # not ported (check_supported raises when set)
     use_distill: bool = False
+    distill: DistillLossConfig = DistillLossConfig()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,7 +209,11 @@ class SchedulerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TeacherConfig:
-    type: str = "none"  # only 'none' is ported
+    type: str = "none"  # 'none' | 'random_projection'
+    feature_dim: int = 64
+    patch: int = 8
+    stride: int = 4
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,8 +242,16 @@ class GenNerfConfig:
     scheduler: SchedulerConfig = SchedulerConfig()
 
     @property
+    def has_feature_volume(self) -> bool:
+        """Whether an encoded scene carries a feature volume (the spatial
+        encoder's or the teacher's): the one rule that builds it and that
+        keeps such scenes off the grid- and point-decode kernels."""
+        return self.encoder.use_spatial or self.encoder.use_auxiliary
+
+    @property
     def encoder_latent(self) -> int:
-        """The decoder's d_in: the spatial latent, then the plane channels."""
+        """The decoder's d_in: the spatial latent, the plane channels, then
+        the teacher's (use_auxiliary)."""
         from .spatial_encoder import spatial_latent_size
 
         enc = self.encoder
@@ -227,6 +261,8 @@ class GenNerfConfig:
             d += s.out_channels or spatial_latent_size(s.backbone, s.num_layers)
         if enc.use_pointnet:
             d += enc.pointnet.c_dim
+        if enc.use_auxiliary:
+            d += enc.auxiliary_dim
         return d
 
 
@@ -320,12 +356,11 @@ def check_supported(cfg: GenNerfConfig) -> None:
         # the frustum samples carry no normals (the reference fails there too)
         "loss.use_gradient under sampling_mode 'frustum'":
             loss.use_gradient and cfg.sampling_mode != "ray",
-        "loss.use_distill": loss.use_distill,
-        "teacher.type other than 'none'": cfg.teacher.type != "none",
+        "teacher.type other than 'none' or 'random_projection'":
+            cfg.teacher.type not in ("none", "random_projection"),
         "optimizer.type other than 'Adam'": cfg.optimizer.type != "Adam",
         "scheduler.type other than 'StepLR' or None":
             cfg.scheduler.type not in ("StepLR", "None", None),
-        "encoder.use_auxiliary": enc.use_auxiliary,
         "neither encoder.use_spatial nor encoder.use_pointnet":
             not (enc.use_spatial or enc.use_pointnet),
         "spatial.norm_type other than 'batch'": enc.use_spatial and s.norm_type != "batch",

@@ -4,13 +4,15 @@ triplanes, the spatial feature volume, or both.
 encode: with the pointnet, unproject each frame's depth, presample each
 frame's cloud uniformly, farthest-point sample it (the FPS kernel on the
 card) and encode the accumulated sparse points into xz/xy/yz triplanes;
-with the spatial encoder, run the ResNet encoder on every frame and sum
-each frame's features, backprojected into the (nx, ny, nz) grid at
-`origin`, into an f32 volume and its observation count. With
-`spatial.frame_chunk` the frames go through the encoder and the
-backprojection a chunk at a time; with `remat` each chunk (or, without
-chunks, the encoder) is a `torch.utils.checkpoint` region whose running
-BatchNorm statistics move once, in the forward pass.
+with the spatial encoder or `use_auxiliary` (the 2D teacher's features),
+run those 2D featurizers on every frame, concatenate their channels
+(spatial first) and sum each frame's features, backprojected into the
+(nx, ny, nz) grid at `origin`, into an f32 volume and its observation
+count. With `spatial.frame_chunk` (spatial encoder only) the frames go
+through the featurizers and the backprojection a chunk at a time; with
+`remat` each chunk (or, without chunks, the featurizers) is a
+`torch.utils.checkpoint` region whose running BatchNorm statistics move
+once, in the forward pass.
 decode: sample the triplanes bilinearly and the count-normalized volume
 trilinearly at query points, concatenate the positional code and those
 features, run ResnetFC and the TSDF head. decode_with_grad adds
@@ -46,6 +48,7 @@ from .pointnet import FeaturePlaneMerger, LocalPoolPointnet
 from .positional_encoding import positional_encoding, positional_encoding_dim
 from .resnetfc import ResnetFC
 from .spatial_encoder import SpatialEncoder
+from .teacher import RandomProjectionTeacher
 
 
 class SceneRepr(NamedTuple):
@@ -69,16 +72,18 @@ def _remat(fn: Callable, *args):
     return checkpoint(run, *args, use_reentrant=False)
 
 
-def encode_feature_volume(spatial: nn.Module, projection: torch.Tensor, image: torch.Tensor,
+def encode_feature_volume(featurize: Callable, projection: torch.Tensor, image: torch.Tensor,
                           voxel_dim, voxel_size: float, origin=None, frame_chunk: int = 0,
                           remat: bool = False):
-    """The spatial encoder's features of T frames backprojected and summed
-    into the f32 (B, C, nx, ny, nz) volume and its (B, 1, ...) observation
-    count at `origin` (default 0), `frame_chunk` frames at a time (0: all
-    at once); with `remat` (and gradients on) each chunk's encode and
-    backprojection, or without chunks the encoder, is a checkpoint region."""
+    """The 2D features of T frames, `featurize(images, update_stats=True)`
+    (B*t, C, H', W') (the spatial encoder, or GenNerf's concatenation of its
+    featurizers), backprojected and summed into the f32 (B, C, nx, ny, nz)
+    volume and its (B, 1, ...) observation count at `origin` (default 0),
+    `frame_chunk` frames at a time (0: all at once); with `remat` (and
+    gradients on) each chunk's encode and backprojection, or without chunks
+    the featurizer, is a checkpoint region."""
     if voxel_dim is None:
-        raise ValueError("the spatial encoder needs the feature volume's voxel_dim")
+        raise ValueError("the feature volume needs its voxel_dim")
     voxel_dim = tuple(int(d) for d in voxel_dim)
     if origin is None:
         origin = torch.zeros(3, dtype=torch.float32, device=projection.device)
@@ -87,12 +92,12 @@ def encode_feature_volume(spatial: nn.Module, projection: torch.Tensor, image: t
     remat = remat and torch.is_grad_enabled()
 
     def fold(imgs, proj, update_stats=True):
-        return backproject_fold(spatial(imgs, update_stats), proj, hw, voxel_dim, voxel_size,
+        return backproject_fold(featurize(imgs, update_stats), proj, hw, voxel_dim, voxel_size,
                                 origin)
 
     if not 0 < frame_chunk < T:
         imgs = image.reshape(B * T, *image.shape[2:])
-        feat = _remat(spatial, imgs) if remat else spatial(imgs)
+        feat = _remat(featurize, imgs) if remat else featurize(imgs)
         return backproject_fold(feat, projection, hw, voxel_dim, voxel_size, origin)
     volume = valid = None
     for t0 in range(0, T, frame_chunk):
@@ -113,13 +118,23 @@ def normalized_volume(volume: torch.Tensor, valid: torch.Tensor) -> torch.Tensor
 
 
 class GenNerf(nn.Module):
-    def __init__(self, cfg: GenNerfConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: GenNerfConfig, dtype: torch.dtype = torch.float32,
+                 teacher: Optional[RandomProjectionTeacher] = None):
+        """`teacher` (models/teacher.make_teacher of cfg.teacher) feeds the
+        distillation targets and, with encoder.use_auxiliary, the feature
+        volume; use_auxiliary without one raises ValueError."""
         super().__init__()
         check_supported(cfg)
         if dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(f"GenNerf computes in float32 or bfloat16, not {dtype}")
-        self.cfg, self.dtype = cfg, dtype
         enc = cfg.encoder
+        if dtype != torch.float32 and (cfg.loss.use_distill or enc.use_auxiliary):
+            raise NotImplementedError("gennerf_tpu_torch computes distillation (loss.use_distill, "
+                                      f"encoder.use_auxiliary) in float32 only, not {dtype}")
+        if enc.use_auxiliary and teacher is None:
+            raise ValueError("encoder.use_auxiliary needs a teacher (make_teacher of a "
+                             "config whose teacher.type is not 'none')")
+        self.cfg, self.dtype, self.teacher = cfg, dtype, teacher
         if enc.use_spatial:
             s = enc.spatial
             self.spatial = SpatialEncoder(
@@ -174,18 +189,29 @@ class GenNerf(nn.Module):
             generator: source of the presample and FPS start draws.
             sel: (B*T, presample) injected presample indices.
             start: (B*T,) injected FPS start indices.
-            voxel_dim: (nx, ny, nz) of the feature volume (spatial encoder only).
+            voxel_dim: (nx, ny, nz) of the feature volume (spatial or auxiliary).
             origin: (3,) world position of the volume's voxel 0 (default 0).
         """
         enc = self.cfg.encoder
         volume = valid = planes = None
-        if enc.use_spatial:
+        if self.cfg.has_feature_volume:
             volume, valid = encode_feature_volume(
-                self.spatial, projection, image, voxel_dim, self.cfg.voxel_size, origin,
-                enc.spatial.frame_chunk, self.cfg.remat)
+                self.features_2d, projection, image, voxel_dim, self.cfg.voxel_size, origin,
+                enc.spatial.frame_chunk if enc.use_spatial else 0, self.cfg.remat)
         if enc.use_pointnet:
             planes = self._encode_planes(projection, depth, generator, sel, start)
         return SceneRepr(planes, volume, valid)
+
+    def features_2d(self, images: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+        """(N, 3, H, W) frames -> the feature volume's 2D features: the
+        spatial encoder's channels, then the teacher's (use_auxiliary)."""
+        enc = self.cfg.encoder
+        feats = []
+        if enc.use_spatial:
+            feats.append(self.spatial(images, update_stats))
+        if enc.use_auxiliary:
+            feats.append(self.teacher(images))
+        return feats[0] if len(feats) == 1 else torch.cat(feats, dim=1)
 
     def _encode_planes(self, projection, depth, generator, sel, start):
         B, T = projection.shape[:2]

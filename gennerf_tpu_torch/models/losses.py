@@ -1,9 +1,9 @@
 """GenNerf loss terms (counterpart of gennerf_tpu/models/losses.py).
 
 Per-element loss matrices plus the aggregated dict; all loss math runs in
-float32 (a bf16 model's outputs are cast first). The distillation term is
-not ported: `calculate_loss` raises when its flag is set (as does
-`check_supported` at model construction).
+float32 (a bf16 model's outputs are cast first). The distillation term
+has its own sample set (one point a ray): its masked mean is added to the
+combined loss outside the point-wise masked mean.
 """
 from __future__ import annotations
 
@@ -82,6 +82,24 @@ def loss_feat(cfg: LossConfig, outputs, targets) -> torch.Tensor:
     return 1.0 / torch.clamp(contribution, min=1e-12)
 
 
+def loss_distill(cfg: LossConfig, outputs, targets) -> torch.Tensor:
+    """Distance of feat_sem_surface (B, R, C) to teacher_feat (B, R, C):
+    1 - cosine (its denominator clamped at 1e-6) or the mean squared
+    difference, times teacher_mask (B, R, 1) when given -> (B, R, 1)."""
+    pred, trgt = outputs["feat_sem_surface"], targets["teacher_feat"]
+    if cfg.distill.metric == "cosine":
+        num = (pred * trgt).sum(-1, keepdim=True)
+        den = torch.clamp(_safe_norm(pred, keepdim=True) * _safe_norm(trgt, keepdim=True),
+                          min=1e-6)
+        loss = 1.0 - num / den
+    elif cfg.distill.metric == "l2":
+        loss = ((pred - trgt) ** 2).mean(-1, keepdim=True)
+    else:
+        raise NotImplementedError(f"distill metric {cfg.distill.metric!r}")
+    mask = targets.get("teacher_mask")
+    return loss if mask is None else loss * mask
+
+
 def _masked_mean(m: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
     """Mean over valid samples only; `valid` is (B, N, 1) in {0, 1} or None."""
     if valid is None:
@@ -96,14 +114,15 @@ def calculate_loss(cfg: LossConfig, outputs: Dict[str, torch.Tensor],
     """Weighted sum of the enabled terms. With targets['valid'] ((B, N, 1)
     float) every point-wise term averages over valid samples only. The
     eikonal and gradient terms read outputs['grad']; the gradient term also
-    targets['sampled_normals'] and ['grad_vec'] of `num_rays` rays.
+    targets['sampled_normals'] and ['grad_vec'] of `num_rays` rays. The
+    distillation term, when targets['teacher_feat'] is given, averages over
+    teacher_mask's support ('distill', and 'distill_coverage' the mask's
+    mean).
 
     Returns (combined loss, dict of per-term means incl. 'combined' and,
     with a mask, 'valid_coverage')."""
     if not (cfg.use_tsdf or cfg.use_isdf):
         raise ValueError("the loss needs use_tsdf or use_isdf")
-    if cfg.use_distill:
-        raise NotImplementedError("loss.use_distill is not ported")
     outputs = {k: v.to(torch.float32) for k, v in outputs.items()}
     targets = {k: v.to(torch.float32) if v.is_floating_point() else v for k, v in targets.items()}
     valid = targets.get("valid")
@@ -130,6 +149,15 @@ def calculate_loss(cfg: LossConfig, outputs: Dict[str, torch.Tensor],
         m = loss_feat(cfg, outputs, targets)
         losses["feature"] = m
         loss_scalar = loss_scalar + cfg.feature.weight * m
+    if cfg.use_distill and "teacher_feat" in targets:
+        m = loss_distill(cfg, outputs, targets)
+        tm = targets.get("teacher_mask")
+        d = m.mean() if tm is None else m.sum() / torch.clamp(
+            torch.broadcast_to(tm, m.shape).sum(), min=1.0)
+        losses["distill"] = d
+        if tm is not None:
+            losses["distill_coverage"] = tm.mean()
+        loss_scalar = loss_scalar + cfg.distill.weight * d
     combined = _masked_mean(loss_mat, valid) + loss_scalar
     if valid is not None:
         losses["valid_coverage"] = valid.mean()

@@ -65,14 +65,15 @@ def build_model(model_cfg: Union[dict, GenNerfConfig, VoxelNetConfig], device=No
     """The model of the config's `type` (GenNerf or VoxelNet) in eval mode
     on `device` (the card by default) computing in `precision`'s dtype
     (trainer.precision; default float32), its weights a random init drawn
-    from `seed`, with the backbone npz of `encoder.spatial.pretrained_path`
-    grafted into the spatial encoder's ResNet when the config names one
+    from `seed`, GenNerf with its config's teacher (train/tasks.py), with
+    the backbone npz of `encoder.spatial.pretrained_path` grafted into the
+    spatial encoder's ResNet when the config names one
     (tools/port_backbone.py)."""
     device = resolve_device(device)
     cfg = model_config(model_cfg)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = task_for(cfg).model_cls(cfg, dtype=dtype_for_precision(precision))
+        model = task_for(cfg).build(cfg, dtype_for_precision(precision))
     if cfg.encoder.use_spatial and cfg.encoder.spatial.pretrained_path:
         from .tools.port_backbone import graft_backbone
 

@@ -2,7 +2,7 @@
 depth against the measured depth (counterpart of
 scripts/local/render_views.py): encode the frames, march the field through
 the point-decode kernel (`make_point_tsdf_fn`; the f32 `GenNerf.decode` for
-a config with the spatial feature volume) inside the decode volume's box,
+a scene with a feature volume) inside the decode volume's box,
 turn ray distance into z-depth, and run `eval_depth`.
 
     python -m gennerf_tpu_torch.render --config configs/experiment/seqs_multigeo_4cm.yaml \\
@@ -124,9 +124,10 @@ def render_views(model: GenNerf, projection, image, depth, intrinsics, poses,
         depth: (T, H, W) measured z-depth; intrinsics: (T, 3, 3);
         poses: (T, 4, 4) camera2world.
         use_kernel_path: march through `make_point_tsdf_fn` (the point-decode
-            kernel on the card); False, and every config with the spatial
-            feature volume (which the kernel path does not take, as in the
-            reference), marches the f32 `GenNerf.decode`.
+            kernel on the card); False, and every scene with a feature
+            volume (the spatial encoder's or the teacher's, which the kernel
+            path does not take, as in the reference), marches the f32
+            `GenNerf.decode`.
         generator, sel, start: the encoder's draws (see GenNerf.encode).
     """
     set_reference_precision()
@@ -137,7 +138,7 @@ def render_views(model: GenNerf, projection, image, depth, intrinsics, poses,
     # a feature volume is encoded on the test grid at origin 0, the box the march clips to
     repr_ = model.encode(projection[None], image[None], depth[None], generator, sel, start,
                          model.cfg.voxel_dim_test)
-    use_kernel_path = use_kernel_path and not model.cfg.encoder.use_spatial
+    use_kernel_path = use_kernel_path and not model.cfg.has_feature_volume
     tsdf_fn = make_point_tsdf_fn(model, repr_) if use_kernel_path else None
     return render_encoded(model, repr_, depth, intrinsics, poses, tsdf_fn, num_views, near, far,
                           features)

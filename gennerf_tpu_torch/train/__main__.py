@@ -32,9 +32,11 @@ random_rotation_3d or random_translation_3d.
 `--params` starts from a JAX params npz (utils/port_params.py), `--resume`
 continues a run from its checkpoint directory. The trainer settings
 (max_epochs, log_every_n_steps, check_val_every_n_epoch,
-gradient_clip_val) come from the config's `trainer`, the checkpoint rule
-(dirpath, monitor, mode, save_top_k, save_last) from
-`callbacks.model_checkpoint`, with paths.output_dir set to `--out`. It
+num_sanity_val_steps, gradient_clip_val, precision) come from the config's
+`trainer`, the checkpoint rule (dirpath, monitor, mode, save_top_k,
+save_last) from `callbacks.model_checkpoint`, with paths.output_dir set to
+`--out`; every other key of both groups is accepted or raises
+NotImplementedError (`train.loop.trainer_options`). It
 writes out/metrics.csv, the checkpoints (out/checkpoints/ by default; the
 predict and render CLIs' `--ckpt` pick the best monitored epoch there),
 out/local/ (the validation tail's volumes and meshes) and out/params.npz
@@ -61,7 +63,7 @@ from ..predict import build_model
 from ..utils.config import load_experiment_config
 from ..utils.port_params import load_params_npz, save_params_npz
 from .checkpoints import CheckpointManager
-from .loop import Trainer
+from .loop import Trainer, trainer_options
 from .state import make_optimizer
 from .tasks import task_for
 
@@ -113,16 +115,16 @@ def main(argv=None) -> Trainer:
         overrides.append(f"paths.data_dir={os.path.abspath(args.data_dir)}")
     overrides += args.overrides
     cfg = load_experiment_config(args.config, "train", overrides)
-    trainer_cfg, data_cfg = cfg["trainer"], cfg["data"]
+    data_cfg = cfg["data"]
+    options = trainer_options(cfg.get("trainer"), cfg.get("callbacks"))
     device = resolve_device(args.device)
     set_reference_precision()
-    model = build_model(cfg["model"], device, args.seed,
-                        str(trainer_cfg.get("precision", "32-true")))
+    model = build_model(cfg["model"], device, args.seed, str(options["precision"]))
     task = task_for(model)
     if args.params:
         model.load_state_dict(task.params_from_flax(load_params_npz(args.params)))
     optimizer = make_optimizer(model.parameters(), model.cfg.optimizer,
-                               trainer_cfg.get("gradient_clip_val"))
+                               options.pop("gradient_clip_val"))
     if args.batch or args.synthetic:
         train_data, val_data = fixed_batches(args, data_cfg, model.cfg)
         test_data = val_data
@@ -136,12 +138,10 @@ def main(argv=None) -> Trainer:
         save_top_k=int(ckpt_cfg.get("save_top_k", -1)),
         save_last=bool(ckpt_cfg.get("save_last", True)),
         monitor=ckpt_cfg.get("monitor"), mode=ckpt_cfg.get("mode", "min"))
-    trainer = Trainer(
-        model, optimizer, torch.Generator(device=device).manual_seed(args.seed), args.out,
-        max_epochs=args.epochs or int(trainer_cfg["max_epochs"]),
-        log_every_n_steps=int(trainer_cfg.get("log_every_n_steps", 50)),
-        check_val_every_n_epoch=int(trainer_cfg.get("check_val_every_n_epoch", 1)),
-        checkpoints=checkpoints, precision=trainer_cfg.get("precision", "32-true"))
+    if args.epochs:
+        options["max_epochs"] = args.epochs
+    trainer = Trainer(model, optimizer, torch.Generator(device=device).manual_seed(args.seed),
+                      args.out, checkpoints=checkpoints, **options)
     metrics = trainer.fit(train_data, val_data, ckpt_path=args.resume)
     save_params_npz(os.path.join(args.out, "params.npz"), task.npz_tree(model.state_dict()))
     print(f"trained {trainer.global_step} steps: "

@@ -27,14 +27,29 @@ model computing in another dtype than that precision's, the rule the
 reference's loop checks for (it warns; the port raises, since a
 silently float32 run is not the run the config asks for).
 
+As the reference's `fit`, it first pulls one batch from the train loader
+(the reference sizes its state from it), then, before the first epoch
+(on resume too), runs the sanity pass: the eval step on the first
+`num_sanity_val_steps` validation batches, drawing from the validation
+generator, logging and saving nothing. Both move the loaders' item serials
+as the reference's do, so the later batches equal the reference's. At each
+epoch's end a `*_coverage` metric of exactly 0 (a masked term that trained
+on nothing) is warned about.
+
+`trainer_options` reads a config's `trainer` and `callbacks` groups:
+every key is ported, accepted (it changes no result on one card) or
+raises NotImplementedError; a key the reference's Trainer does not know
+is warned about.
+
 Not ported: the rendered comparison images of the tail, early stopping,
-preemption, the profiler and multi-device runs.
+batch limits, preemption, the profiler and multi-device runs.
 """
 from __future__ import annotations
 
 import math
 import os
 import time
+import warnings
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -49,18 +64,74 @@ from .step import batch_to_device, eval_step, train_step
 from .tasks import dtype_for_precision, task_for
 
 
+# trainer keys: ported into the port's Trainer, accepted (no result on one
+# card depends on them), or raising until ported
+PORTED_TRAINER_KEYS = ("max_epochs", "log_every_n_steps", "check_val_every_n_epoch",
+                       "gradient_clip_val", "precision", "num_sanity_val_steps")
+# min_epochs gates only early stopping in the reference, which raises here;
+# save_on_preempt acts only on SIGTERM; profile_steps and the node keys act
+# only with profile_dir / num_nodes > 1, which raise
+ACCEPTED_TRAINER_KEYS = ("accelerator", "devices", "deterministic", "min_epochs",
+                         "save_on_preempt", "prefetch_batches", "profile_steps",
+                         "model_summary_depth", "progress_bar", "clear_cache",
+                         "coordinator_address", "node_rank")
+RAISING_TRAINER_KEYS = ("limit_train_batches", "limit_val_batches", "limit_test_batches",
+                        "profile_dir", "num_slices", "num_nodes", "early_stopping_monitor",
+                        "early_stopping_patience", "early_stopping_mode")
+PORTED_CALLBACKS = ("model_checkpoint",)
+ACCEPTED_CALLBACKS = ("rich_progress_bar", "clear_cache", "model_summary")
+
+
+def trainer_options(trainer_cfg: dict, callbacks_cfg: Optional[dict] = None) -> dict:
+    """The Trainer settings of a config's `trainer` and `callbacks` groups:
+    {max_epochs, log_every_n_steps, check_val_every_n_epoch,
+    num_sanity_val_steps, precision, gradient_clip_val (the optimizer's)}.
+    Raises NotImplementedError, naming the key, for a non-null
+    limit_*_batches or profile_dir, early stopping (callbacks.early_stopping
+    or trainer.early_stopping_*), devices, num_slices or num_nodes above 1;
+    warns about a key the reference's Trainer does not know."""
+    trainer_cfg, callbacks_cfg = dict(trainer_cfg or {}), dict(callbacks_cfg or {})
+    bad = [k for k in RAISING_TRAINER_KEYS if k in trainer_cfg and (
+        trainer_cfg[k] is not None if k.startswith(("limit_", "profile_", "early_"))
+        else int(trainer_cfg[k] or 1) > 1)]
+    devices = trainer_cfg.get("devices", "auto")
+    if devices not in ("auto", None) and int(devices) > 1:
+        bad.append("devices")
+    bad += [f"callbacks.{k}" for k in ("early_stopping",) if callbacks_cfg.get(k)]
+    if bad:
+        raise NotImplementedError(f"gennerf_tpu_torch's trainer does not implement: "
+                                  f"{', '.join(bad)}")
+    unknown = sorted(set(trainer_cfg) - set(PORTED_TRAINER_KEYS + ACCEPTED_TRAINER_KEYS
+                                            + RAISING_TRAINER_KEYS))
+    unknown += sorted(f"callbacks.{k}" for k in set(callbacks_cfg) - set(
+        PORTED_CALLBACKS + ACCEPTED_CALLBACKS + ("early_stopping",)))
+    if unknown:
+        warnings.warn(f"ignoring unknown trainer option(s): {unknown}")
+    return {
+        "max_epochs": int(trainer_cfg.get("max_epochs", 10)),
+        "log_every_n_steps": int(trainer_cfg.get("log_every_n_steps", 50)),
+        "check_val_every_n_epoch": int(trainer_cfg.get("check_val_every_n_epoch", 1)),
+        "num_sanity_val_steps": int(trainer_cfg.get("num_sanity_val_steps", 2)),
+        "precision": trainer_cfg.get("precision", "32-true"),
+        "gradient_clip_val": trainer_cfg.get("gradient_clip_val"),
+    }
+
+
 class Trainer:
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  generator: torch.Generator, out_dir: Optional[str] = None,
                  max_epochs: int = 1, log_every_n_steps: int = 50,
                  check_val_every_n_epoch: int = 1,
-                 checkpoints: Optional[CheckpointManager] = None, precision=None):
+                 checkpoints: Optional[CheckpointManager] = None, precision=None,
+                 num_sanity_val_steps: int = 2):
         """`generator` supplies every train step's draws, a second generator
         seeded with its initial seed + 1 the validation draws; with
         `out_dir`, metrics go to out_dir/metrics.csv, the validation tail's
         files to out_dir/local/ and checkpoints through `checkpoints`
         (default: every epoch kept in out_dir/checkpoints/). With
-        `precision`, a model computing in another dtype raises ValueError."""
+        `precision`, a model computing in another dtype raises ValueError.
+        `num_sanity_val_steps` validation batches go through the eval step
+        before the first epoch and on resume, as in the reference."""
         self.model, self.optimizer, self.generator = model, optimizer, generator
         self.task = task_for(model)
         if precision is not None and dtype_for_precision(precision) != model.dtype:
@@ -72,6 +143,7 @@ class Trainer:
         self.max_epochs = max_epochs
         self.log_every_n_steps = log_every_n_steps
         self.check_val_every_n_epoch = check_val_every_n_epoch
+        self.num_sanity_val_steps = num_sanity_val_steps
         self.logger = CSVLogger(out_dir, name="") if out_dir else None
         self.local = LocalWriter(out_dir) if out_dir else None
         if checkpoints is None and out_dir:
@@ -84,6 +156,7 @@ class Trainer:
         # filled when the host next logs
         self.timings: List[Dict[str, float]] = []
         self._pending: List[Tuple[float, object, object]] = []
+        self._last_row: Dict[str, float] = {}
 
     def _log(self, metrics: Dict[str, float]) -> None:
         self.metrics.update(metrics)
@@ -97,11 +170,18 @@ class Trainer:
         or a directory holding last.pt) continue after the epoch it saved.
         Returns the last logged metrics."""
         device = next(self.model.parameters()).device
+        if next(iter(train_loader), None) is None:
+            raise ValueError("the train loader yielded no batches")
         start_epoch = 0
         if ckpt_path:
             info = load_checkpoint(resolve_checkpoint(ckpt_path), self.model, self.optimizer,
                                    self.generator, self.val_generator)
             start_epoch, self.global_step = info["epoch"] + 1, info["step"]
+        if self.num_sanity_val_steps:
+            for i, batch in enumerate(val_loader):
+                if i >= self.num_sanity_val_steps:
+                    break
+                eval_step(self.model, batch_to_device(batch, device), self.val_generator)
         cfg = self.model.cfg
         for epoch in range(start_epoch, self.max_epochs):
             lr = lr_for_epoch(cfg.optimizer, cfg.scheduler, epoch)
@@ -126,6 +206,11 @@ class Trainer:
                 raise ValueError("the train loader yielded no batches")
             if metrics is not None:  # an epoch logs at least its last step
                 self._log_step(metrics, lr, epoch)
+            for k, v in self._last_row.items():
+                if k.endswith("_coverage") and v == 0.0:
+                    warnings.warn(f"{k} == 0 at epoch {epoch}: its masked loss term trained on "
+                                  "nothing (its logged loss of 0.0 is vacuous); check the "
+                                  "teacher and validity masks")
             val_metrics = None
             if val_loader and (epoch + 1) % self.check_val_every_n_epoch == 0:
                 val_metrics = self.validate(val_loader)
@@ -145,6 +230,7 @@ class Trainer:
         loss = row[f"train_{self.task.loss_key}"]
         if not math.isfinite(loss):
             raise FloatingPointError(f"loss {loss} at step {self.global_step}")
+        self._last_row = row
         self._log({**row, **self.timings[-1], "lr": lr, "epoch": epoch})
 
     def validate(self, loader: Iterable[Dict], mode: str = "val") -> Dict[str, float]:

@@ -4,8 +4,8 @@ gennerf_tpu/train/predict.py).
 `predict_tsdf_volume` makes one static choice from the config: a
 triplane-only decoder the separable formulation supports goes to the
 separable grid decode (the CUDA kernel on the card); every other config,
-among them every config with the spatial feature volume, goes to the
-chunked f32 per-point `decode_dense`. Both kernels take the head
+among them every config with a feature volume (the spatial encoder's or
+the teacher's), goes to the chunked f32 per-point `decode_dense`. Both kernels take the head
 bias folded into their last scalar, so trained weights reach them too.
 `predict_tsdf_volume_sparse` decodes only the fusion prior's near-surface
 band. `make_point_tsdf_fn` and `decode_dense_fused` feed the triplane
@@ -67,11 +67,12 @@ def decode_dense(model: GenNerf, repr_: SceneRepr, points: torch.Tensor, origin=
 
 def uses_grid_decode(model: GenNerf) -> bool:
     """The static dispatch: separable grid decode for triplane-only scenes
-    of a supported decoder."""
+    (no feature volume) of a supported decoder."""
     cfg = model.cfg
     return (
         supports_grid_decode(cfg)
-        and cfg.encoder.use_pointnet and not cfg.encoder.use_spatial
+        and cfg.encoder.use_pointnet
+        and not cfg.has_feature_volume
         and set(cfg.encoder.pointnet.plane_type) == {"xz", "xy", "yz"}
         and cfg.encoder.pointnet.sample_mode == "bilinear"
     )

@@ -1,6 +1,6 @@
 """The train and eval steps of both model families (counterpart of
-gennerf_tpu/train/step.py; GenNerf with ray- or frustum-mode supervision
-and the gradient losses, without distillation).
+gennerf_tpu/train/step.py; GenNerf with ray- or frustum-mode supervision,
+the gradient losses and semantic distillation).
 
 A step encodes the batch's frames (presample and FPS: the FPS kernel on the
 card), samples supervision points on every frame (ray mode: rays through
@@ -13,13 +13,26 @@ ground-truth volume and computes the loss. As in the reference, the T
 frames are sampled and decoded at once and the loss is the per-frame mean
 summed over frames, i.e. the mean times T.
 
-With the spatial encoder the step also backprojects every frame's ResNet
-features into the feature volume (models/gen_nerf.py).
+With the spatial encoder (or use_auxiliary) the step also backprojects
+every frame's 2D features into the feature volume (models/gen_nerf.py).
+
+With loss.use_distill and a teacher, feat_sem is distilled toward the
+teacher's features of the frames (models/teacher.py). Surface mode (ray
+sampling only) supervises each ray's surface sample at its pixel, masked
+by the pixel's validity. Render mode draws render_rays valid-depth pixels
+a frame, marches their rays through the current field (`GenNerf.decode`
+under no_grad, clipped to the volume's box: the reference's forward-only
+march, its depths stop-gradient) and decodes feat_sem at the first
+crossings (with gt_warmstart, at the ground-truth depth's point where a
+ray has none), masked by the pixel's validity (and, without gt_warmstart,
+the crossing); `render_hit_rate` is the share of rays that crossed. As in
+the reference, use_distill adds nothing without a teacher (teacher.type
+'none') or in surface mode under frustum sampling.
 
 The random draws come from one torch.Generator in a fixed order (presample,
 FPS start, pixel scores, then the ray noise, or the frustum depths and the
-near-surface noise), or are injected (`StepDraws`): tests pass the draws
-of the reference's key splits.
+near-surface noise, then the render mode's pixel scores), or are injected
+(`StepDraws`): tests pass the draws of the reference's key splits.
 
 A VoxelNet step encodes the frames into the feature volume at origin 0,
 refines it into the multi-scale TSDF volumes and sums the per-scale losses
@@ -39,6 +52,8 @@ from ..models.config import GenNerfConfig
 from ..models.gen_nerf import GenNerf
 from ..models.voxel_net import VoxelNet
 from ..models.losses import calculate_loss
+from ..models.renderer import pixels_to_rays, ray_march_tsdf
+from ..models.teacher import sample_teacher_features
 from ..ops.interpolation import trilinear_interpolation
 from ..ops.normals import estimate_pointcloud_normals
 from ..ops.projection import get_3d_points
@@ -57,6 +72,7 @@ class StepDraws(NamedTuple):
     noise: Optional[torch.Tensor] = None   # (B*T, num_rays, M) standard normal
     frustum_u: Optional[torch.Tensor] = None   # (B*T, N_free) uniform frustum depths
     near_noise: Optional[torch.Tensor] = None  # (B*T, N_near, 3) standard normal
+    render_scores: Optional[torch.Tensor] = None  # (B*T, H*W) uniform, render distillation
 
 
 def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
@@ -85,7 +101,8 @@ def sample_supervision_points(cfg: GenNerfConfig, batch: Dict[str, torch.Tensor]
     each inheriting its pixel's validity (rays backfilled from invalid
     pixels drop out of the loss); with loss.use_gradient the pixels also
     need a finite normal, and sampled_normals (B*T, R, 3) and grad_vec
-    (B*T, R, S-1, 3) (the negated bound gradients) come along. Frustum
+    (B*T, R, S-1, 3) (the negated bound gradients) come along; so do the
+    rays' pixels h, w (B*T, R) and their validity valid_pix. Frustum
     mode: P = N_surf + N_near + N_free, the surface and near points valid
     where their pixel's depth is, the free points always."""
     depth = batch["depth"]
@@ -131,7 +148,47 @@ def sample_supervision_points(cfg: GenNerfConfig, batch: Dict[str, torch.Tensor]
     if cfg.loss.use_gradient:
         out["grad_vec"] = -bounds_pc_batch(xyz, z, sampled_depth)[1]
     valid = ok[:, :, None].expand(BT, R, S).reshape(BT, R * S, 1).to(torch.float32)
-    return {**out, "xyz": xyz.reshape(BT, R * S, 3), "valid": valid, "points_per_frame": R * S}
+    return {**out, "xyz": xyz.reshape(BT, R * S, 3), "valid": valid, "points_per_frame": R * S,
+            "h": h, "w": w, "valid_pix": ok}
+
+
+def render_distill_points(model: GenNerf, batch: Dict[str, torch.Tensor], repr_, origin,
+                          voxel_dim, generator: Optional[torch.Generator] = None,
+                          scores: Optional[torch.Tensor] = None):
+    """Render mode's supervision: render_rays valid-depth pixels a frame,
+    their rays marched through the current field without gradients (the
+    first crossing inside the volume's box at `origin`), and each ray's
+    point: the crossing, or under gt_warmstart the ground-truth depth's
+    point where the ray has none. Returns (points (B, T*Rr, 3), h, w, mask,
+    hit), the last four (B*T, Rr); mask is the pixel's validity (and the
+    crossing without gt_warmstart)."""
+    cfg, dcfg = model.cfg, model.cfg.loss.distill
+    B, T, H, W = batch["depth"].shape
+    BT, Rr = B * T, dcfg.render_rays
+    depth_bt = batch["depth"].reshape(BT, H, W)
+    _, h, w, ok = sample_valid_depth_pixels(depth_bt, Rr, generator, scores)
+    origins, dirs = pixels_to_rays(h.to(torch.float32), w.to(torch.float32),
+                                   batch["intrinsics"].reshape(BT, 3, 3),
+                                   batch["pose"].reshape(BT, 4, 4))
+    origins, dirs = origins.reshape(B, T * Rr, 3), dirs.reshape(B, T * Rr, 3)
+    box = torch.tensor(tuple(voxel_dim), dtype=torch.float32, device=origin.device)
+    with torch.no_grad():
+        volume_cl = model.volume_features(repr_)
+        depth_r, hit = ray_march_tsdf(
+            lambda p: model.decode(repr_, p, origin, volume_cl)["tsdf"][..., 0], origins, dirs,
+            near=dcfg.render_near, far=dcfg.render_far, n_steps=dcfg.render_steps,
+            n_secant_steps=dcfg.render_secant, n_fine_steps=dcfg.render_fine,
+            convention="fusion", aabb=(origin, origin + box * cfg.voxel_size))
+    points = origins + dirs * depth_r[..., None]
+    hit_bt = hit.reshape(BT, Rr)
+    if dcfg.gt_warmstart:
+        surface = get_3d_points(depth_bt, batch["projection"].reshape(BT, 3, 4))
+        bidx = torch.arange(BT, device=h.device)[:, None]
+        points = torch.where(hit[..., None], points, surface[bidx, h, w].reshape(B, T * Rr, 3))
+        mask = ok
+    else:
+        mask = ok & hit_bt
+    return points, h, w, mask, hit_bt
 
 
 def gen_nerf_forward_loss(model: GenNerf, batch: Dict[str, torch.Tensor],
@@ -145,15 +202,16 @@ def gen_nerf_forward_loss(model: GenNerf, batch: Dict[str, torch.Tensor],
     when the batch has none).
 
     Returns (the loss to backpropagate, metrics): every metric is the
-    masked mean times T, except the *_coverage fractions; the loss is
-    metrics['combined']."""
+    masked mean times T, except the *_coverage and *_rate fractions; the
+    loss is metrics['combined']."""
     cfg = model.cfg
     B, T = batch["image"].shape[:2]
     origin = batch.get("origin_zero")
     if origin is None:
         origin = torch.zeros(3, dtype=torch.float32, device=batch["image"].device)
+    voxel_dim = voxel_dim or cfg.voxel_dim_train
     repr_ = model.encode(batch["projection"], batch["image"], batch["depth"], generator,
-                         draws.sel, draws.start, voxel_dim or cfg.voxel_dim_train, origin)
+                         draws.sel, draws.start, voxel_dim, origin)
     sup = sample_supervision_points(cfg, batch, generator, draws)
     BT, S = B * T, sup["points_per_frame"]
     xyz = sup["xyz"].reshape(B, T * S, 3)
@@ -169,9 +227,27 @@ def gen_nerf_forward_loss(model: GenNerf, batch: Dict[str, torch.Tensor],
     if cfg.loss.use_gradient:
         targets_bt["sampled_normals"] = sup["sampled_normals"]
         targets_bt["grad_vec"] = sup["grad_vec"]
+    extra = {}
+    mode = cfg.loss.distill.mode
+    if cfg.loss.use_distill and model.teacher is not None and (
+            mode == "render" or (mode == "surface" and cfg.sampling_mode == "ray")):
+        H, W = batch["image"].shape[-2:]
+        if mode == "surface":
+            h, w, mask = sup["h"], sup["w"], sup["valid_pix"]
+            feat_sem = outputs["feat_sem"].reshape(BT, cfg.ray.num_rays, -1,
+                                                   cfg.mlp.d_out_sem)[:, :, 0]
+        else:
+            points, h, w, mask, hit = render_distill_points(
+                model, batch, repr_, origin, voxel_dim, generator, draws.render_scores)
+            feat_sem = model.decode(repr_, points, origin)["feat_sem"].reshape(BT, h.shape[1], -1)
+            extra["render_hit_rate"] = hit.to(torch.float32).mean()
+        tmap = model.teacher(batch["image"].reshape(BT, 3, H, W))
+        outputs_bt["feat_sem_surface"] = feat_sem
+        targets_bt["teacher_feat"] = sample_teacher_features(tmap, h, w, (H, W))
+        targets_bt["teacher_mask"] = mask[..., None].to(torch.float32)
     _, losses = calculate_loss(cfg.loss, outputs_bt, targets_bt, num_rays=cfg.ray.num_rays)
-    metrics = {k: v if k.endswith("_coverage") else v * T for k, v in losses.items()}
-    return metrics["combined"], metrics
+    metrics = {k: v if k.endswith(("_coverage", "_rate")) else v * T for k, v in losses.items()}
+    return metrics["combined"], {**metrics, **extra}
 
 
 def voxel_net_forward_loss(model: VoxelNet, batch: Dict[str, torch.Tensor], voxel_dim=None

@@ -1,7 +1,8 @@
 """The two model families behind one interface (counterpart of
 gennerf_tpu/train/tasks.py), and the precision surface.
 
-A task names, for its family: the config and model classes, the metric
+A task names, for its family: the config and model classes, `build`
+(the model of a config, GenNerf with its config's teacher), the metric
 the trainer's finite check reads
 (`loss_key`: GenNerf's `combined`, VoxelNet's summed `tsdf_loss`), and the
 flax params mapping both ways. The steps (`train.step.train_step`,
@@ -21,6 +22,7 @@ import torch
 
 from ..models.config import GenNerfConfig, VoxelNetConfig, config_from_dict
 from ..models.gen_nerf import GenNerf
+from ..models.teacher import make_teacher
 from ..models.voxel_net import VoxelNet
 from ..utils.port_params import (
     gen_nerf_npz_tree, gen_nerf_params_from_flax, voxel_net_npz_tree, voxel_net_params_from_flax,
@@ -46,6 +48,7 @@ class Task:
     loss_key: str
     params_from_flax: Callable
     npz_tree: Callable
+    build: Callable  # build(cfg, dtype): the model of a config
 
 
 class GenNerfTask(Task):
@@ -55,10 +58,22 @@ class GenNerfTask(Task):
     params_from_flax = staticmethod(gen_nerf_params_from_flax)
     npz_tree = staticmethod(gen_nerf_npz_tree)
 
+    @staticmethod
+    def build(cfg: GenNerfConfig, dtype: torch.dtype = torch.float32) -> GenNerf:
+        """GenNerf with make_teacher(cfg.teacher); under use_auxiliary the
+        teacher's feature_dim must be encoder.auxiliary_dim (ValueError)."""
+        teacher = make_teacher(cfg.teacher)
+        if cfg.encoder.use_auxiliary and teacher is not None \
+                and cfg.encoder.auxiliary_dim != teacher.feature_dim:
+            raise ValueError(f"encoder.auxiliary_dim {cfg.encoder.auxiliary_dim} must equal "
+                             f"teacher.feature_dim {teacher.feature_dim}")
+        return GenNerf(cfg, dtype=dtype, teacher=teacher)
+
 
 class VoxelNetTask(Task):
     name = "VoxelNet"
     config_cls, model_cls = VoxelNetConfig, VoxelNet
+    build = staticmethod(VoxelNet)
     loss_key = "tsdf_loss"
     params_from_flax = staticmethod(voxel_net_params_from_flax)
     npz_tree = staticmethod(voxel_net_npz_tree)

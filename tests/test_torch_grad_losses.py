@@ -451,7 +451,7 @@ def test_eikonal_step_bf16(params, batch):
 
 
 @pytest.mark.parametrize("override", [
-    {"loss": {"use_distill": True}},
+    {"loss": {"use_distill": True}, "teacher": {"type": "clip"}},
     {"sampling_mode": "frustum", "loss": {"use_gradient": True}},
     {"sampling_mode": "grid"}])
 def test_options_still_unported_raise(override):

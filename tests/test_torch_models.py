@@ -225,7 +225,7 @@ def test_config_fields_match_jax():
 
 @pytest.mark.parametrize("override", [
     {"encoder": {"use_spatial": True, "spatial": {"norm_type": "sync_batch"}}},
-    {"encoder": {"use_auxiliary": True}},
+    {"encoder": {"use_auxiliary": True, "auxiliary_dim": 8}, "teacher": {"type": "maskclip"}},
     {"encoder": {"pointnet": {"plane_type": ["grid"]}}},
     {"encoder": {"pointnet": {"sparsifier": "voxel_hash"}}},
     {"encoder": {"plane_merger": {"strategy": "learn"}}},
@@ -236,8 +236,8 @@ def test_config_fields_match_jax():
     {"sampling_mode": "grid"},
     {"sampling_mode": "frustum", "loss": {"use_gradient": True}},
     {"encoder": {"use_spatial": True, "spatial": {"upsample_interp": "nearest"}}},
-    {"loss": {"use_distill": True}},
-    {"teacher": {"type": "random_projection"}},
+    {"loss": {"use_distill": True}, "teacher": {"type": "clip"}},
+    {"teacher": {"type": "dino"}},
     {"optimizer": {"type": "SGD"}},
     {"scheduler": {"type": "CosineAnnealingLR"}},
 ])

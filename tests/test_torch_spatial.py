@@ -681,14 +681,17 @@ def test_check_supported_spatial_configs():
     assert (s.backbone, s.num_layers, s.feature_scale, s.blur_image, s.frame_chunk, drive.remat,
             drive.voxel_dim_train) == ("resnet34", 4, 2.0, False, 1, True, (80, 80, 40))
     base = _cfg(COMBINED)
-    for over, match in ((lambda c: c["encoder"].update(use_auxiliary=True), "use_auxiliary"),
-                        (lambda c: c["encoder"]["spatial"].update(norm_type="sync_batch"),
-                         "norm_type"),
-                        (lambda c: c["encoder"].update(use_pointnet=False, use_spatial=False),
-                         "neither")):
+    # use_auxiliary is ported (tests/test_torch_distill.py); without a
+    # teacher it raises ValueError, as the JAX GenNerf does
+    for over, match, error in (
+            (lambda c: c["encoder"].update(use_auxiliary=True), "use_auxiliary", ValueError),
+            (lambda c: c["encoder"]["spatial"].update(norm_type="sync_batch"), "norm_type",
+             NotImplementedError),
+            (lambda c: c["encoder"].update(use_pointnet=False, use_spatial=False), "neither",
+             NotImplementedError)):
         cfg = copy.deepcopy(base)
         over(cfg)
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(error, match=match):
             GenNerf(config_from_dict(GenNerfConfig, cfg))
     with pytest.raises(NotImplementedError, match="float32"):
         GenNerf(config_from_dict(GenNerfConfig, base), dtype=torch.float16)

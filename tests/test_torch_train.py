@@ -235,12 +235,16 @@ def test_loss_terms(rng, terms, masked):
 
 
 def test_unported_loss_terms_raise():
-    """The distillation term is the one loss term not ported (the eikonal
-    and gradient terms are held against JAX in test_torch_grad_losses.py)."""
+    """Every loss term is ported (the eikonal and gradient terms are held
+    against JAX in test_torch_grad_losses.py, the distillation term in
+    test_torch_distill.py); a distillation metric other than cosine or l2
+    raises, as the reference's loss_distill does."""
     for flag in ("use_distill",):
-        cfg = config_from_dict(LossConfig, {flag: True})
+        cfg = config_from_dict(LossConfig, {flag: True, "distill": {"metric": "l1"}})
         with pytest.raises(NotImplementedError):
-            tl.calculate_loss(cfg, {"tsdf": torch.zeros(1, 2, 1)}, {"tsdf": torch.zeros(1, 2, 1)})
+            tl.calculate_loss(cfg, {"tsdf": torch.zeros(1, 2, 1),
+                                    "feat_sem_surface": torch.zeros(1, 2, 4)},
+                              {"tsdf": torch.zeros(1, 2, 1), "teacher_feat": torch.ones(1, 2, 4)})
 
 
 def test_segment_max_ties_split_as_jax(rng):
