@@ -164,6 +164,31 @@ from csrc/host/ with the host C++ compiler, then:
      (the teacher's 64 channels backprojected beside the planes, d_in 96):
      one step, the card against the CPU, and a `reconstruct` and a
      `render_views` launching K1 twice and K2 and K3 0 times;
+ 14. harness: configs/experiment/seqs_multigeo_4cm.yaml at full width on
+     the data phase's dataset through the train CLI's `main` in process,
+     with the reference's harness groups (HARNESS_OVERRIDES: at most 6
+     epochs of 3 train batches and 1 validation batch, early stopping on
+     val_combined with patience 1 from epoch 2, the parameter table at
+     depth 2, clear_cache, a profiler window of 2 steps, the many_loggers
+     group, the config tree, the test pass), counters reset just before
+     and read just after: every epoch runs 3 steps, the fit stops at the
+     epoch the logged val_combined dictates, K1 = steps + eval batches +
+     tails and K2 = tails, each K1 launch index-exact against the plain
+     FPS on its clouds and each tail's K2 volume within the grid tolerance
+     of the plain bf16-feed decode of its tables; the tfevents file read
+     back (TFRecord framing, every masked CRC checked) holds every scalar
+     of metrics.csv at its step, the hparams record, the val and test
+     comparison renders (PNG, not all white, equal to local/'s PNGs) and
+     the mesh-plugin tensors; config_tree.log and tags.log; the profiler's
+     Chrome trace names the FPS kernel among its device events; then the
+     epoch wall time with clear_cache off and on and the host time per
+     step with the progress line and the tfevents writer off and on (on
+     one repeated loader batch, in turns off, on, on, off); the train CLI
+     in a subprocess, sent SIGTERM once metrics.csv shows step 2: exit 0,
+     the interrupted epoch saved at the last logged step, no test pass,
+     and a --resume run of one more epoch starting at the next epoch with
+     a finite loss; a 2-trial learning-rate grid through
+     `train.sweep` (2 records, val_combined finite);
 then a `kernels` JSON line, the nvidia-smi line and the final result line.
 Every phase raises on failure. Needs one CUDA card; exits non-zero without.
 """
@@ -303,6 +328,24 @@ DISTILL_EXPERIMENT = os.path.join(_CONFIGS, "distill_synthetic.yaml")
 DISTILL_RENDER_EXPERIMENT = os.path.join(_CONFIGS, "distill_render_synthetic.yaml")
 DISTILL_FRAMES, DISTILL_WARMUP, DISTILL_TIMED_STEPS = 24, 2, 8
 AUX_OVERRIDES = ("model.encoder.use_auxiliary=true", "model.encoder.auxiliary_dim=64")
+# the harness phase: seqs_multigeo_4cm through the train CLI on the data
+# phase's dataset with early stopping (patience 1 from epoch 2), 3 train
+# batches and 1 validation batch an epoch, the profiler window, the
+# many_loggers group and the test pass; then a SIGTERM save of the same
+# config in a subprocess (sent once step SIGTERM_STEP is logged), its
+# resume, a 2-trial learning-rate sweep, and the overheads of clear_cache
+# (OVERHEAD_EPOCHS epochs a fit, the first not timed), the progress line
+# and the tfevents writer (OVERHEAD_STEPS steps a fit)
+HARNESS_OVERRIDES = (
+    "trainer.max_epochs=6", "trainer.min_epochs=2", "trainer.limit_train_batches=3",
+    "trainer.limit_val_batches=1", "trainer.check_val_every_n_epoch=1",
+    "callbacks=early_stopping", "callbacks.early_stopping.patience=1",
+    "callbacks.model_summary.max_depth=2", "callbacks.clear_cache=true",
+    "trainer.profile_steps=2", "logger=many_loggers", "extras.print_config=true", "test=true")
+HARNESS_STEPS_PER_EPOCH, HARNESS_PATIENCE, HARNESS_MIN_EPOCHS = 3, 1, 2
+SIGTERM_STEP, SIGTERM_TIMEOUT_S = 2, 240
+SWEEP_LRS = (1e-3, 1e-4)
+OVERHEAD_STEPS, OVERHEAD_EPOCHS = 20, 3
 # a field sample counts as live below 0.9 of the head's bound (tanh not
 # saturated); a kernel check or a march on the flagship needs a tenth of
 # its samples live and a tenth of the rays hitting, ten times the rays the
@@ -2363,6 +2406,437 @@ def distill_phase(torch, dev, smi: str, root: str) -> tuple:
     return totals, errors
 
 
+def _crc32c(data: bytes) -> int:
+    """CRC-32C (Castagnoli), bit by bit: the TFRecord checksum, apart from
+    the writer's code (slow: the reader uses it on the short records)."""
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc ^= b
+        for _ in range(8):
+            crc = (crc >> 1) ^ 0x82F63B78 if crc & 1 else crc >> 1
+    return crc ^ 0xFFFFFFFF
+
+
+def _pb_fields(buf: bytes) -> list:
+    """The (field, value) pairs of one protobuf message: varints as ints,
+    fixed64 as doubles, fixed32 as floats, length-delimited as bytes."""
+    import struct
+
+    out, i = [], 0
+    while i < len(buf):
+        key, i = _varint_at(buf, i)
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            value, i = _varint_at(buf, i)
+        elif wire == 1:
+            value, i = struct.unpack("<d", buf[i:i + 8])[0], i + 8
+        elif wire == 5:
+            value, i = struct.unpack("<f", buf[i:i + 4])[0], i + 4
+        elif wire == 2:
+            n, i = _varint_at(buf, i)
+            value, i = buf[i:i + n], i + n
+        else:
+            raise RuntimeError(f"protobuf wire type {wire} in a tfevents record")
+        out.append((field, value))
+    return out
+
+
+def _varint_at(buf: bytes, i: int):
+    value = shift = 0
+    while True:
+        b = buf[i]
+        i += 1
+        value |= (b & 0x7F) << shift
+        shift += 7
+        if not b & 0x80:
+            return value, i
+
+
+def read_tfevents(path: str) -> list:
+    """The summary values of a tfevents file: TFRecord framing (length,
+    masked CRC32C of the length, the Event proto, its masked CRC32C; every
+    CRC checked), each Event's step and each Summary.Value as a dict of
+    tag, step and one of simple_value, image {height, width, png} or
+    tensor, with its plugin's name. The CRCs are computed by the port's
+    `_masked_crc` (held to the JAX writer's on the CPU) and, for records of
+    at most 4 KiB (scalars, hparams, the file header), also by this
+    script's own bitwise CRC."""
+    import struct
+
+    from gennerf_tpu_torch.train.loggers import _masked_crc
+
+    def masked(data):
+        crc = _masked_crc(data)
+        if len(data) <= 4096:
+            own = _crc32c(data)
+            if crc != ((own >> 15 | own << 17) + 0xA282EAD8) & 0xFFFFFFFF:
+                raise RuntimeError("the writer's CRC32C disagrees with the reader's")
+        return crc
+
+    with open(path, "rb") as f:
+        raw = f.read()
+    values, i, records = [], 0, 0
+    while i < len(raw):
+        header = raw[i:i + 8]
+        (n,) = struct.unpack("<Q", header)
+        (crc_header,) = struct.unpack("<I", raw[i + 8:i + 12])
+        record = raw[i + 12:i + 12 + n]
+        (crc_record,) = struct.unpack("<I", raw[i + 12 + n:i + 16 + n])
+        if masked(header) != crc_header or masked(record) != crc_record or len(record) != n:
+            raise RuntimeError(f"{path}: bad TFRecord framing at byte {i}")
+        i += 16 + n
+        records += 1
+        event = dict(_pb_fields(record))
+        step = event.get(2, 0)
+        for field, summary in _pb_fields(record):
+            if field != 5:
+                continue
+            for vfield, value in _pb_fields(summary):
+                v = dict(_pb_fields(value))
+                entry = {"tag": v[1].decode(), "step": step}
+                if 2 in v:
+                    entry["simple_value"] = v[2]
+                if 4 in v:
+                    img = dict(_pb_fields(v[4]))
+                    entry["image"] = {"height": img[1], "width": img[2], "png": img[4]}
+                if 8 in v:
+                    entry["tensor"] = v[8]
+                if 9 in v:
+                    plugin = dict(_pb_fields(dict(_pb_fields(v[9]))[1]))
+                    entry["plugin"] = plugin[1].decode()
+                values.append(entry)
+    if not records:
+        raise RuntimeError(f"{path}: no records")
+    return values
+
+
+def harness_phase(torch, dev, smi: str, root: str) -> tuple:
+    """Phase 14 (see the module docstring); returns the launch counts of
+    the main-path runs (the fit with its test pass, the resume, the sweep,
+    the overhead fits) and K2's largest error against its plain version
+    over the fit's tails."""
+    import io
+    import signal
+    from unittest import mock
+
+    import numpy as np
+
+    from gennerf_tpu_torch.data.datamodule import ScannetDataModule
+    from gennerf_tpu_torch.ops import grid_decode as grid_decode_module
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.ops import sampling as sampling_module
+    from gennerf_tpu_torch.predict import build_model
+    from gennerf_tpu_torch.train import loop as loop_module
+    from gennerf_tpu_torch.train import sweep
+    from gennerf_tpu_torch.train.__main__ import main as train_main
+    from gennerf_tpu_torch.train.callbacks import ProgressBar, clear_device_caches
+    from gennerf_tpu_torch.train.checkpoints import load_checkpoint
+    from gennerf_tpu_torch.train.loggers import MetricsLogger
+    from gennerf_tpu_torch.train.loop import Trainer, trainer_options
+    from gennerf_tpu_torch.train.state import make_optimizer
+    from gennerf_tpu_torch.utils.config import load_experiment_config
+    from gennerf_tpu_torch.utils.image import decode_png
+
+    t_phase = time.perf_counter()
+    totals = {k.name: 0 for k in kernels.KERNELS}
+
+    def read_launches():
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        for name, n in counts.items():
+            totals[name] += n
+        return counts
+
+    def csv_rows(path):
+        with open(path) as f:
+            return list(csv.DictReader(f))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (1) one fit through the train CLI with the harness options
+        run = os.path.join(tmp, "fit")
+        prof_dir = os.path.join(tmp, "prof")
+        evals, decoded, sampled = [], [], []
+        real_k1, real_k2 = sampling_module.fps_cuda, grid_decode_module.grid_decode_cuda
+
+        def recording_k1(xyz, npoint, start, cluster=0):
+            out = real_k1(xyz, npoint, start, cluster)
+            sampled.append((xyz, npoint, start, out))
+            return out
+
+        def recording_k2(tables, weights):
+            out = real_k2(tables, weights)
+            decoded.append((tables, weights, out))
+            return out
+
+        def counted(fn):
+            def wrapper(*a, **k):
+                evals.append(fn.__name__)
+                return fn(*a, **k)
+            return wrapper
+
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with mock.patch.object(loop_module, "eval_step", counted(loop_module.eval_step)), \
+                mock.patch.object(loop_module, "reconstruct", counted(loop_module.reconstruct)), \
+                mock.patch.object(grid_decode_module, "grid_decode_cuda", recording_k2), \
+                mock.patch.object(sampling_module, "fps_cuda", recording_k1):
+            t0 = time.perf_counter()
+            trainer = train_main(["--config", EXPERIMENT, "--data-dir", root, "--out", run,
+                                  "--device", dev.type, *HARNESS_OVERRIDES,
+                                  f"trainer.profile_dir={prof_dir}"])
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        launches = read_launches()
+        steps, n_eval, n_tail = trainer.global_step, evals.count("eval_step"), evals.count(
+            "reconstruct")
+        rows = csv_rows(os.path.join(run, "metrics.csv"))
+        epoch_steps = {}
+        for r in rows:
+            if r.get("epoch"):
+                epoch_steps[int(float(r["epoch"]))] = int(float(r["step"]))
+        epochs_run = len(epoch_steps)
+        val = [float(r["val_combined"]) for r in rows if r.get("val_combined")]
+        # the stopping epoch the logged val_combined sequence dictates
+        best, stale, expected_stop = None, 0, None
+        for epoch, v in enumerate(val):
+            if epoch + 1 < HARNESS_MIN_EPOCHS:
+                continue
+            if best is None or v < best:
+                best, stale = v, 0
+            else:
+                stale += 1
+                if stale >= HARNESS_PATIENCE:
+                    expected_stop = epoch
+                    break
+        expected_epochs = 6 if expected_stop is None else expected_stop + 1
+        grid_err = []
+        for tables, weights, out in decoded:
+            err = (out - grid_decode_module.separable_grid_decode_plain(
+                tables, weights, bf16_feeds=True)).abs()
+            grid_err.append((float(err.max()), float(err.mean())))
+        del decoded
+        # each K1 launch of the fit against the plain FPS on its inputs
+        fps_diff = [(out - sampling_module.farthest_point_sample_plain(xyz, npoint, start)).abs()
+                    for xyz, npoint, start, out in sampled]
+        fps_mismatches = [int((d != 0).sum()) for d in fps_diff]
+        fps_max = max(float(d.max()) for d in fps_diff)
+        del fps_diff
+        k1_shapes = sorted({(*xyz.shape[:2], npoint) for xyz, npoint, _, _ in sampled})
+        del sampled
+        grid_max = max(e[0] for e in grid_err)
+        grid_mean = max(e[1] for e in grid_err)
+
+        # the tfevents file against metrics.csv, the images against local/
+        tb_dir = os.path.join(run, "tensorboard")
+        (events_file,) = os.listdir(tb_dir)
+        tb = read_tfevents(os.path.join(tb_dir, events_file))
+        scalars = {(v["tag"], v["step"]): v["simple_value"] for v in tb if "simple_value" in v}
+        missing = [(k, r["step"]) for r in rows for k, x in r.items() if k != "step" and x
+                   and scalars.get((k, int(float(r["step"])))) != float(np.float32(float(x)))]
+        images = {}
+        for v in tb:
+            if "image" in v:
+                images[v["tag"]] = decode_png(v["image"]["png"])
+        image_tags = [f"{m}_render/{n}" for m in ("val", "test")
+                      for n in ("overview", "frame0", "frame1")]
+        local_same = {tag: bool(np.array_equal(images[tag], decode_png(open(
+            os.path.join(run, "local", tag + ".png"), "rb").read()))) for tag in image_tags
+            if tag in images}
+        not_white = {tag: float((images[tag] != 255).mean()) for tag in images}
+        mesh_tags = sorted({v["tag"] for v in tb if v.get("plugin") == "mesh"})
+        hparams = [v for v in tb if v.get("plugin") == "hparams"]
+        with open(trainer.profile_trace) as f:
+            trace = json.load(f)["traceEvents"]
+        device_events = [e.get("name", "") for e in trace if e.get("cat") == "kernel"]
+        fps_events = [n for n in device_events if "fps_" in n]
+        fit_rec = {
+            "config": "configs/experiment/seqs_multigeo_4cm.yaml",
+            "overrides": list(HARNESS_OVERRIDES), "steps": steps, "epochs_run": epochs_run,
+            "epoch_last_steps": epoch_steps, "val_combined": val,
+            "expected_epochs": expected_epochs, "eval_batches": n_eval, "tails": n_tail,
+            "launches": launches, "fit_s": fit_s, "epoch_s": trainer.epoch_seconds,
+            "k1_vs_plain": {"launches": len(fps_mismatches), "shapes": k1_shapes,
+                            "index_mismatches": sum(fps_mismatches)},
+            "k2_vs_plain": {"max_abs": grid_max, "mean_abs": grid_mean, "tails": len(grid_err)},
+            "tfevents": {"values": len(tb), "scalars": len(scalars),
+                         "scalars_missing": missing[:5], "images": sorted(images),
+                         "not_white": not_white, "mesh_tensors": mesh_tags,
+                         "hparams": len(hparams)},
+            "local_images_equal": local_same,
+            "logs": sorted(f for f in os.listdir(run) if f.endswith(".log")),
+            "profile": {"trace": os.path.basename(trainer.profile_trace),
+                        "device_events": len(device_events), "fps_events": len(fps_events),
+                        "fps_symbol": fps_events[0][:80] if fps_events else None},
+            "test_combined": trainer.metrics.get("test_combined"), "card": smi}
+        emit({"phase": "harness_fit", **fit_rec})
+        if not (all(epoch_steps[e] == HARNESS_STEPS_PER_EPOCH * (e + 1) for e in epoch_steps)
+                and steps == HARNESS_STEPS_PER_EPOCH * epochs_run):
+            raise RuntimeError(f"an epoch did not run {HARNESS_STEPS_PER_EPOCH} steps: "
+                               f"{epoch_steps}, {steps} steps")
+        if epochs_run != expected_epochs or len(val) != epochs_run:
+            raise RuntimeError(f"early stopping ran {epochs_run} epochs, val_combined {val} "
+                               f"dictates {expected_epochs}")
+        if launches["fps"] != steps + n_eval + n_tail or launches["grid_decode"] != n_tail:
+            raise RuntimeError(f"K1 {launches['fps']} / K2 {launches['grid_decode']} launches "
+                               f"for {steps} steps, {n_eval} eval batches, {n_tail} tails")
+        if len(fps_mismatches) != launches["fps"] or any(fps_mismatches):
+            raise RuntimeError(f"the fit's K1 launches against the plain FPS: {fps_mismatches}")
+        if n_tail != epochs_run + 1 or len(grid_err) != n_tail or not (
+                grid_max <= GRID_MAX_ABS_TOL and grid_mean <= GRID_MEAN_ABS_TOL):
+            raise RuntimeError(f"the tails' K2 volumes against the plain decode: {grid_err}")
+        if missing or len(hparams) != 1 or sorted(local_same) != sorted(image_tags) or not all(
+                local_same.values()) or not all(not_white[t] > 0 for t in image_tags):
+            raise RuntimeError(f"tfevents or local images incomplete: {fit_rec['tfevents']}, "
+                               f"{local_same}")
+        if not {f"{m}_mesh/{m}_{w}_mesh_{c}" for m in ("val", "test") for w in ("pred", "trgt")
+                for c in ("VERTEX", "FACE")} <= set(mesh_tags):
+            raise RuntimeError(f"mesh-plugin tensors missing: {mesh_tags}")
+        if fit_rec["logs"] != ["config_tree.log", "tags.log"] or not fps_events:
+            raise RuntimeError(f"config tree, tags or the FPS kernel in the trace missing: "
+                               f"{fit_rec['logs']}, {fit_rec['profile']}")
+        if not math.isfinite(fit_rec["test_combined"] or math.nan):
+            raise RuntimeError(f"the test pass: {fit_rec['test_combined']}")
+
+        # the overheads, on one loader batch of each split repeated (the
+        # loaders' start and waits would drown them): clear_cache per epoch
+        # (3 steps and a validation batch with its tail an epoch), the
+        # progress line and the tfevents writer per step (a fit logging
+        # every step, no validation); in turns off, on, on, off on one model
+        cfg = load_experiment_config(EXPERIMENT, "train", [f"paths.data_dir={root}"])
+        datamodule = ScannetDataModule(cfg["data"], seed=SEED)
+        batch = next(iter(datamodule.train_dataloader()))
+        val_batch = next(iter(datamodule.val_dataloader()))
+        model = build_model(cfg["model"], dev, SEED)
+        opt = make_optimizer(model.parameters(), model.cfg.optimizer, None)
+        base = trainer_options(cfg["trainer"], {})
+        base.pop("gradient_clip_val")
+        base.update(num_sanity_val_steps=0, save_on_preempt=False)
+        cache_epoch_s, step_host_ms = {False: [], True: []}, {False: [], True: []}
+        kernels.reset_launch_counts()
+        for on in (False, True, True, False):
+            t = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), None,
+                        **dict(base, max_epochs=OVERHEAD_EPOCHS, check_val_every_n_epoch=1,
+                               clear_cache=on))
+            t.fit([batch] * HARNESS_STEPS_PER_EPOCH, [val_batch])
+            cache_epoch_s[on].append(statistics.median(t.epoch_seconds[1:]))
+        for on in (False, True, True, False):
+            out = os.path.join(tmp, f"overhead_{on}_{len(step_host_ms[on])}")
+            logger = MetricsLogger(out, {"tensorboard": {}})
+            if not on:  # the run's own metrics.csv only
+                logger.scalar_loggers = []
+            t = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), out,
+                        logger=logger, **dict(base, max_epochs=1, log_every_n_steps=1))
+            t.progress = ProgressBar(enabled=on, stream=io.StringIO())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.fit([batch] * OVERHEAD_STEPS)
+            torch.cuda.synchronize()
+            step_host_ms[on].append((time.perf_counter() - t0) * 1e3 / OVERHEAD_STEPS)
+        overhead_launches = read_launches()
+        clear_ms = host_ms(torch, lambda: clear_device_caches(dev), 5)
+        emit({"phase": "harness_overhead",
+              "clear_cache_epoch_s": {"off": cache_epoch_s[False], "on": cache_epoch_s[True]},
+              "clear_cache_cost_s_per_epoch": statistics.mean(cache_epoch_s[True])
+              - statistics.mean(cache_epoch_s[False]),
+              "clear_device_caches_call_ms": clear_ms,
+              "epoch": {"train_steps": HARNESS_STEPS_PER_EPOCH, "val_batches": 1,
+                        "epochs_timed": OVERHEAD_EPOCHS - 1, "batches": "one loader batch each"},
+              "fit_host_ms_per_step": {"own_csv_only": step_host_ms[False],
+                                       "tensorboard_and_bar": step_host_ms[True]},
+              "writer_and_bar_ms_per_step": statistics.mean(step_host_ms[True])
+              - statistics.mean(step_host_ms[False]),
+              "steps_per_fit": OVERHEAD_STEPS, "log_every_n_steps": 1,
+              "launches": overhead_launches, "card": smi})
+        del model, opt
+
+        # (2) the SIGTERM save in a subprocess, then its resume in process
+        sig_dir = os.path.join(tmp, "sigterm")
+        sig_args = ["--config", EXPERIMENT, "--data-dir", root, "--device", dev.type,
+                    "trainer.max_epochs=50", "trainer.log_every_n_steps=1",
+                    "trainer.limit_train_batches=3", "trainer.limit_val_batches=1",
+                    "trainer.check_val_every_n_epoch=1", "test=true"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "gennerf_tpu_torch.train", "--out",
+                                 sig_dir, *sig_args], cwd=os.path.dirname(os.path.abspath(
+                                     __file__)), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            metrics_csv = os.path.join(sig_dir, "metrics.csv")
+            logged = 0
+            while logged < SIGTERM_STEP:
+                if proc.poll() is not None or time.perf_counter() - t0 > SIGTERM_TIMEOUT_S:
+                    raise RuntimeError(f"the SIGTERM run ended or stalled before step "
+                                       f"{SIGTERM_STEP}: rc {proc.poll()}")
+                time.sleep(0.05)
+                try:
+                    logged = max((int(float(r["step"])) for r in csv_rows(metrics_csv)),
+                                 default=0)
+                except (OSError, TypeError, ValueError):  # not written yet, or mid-row
+                    logged = 0
+            t_signal = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            log, _ = proc.communicate(timeout=SIGTERM_TIMEOUT_S)
+            exit_s = time.perf_counter() - t_signal
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        rows = csv_rows(metrics_csv)
+        last_step = max(int(float(r["step"])) for r in rows)
+        last_epoch = max(int(float(r["epoch"])) for r in rows if r.get("epoch"))
+        tested = [k for r in rows for k, v in r.items() if k.startswith("test_") and v]
+        probe = build_model(cfg["model"], torch.device("cpu"), SEED)
+        saved = load_checkpoint(os.path.join(sig_dir, "checkpoints", "last.pt"), probe)
+        del probe
+        kernels.reset_launch_counts()
+        resumed = train_main(["--out", os.path.join(tmp, "resumed"), "--resume", sig_dir,
+                              *sig_args[:-1], f"trainer.max_epochs={last_epoch + 2}"])
+        torch.cuda.synchronize()
+        resume_launches = read_launches()
+        resumed_rows = csv_rows(os.path.join(tmp, "resumed", "metrics.csv"))
+        resumed_epochs = sorted({int(float(r["epoch"])) for r in resumed_rows if r.get("epoch")})
+        sig_rec = {"returncode": proc.returncode, "signal_at_step": logged,
+                   "last_logged": {"step": last_step, "epoch": last_epoch}, "checkpoint": saved,
+                   "test_keys_after": tested, "exit_s_after_signal": exit_s,
+                   "preempt_logged": "preempted at step" in log,
+                   "resumed_epochs": resumed_epochs, "resumed_steps": resumed.global_step,
+                   "resumed_loss": resumed.metrics.get("train_combined"),
+                   "resume_launches": resume_launches, "card": smi}
+        emit({"phase": "harness_sigterm", **sig_rec})
+        if proc.returncode != 0 or not sig_rec["preempt_logged"]:
+            raise RuntimeError(f"the SIGTERM run exited {proc.returncode}:\n{log[-3000:]}")
+        if saved != {"epoch": last_epoch, "step": last_step} or tested:
+            raise RuntimeError(f"the SIGTERM save {saved} is not the last logged step "
+                               f"{last_step} of epoch {last_epoch}, or a test pass ran: {tested}")
+        if resumed_epochs != [last_epoch + 1] or not math.isfinite(
+                sig_rec["resumed_loss"] or math.nan):
+            raise RuntimeError(f"the resume ran epochs {resumed_epochs}: {sig_rec}")
+
+        # (3) a 2-trial grid sweep over the learning rate
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        records = sweep.main(
+            ["--output", os.path.join(tmp, "sweep"), "--", "--config", EXPERIMENT,
+             "--data-dir", root, "--device", dev.type, "trainer.max_epochs=1",
+             "trainer.limit_train_batches=1", "trainer.limit_val_batches=1",
+             "trainer.check_val_every_n_epoch=1"],
+            spec={"method": "grid", "metric": "val_combined",
+                  "parameters": {"model.optimizer.lr": {"values": list(SWEEP_LRS)}}})
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        sweep_launches = read_launches()
+        with open(os.path.join(tmp, "sweep", "sweep_results.jsonl")) as f:
+            written = [json.loads(line) for line in f]
+        emit({"phase": "harness_sweep", "records": records, "written": len(written),
+              "seconds": sweep_s, "launches": sweep_launches, "card": smi})
+        if written != records or len(records) != len(SWEEP_LRS) or not all(
+                math.isfinite(r.get("metrics", {}).get("val_combined", math.nan))
+                for r in records):
+            raise RuntimeError(f"the sweep's records: {records}")
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "harness", "seconds": phase_s, "launches": totals, "card": smi})
+    return totals, {"fps": fps_max, "grid_decode": grid_max}
+
+
 def evaluate_held_out(dev, evaluation, info_files, pred_dir: str, oracle_dir: str,
                       load_info_json) -> dict:
     """`evaluation.process` on each held-out scene's prediction (every
@@ -2872,6 +3346,10 @@ def main() -> int:
         # their synthetic scene, K2 and K3 on the trained head, use_auxiliary
         distill_launches, distill_errors = distill_phase(
             torch, dev, smi, os.path.join(data_tmp, "synth0"))
+        # 14. harness: the train CLI's harness (early stopping, batch limits,
+        # the profiler window, the loggers, the SIGTERM save, the sweep) on
+        # the data phase's dataset
+        harness_launches, harness_errors = harness_phase(torch, dev, smi, root)
 
     kernel_line = {"kernels": [
         {"name": "fps", "route": "cuda", "source": "gennerf_tpu_torch/csrc/fps.cu",
@@ -2879,8 +3357,10 @@ def main() -> int:
          "launches": (launches["fps"] + render_launches["fps"] + mesh_launches["fps"]
                       + sparse_launches["fps"] + train_launches["fps"] + data_launches["fps"]
                       + spatial_launches["fps"] + voxelnet_launches["fps"]
-                      + flagship_launches["fps"] + distill_launches["fps"]),
-         "max_abs_err": max(float((idx_k - idx_p).abs().max()), flagship_errors["fps"]),
+                      + flagship_launches["fps"] + distill_launches["fps"]
+                      + harness_launches["fps"]),
+         "max_abs_err": max(float((idx_k - idx_p).abs().max()), flagship_errors["fps"],
+                            harness_errors["fps"]),
          "ms": fps_ms,
          "plain_ms": fps_plain_ms, "bound_ms": fps_bound, "bound_by": "operations",
          "library_ms": None},
@@ -2888,9 +3368,11 @@ def main() -> int:
          "replaces": "gennerf_tpu/ops/pallas/fused_decoder.py:353",
          "launches": (launches["grid_decode"] + mesh_launches["grid_decode"]
                       + data_launches["grid_decode"] + voxelnet_launches["grid_decode"]
-                      + flagship_launches["grid_decode"] + distill_launches["grid_decode"]),
+                      + flagship_launches["grid_decode"] + distill_launches["grid_decode"]
+                      + harness_launches["grid_decode"]),
          "max_abs_err": max(grid_max, flagship_errors["grid_decode"],
-                            distill_errors["grid_decode"]), "ms": grid_ms,
+                            distill_errors["grid_decode"], harness_errors["grid_decode"]),
+         "ms": grid_ms,
          "plain_ms": grid_plain_ms, "bound_ms": grid_bound,
          "bound_by": "operations" if grid_flops / PEAK_BF16 >= grid_bytes / PEAK_BYTES else "bytes",
          "library_ms": None},
@@ -2898,7 +3380,7 @@ def main() -> int:
          "replaces": "gennerf_tpu/ops/pallas/fused_decoder.py:53",
          "launches": (render_launches["point_decode"] + data_launches["point_decode"]
                       + voxelnet_launches["point_decode"] + flagship_launches["point_decode"]
-                      + distill_launches["point_decode"]),
+                      + distill_launches["point_decode"] + harness_launches["point_decode"]),
          "max_abs_err": max(point_max, flagship_errors["point_decode"],
                             distill_errors["point_decode"]), "ms": point_ms,
          "plain_ms": point_plain_ms, "bound_ms": point_bound,

@@ -12,6 +12,8 @@
 //  * rasterize_depth: a z-buffer of a triangle mesh seen by a pinhole
 //    camera (offline evaluation renders the predicted mesh at the ground
 //    truth's views with it).
+//  * rasterize_shaded: the same z-buffer with each face lambert-shaded
+//    into an RGB image (the validation tail's comparison renders).
 //
 // Built on first use by gennerf_tpu_torch/utils/native.py (the host C++
 // compiler, -O3 -march=native -std=c++17 -shared -fPIC) and loaded with
@@ -284,6 +286,78 @@ void rasterize_depth(const float* verts, int n_v, const int* faces, int n_f,
         float z = 1.0f / inv_z;
         float& d = depth[static_cast<size_t>(y) * width + x];
         if (d == 0.0f || z < d) d = z;
+      }
+    }
+  }
+}
+
+// Rasterize a lambert-shaded color render (pyrender logging replacement).
+//   base_color: 3 floats in [0,1]; light_dir: world-space direction.
+// Writes rgb[H*W*3] uint8 (white background) and depth[H*W].
+void rasterize_shaded(const float* verts, int n_v, const int* faces, int n_f,
+                      const float* world2cam, float fx, float fy, float cx,
+                      float cy, int height, int width, const float* base_color,
+                      const float* light_dir, unsigned char* rgb,
+                      float* depth) {
+  size_t npix = static_cast<size_t>(height) * width;
+  std::fill(depth, depth + npix, 0.0f);
+  std::fill(rgb, rgb + npix * 3, (unsigned char)255);
+  std::vector<float> cam(static_cast<size_t>(n_v) * 3);
+  for (int i = 0; i < n_v; ++i) {
+    const float* v = verts + 3 * i;
+    for (int r = 0; r < 3; ++r) {
+      cam[3 * i + r] = world2cam[4 * r + 0] * v[0] + world2cam[4 * r + 1] * v[1] +
+                       world2cam[4 * r + 2] * v[2] + world2cam[4 * r + 3];
+    }
+  }
+  float ld[3] = {light_dir[0], light_dir[1], light_dir[2]};
+  float ln = std::sqrt(ld[0] * ld[0] + ld[1] * ld[1] + ld[2] * ld[2]);
+  for (float& x : ld) x /= std::max(ln, 1e-9f);
+
+  for (int f = 0; f < n_f; ++f) {
+    int a = faces[3 * f], b = faces[3 * f + 1], c = faces[3 * f + 2];
+    float za = cam[3 * a + 2], zb = cam[3 * b + 2], zc = cam[3 * c + 2];
+    if (za <= 1e-6f || zb <= 1e-6f || zc <= 1e-6f) continue;
+    // world-space face normal for shading
+    const float* va = verts + 3 * a;
+    const float* vb = verts + 3 * b;
+    const float* vc = verts + 3 * c;
+    float e1[3] = {vb[0] - va[0], vb[1] - va[1], vb[2] - va[2]};
+    float e2[3] = {vc[0] - va[0], vc[1] - va[1], vc[2] - va[2]};
+    float n[3] = {e1[1] * e2[2] - e1[2] * e2[1], e1[2] * e2[0] - e1[0] * e2[2],
+                  e1[0] * e2[1] - e1[1] * e2[0]};
+    float nn = std::sqrt(n[0] * n[0] + n[1] * n[1] + n[2] * n[2]);
+    if (nn < 1e-12f) continue;
+    float lambert = std::abs(n[0] * ld[0] + n[1] * ld[1] + n[2] * ld[2]) / nn;
+    float shade = 0.25f + 0.75f * lambert;
+
+    float ua = fx * cam[3 * a] / za + cx, vva = fy * cam[3 * a + 1] / za + cy;
+    float ub = fx * cam[3 * b] / zb + cx, vvb = fy * cam[3 * b + 1] / zb + cy;
+    float uc = fx * cam[3 * c] / zc + cx, vvc = fy * cam[3 * c + 1] / zc + cy;
+    int x0 = std::max(0, (int)std::floor(std::min({ua, ub, uc})));
+    int x1 = std::min(width - 1, (int)std::ceil(std::max({ua, ub, uc})));
+    int y0 = std::max(0, (int)std::floor(std::min({vva, vvb, vvc})));
+    int y1 = std::min(height - 1, (int)std::ceil(std::max({vva, vvb, vvc})));
+    if (x0 > x1 || y0 > y1) continue;
+    float denom = (vvb - vvc) * (ua - uc) + (uc - ub) * (vva - vvc);
+    if (std::abs(denom) < 1e-12f) continue;
+    float inv_za = 1.0f / za, inv_zb = 1.0f / zb, inv_zc = 1.0f / zc;
+    for (int y = y0; y <= y1; ++y) {
+      for (int x = x0; x <= x1; ++x) {
+        float w0 = ((vvb - vvc) * (x - uc) + (uc - ub) * (y - vvc)) / denom;
+        float w1 = ((vvc - vva) * (x - uc) + (ua - uc) * (y - vvc)) / denom;
+        float w2 = 1.0f - w0 - w1;
+        if (w0 < -1e-5f || w1 < -1e-5f || w2 < -1e-5f) continue;
+        float z = 1.0f / (w0 * inv_za + w1 * inv_zb + w2 * inv_zc);
+        float& d = depth[static_cast<size_t>(y) * width + x];
+        if (d == 0.0f || z < d) {
+          d = z;
+          unsigned char* px = rgb + (static_cast<size_t>(y) * width + x) * 3;
+          for (int k = 0; k < 3; ++k) {
+            float v = base_color[k] * shade * 255.0f;
+            px[k] = (unsigned char)std::min(255.0f, std::max(0.0f, v));
+          }
+        }
       }
     }
   }

@@ -19,8 +19,8 @@ its ground truth's grid (`predict.reconstruct`, which also encodes a
 feature volume on that grid; the encoder's draws from the validation
 generator; a VoxelNet's finest-scale volume, clamped by the fusion prior
 under mask_unobserved), `{mode}_recon_tsdf_l1` is the unmasked mean
-|pred - target| over that grid, and with an output directory the two
-TSDFs (.npz) and their meshes (.ply, empty ones too) go to its local/ sink.
+|pred - target| over that grid, and with a logger the two TSDFs (.npz)
+and their meshes (.ply, empty ones too) go to its local/ sink.
 
 Given the run's `precision` (trainer.precision), the trainer refuses a
 model computing in another dtype than that precision's, the rule the
@@ -41,13 +41,43 @@ every key is ported, accepted (it changes no result on one card) or
 raises NotImplementedError; a key the reference's Trainer does not know
 is warned about.
 
-Not ported: the rendered comparison images of the tail, early stopping,
-batch limits, preemption, the profiler and multi-device runs.
+The harness around the steps, as the reference's `Trainer`:
+- batch limits (`limit_{train,val,test}_batches`, `batch_limit`): an int
+  counts batches, a float in [0, 1] is a share of a sized loader (rounded
+  up; 1.0 is everything); a pass pulls one batch past its limit before it
+  stops, as the reference's loop does, so the loaders' item serials move
+  alike; the reconstruction tail takes the last batch taken;
+- early stopping on a validation metric (`early_stopping_monitor`,
+  `_patience`, `_mode`), counted from epoch `min_epochs - 1` on; the
+  stopping epoch's checkpoint is saved before the loop ends;
+- under `save_on_preempt`, a SIGTERM handler (installed from the main
+  thread only, the previous one restored when `fit` returns): at the next
+  step boundary the current epoch is saved without metrics and `fit`
+  returns with `preempted` set; a resumed run continues at the next epoch;
+- with `profile_dir`, a torch.profiler window (CPU, and CUDA on the card)
+  from global step 1 to step 1 + `profile_steps`, exported as a Chrome
+  trace into `profile_dir` (at the end of `fit` if the run stops inside
+  the window);
+- the callbacks (train/callbacks.py): the parameter table at fit start
+  (`model_summary_depth`), the progress line (`progress_bar`), and
+  `clear_cache` at train start and around each validation;
+- logging through a `MetricsLogger` (the `logger` config group; CSV by
+  default) beside the run's own out_dir/metrics.csv, whose rows carry the
+  step timings; the hyperparameters of `config_snapshot` at fit start;
+  the tail's volumes to the local sink, its meshes and the rendered
+  comparison images (`_log_rendered_images`: an overview and up to two
+  input views, target beside prediction) to every backend that takes
+  them. The reference treats a failing tail as best-effort logging and
+  warns; here it raises.
+
+Not ported: multi-device runs (devices, num_slices or num_nodes above 1).
 """
 from __future__ import annotations
 
 import math
 import os
+import signal
+import threading
 import time
 import warnings
 from typing import Dict, Iterable, List, Optional, Tuple
@@ -57,64 +87,106 @@ import torch
 
 from ..predict import reconstruct
 from ..tsdf.tsdf import TSDF
+from .callbacks import ProgressBar, clear_device_caches, summarize_params
 from .checkpoints import CheckpointManager, load_checkpoint, resolve_checkpoint
-from .loggers import CSVLogger, LocalWriter
+from .loggers import CSVLogger, MetricsLogger, get_logger, log_hyperparameters
 from .state import lr_for_epoch, set_learning_rate
 from .step import batch_to_device, eval_step, train_step
 from .tasks import dtype_for_precision, task_for
 
 
-# trainer keys: ported into the port's Trainer, accepted (no result on one
-# card depends on them), or raising until ported
-PORTED_TRAINER_KEYS = ("max_epochs", "log_every_n_steps", "check_val_every_n_epoch",
-                       "gradient_clip_val", "precision", "num_sanity_val_steps")
-# min_epochs gates only early stopping in the reference, which raises here;
-# save_on_preempt acts only on SIGTERM; profile_steps and the node keys act
-# only with profile_dir / num_nodes > 1, which raise
-ACCEPTED_TRAINER_KEYS = ("accelerator", "devices", "deterministic", "min_epochs",
-                         "save_on_preempt", "prefetch_batches", "profile_steps",
-                         "model_summary_depth", "progress_bar", "clear_cache",
-                         "coordinator_address", "node_rank")
-RAISING_TRAINER_KEYS = ("limit_train_batches", "limit_val_batches", "limit_test_batches",
-                        "profile_dir", "num_slices", "num_nodes", "early_stopping_monitor",
-                        "early_stopping_patience", "early_stopping_mode")
-PORTED_CALLBACKS = ("model_checkpoint",)
-ACCEPTED_CALLBACKS = ("rich_progress_bar", "clear_cache", "model_summary")
+# trainer keys: ported into the port's Trainer, or accepted (no result on
+# one card depends on them)
+PORTED_TRAINER_KEYS = ("max_epochs", "min_epochs", "log_every_n_steps",
+                       "check_val_every_n_epoch", "gradient_clip_val", "precision",
+                       "num_sanity_val_steps", "limit_train_batches", "limit_val_batches",
+                       "limit_test_batches", "profile_dir", "profile_steps",
+                       "early_stopping_monitor", "early_stopping_patience",
+                       "early_stopping_mode", "save_on_preempt", "model_summary_depth",
+                       "progress_bar", "clear_cache")
+# devices, num_slices and num_nodes are accepted at 1 (one card) and raise
+# above it; the node keys act only with num_nodes > 1
+ACCEPTED_TRAINER_KEYS = ("accelerator", "devices", "deterministic", "prefetch_batches",
+                         "num_slices", "num_nodes", "coordinator_address", "node_rank")
+PORTED_CALLBACKS = ("model_checkpoint", "early_stopping", "rich_progress_bar", "clear_cache",
+                    "model_summary")
+EARLY_STOPPING_KEYS = ("early_stopping_monitor", "early_stopping_patience",
+                       "early_stopping_mode")
 
 
 def trainer_options(trainer_cfg: dict, callbacks_cfg: Optional[dict] = None) -> dict:
     """The Trainer settings of a config's `trainer` and `callbacks` groups:
-    {max_epochs, log_every_n_steps, check_val_every_n_epoch,
-    num_sanity_val_steps, precision, gradient_clip_val (the optimizer's)}.
-    Raises NotImplementedError, naming the key, for a non-null
-    limit_*_batches or profile_dir, early stopping (callbacks.early_stopping
-    or trainer.early_stopping_*), devices, num_slices or num_nodes above 1;
-    warns about a key the reference's Trainer does not know."""
+    the ported trainer keys (gradient_clip_val is the optimizer's), early
+    stopping from callbacks.early_stopping {monitor, patience, mode}
+    merged with trainer.early_stopping_* (the trainer keys win, as in the
+    reference's CLI), model_summary_depth from callbacks.model_summary
+    (its max_depth, 1 by default), progress_bar from
+    callbacks.rich_progress_bar and clear_cache from callbacks.clear_cache
+    (a trainer key of the same name wins). Raises NotImplementedError,
+    naming the key, for devices, num_slices or num_nodes above 1; warns
+    about a key the reference's Trainer does not know."""
     trainer_cfg, callbacks_cfg = dict(trainer_cfg or {}), dict(callbacks_cfg or {})
-    bad = [k for k in RAISING_TRAINER_KEYS if k in trainer_cfg and (
-        trainer_cfg[k] is not None if k.startswith(("limit_", "profile_", "early_"))
-        else int(trainer_cfg[k] or 1) > 1)]
+    bad = [k for k in ("num_slices", "num_nodes") if int(trainer_cfg.get(k) or 1) > 1]
     devices = trainer_cfg.get("devices", "auto")
     if devices not in ("auto", None) and int(devices) > 1:
         bad.append("devices")
-    bad += [f"callbacks.{k}" for k in ("early_stopping",) if callbacks_cfg.get(k)]
     if bad:
         raise NotImplementedError(f"gennerf_tpu_torch's trainer does not implement: "
                                   f"{', '.join(bad)}")
-    unknown = sorted(set(trainer_cfg) - set(PORTED_TRAINER_KEYS + ACCEPTED_TRAINER_KEYS
-                                            + RAISING_TRAINER_KEYS))
-    unknown += sorted(f"callbacks.{k}" for k in set(callbacks_cfg) - set(
-        PORTED_CALLBACKS + ACCEPTED_CALLBACKS + ("early_stopping",)))
+    unknown = sorted(set(trainer_cfg) - set(PORTED_TRAINER_KEYS + ACCEPTED_TRAINER_KEYS))
+    unknown += sorted(f"callbacks.{k}" for k in set(callbacks_cfg) - set(PORTED_CALLBACKS))
     if unknown:
         warnings.warn(f"ignoring unknown trainer option(s): {unknown}")
-    return {
+    es = callbacks_cfg.get("early_stopping") or {}
+    summary = callbacks_cfg.get("model_summary")
+    options = {
         "max_epochs": int(trainer_cfg.get("max_epochs", 10)),
+        "min_epochs": int(trainer_cfg.get("min_epochs", 1)),
         "log_every_n_steps": int(trainer_cfg.get("log_every_n_steps", 50)),
         "check_val_every_n_epoch": int(trainer_cfg.get("check_val_every_n_epoch", 1)),
         "num_sanity_val_steps": int(trainer_cfg.get("num_sanity_val_steps", 2)),
         "precision": trainer_cfg.get("precision", "32-true"),
         "gradient_clip_val": trainer_cfg.get("gradient_clip_val"),
+        "limit_train_batches": trainer_cfg.get("limit_train_batches"),
+        "limit_val_batches": trainer_cfg.get("limit_val_batches"),
+        "limit_test_batches": trainer_cfg.get("limit_test_batches"),
+        "profile_dir": trainer_cfg.get("profile_dir"),
+        "profile_steps": int(trainer_cfg.get("profile_steps", 5)),
+        "early_stopping_monitor": es.get("monitor"),
+        "early_stopping_patience": int(es.get("patience", 3)),
+        "early_stopping_mode": es.get("mode", "min"),
+        "save_on_preempt": bool(trainer_cfg.get("save_on_preempt", True)),
+        "model_summary_depth": (summary.get("max_depth", 1) if isinstance(summary, dict)
+                                else (1 if summary else None)),
+        "progress_bar": bool(callbacks_cfg.get("rich_progress_bar")),
+        "clear_cache": bool(callbacks_cfg.get("clear_cache")),
     }
+    options.update({k: trainer_cfg[k] for k in EARLY_STOPPING_KEYS + (
+        "model_summary_depth", "progress_bar", "clear_cache") if k in trainer_cfg})
+    return options
+
+
+def batch_limit(limit, loader) -> Optional[int]:
+    """The largest number of batches a pass takes from `loader` under a
+    limit_*_batches value (None: all). An int is a count; a float in
+    [0, 1] a share of the loader's length, rounded up (1.0: all); another
+    float raises ValueError; a loader without a length warns and runs all
+    its batches."""
+    if limit is None:
+        return None
+    if isinstance(limit, int) and not isinstance(limit, bool):
+        return limit
+    limit = float(limit)
+    if not 0.0 <= limit <= 1.0:
+        raise ValueError(f"fractional batch limit must be in [0, 1], got {limit}")
+    if limit == 1.0:
+        return None
+    try:
+        n = len(loader)
+    except TypeError:
+        warnings.warn(f"fractional batch limit {limit} needs a sized loader; running all batches")
+        return None
+    return math.ceil(limit * n)
 
 
 class Trainer:
@@ -123,29 +195,56 @@ class Trainer:
                  max_epochs: int = 1, log_every_n_steps: int = 50,
                  check_val_every_n_epoch: int = 1,
                  checkpoints: Optional[CheckpointManager] = None, precision=None,
-                 num_sanity_val_steps: int = 2):
+                 num_sanity_val_steps: int = 2, min_epochs: int = 1,
+                 limit_train_batches=None, limit_val_batches=None, limit_test_batches=None,
+                 early_stopping_monitor: Optional[str] = None, early_stopping_patience: int = 3,
+                 early_stopping_mode: str = "min", save_on_preempt: bool = True,
+                 profile_dir: Optional[str] = None, profile_steps: int = 5,
+                 model_summary_depth: Optional[int] = None, progress_bar: bool = False,
+                 clear_cache: bool = False, logger: Optional[MetricsLogger] = None):
         """`generator` supplies every train step's draws, a second generator
         seeded with its initial seed + 1 the validation draws; with
-        `out_dir`, metrics go to out_dir/metrics.csv, the validation tail's
-        files to out_dir/local/ and checkpoints through `checkpoints`
-        (default: every epoch kept in out_dir/checkpoints/). With
-        `precision`, a model computing in another dtype raises ValueError.
+        `out_dir`, metrics go to out_dir/metrics.csv and to `logger`
+        (default: a MetricsLogger of out_dir, the CSV backend and the
+        local/ sink), checkpoints through `checkpoints` (default: every
+        epoch kept in out_dir/checkpoints/). With `precision`, a model
+        computing in another dtype raises ValueError.
         `num_sanity_val_steps` validation batches go through the eval step
-        before the first epoch and on resume, as in the reference."""
+        before the first epoch and on resume, as in the reference. The
+        harness options are the reference Trainer's (module docstring)."""
         self.model, self.optimizer, self.generator = model, optimizer, generator
         self.task = task_for(model)
         if precision is not None and dtype_for_precision(precision) != model.dtype:
             raise ValueError(f"trainer.precision={precision!r} maps to "
                              f"{dtype_for_precision(precision)}, but the {self.task.name} "
                              f"computes in {model.dtype}")
+        if early_stopping_mode not in ("min", "max"):
+            raise ValueError(f"early_stopping_mode must be 'min' or 'max', "
+                             f"got {early_stopping_mode!r}")
         self.val_generator = torch.Generator(device=generator.device).manual_seed(
             generator.initial_seed() + 1)
-        self.max_epochs = max_epochs
+        self.max_epochs, self.min_epochs = max_epochs, min_epochs
         self.log_every_n_steps = log_every_n_steps
         self.check_val_every_n_epoch = check_val_every_n_epoch
         self.num_sanity_val_steps = num_sanity_val_steps
-        self.logger = CSVLogger(out_dir, name="") if out_dir else None
-        self.local = LocalWriter(out_dir) if out_dir else None
+        self.limit_train_batches = limit_train_batches
+        self.limit_val_batches = limit_val_batches
+        self.limit_test_batches = limit_test_batches
+        self.early_stopping_monitor = early_stopping_monitor
+        self.early_stopping_patience = early_stopping_patience
+        self.early_stopping_mode = early_stopping_mode
+        self.save_on_preempt = bool(save_on_preempt)
+        self.preempted = False
+        self.profile_dir, self.profile_steps = profile_dir, profile_steps
+        self.profile_trace: Optional[str] = None
+        self._profiler = None
+        self.model_summary_depth = model_summary_depth
+        self.progress = ProgressBar(enabled=progress_bar)
+        self.clear_cache = bool(clear_cache)
+        self.log = get_logger()
+        self.csv = CSVLogger(out_dir, name="") if out_dir else None
+        self.logger = logger if logger is not None else (MetricsLogger(out_dir) if out_dir
+                                                         else None)
         if checkpoints is None and out_dir:
             checkpoints = CheckpointManager(os.path.join(out_dir, "checkpoints"))
         self.ckpt = checkpoints
@@ -155,55 +254,119 @@ class Trainer:
         # (upload, forward, backward, optimizer) on the device's stream;
         # filled when the host next logs
         self.timings: List[Dict[str, float]] = []
+        # per epoch run: host seconds from its first batch to its checkpoint
+        self.epoch_seconds: List[float] = []
         self._pending: List[Tuple[float, object, object]] = []
+        # the last logged train row, and this epoch's (the progress line's)
         self._last_row: Dict[str, float] = {}
+        self._shown: Dict[str, float] = {}
 
     def _log(self, metrics: Dict[str, float]) -> None:
         self.metrics.update(metrics)
-        if self.logger is not None:
-            self.logger.log_metrics(metrics, self.global_step)
+        for logger in (self.csv, self.logger):
+            if logger is not None:
+                logger.log_metrics(metrics, self.global_step)
 
     def fit(self, train_loader: Iterable[Dict], val_loader: Iterable[Dict] = (),
-            ckpt_path: Optional[str] = None) -> Dict[str, float]:
+            ckpt_path: Optional[str] = None,
+            config_snapshot: Optional[dict] = None) -> Dict[str, float]:
         """Train to max_epochs over `train_loader` (iterated once an epoch;
         batches of numpy arrays or tensors); with `ckpt_path` (a checkpoint,
-        or a directory holding last.pt) continue after the epoch it saved.
-        Returns the last logged metrics."""
+        or a directory holding last.pt) continue after the epoch it saved;
+        `config_snapshot` (the composed config) goes to the loggers as the
+        run's hyperparameters. Returns the last logged metrics."""
         device = next(self.model.parameters()).device
         if next(iter(train_loader), None) is None:
             raise ValueError("the train loader yielded no batches")
+        n_params = sum(p.numel() for p in self.model.parameters())
+        self.log.info(f"{self.task.name}: {n_params:,} params on {device}")
+        if self.model_summary_depth is not None:
+            self.log.info("model summary:\n"
+                          + summarize_params(self.model, self.model_summary_depth))
+        if config_snapshot is not None and self.logger is not None:
+            log_hyperparameters(config_snapshot, self.model, self.logger)
         start_epoch = 0
         if ckpt_path:
             info = load_checkpoint(resolve_checkpoint(ckpt_path), self.model, self.optimizer,
                                    self.generator, self.val_generator)
             start_epoch, self.global_step = info["epoch"] + 1, info["step"]
+            self.log.info(f"resumed from {ckpt_path} at epoch {start_epoch}")
         if self.num_sanity_val_steps:
             for i, batch in enumerate(val_loader):
                 if i >= self.num_sanity_val_steps:
                     break
                 eval_step(self.model, batch_to_device(batch, device), self.val_generator)
+        previous = None
+        if self.save_on_preempt and threading.current_thread() is threading.main_thread():
+            previous = (signal.signal(signal.SIGTERM, self._on_sigterm),)
+        try:
+            return self._fit_loop(train_loader, val_loader, start_epoch, device)
+        finally:
+            if previous is not None:
+                signal.signal(signal.SIGTERM, previous[0])
+            if self._profiler is not None:
+                self._stop_profiler(device)
+
+    def _on_sigterm(self, signum, frame) -> None:
+        self.preempted = True
+        self.log.info("SIGTERM: checkpointing at the next step boundary, then exiting")
+
+    def _fit_loop(self, train_loader, val_loader, start_epoch: int,
+                  device: torch.device) -> Dict[str, float]:
         cfg = self.model.cfg
+        best_monitor, stale_epochs, stop = None, 0, False
+        batches_per_epoch = None
+        if self.clear_cache:
+            clear_device_caches(device, self.log, "train start")
         for epoch in range(start_epoch, self.max_epochs):
+            t_epoch = time.perf_counter()
             lr = lr_for_epoch(cfg.optimizer, cfg.scheduler, epoch)
             set_learning_rate(self.optimizer, lr)
             metrics = None  # the last step's, not logged yet
+            self._shown = {}
+            limit = batch_limit(self.limit_train_batches, train_loader)
+            self.progress.start_epoch(epoch, batches_per_epoch if limit is None
+                                      else min(limit, batches_per_epoch or limit))
+            step_in_epoch = 0
             batches = iter(train_loader)
             while True:
                 t0 = time.perf_counter()
                 batch = next(batches, None)
-                if batch is None:
+                if batch is None or (limit is not None and step_in_epoch >= limit):
                     break
                 wait_ms = (time.perf_counter() - t0) * 1e3
+                if self.profile_dir and self.global_step == 1:
+                    self._start_profiler(device)
                 begin = _mark(device)
                 metrics = train_step(self.model, self.optimizer, batch_to_device(batch, device),
                                      self.generator)
                 self._pending.append((wait_ms, begin, _mark(device)))
+                if self._profiler is not None and self.global_step == 1 + self.profile_steps:
+                    self._stop_profiler(device)
                 self.global_step += 1
+                step_in_epoch += 1
                 if self.global_step % self.log_every_n_steps == 0:
                     self._log_step(metrics, lr, epoch)
                     metrics = None
-            if not (self.timings or self._pending):
-                raise ValueError("the train loader yielded no batches")
+                self.progress.update(step_in_epoch, self._shown or None)
+                if self.preempted:
+                    break
+            self.progress.end_epoch()
+            batches_per_epoch = step_in_epoch or batches_per_epoch
+            if self.preempted:
+                if step_in_epoch and self.ckpt is not None:
+                    self.ckpt.save(epoch, self.global_step, self.model, self.optimizer,
+                                   self.generator, self.val_generator, metrics=None)
+                    self.log.info(f"preempted during epoch {epoch} (step {self.global_step}): "
+                                  "checkpoint saved; resume to continue at epoch "
+                                  f"{epoch + 1}")
+                else:
+                    self.log.info(f"preempted during epoch {epoch} (step {self.global_step}): "
+                                  "no checkpoint written (no completed step or no "
+                                  "checkpoint manager)")
+                return dict(self.metrics)
+            if not step_in_epoch:
+                raise ValueError(f"the train loader yielded no batches in epoch {epoch}")
             if metrics is not None:  # an epoch logs at least its last step
                 self._log_step(metrics, lr, epoch)
             for k, v in self._last_row.items():
@@ -213,12 +376,60 @@ class Trainer:
                                   "teacher and validity masks")
             val_metrics = None
             if val_loader and (epoch + 1) % self.check_val_every_n_epoch == 0:
-                val_metrics = self.validate(val_loader)
+                if self.clear_cache:
+                    clear_device_caches(device, self.log, "val start")
+                val_metrics = self.validate(val_loader, epoch=epoch)
+                if self.clear_cache:
+                    clear_device_caches(device, self.log, "val end")
                 self._log(val_metrics)
+                monitor = self.early_stopping_monitor
+                if monitor and monitor not in val_metrics:
+                    warnings.warn(f"early-stopping monitor {monitor!r} not in validation metrics "
+                                  f"{sorted(val_metrics)}: early stopping is inert this epoch")
+                elif monitor and epoch + 1 >= self.min_epochs:
+                    value = val_metrics[monitor]
+                    sign = 1.0 if self.early_stopping_mode == "min" else -1.0
+                    if best_monitor is None or sign * value < sign * best_monitor:
+                        best_monitor, stale_epochs = value, 0
+                    else:
+                        stale_epochs += 1
+                        if stale_epochs >= self.early_stopping_patience:
+                            self.log.info(f"early stopping: {monitor} stale for {stale_epochs} "
+                                          f"validations (best {best_monitor:.5f})")
+                            stop = True
             if self.ckpt is not None:
                 self.ckpt.save(epoch, self.global_step, self.model, self.optimizer,
                                self.generator, self.val_generator, metrics=val_metrics)
+            self.epoch_seconds.append(time.perf_counter() - t_epoch)
+            self.log.info(f"epoch {epoch}: " + ", ".join(
+                f"{k}={v:.4f}" for k, v in self._last_row.items())
+                + f" ({self.epoch_seconds[-1]:.1f}s)")
+            if stop:
+                break
         return dict(self.metrics)
+
+    def _start_profiler(self, device: torch.device) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=activities)
+        self._profiler.start()
+        self._profile_first = self.global_step
+
+    def _stop_profiler(self, device: torch.device) -> None:
+        """Wait for the card, close the window and export its Chrome trace
+        into profile_dir."""
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        self.profile_trace = os.path.join(
+            self.profile_dir, f"trace_steps{self._profile_first}-{self.global_step}.json")
+        prof.export_chrome_trace(self.profile_trace)
+        self.log.info(f"profiler trace written to {self.profile_trace}")
 
     def _log_step(self, metrics: Dict[str, torch.Tensor], lr: float, epoch: int) -> None:
         """Wait for the step just launched, fill the pending timings and
@@ -230,32 +441,41 @@ class Trainer:
         loss = row[f"train_{self.task.loss_key}"]
         if not math.isfinite(loss):
             raise FloatingPointError(f"loss {loss} at step {self.global_step}")
-        self._last_row = row
+        self._last_row = self._shown = row
         self._log({**row, **self.timings[-1], "lr": lr, "epoch": epoch})
 
-    def validate(self, loader: Iterable[Dict], mode: str = "val") -> Dict[str, float]:
-        """The eval metrics averaged over the loader's batches, keys
-        prefixed `{mode}_`, drawn from the validation generator; then the
-        reconstruction tail on the last batch (see the module docstring)."""
+    def validate(self, loader: Iterable[Dict], mode: str = "val",
+                 epoch: int = 0) -> Dict[str, float]:
+        """The eval metrics averaged over the loader's batches (up to its
+        batch limit), keys prefixed `{mode}_`, drawn from the validation
+        generator; then the reconstruction tail on the last batch taken
+        (see the module docstring), its meshes and images logged at step
+        `epoch`."""
         device = next(self.model.parameters()).device
+        limit = batch_limit(self.limit_test_batches if mode == "test"
+                            else self.limit_val_batches, loader)
         sums: Dict[str, torch.Tensor] = {}
         count = 0
         last = None
         for batch in loader:
+            if limit is not None and count >= limit:
+                break
             last = batch_to_device(batch, device)
             for k, v in eval_step(self.model, last, self.val_generator).items():
                 sums[k] = v if k not in sums else sums[k] + v
             count += 1
         out = {f"{mode}_{k}": float(v) / max(count, 1) for k, v in sums.items()}
         if last is not None:
-            out.update(self._reconstruction_tail(last, mode))
+            out.update(self._reconstruction_tail(last, mode, step=epoch))
         return out
 
-    def _reconstruction_tail(self, batch: Dict[str, torch.Tensor], mode: str) -> Dict[str, float]:
+    def _reconstruction_tail(self, batch: Dict[str, torch.Tensor], mode: str,
+                             step: int = 0) -> Dict[str, float]:
         """Reconstruct batch element 0 at its ground truth's grid (the
         config's voxel_dim_test without one); returns the unmasked TSDF L1
-        against the ground truth and writes both volumes and meshes to the
-        local sink."""
+        against the ground truth. With a logger, both volumes go to the
+        local sink, their meshes to every backend and the rendered
+        comparison images after them."""
         cfg = self.model.cfg
         key = "vol_%02d_tsdf" % int(cfg.voxel_size * 100)
         trgt = batch[key][0, 0].cpu().numpy() if key in batch else None
@@ -263,19 +483,45 @@ class Trainer:
                           batch["depth"][0], trgt.shape if trgt is not None else None,
                           generator=self.val_generator).cpu()
         origin = torch.zeros(1, 3)
-        out, tsdfs = {}, {"pred": TSDF(cfg.voxel_size, origin, vol)}
+        pred, out = TSDF(cfg.voxel_size, origin, vol), {}
+        if self.logger is not None:
+            self.logger.local.log_tsdf(pred, f"{mode}_tsdf/{mode}_pred_tsdf")
+            mesh_pred = pred.get_mesh()
+            self.logger.log_mesh(f"{mode}_mesh/{mode}_pred_mesh", mesh_pred, step=step)
         if trgt is not None:
             out[f"{mode}_recon_tsdf_l1"] = float(np.abs(vol.numpy() - trgt).mean())
-            tsdfs["trgt"] = TSDF(cfg.voxel_size, origin, torch.from_numpy(trgt))
-        if self.local is not None:
-            for name, tsdf in tsdfs.items():
-                self.local.log_tsdf(tsdf, f"{mode}_tsdf/{mode}_{name}_tsdf")
-                self.local.log_mesh(tsdf.get_mesh(), f"{mode}_mesh/{mode}_{name}_mesh")
+            if self.logger is not None:
+                target = TSDF(cfg.voxel_size, origin, torch.from_numpy(trgt))
+                self.logger.local.log_tsdf(target, f"{mode}_tsdf/{mode}_trgt_tsdf")
+                mesh_trgt = target.get_mesh()
+                self.logger.log_mesh(f"{mode}_mesh/{mode}_trgt_mesh", mesh_trgt, step=step)
+                self._log_rendered_images(mesh_pred, mesh_trgt, batch, mode, step=step)
         return out
 
+    def _log_rendered_images(self, mesh_pred, mesh_trgt, batch: Dict[str, torch.Tensor],
+                             mode: str, b_idx: int = 0, num_logged_frames: int = 2,
+                             step: int = 0) -> None:
+        """Shaded target | prediction renders: an overview framing the
+        target mesh, then the first `num_logged_frames` input views, to
+        every image-capable backend and the local PNG sink."""
+        from ..utils.visuals import compute_camera_pose, render_comparison
+
+        H, W = batch["image"].shape[-2:]
+        intr = batch["intrinsics"][b_idx].cpu().numpy()
+        poses = batch["pose"][b_idx].cpu().numpy()
+        overview = compute_camera_pose(mesh_trgt, intr[0], W, H)
+        self.logger.log_image(f"{mode}_render/overview",
+                              render_comparison(mesh_pred, mesh_trgt, intr[0], overview, H, W),
+                              step=step)
+        for i in range(min(num_logged_frames, poses.shape[0])):
+            self.logger.log_image(f"{mode}_render/frame{i}",
+                                  render_comparison(mesh_pred, mesh_trgt, intr[i], poses[i], H, W),
+                                  step=step)
+
     def test(self, loader: Iterable[Dict]) -> Dict[str, float]:
-        """The validation pass (with its reconstruction tail) over a test
-        loader, keys prefixed `test_`, logged at the current step."""
+        """The validation pass (with its reconstruction tail, under
+        limit_test_batches) over a test loader, keys prefixed `test_`,
+        logged at the current step."""
         metrics = self.validate(loader, mode="test")
         self._log(metrics)
         return metrics

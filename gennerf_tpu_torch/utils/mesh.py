@@ -37,6 +37,12 @@ class Mesh:
     def is_empty(self) -> bool:
         return len(self.vertices) == 0
 
+    def bounds(self) -> np.ndarray:
+        """(2, 3): the min and max corner (zeros for an empty mesh)."""
+        if self.is_empty:
+            return np.zeros((2, 3))
+        return np.stack([self.vertices.min(0), self.vertices.max(0)])
+
     def export(self, path: str) -> None:
         """Write a binary little-endian PLY (the only format)."""
         if not str(path).endswith(".ply"):

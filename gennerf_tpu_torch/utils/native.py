@@ -1,6 +1,6 @@
 """The port's host C++ library (csrc/host/gennerf_native.cpp) through ctypes:
-marching cubes, KD-tree nearest-neighbour distances and the depth
-rasterizer, with the signatures and return conventions of the JAX
+marching cubes, KD-tree nearest-neighbour distances, the depth rasterizer
+and the shaded one, with the signatures and return conventions of the JAX
 package's native binding.
 
 The library is built on first use with the host C++ compiler (`$CXX`, else
@@ -46,6 +46,10 @@ _SIGNATURES = {
         _F32P, ctypes.c_int, _I32P, ctypes.c_int, _F32P,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_int, ctypes.c_int, _F32P]),
+    "rasterize_shaded": (None, [
+        _F32P, ctypes.c_int, _I32P, ctypes.c_int, _F32P,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, _F32P, _F32P, ctypes.POINTER(ctypes.c_ubyte), _F32P]),
 }
 
 
@@ -138,12 +142,9 @@ def marching_cubes(volume: np.ndarray, level: float = 0.0):
     return verts, faces
 
 
-def rasterize_depth(vertices: np.ndarray, faces: np.ndarray, intrinsics: np.ndarray,
-                    pose: np.ndarray, height: int, width: int) -> np.ndarray:
-    """(H, W) float32 z-depth of a mesh (vertices (V, 3) in world space,
-    faces (F, 3)) seen by a pinhole camera with (3, 3) `intrinsics` and
-    camera-to-world `pose` (4, 4); 0 where no triangle covers the pixel."""
-    lib = load_library()
+def _camera_args(vertices, faces, intrinsics, pose):
+    """The arguments both rasterizers share: vertices and faces as
+    (n, 3) arrays, the world-to-camera matrix (float32) and fx, fy, cx, cy."""
     v = _rows3(vertices, np.float32, "vertices")
     f = _rows3(faces, np.int32, "faces")
     if len(f) and (f.min() < 0 or f.max() >= len(v)):
@@ -153,12 +154,41 @@ def rasterize_depth(vertices: np.ndarray, faces: np.ndarray, intrinsics: np.ndar
         raise ValueError(f"expected a (4, 4) pose and (3, 3) intrinsics, got {pose.shape}, "
                          f"{K.shape}")
     w2c = np.ascontiguousarray(np.linalg.inv(pose).astype(np.float32))
+    return v, f, w2c, [ctypes.c_float(x) for x in (K[0, 0], K[1, 1], K[0, 2], K[1, 2])]
+
+
+def rasterize_depth(vertices: np.ndarray, faces: np.ndarray, intrinsics: np.ndarray,
+                    pose: np.ndarray, height: int, width: int) -> np.ndarray:
+    """(H, W) float32 z-depth of a mesh (vertices (V, 3) in world space,
+    faces (F, 3)) seen by a pinhole camera with (3, 3) `intrinsics` and
+    camera-to-world `pose` (4, 4); 0 where no triangle covers the pixel."""
+    lib = load_library()
+    v, f, w2c, k = _camera_args(vertices, faces, intrinsics, pose)
     out = np.zeros((height, width), dtype=np.float32)
     lib.rasterize_depth(_ptr(v, ctypes.c_float), len(v), _ptr(f, ctypes.c_int), len(f),
-                        _ptr(w2c, ctypes.c_float), ctypes.c_float(K[0, 0]),
-                        ctypes.c_float(K[1, 1]), ctypes.c_float(K[0, 2]),
-                        ctypes.c_float(K[1, 2]), height, width, _ptr(out, ctypes.c_float))
+                        _ptr(w2c, ctypes.c_float), *k, height, width, _ptr(out, ctypes.c_float))
     return out
+
+
+def rasterize_shaded(vertices: np.ndarray, faces: np.ndarray, intrinsics: np.ndarray,
+                     pose: np.ndarray, height: int, width: int, color, light_dir):
+    """A lambert-shaded render of a mesh (arguments as `rasterize_depth`;
+    `color` the RGB base colour in [0, 1], `light_dir` a world-space
+    direction): (H, W, 3) uint8 on a white background and the (H, W)
+    float32 z-depth."""
+    lib = load_library()
+    v, f, w2c, k = _camera_args(vertices, faces, intrinsics, pose)
+    base = np.ascontiguousarray(color, np.float32)
+    light = np.ascontiguousarray(light_dir, np.float32)
+    if base.shape != (3,) or light.shape != (3,):
+        raise ValueError(f"expected 3 colour and 3 light values, got {base.shape}, {light.shape}")
+    rgb = np.zeros((height, width, 3), np.uint8)
+    depth = np.zeros((height, width), np.float32)
+    lib.rasterize_shaded(_ptr(v, ctypes.c_float), len(v), _ptr(f, ctypes.c_int), len(f),
+                         _ptr(w2c, ctypes.c_float), *k, height, width,
+                         _ptr(base, ctypes.c_float), _ptr(light, ctypes.c_float),
+                         _ptr(rgb, ctypes.c_ubyte), _ptr(depth, ctypes.c_float))
+    return rgb, depth
 
 
 def nn_distances(queries: np.ndarray, targets: np.ndarray) -> np.ndarray:

@@ -2,7 +2,8 @@
 batches a fit feeds its steps equal the JAX `Trainer`'s, over the sanity
 pass (num_sanity_val_steps 2), a 2-epoch fit and its validations, on a
 small multigeo dataset with random frame order; every trainer and
-callback key is ported, accepted or raises NotImplementedError naming it;
+callback key is ported (the harness keys pass through to the Trainer),
+accepted or raises NotImplementedError naming it (more than one device);
 an unknown key warns; both distillation experiments (min_epochs 10, no
 early stopping) read through; a zero `*_coverage` warns at the epoch's
 end.
@@ -97,7 +98,8 @@ def port_batches(dataset, sanity, monkeypatch, epochs=2):
         _record(train, batch), {"combined": torch.ones(())})[1])
     monkeypatch.setattr(loop, "eval_step", lambda model, batch, gen=None: (
         _record(evals, batch), {"combined": torch.ones(())})[1])
-    monkeypatch.setattr(loop.Trainer, "_reconstruction_tail", lambda self, batch, mode: {})
+    monkeypatch.setattr(loop.Trainer, "_reconstruction_tail",
+                        lambda self, batch, mode, step=0: {})
     model = build_model(MODEL, "cpu")
     options = loop.trainer_options({"max_epochs": epochs, "log_every_n_steps": 1,
                                     "num_sanity_val_steps": sanity, "precision": "32-true"})
@@ -132,12 +134,9 @@ def test_fit_feeds_the_batches_of_the_jax_trainer(dataset, monkeypatch):
     assert any(not np.allclose(a["pose"], b["pose"]) for a, b in zip(no_sanity, ref_eval[2:]))
 
 
-@pytest.mark.parametrize("key,value", [
-    ("limit_train_batches", 2), ("limit_val_batches", 0.5), ("limit_test_batches", 1),
-    ("profile_dir", "prof"), ("devices", 2), ("num_slices", 2), ("num_nodes", 2),
-    ("early_stopping_monitor", "val_combined"), ("callbacks.early_stopping",
-                                                 {"monitor": "val_combined"})])
+@pytest.mark.parametrize("key,value", [("devices", 2), ("num_slices", 2), ("num_nodes", 2)])
 def test_unported_trainer_keys_raise(key, value):
+    """More than one device raises NotImplementedError naming the key."""
     trainer, callbacks = {"max_epochs": 1}, {}
     if key.startswith("callbacks."):
         callbacks[key.split(".", 1)[1]] = value
@@ -145,6 +144,32 @@ def test_unported_trainer_keys_raise(key, value):
         trainer[key] = value
     with pytest.raises(NotImplementedError, match=key):
         loop.trainer_options(trainer, callbacks)
+
+
+@pytest.mark.parametrize("key,value,option", [
+    ("limit_train_batches", 2, None), ("limit_val_batches", 0.5, None),
+    ("limit_test_batches", 1, None), ("profile_dir", "prof", None),
+    ("early_stopping_monitor", "val_combined", None),
+    ("callbacks.early_stopping", {"monitor": "val_combined"}, "early_stopping_monitor")])
+def test_ported_trainer_keys_pass_through(key, value, option):
+    """The harness keys (batch limits, the profiler, early stopping in
+    either spelling) reach the Trainer's options silently, and a Trainer
+    takes those options."""
+    trainer, callbacks = {"max_epochs": 1}, {}
+    if key.startswith("callbacks."):
+        callbacks[key.split(".", 1)[1]] = value
+        value = value["monitor"]
+    else:
+        trainer[key] = value
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        options = loop.trainer_options(trainer, callbacks)
+    assert options[option or key] == value
+    options.pop("gradient_clip_val")
+    model = build_model(MODEL, "cpu")
+    opt = make_optimizer(model.parameters(), model.cfg.optimizer, None)
+    trainer = loop.Trainer(model, opt, torch.Generator().manual_seed(0), None, **options)
+    assert getattr(trainer, option or key) == value
 
 
 def test_accepted_keys_and_unknown_ones():
@@ -176,9 +201,14 @@ def test_distill_experiments_read_through(name):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         options = loop.trainer_options(cfg["trainer"], cfg["callbacks"])
-    assert options == {"max_epochs": 10, "log_every_n_steps": 1, "check_val_every_n_epoch": 5,
-                       "num_sanity_val_steps": 0, "precision": "32-true",
-                       "gradient_clip_val": None}
+    assert options == {"max_epochs": 10, "min_epochs": 10, "log_every_n_steps": 1,
+                       "check_val_every_n_epoch": 5, "num_sanity_val_steps": 0,
+                       "precision": "32-true", "gradient_clip_val": None,
+                       "limit_train_batches": None, "limit_val_batches": None,
+                       "limit_test_batches": None, "profile_dir": None, "profile_steps": 5,
+                       "early_stopping_monitor": None, "early_stopping_patience": 3,
+                       "early_stopping_mode": "min", "save_on_preempt": True,
+                       "model_summary_depth": None, "progress_bar": True, "clear_cache": True}
 
 
 def test_zero_coverage_warns(monkeypatch):
