@@ -189,6 +189,36 @@ from csrc/host/ with the host C++ compiler, then:
      and a --resume run of one more epoch starting at the next epoch with
      a finite loss; a 2-trial learning-rate grid through
      `train.sweep` (2 records, val_combined finite);
+ 15. weights_options: weights in and out and the GenNerf options a
+     reference checkpoint can name. A reference-named Lightning .ckpt of the
+     full-width seqs_multigeo_4cm (c_dim 32, 64x64 planes, UNet depth 3, 256
+     sparse points, ResnetFC H 256 x 5), fabricated with numpy, its
+     hyper_parameters pickling a class of a module that does not exist (the
+     field centred on the scene's test grid first), through the predict
+     and render CLIs' --params on one held-out scene, counters reset just
+     before and read just after (K1 twice, each index-exact against the
+     plain FPS; K2 once, within the grid tolerances of the plain bf16-feed
+     decode; K3 in the render), the 480x640 view through K3 against the
+     plain march, the writer -> reader round trip bit for bit and the same
+     weights loaded natively and through the reader giving the same
+     volume bit for bit (deterministic algorithms); fabricated reference
+     checkpoints of seqs_multigeo_spatial (ResNet under encoder.model.) and
+     seqs_multigeo_voxelnet (backbone3d, heads3d; partial: spatial.proj),
+     one float32 forward each on the card against the CPU (the feature
+     volumes by the share of voxels within the tolerance; VoxelNet in
+     training mode, its refine from the CPU's volume); the option
+     groups of OPTION_GROUPS on seqs_multigeo_4cm: 3 float32 steps with
+     injected draws and a reconstruct (counted: K1 once an encode in (a)
+     and (b), 0 under voxel_hash in (c); K2 0 in (a) and (b), which the
+     static route sends to the f32 decode_dense, and once in (c), whose
+     triplane decoder the route sends to K2 as the JAX package does, held
+     against the plain decode), the same steps on the card and the CPU on
+     the CPU's points (every step's loss and the initial planes within
+     OPTIONS_DEVICE_RTOL, the first step's gradients against a float64
+     step on the CPU as in the eikonal check, the planes and parameters
+     after the steps printed);
+     PointNet++ on one (8, 16384) cloud (K1 at npoint 128, then 32 on 128
+     centroids, each index-exact, its plan printed);
 then a `kernels` JSON line, the nvidia-smi line and the final result line.
 Every phase raises on failure. Needs one CUDA card; exits non-zero without.
 """
@@ -346,6 +376,28 @@ HARNESS_STEPS_PER_EPOCH, HARNESS_PATIENCE, HARNESS_MIN_EPOCHS = 3, 1, 2
 SIGTERM_STEP, SIGTERM_TIMEOUT_S = 2, 240
 SWEEP_LRS = (1e-3, 1e-4)
 OVERHEAD_STEPS, OVERHEAD_EPOCHS = 20, 3
+# the weights_options phase: a reference-named checkpoint fabricated with
+# numpy for seqs_multigeo_4cm, seqs_multigeo_spatial and
+# seqs_multigeo_voxelnet (the latter two on OTHER_FRAMES frames of their
+# loader batch, to bound the CPU's side), and seqs_multigeo_4cm with each
+# group of options (OPTIONS_STEPS float32 steps); the float32 card against
+# the CPU on the same sparse and supervision points: losses and planes
+# within OPTIONS_DEVICE_RTOL of their largest magnitude, and
+# VOXELNET_DEVICE_SHARE of a volume's voxels within it; the option groups'
+# losses of every step and the planes of their initial weights within
+# OPTIONS_DEVICE_RTOL, the first step's gradients on the card as near a
+# float64 step on the CPU as TRAIN_GRAD_TOL of each tensor's largest
+# magnitude or EIKONAL_NOISE_FACTOR times the CPU's float32 gradients (the
+# planes and parameters after the steps are printed: Adam moves a
+# parameter whose gradient is float32 noise by up to lr either way)
+OPTION_GROUPS = {
+    "a": ("mlp.use_spade=true", "mlp.use_layer_norm=true",
+          "encoder.plane_merger.strategy=learn", "encoder.pointnet.unet_kwargs.merge_mode=add"),
+    "b": ("encoder.pointnet.plane_type=[xz,xy,yz,grid]", "encoder.pointnet.unet3d=true"),
+    "c": ("encoder.pointnet.sparsifier=voxel_hash",),
+}
+OPTIONS_STEPS, OPTIONS_DEVICE_RTOL, OTHER_FRAMES = 3, 1e-4, 2
+FRAME_KEYS = ("projection", "image", "depth", "intrinsics", "pose")
 # a field sample counts as live below 0.9 of the head's bound (tanh not
 # saturated); a kernel check or a march on the flagship needs a tenth of
 # its samples live and a tenth of the rays hitting, ten times the rays the
@@ -2837,6 +2889,563 @@ def harness_phase(torch, dev, smi: str, root: str) -> tuple:
     return totals, {"fps": fps_max, "grid_decode": grid_max}
 
 
+def to_device(draws, device):
+    """StepDraws with every draw on `device`."""
+    return draws._replace(**{k: getattr(draws, k).to(device) for k in draws._fields
+                             if getattr(draws, k) is not None})
+
+
+def same_sparse(torch, dev, cfg_, batch_, draws_):
+    """`cpu_inputs`' context factory for either sparsifier: the encoder's
+    sparse points (FPS picks, or voxel_hash's with the draws' scores) and
+    the supervision points the CPU's, on either device."""
+    from unittest import mock
+
+    from gennerf_tpu_torch.models import gen_nerf as gen_nerf_module
+    from gennerf_tpu_torch.ops.projection import get_3d_points
+    from gennerf_tpu_torch.ops.sampling import uniform_presample, voxel_hash_downsample
+
+    pn = cfg_.encoder.pointnet
+    if pn.sparsifier != "voxel_hash":
+        return cpu_inputs(torch, dev, cfg_, batch_, draws_)[0]
+    B_, T_, H_, W_ = batch_["depth"].shape
+    start = torch.zeros(B_ * T_, dtype=torch.int64, device=dev)  # cpu_inputs' FPS, unused
+    fps_and_supervision = cpu_inputs(torch, dev, cfg_, batch_, draws_._replace(start=start))[0]
+    cloud = get_3d_points(batch_["depth"].cpu().reshape(B_ * T_, H_, W_),
+                          batch_["projection"].cpu().reshape(B_ * T_, 3, 4))
+    cloud = uniform_presample(cloud.reshape(B_ * T_, -1, 3), pn.fps_presample,
+                              sel=draws_.sel.cpu())
+    sparse, idx = voxel_hash_downsample(cloud, pn.num_sparse_points, rnd=draws_.start.cpu())
+
+    def voxel_hash(xyz, npoint, generator=None, rnd=None):
+        return sparse.to(xyz.device, xyz.dtype), idx.to(xyz.device)
+
+    def patched():
+        stack = fps_and_supervision()
+        stack.enter_context(mock.patch.object(gen_nerf_module, "voxel_hash_downsample",
+                                              voxel_hash))
+        return stack
+
+    return patched
+
+
+def fabricate_reference(torch, model, seed: int) -> dict:
+    """A reference-named state dict for `model`'s architecture, drawn with
+    numpy from `seed`: every name the reference's (the port's but for
+    `spatial.resnet.` -> `encoder.model.`, no `mlp.alpha`, torchvision's
+    `num_batches_tracked` counters beside the ResNet's BatchNorms); the
+    kernels of the BatchNorm stacks (the ResNet, the 3D backbone) He-normal,
+    std sqrt(2 / fan_in), so that their activations keep the scale that
+    random running statistics assume; every other matrix and kernel normal
+    with std 1/sqrt(fan_in) (the pointnet, its UNet and ResnetFC's residual
+    stream stay of order one); vectors normal at 0.05; BatchNorm scales and
+    variances uniform in [0.5, 1.5]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, value in model.state_dict().items():
+        if key == "mlp.alpha":
+            continue
+        shape = tuple(value.shape)
+        if key.endswith("running_var") or (value.dim() == 1 and (
+                key.endswith("weight") and ("bn" in key or "norm" in key
+                                            or "downsample.1" in key or ".ln." in key))):
+            arr = rng.uniform(0.5, 1.5, shape)
+        elif value.dim() > 1:
+            gain = 2.0 if key.startswith(("spatial.resnet.", "backbone3d.")) else 1.0
+            arr = rng.standard_normal(shape) * np.sqrt(gain / value[0].numel())
+        else:
+            arr = 0.05 * rng.standard_normal(shape)
+        if key.startswith("spatial.resnet."):
+            key = "encoder.model." + key[len("spatial.resnet."):]
+            if key.endswith("running_var"):
+                out[key[:-len("running_var")] + "num_batches_tracked"] = np.array(1000)
+        out[key] = arr.astype(np.float32)
+    return out
+
+
+def save_reference_ckpt(torch, path: str, reference: dict) -> None:
+    """`reference` as a Lightning-style .ckpt whose hyper_parameters pickle
+    a class of a module that exists only while the file is written (as
+    omegaconf's DictConfig in a real one, on a machine without omegaconf)."""
+    import types
+
+    name = "gennerf_reference_absent.dictconfig"
+    mod = types.ModuleType(name)
+
+    class DictConfig(dict):
+        pass
+
+    DictConfig.__module__, DictConfig.__qualname__ = name, "DictConfig"
+    mod.DictConfig = DictConfig
+    sys.modules["gennerf_reference_absent"] = types.ModuleType("gennerf_reference_absent")
+    sys.modules[name] = mod
+    try:
+        torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in reference.items()},
+                    "hyper_parameters": DictConfig(model={"type": "GenNerf"}),
+                    "epoch": 0, "global_step": 0, "pytorch-lightning_version": "2.1.0"}, path)
+    finally:
+        del sys.modules["gennerf_reference_absent"], sys.modules[name]
+
+
+def weights_options_phase(torch, dev, smi: str, root: str) -> tuple:
+    """Phase 15 (see the module docstring); returns the launch counts of
+    the main-path runs (the CLIs on the reference checkpoint, the option
+    groups' steps and reconstructs, PointNet++) and each kernel's largest
+    error against its plain version there."""
+    from unittest import mock
+
+    import numpy as np
+
+    from gennerf_tpu_torch import predict as predict_cli
+    from gennerf_tpu_torch import render as render_cli
+    from gennerf_tpu_torch.data.datamodule import ScannetDataModule
+    from gennerf_tpu_torch.models.gen_nerf import GenNerf
+    from gennerf_tpu_torch.models.pointnetpp import PointNetPlusPlus
+    from gennerf_tpu_torch.models.voxel_net import VolumeRepr
+    from gennerf_tpu_torch.ops import grid_decode as grid_decode_module
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.ops import sampling as sampling_module
+    from gennerf_tpu_torch.ops.projection import get_3d_points
+    from gennerf_tpu_torch.predict import build_model, load_params, reconstruct
+    from gennerf_tpu_torch.render import render_encoded
+    from gennerf_tpu_torch.train.checkpoints import load_checkpoint, save_checkpoint
+    from gennerf_tpu_torch.train.predict import make_point_tsdf_fn, uses_grid_decode
+    from gennerf_tpu_torch.train.state import make_optimizer
+    from gennerf_tpu_torch.train.step import batch_to_device, gen_nerf_forward_loss, train_step
+    from gennerf_tpu_torch.utils.port_reference import (
+        port_reference_state, read_reference_checkpoint, reference_state_dict,
+    )
+
+    t_phase = time.perf_counter()
+    totals = {k.name: 0 for k in kernels.KERNELS}
+    cpu = torch.device("cpu")
+
+    def read_launches():
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        for name, n in counts.items():
+            totals[name] += n
+        return counts
+
+    def config(path, extra=()):
+        return experiment_config(path, [f"paths.data_dir={root}", *extra])
+
+    def first_batch(data_cfg, frames=None):
+        batch = next(iter(ScannetDataModule(data_cfg, seed=SEED).train_dataloader()))
+        batch = batch_to_device(batch, dev)
+        if frames:
+            batch = {k: v[:, :frames] if v.dim() > 2 and k in FRAME_KEYS else v
+                     for k, v in batch.items()}
+        return batch
+
+    def timed_read(model, path, partial=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_params(model, path, partial)
+        torch.cuda.synchronize()
+        return loaded, (time.perf_counter() - t0) * 1e3
+
+    sampled, decoded = [], []
+    real_k1, real_k2 = sampling_module.fps_cuda, grid_decode_module.grid_decode_cuda
+
+    def recording_k1(xyz, npoint, start, cluster=0):
+        out = real_k1(xyz, npoint, start, cluster)
+        sampled.append((xyz, npoint, start, out, dict(kernels.FPS.last_launch)))
+        return out
+
+    def recording_k2(tables, weights):
+        out = real_k2(tables, weights)
+        decoded.append((tables, weights, out))
+        return out
+
+    def k1_vs_plain():
+        """Each recorded K1 launch against the plain FPS on its inputs."""
+        recs = [{"shape": list(xyz.shape), "npoint": npoint, "plan": plan,
+                 "index_mismatches": int((out != sampling_module.farthest_point_sample_plain(
+                     xyz, npoint, start)).sum())} for xyz, npoint, start, out, plan in sampled]
+        sampled.clear()
+        return recs
+
+    def k2_vs_plain():
+        errs = []
+        for tables, weights, out in decoded:
+            err = (out - grid_decode_module.separable_grid_decode_plain(
+                tables, weights, bf16_feeds=True)).abs()
+            errs.append((float(err.max()), float(err.mean())))
+        decoded.clear()
+        return errs
+
+    recording = (mock.patch.object(sampling_module, "fps_cuda", recording_k1),
+                 mock.patch.object(grid_decode_module, "grid_decode_cuda", recording_k2))
+    with open(os.path.join(root, "val.txt")) as f:
+        first_scene = next(line for line in f if line.strip())
+    with open(os.path.join(root, "val_one.txt"), "w") as f:
+        f.write(first_scene)
+    errors = {"fps": 0.0, "grid_decode": 0.0, "point_decode": 0.0}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (1) a fabricated reference checkpoint of the full-width
+        # seqs_multigeo_4cm through the predict and render CLIs' --params
+        cfg = config(EXPERIMENT)
+        data_cfg = dict(cfg["data"], datasets_test=["val_one.txt"])
+        model = build_model(cfg["model"], dev, SEED)
+        reference = fabricate_reference(torch, model, SEED + 13)
+        port_state = port_reference_state(model, {k: torch.from_numpy(v)
+                                                  for k, v in reference.items()}).state
+        model.load_state_dict(port_state)
+        # random weights need not cross zero: lin_out's geometry bias moves so
+        # that the median pre-tanh head over the rendered view's measured
+        # surface points is 0
+        scene_batch = next(iter(ScannetDataModule(data_cfg, seed=SEED).test_dataloader()))
+        view = {k: torch.as_tensor(np.asarray(scene_batch[k][0])).to(dev)
+                for k in ("projection", "image", "depth", "intrinsics", "pose")}
+        mcfg = model.cfg
+        with torch.no_grad():
+            repr_ = model.encode(view["projection"][None], view["image"][None],
+                                 view["depth"][None], torch.Generator().manual_seed(SEED))
+        surface = get_3d_points(view["depth"][:1], view["projection"][:1]).reshape(-1, 3)
+        shift = center_field(torch, model, repr_, surface[view["depth"][0].reshape(-1) > 0])
+        reference["mlp.lin_out.bias"] = model.mlp.lin_out.bias.detach().cpu().numpy()
+        ckpt = os.path.join(tmp, "last.ckpt")
+        save_reference_ckpt(torch, ckpt, reference)
+
+        pred_dir, render_dir = os.path.join(tmp, "pred"), os.path.join(tmp, "render")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with recording[0], recording[1]:
+            results = predict_cli.main(["--config", EXPERIMENT, "--params", ckpt, "--data-dir",
+                                        root, "--split", "val_one.txt", "--out", pred_dir,
+                                        "--device", dev.type])
+            torch.cuda.synchronize()
+            predict_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rendered = render_cli.main(["--config", EXPERIMENT, "--params", ckpt, "--data-dir",
+                                        root, "--split", "val_one.txt", "--out", render_dir,
+                                        "--num-views", "1", "--device", dev.type])
+            torch.cuda.synchronize()
+            render_s = time.perf_counter() - t0
+        cli_launches = read_launches()
+        cli_k1 = k1_vs_plain()
+        cli_k2 = k2_vs_plain()
+        with open(os.path.join(pred_dir, "predict_meta.json")) as f:
+            predict_meta = json.load(f)
+        if not (cli_launches["fps"] == 2 and cli_launches["grid_decode"] == 1
+                and cli_launches["point_decode"] >= 1 and len(cli_k1) == 2 and len(cli_k2) == 1
+                and all(r["index_mismatches"] == 0 for r in cli_k1)
+                and cli_k2[0][0] <= GRID_MAX_ABS_TOL and cli_k2[0][1] <= GRID_MEAN_ABS_TOL
+                and predict_meta["params_format"] == "reference"
+                and not predict_meta["left_at_init"]):
+            raise RuntimeError(f"the reference checkpoint's predict and render: launches "
+                               f"{cli_launches}, K1 {cli_k1}, K2 {cli_k2}, meta {predict_meta}")
+        errors["grid_decode"] = cli_k2[0][0]
+
+        # the view through K3 against the plain march, on the reader's weights
+        reader_model = build_model(cfg["model"], dev, SEED + 1)
+        _, read_ms = timed_read(reader_model, ckpt)
+        with torch.no_grad():
+            repr_ = reader_model.encode(view["projection"][None], view["image"][None],
+                                        view["depth"][None], torch.Generator().manual_seed(SEED),
+                                        voxel_dim=mcfg.voxel_dim_test)
+        render_args = (reader_model, repr_, view["depth"], view["intrinsics"], view["pose"])
+        rk = render_encoded(*render_args, make_point_tsdf_fn(reader_model, repr_), 1)
+        rp = render_encoded(*render_args, make_point_tsdf_fn(reader_model, repr_, plain=True), 1)
+        hk, hp = rk["ray_depth"] > 0, rp["ray_depth"] > 0
+        ddiff = np.abs(rk["ray_depth"] - rp["ray_depth"])[hk & hp]
+        k3_rec = {"image": list(view["depth"].shape[-2:]), "hit_share": float(hk.mean()),
+                  "vs_plain_mask_agree": float((hk == hp).mean()),
+                  "vs_plain_depth_agree": float((ddiff <= RENDER_DEPTH_TOL).mean())
+                  if ddiff.size else 0.0, "field_shift": shift}
+        if not (k3_rec["hit_share"] >= RENDER_MIN_HIT_SHARE
+                and k3_rec["vs_plain_mask_agree"] >= RENDER_MASK_AGREE
+                and k3_rec["vs_plain_depth_agree"] >= RENDER_DEPTH_AGREE):
+            raise RuntimeError(f"the reference checkpoint's view through K3: {k3_rec}")
+        del repr_, rk, rp
+
+        # writer -> reader bit for bit; the same weights loaded natively (a
+        # port checkpoint through --ckpt's loader) and through the reader give
+        # the same volume, bit for bit (deterministic scatters)
+        written = os.path.join(tmp, "written.ckpt")
+        torch.save({"state_dict": reference_state_dict(reader_model)}, written)
+        back = port_reference_state(reader_model, read_reference_checkpoint(written).state_dict)
+        roundtrip_equal = all(torch.equal(back.state[k].to(dev), v)
+                              for k, v in reader_model.state_dict().items())
+        native = build_model(cfg["model"], dev, SEED + 2)
+        native_pt = os.path.join(tmp, "native.pt")
+        save_checkpoint(native_pt, reader_model, make_optimizer(reader_model.parameters(),
+                                                                mcfg.optimizer), 0, 0)
+        load_checkpoint(native_pt, native)
+        scene = tuple(view[k] for k in ("projection", "image", "depth"))
+        with deterministic_algorithms(torch):
+            vol_reader = reconstruct(reader_model, *scene, None,
+                                     torch.Generator().manual_seed(SEED))
+            vol_native = reconstruct(native, *scene, None, torch.Generator().manual_seed(SEED))
+        roundtrip = {"writer_reader_bit_equal": roundtrip_equal,
+                     "native_vs_reader_volume_bit_equal": bool(torch.equal(vol_reader,
+                                                                           vol_native)),
+                     "native_vs_reader_max_abs": float((vol_reader - vol_native).abs().max())}
+        del native, vol_reader, vol_native
+        if not (roundtrip["writer_reader_bit_equal"]
+                and roundtrip["native_vs_reader_volume_bit_equal"]):
+            raise RuntimeError(f"the writer and reader round trip: {roundtrip}")
+        main_rec = {"config": "configs/experiment/seqs_multigeo_4cm.yaml",
+                    "tensors": len(reference), "read_ms": read_ms,
+                    "predict": {"seconds": predict_s, "scenes": results, "meta": predict_meta},
+                    "render": {"seconds": render_s, "mean_random_weights_not_quality": rendered},
+                    "launches": cli_launches, "k1_vs_plain": cli_k1,
+                    "k2_vs_plain": {"max_abs": cli_k2[0][0], "mean_abs": cli_k2[0][1]},
+                    "k3_view_vs_plain": k3_rec, "roundtrip": roundtrip}
+        del model, reader_model
+
+        # (2) the spatial model and VoxelNet from fabricated reference
+        # checkpoints: one float32 forward on the card against the CPU
+        others = {}
+        for name, path in (("spatial", SPATIAL_EXPERIMENT), ("voxelnet", VOXELNET_EXPERIMENT)):
+            ocfg = config(path, ["trainer.precision=32-true"])
+            omodel = build_model(ocfg["model"], dev, SEED)
+            ref_o = fabricate_reference(torch, omodel, SEED + 14)
+            if name == "voxelnet":  # its 2D projection's reference name is not documented
+                ref_o = {k: v for k, v in ref_o.items() if not k.startswith("spatial.proj.")}
+            opath = os.path.join(tmp, f"{name}.pth")
+            torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in ref_o.items()},
+                       opath)
+            loaded, o_read_ms = timed_read(omodel, opath, partial=name == "voxelnet")
+            ocpu = build_model(ocfg["model"], cpu, SEED)
+            ocpu.load_state_dict({k: v.cpu() for k, v in omodel.state_dict().items()})
+            batch = first_batch(ocfg["data"], frames=OTHER_FRAMES)
+            outs = {}
+            if name == "spatial":
+                draws = ray_draws(torch, dev, omodel.cfg, batch, SEED + 4)
+                same = same_sparse(torch, dev, omodel.cfg, batch, draws)
+            # VoxelNet in training mode: its norms then normalize by the
+            # batch's statistics, so that the fabricated weights' activations
+            # keep the scale of a trained model's rather than growing
+            # through the 3D stack (running statistics drawn at random do
+            # not normalize)
+            for device, m in ((cpu, ocpu.train(name == "voxelnet")),
+                              (dev, omodel.train(name == "voxelnet"))):
+                b = {k: v.to(device) for k, v in batch.items()}
+                with torch.no_grad():
+                    if name == "voxelnet":
+                        # the encode on this device, then the refine of the
+                        # CPU's volume (a projection flip at a pixel edge
+                        # spreads through every 3D convolution after it)
+                        own = m.encode(b["projection"], b["image"], m.cfg.voxel_dim_train)
+                        if device.type == "cpu":
+                            cpu_volume = own
+                        out, losses = m.refine(
+                            VolumeRepr(*(t.to(device) for t in cpu_volume)),
+                            {k: b[k] for k in ("vol_%02d_tsdf" % vs for vs in m.cfg.voxel_sizes)})
+                        outs[device.type] = ({"volume": own.volume.cpu(),
+                                              **{k: v.cpu() for k, v in out.items()}},
+                                             float(sum(losses.values())))
+                    else:
+                        d = to_device(draws, device)
+                        with same():
+                            r = m.encode(b["projection"], b["image"], b["depth"], sel=d.sel,
+                                         start=d.start, voxel_dim=m.cfg.voxel_dim_train)
+                            loss, _ = gen_nerf_forward_loss(m, b, draws=d)
+                        outs[device.type] = ({"volume": r.volume.cpu(),
+                                              **{k: v.cpu() for k, v in r.planes.items()}},
+                                             float(loss))
+            # a voxel whose projection lies within an ulp of a pixel edge
+            # takes the other pixel on the other device (each projects
+            # itself), so volumes are held by the share of voxels within
+            # the tolerance, as the voxelnet phase holds them; planes (on
+            # the CPU's points) and the loss by their largest difference
+            rec = {}
+            for k, v in outs["cpu"][0].items():
+                err = (outs[dev.type][0][k] - v).abs()
+                rec[k] = {"max_rel": float(err.max()) / float(v.abs().max()),
+                          "share_within": float((err <= OPTIONS_DEVICE_RTOL * v.abs().max())
+                                                .double().mean())}
+            loss_err = abs(outs[dev.type][1] - outs["cpu"][1]) / abs(outs["cpu"][1])
+            others[name] = {"tensors": len(ref_o), "read_ms": o_read_ms,
+                            "left_at_init": loaded["unfilled"], "card_vs_cpu": rec,
+                            "loss_rel_err": loss_err, "frames": OTHER_FRAMES}
+            volumes_ok = all(r["share_within"] >= VOXELNET_DEVICE_SHARE if k.startswith("vol")
+                             else r["max_rel"] <= OPTIONS_DEVICE_RTOL for k, r in rec.items())
+            if not volumes_ok or loss_err > OPTIONS_DEVICE_RTOL or (
+                    loaded["unfilled"] != (["spatial.proj.weight", "spatial.proj.bias"]
+                                           if name == "voxelnet" else [])):
+                raise RuntimeError(f"the {name} reference checkpoint on the card: "
+                                   f"{others[name]}")
+            del omodel, ocpu, outs, batch
+
+        # (3) the option groups: 3 float32 steps with injected draws on the
+        # card (the main path, counted) and a reconstruct; the same steps
+        # on the card and on the CPU on the CPU's sparse and supervision
+        # points, held together
+        groups = {}
+        for group, overrides in OPTION_GROUPS.items():
+            gcfg = config(EXPERIMENT, ["trainer.precision=32-true",
+                                       *(f"model.{o}" for o in overrides)])
+            gmodel = build_model(gcfg["model"], dev, SEED).train()
+            init = {k: v.clone() for k, v in gmodel.state_dict().items()}
+            gc = gmodel.cfg
+            voxel_hash = gc.encoder.pointnet.sparsifier == "voxel_hash"
+            batch = first_batch(gcfg["data"])
+            B, T, H, W = batch["depth"].shape
+            step_draws = []
+            for i in range(OPTIONS_STEPS):
+                d = ray_draws(torch, dev, gc, batch, SEED + 20 + i)
+                if voxel_hash:  # the sparsifier's draw: (B*T, presample) uniform scores
+                    g = torch.Generator(device=dev).manual_seed(SEED + 30 + i)
+                    d = d._replace(start=torch.rand((B * T, gc.encoder.pointnet.fps_presample),
+                                                    generator=g, device=dev))
+                step_draws.append(d)
+            opt = make_optimizer(gmodel.parameters(), gc.optimizer)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            for d in step_draws:
+                train_step(gmodel, opt, batch, draws=d)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / OPTIONS_STEPS
+            gmodel.eval()
+            t0 = time.perf_counter()
+            with recording[1]:
+                vol = reconstruct(gmodel, *scene, None, torch.Generator().manual_seed(SEED))
+            torch.cuda.synchronize()
+            recon_ms = (time.perf_counter() - t0) * 1e3
+            launches = read_launches()
+            k2_errs = k2_vs_plain()
+            expect_k2 = int(uses_grid_decode(gmodel))
+            expect = {"fps": 0 if voxel_hash else OPTIONS_STEPS + 1,
+                      "grid_decode": expect_k2, "point_decode": 0}
+            # card and CPU, the same steps on the CPU's points
+            sames = [same_sparse(torch, dev, gc, batch, d) for d in step_draws]
+            finals = {}
+            for device in (dev, cpu):
+                m = GenNerf(gc).to(device)
+                m.load_state_dict({k: v.to(device) for k, v in init.items()})
+                mopt = make_optimizer(m.parameters(), gc.optimizer)
+                b = {k: v.to(device) for k, v in batch.items()}
+                planes = {}
+                for when in ("initial", "after_steps"):
+                    if when == "after_steps":
+                        m.train()
+                        losses = []
+                        for d, same in zip(step_draws, sames):
+                            with same(), deterministic_algorithms(torch):
+                                losses.append(float(train_step(
+                                    m, mopt, b, draws=to_device(d, device))["combined"]))
+                            if len(losses) == 1:
+                                grads = {k: p.grad.detach().cpu().clone()  # the merger has none
+                                         for k, p in m.named_parameters() if p.grad is not None}
+                    m.eval()
+                    d0 = to_device(step_draws[0], device)
+                    with torch.no_grad(), sames[0]():
+                        r = m.encode(b["projection"], b["image"], b["depth"], sel=d0.sel,
+                                     start=d0.start)
+                    planes[when] = {k: v.cpu() for k, v in r.planes.items()}
+                finals[device.type] = (losses, planes, {k: v.detach().cpu() for k, v in
+                                                        m.named_parameters()}, grads)
+                del m, mopt
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(finals[dev.type][0],
+                                                                finals["cpu"][0]))
+            plane_err = {when: {k: float((finals[dev.type][1][when][k] - v).abs().max())
+                                / float(v.abs().max()) for k, v in ref.items()}
+                         for when, ref in finals["cpu"][1].items()}
+            # the first step's gradients of both against a float64 step on the
+            # CPU: sums that cancel (a norm's bias over a mostly empty grid)
+            # are float32 noise in either summation order, so the card may be
+            # as far from float64 as TRAIN_GRAD_TOL of a tensor's largest
+            # magnitude, or EIKONAL_NOISE_FACTOR times the CPU's own distance
+            m64 = GenNerf(gc).to(torch.float64).train()
+            m64.load_state_dict({k: v.cpu().double() for k, v in init.items()})
+
+            def f64(v):
+                return v.cpu().double() if v.is_floating_point() else v.cpu()
+
+            d64 = step_draws[0]._replace(**{k: f64(getattr(step_draws[0], k))
+                                            for k in step_draws[0]._fields
+                                            if getattr(step_draws[0], k) is not None})
+            with sames[0]():
+                loss64, _ = gen_nerf_forward_loss(m64, {k: f64(v) for k, v in batch.items()},
+                                                  draws=d64)
+            loss64.backward()
+            g64 = {k: q.grad for k, q in m64.named_parameters() if q.grad is not None}
+            del m64
+
+            def to_f64(grads):
+                errs = {k: float((grads[k].double() - g).abs().max())
+                        / max(float(g.abs().max()), 1e-30) for k, g in g64.items()}
+                worst = max(errs, key=errs.get)
+                return errs[worst], worst
+
+            grad_dist = {"card": to_f64(finals[dev.type][3]), "cpu": to_f64(finals["cpu"][3])}
+            # Adam's first updates are lr * g / (|g| + eps): a gradient near 0
+            # whose float32 value differs between the devices moves its
+            # parameter by up to lr either way, and the planes after the
+            # steps with it; both are printed
+            lr = gc.optimizer.lr
+            diff = torch.cat([(finals[dev.type][2][k] - v).abs().reshape(-1)
+                              for k, v in finals["cpu"][2].items()])
+            param_rec = {"max_over_lr": float(diff.max()) / lr,
+                         "share_within_1e-2_lr": float((diff <= 1e-2 * lr).double().mean())}
+            rec = {"overrides": list(overrides), "launches": launches, "expected": expect,
+                   "step_ms": step_ms, "reconstruct_ms": recon_ms,
+                   "route": "grid_decode" if expect_k2 else "decode_dense",
+                   "volume_finite": bool(torch.isfinite(vol).all()),
+                   "losses_card": finals[dev.type][0], "losses_cpu": finals["cpu"][0],
+                   "loss_rel_err": loss_err, "plane_rel_err": plane_err,
+                   "first_step_grad_vs_f64_over_max_abs": {k: v[0] for k, v in
+                                                           grad_dist.items()},
+                   "first_step_worst_grad": {k: v[1] for k, v in grad_dist.items()},
+                   "params_after_steps": param_rec, "k2_vs_plain": k2_errs}
+            groups[group] = rec
+            if not (launches == expect and rec["volume_finite"]
+                    and loss_err <= OPTIONS_DEVICE_RTOL
+                    and max(plane_err["initial"].values()) <= OPTIONS_DEVICE_RTOL
+                    and grad_dist["card"][0] <= max(TRAIN_GRAD_TOL,
+                                                    EIKONAL_NOISE_FACTOR * grad_dist["cpu"][0])
+                    and all(e[0] <= GRID_MAX_ABS_TOL and e[1] <= GRID_MEAN_ABS_TOL
+                            for e in k2_errs)):
+                raise RuntimeError(f"option group {group}: {rec}")
+            if k2_errs:
+                errors["grid_decode"] = max(errors["grid_decode"], k2_errs[0][0])
+            del gmodel, opt, batch, vol, init
+
+        # (4) PointNet++ on one (8, 16384) presampled cloud: K1 at npoint 128,
+        # then 32 on the 128 centroids, each launch index-exact
+        batch = first_batch(cfg["data"])
+        B, T, H, W = batch["depth"].shape
+        cloud = get_3d_points(batch["depth"].reshape(B * T, H, W),
+                              batch["projection"].reshape(B * T, 3, 4)).reshape(B * T, -1, 3)
+        cloud = sampling_module.uniform_presample(
+            cloud, PRESAMPLE, torch.Generator().manual_seed(SEED)).contiguous()
+        pnpp = PointNetPlusPlus().to(dev).eval()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with recording[0], torch.no_grad():
+            feature = pnpp(cloud, torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        pnpp_ms = (time.perf_counter() - t0) * 1e3
+        pnpp_launches = read_launches()
+        pnpp_k1 = k1_vs_plain()
+        pnpp_rec = {"cloud": list(cloud.shape), "launches": pnpp_launches, "ms": pnpp_ms,
+                    "feature": list(feature.shape), "finite": bool(torch.isfinite(feature).all()),
+                    "k1": pnpp_k1}
+        if not (pnpp_launches["fps"] == 2 and [r["npoint"] for r in pnpp_k1] == [128, 32]
+                and [r["shape"][1] for r in pnpp_k1] == [PRESAMPLE, 128]
+                and all(r["index_mismatches"] == 0 for r in pnpp_k1) and pnpp_rec["finite"]):
+            raise RuntimeError(f"PointNet++ on the card: {pnpp_rec}")
+        del batch, cloud, pnpp
+
+    emit({"phase": "weights_options", "reference_ckpt": main_rec, "reference_others": others,
+          "option_groups": groups, "pointnetpp": pnpp_rec,
+          "tolerance": {"grid": {"max_abs": GRID_MAX_ABS_TOL, "mean_abs": GRID_MEAN_ABS_TOL},
+                        "render": {"mask_agree": RENDER_MASK_AGREE, "depth_m": RENDER_DEPTH_TOL,
+                                   "depth_agree": RENDER_DEPTH_AGREE,
+                                   "min_hit_share": RENDER_MIN_HIT_SHARE},
+                        "card_vs_cpu_rel": OPTIONS_DEVICE_RTOL},
+          "phase_s": time.perf_counter() - t_phase, "card": smi})
+    return totals, errors
+
+
 def evaluate_held_out(dev, evaluation, info_files, pred_dir: str, oracle_dir: str,
                       load_info_json) -> dict:
     """`evaluation.process` on each held-out scene's prediction (every
@@ -3350,6 +3959,11 @@ def main() -> int:
         # the profiler window, the loggers, the SIGTERM save, the sweep) on
         # the data phase's dataset
         harness_launches, harness_errors = harness_phase(torch, dev, smi, root)
+        # 15. weights_options: a reference checkpoint through the CLIs'
+        # --params (K1, K2, K3), the writer and reader round trip, the spatial
+        # and VoxelNet readers, the GenNerf options on the card against the
+        # CPU, PointNet++'s K1
+        weights_launches, weights_errors = weights_options_phase(torch, dev, smi, root)
 
     kernel_line = {"kernels": [
         {"name": "fps", "route": "cuda", "source": "gennerf_tpu_torch/csrc/fps.cu",
@@ -3358,9 +3972,9 @@ def main() -> int:
                       + sparse_launches["fps"] + train_launches["fps"] + data_launches["fps"]
                       + spatial_launches["fps"] + voxelnet_launches["fps"]
                       + flagship_launches["fps"] + distill_launches["fps"]
-                      + harness_launches["fps"]),
+                      + harness_launches["fps"] + weights_launches["fps"]),
          "max_abs_err": max(float((idx_k - idx_p).abs().max()), flagship_errors["fps"],
-                            harness_errors["fps"]),
+                            harness_errors["fps"], weights_errors["fps"]),
          "ms": fps_ms,
          "plain_ms": fps_plain_ms, "bound_ms": fps_bound, "bound_by": "operations",
          "library_ms": None},
@@ -3369,9 +3983,10 @@ def main() -> int:
          "launches": (launches["grid_decode"] + mesh_launches["grid_decode"]
                       + data_launches["grid_decode"] + voxelnet_launches["grid_decode"]
                       + flagship_launches["grid_decode"] + distill_launches["grid_decode"]
-                      + harness_launches["grid_decode"]),
+                      + harness_launches["grid_decode"] + weights_launches["grid_decode"]),
          "max_abs_err": max(grid_max, flagship_errors["grid_decode"],
-                            distill_errors["grid_decode"], harness_errors["grid_decode"]),
+                            distill_errors["grid_decode"], harness_errors["grid_decode"],
+                            weights_errors["grid_decode"]),
          "ms": grid_ms,
          "plain_ms": grid_plain_ms, "bound_ms": grid_bound,
          "bound_by": "operations" if grid_flops / PEAK_BF16 >= grid_bytes / PEAK_BYTES else "bytes",
@@ -3380,7 +3995,8 @@ def main() -> int:
          "replaces": "gennerf_tpu/ops/pallas/fused_decoder.py:53",
          "launches": (render_launches["point_decode"] + data_launches["point_decode"]
                       + voxelnet_launches["point_decode"] + flagship_launches["point_decode"]
-                      + distill_launches["point_decode"] + harness_launches["point_decode"]),
+                      + distill_launches["point_decode"] + harness_launches["point_decode"]
+                      + weights_launches["point_decode"]),
          "max_abs_err": max(point_max, flagship_errors["point_decode"],
                             distill_errors["point_decode"]), "ms": point_ms,
          "plain_ms": point_plain_ms, "bound_ms": point_bound,

@@ -7,7 +7,8 @@ other key of an experiment yaml (a frustum's `N` and `M`, ...), exactly as
 the reference's does for bookkeeping keys.
 Defaults are the reference's. Options the port does not implement yet are rejected by
 `check_supported` / `check_supported_voxel_net`, called at model
-construction, rather than computed differently.
+construction, rather than computed differently; `options_without_bf16`
+names the GenNerf options that compute in float32 only.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ class PointnetConfig:
     num_sparse_points: int = 512
     # uniform presample of each frame's unprojected cloud before FPS (0 = off)
     fps_presample: int = 16384
-    sparsifier: str = "fps"  # 'fps' | 'voxel_hash' (not ported)
+    sparsifier: str = "fps"  # 'fps' | 'voxel_hash' (one random point per occupied cell)
     # map world coords into ConvONet's ~[-0.5, 0.5] cube of the training volume
     normalize_coords: bool = False
     c_dim: int = 32
@@ -47,19 +48,25 @@ class PointnetConfig:
     padding: float = 0.1
     hidden_dim: int = 32
     scatter_type: str = "max"
+    # any of 'xz', 'xy', 'yz' and 'grid' (ConvONet's grid_resolution^3 feature grid)
     plane_type: Tuple[str, ...] = ("xz", "xy", "yz")
     plane_resolution: int = 128
+    grid_resolution: int = 32
     n_blocks: int = 5
     unet: bool = True
+    # the grid's 3D U-Net (models/unet3d.py)
+    unet3d: bool = False
+    unet3d_f_maps: int = 32
+    unet3d_num_levels: int = 3
     unet_depth: int = 5
-    unet_merge_mode: str = "concat"
+    unet_merge_mode: str = "concat"  # 'concat' | 'add'
     unet_start_filts: int = 32
     sample_mode: str = "bilinear"
 
 
 @dataclasses.dataclass(frozen=True)
 class PlaneMergerConfig:
-    strategy: str = "average"
+    strategy: str = "average"  # 'average' | 'learn' (a 1x1 conv, merger.conv)
     alpha: float = 0.1
 
 
@@ -366,14 +373,35 @@ def check_supported(cfg: GenNerfConfig) -> None:
         "spatial.norm_type other than 'batch'": enc.use_spatial and s.norm_type != "batch",
         "spatial.upsample_interp other than 'bilinear'":
             enc.use_spatial and s.upsample_interp != "bilinear",
-        "pointnet.plane_type 'grid'": "grid" in p.plane_type,
-        "pointnet.unet_merge_mode other than 'concat'": p.unet_merge_mode != "concat",
-        "pointnet.sparsifier 'voxel_hash'": p.sparsifier != "fps",
-        "plane_merger.strategy 'learn'": enc.plane_merger.strategy != "average",
-        "mlp.use_spade": m.use_spade,
-        "mlp.use_layer_norm": m.use_layer_norm,
+        "pointnet.plane_type other than 'xz', 'xy', 'yz' or 'grid'":
+            not set(p.plane_type) <= {"xz", "xy", "yz", "grid"},
+        "pointnet.unet_merge_mode other than 'concat' or 'add'":
+            p.unet_merge_mode not in ("concat", "add"),
+        "pointnet.sparsifier other than 'fps' or 'voxel_hash'":
+            p.sparsifier not in ("fps", "voxel_hash"),
+        "plane_merger.strategy other than 'average' or 'learn'":
+            enc.plane_merger.strategy not in ("average", "learn"),
     }
     _raise_unsupported(unsupported)
+
+
+def options_without_bf16(cfg: GenNerfConfig) -> list:
+    """The options of `cfg` that compute in float32 only: each has a parity
+    test against the JAX package in float32 and none yet under bf16-mixed,
+    so GenNerf raises for them under bf16 (as for distillation)."""
+    enc, p, m = cfg.encoder, cfg.encoder.pointnet, cfg.mlp
+    return [name for name, on in (
+        ("loss.use_distill", cfg.loss.use_distill),
+        ("encoder.use_auxiliary", enc.use_auxiliary),
+        ("mlp.use_spade", m.use_spade),
+        ("mlp.use_layer_norm", m.use_layer_norm),
+        ("pointnet.plane_type 'grid'", enc.use_pointnet and "grid" in p.plane_type),
+        ("pointnet.unet_merge_mode 'add'",
+         enc.use_pointnet and p.unet and p.unet_merge_mode == "add"),
+        ("pointnet.sparsifier 'voxel_hash'", enc.use_pointnet and p.sparsifier == "voxel_hash"),
+        ("plane_merger.strategy 'learn'",
+         enc.use_pointnet and enc.plane_merger.strategy == "learn"),
+    ) if on]
 
 
 def config_from_dict(cls, d: dict):

@@ -38,11 +38,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.coords import normalize_coordinate
+from ..ops.coords import normalize_3d_coordinate, normalize_coordinate
 from ..ops.interpolation import sample_plane_feature, trilinear_interpolation
 from ..ops.projection import backproject_fold, get_3d_points
-from ..ops.sampling import farthest_point_sample, uniform_presample
-from .config import GenNerfConfig, check_supported
+from ..ops.sampling import farthest_point_sample, uniform_presample, voxel_hash_downsample
+from .config import GenNerfConfig, check_supported, options_without_bf16
 from .heads import TSDFHeadSimple
 from .pointnet import FeaturePlaneMerger, LocalPoolPointnet
 from .positional_encoding import positional_encoding, positional_encoding_dim
@@ -128,9 +128,10 @@ class GenNerf(nn.Module):
         if dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(f"GenNerf computes in float32 or bfloat16, not {dtype}")
         enc = cfg.encoder
-        if dtype != torch.float32 and (cfg.loss.use_distill or enc.use_auxiliary):
-            raise NotImplementedError("gennerf_tpu_torch computes distillation (loss.use_distill, "
-                                      f"encoder.use_auxiliary) in float32 only, not {dtype}")
+        f32_only = options_without_bf16(cfg)
+        if dtype != torch.float32 and f32_only:
+            raise NotImplementedError(f"gennerf_tpu_torch computes {', '.join(f32_only)} "
+                                      f"in float32 only, not {dtype}")
         if enc.use_auxiliary and teacher is None:
             raise ValueError("encoder.use_auxiliary needs a teacher (make_teacher of a "
                              "config whose teacher.type is not 'none')")
@@ -144,18 +145,22 @@ class GenNerf(nn.Module):
             p = enc.pointnet
             self.pointnet = LocalPoolPointnet(
                 c_dim=p.c_dim, dim=p.dim, hidden_dim=p.hidden_dim, scatter_type=p.scatter_type,
-                use_unet=p.unet, unet_depth=p.unet_depth, unet_start_filts=p.unet_start_filts,
-                plane_resolution=p.plane_resolution, plane_type=p.plane_type,
-                padding=p.padding, n_blocks=p.n_blocks, dtype=dtype,
+                use_unet=p.unet, unet_depth=p.unet_depth, unet_merge_mode=p.unet_merge_mode,
+                unet_start_filts=p.unet_start_filts, plane_resolution=p.plane_resolution,
+                grid_resolution=p.grid_resolution, plane_type=p.plane_type, padding=p.padding,
+                n_blocks=p.n_blocks, use_unet3d=p.unet3d, unet3d_f_maps=p.unet3d_f_maps,
+                unet3d_num_levels=p.unet3d_num_levels, dtype=dtype,
             )
-            self.merger = FeaturePlaneMerger(enc.plane_merger.strategy, enc.plane_merger.alpha)
+            self.merger = FeaturePlaneMerger(enc.plane_merger.strategy, enc.plane_merger.alpha,
+                                             p.c_dim, dtype)
         d_code = (positional_encoding_dim(cfg.code.num_freqs, 3, cfg.code.include_input)
                   if cfg.use_code else 3)
         m = cfg.mlp
         self.mlp = ResnetFC(
             d_in=cfg.encoder_latent, d_out=m.d_out_geo + m.d_out_sem, n_blocks=m.n_blocks,
             d_latent=d_code, d_hidden=m.d_hidden, beta=m.beta,
-            combine_layer=m.combine_layer, alpha=m.alpha, dtype=dtype,
+            combine_layer=m.combine_layer, alpha=m.alpha, use_spade=m.use_spade,
+            use_layer_norm=m.use_layer_norm, dtype=dtype,
         )
         self.head_geo = TSDFHeadSimple(m.d_out_geo, smoothing=m.head_smoothing, dtype=dtype)
 
@@ -188,7 +193,9 @@ class GenNerf(nn.Module):
             depth: (B, T, H, W).
             generator: source of the presample and FPS start draws.
             sel: (B*T, presample) injected presample indices.
-            start: (B*T,) injected FPS start indices.
+            start: the sparsifier's injected draw: (B*T,) FPS start
+                indices, or under `voxel_hash` (B*T, presample) uniform
+                scores (`rnd`).
             voxel_dim: (nx, ny, nz) of the feature volume (spatial or auxiliary).
             origin: (3,) world position of the volume's voxel 0 (default 0).
         """
@@ -222,7 +229,10 @@ class GenNerf(nn.Module):
             # invalid (depth 0) pixels unproject to the camera center; FPS
             # never picks such duplicates twice
             xyz = uniform_presample(xyz, self.cfg.encoder.pointnet.fps_presample, generator, sel)
-            sparse, _ = farthest_point_sample(xyz, npoint, generator, start)
+            if self.cfg.encoder.pointnet.sparsifier == "voxel_hash":
+                sparse, _ = voxel_hash_downsample(xyz, npoint, generator, start)
+            else:
+                sparse, _ = farthest_point_sample(xyz, npoint, generator, start)
         accum = sparse.reshape(B, T * npoint, 3)
         return self.pointnet(self.plane_coords(accum))
 
@@ -254,6 +264,12 @@ class GenNerf(nn.Module):
             p = self.cfg.encoder.pointnet
             xyz_pn = self.plane_coords(xyz)
             feat = 0.0
+            if "grid" in repr_.planes:
+                # the feature grid, trilinear on the unit cube at origin 0, voxel 1/r
+                grid = repr_.planes["grid"]
+                feat = feat + trilinear_interpolation(
+                    grid.permute(0, 2, 3, 4, 1), normalize_3d_coordinate(xyz_pn, p.padding),
+                    torch.zeros(3, dtype=torch.float32, device=xyz.device), 1.0 / grid.shape[2])
             for plane in ("xz", "xy", "yz"):
                 if plane in repr_.planes:
                     coords = normalize_coordinate(xyz_pn, padding=p.padding, plane=plane)

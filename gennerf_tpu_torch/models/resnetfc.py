@@ -1,7 +1,8 @@
 """Conditioned fully-connected ResNet decoder (counterpart of
 gennerf_tpu/models/resnetfc.py). Parameter names follow the reference
-checkpoint (mlp.lin_in / mlp.lin_z.{i} / mlp.blocks.{i}.fc_0|fc_1 /
-mlp.lin_out / mlp.alpha).
+checkpoint (mlp.lin_in / mlp.lin_z.{i} / mlp.scale_z.{i} (SPADE) /
+mlp.blocks.{i}.fc_0|fc_1 / mlp.lin_out / mlp.alpha); the LayerNorm after
+each block (`use_layer_norm`) is mlp.ln.{i}, flax's LayerNorm.
 
 Mixed precision follows flax's `nn.Dense(dtype=)`: a layer with a compute
 `dtype` casts its input and weight to it, rounds the product to it and adds
@@ -77,11 +78,32 @@ class ResnetBlockFC(nn.Module):
         return x_s + dx
 
 
+class LayerNorm(nn.Module):
+    """flax's nn.LayerNorm over the last axis: epsilon 1e-6 (torch's
+    default is 1e-5), the variance as E[x^2] - E[x]^2 clipped at 0 (flax's
+    use_fast_variance), then (x - mean) * (rsqrt(var + eps) * weight) + bias,
+    in float32 at least."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp_min((x * x).mean(-1, keepdim=True) - mean * mean, 0.0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
 class ResnetFC(nn.Module):
     """ResNet MLP with per-block latent injection. Input zx = concat(latent
     z (d_latent), features x (d_in)); x += alpha * lin_z_b(z) before block
-    b. With the default combine_layer (>= n_blocks) and one view per point
-    the reference's combine step is the identity, so it has no code here.
+    b, or with `use_spade` x = scale_z_b(z) * x + alpha * lin_z_b(z);
+    with `use_layer_norm` a LayerNorm follows each block. With the default
+    combine_layer (>= n_blocks) and one view per point the reference's
+    combine step is the identity, so it has no code here.
 
     Under a compute dtype the float32 `alpha` promotes the injection, and
     with it the residual stream, to float32 (JAX's promotion of an f32
@@ -89,15 +111,20 @@ class ResnetFC(nn.Module):
 
     def __init__(self, d_in: int, d_out: int = 4, n_blocks: int = 5, d_latent: int = 0,
                  d_hidden: int = 128, beta: float = 0.0, combine_layer: int = 1000,
-                 alpha: float = 1.0, dtype: torch.dtype = torch.float32):
+                 alpha: float = 1.0, use_spade: bool = False, use_layer_norm: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.d_latent = d_latent
         self.lin_in = linear(d_in, d_hidden, dtype=dtype)
         n_lin_z = min(combine_layer, n_blocks) if d_latent > 0 else 0
         self.lin_z = nn.ModuleList([linear(d_latent, d_hidden, dtype=dtype)
                                     for _ in range(n_lin_z)])
+        self.scale_z = (nn.ModuleList([linear(d_latent, d_hidden, dtype=dtype)
+                                       for _ in range(n_lin_z)]) if use_spade else None)
         self.blocks = nn.ModuleList([ResnetBlockFC(d_hidden, beta=beta, dtype=dtype)
                                      for _ in range(n_blocks)])
+        self.ln = (nn.ModuleList([LayerNorm(d_hidden) for _ in range(n_blocks)])
+                   if use_layer_norm else None)
         self.lin_out = linear(d_hidden, d_out, dtype=dtype)
         self.alpha = nn.Parameter(torch.tensor(float(alpha)))
         self.actvn = make_activation(beta)
@@ -110,7 +137,12 @@ class ResnetFC(nn.Module):
                 tz = self.lin_z[b](z)
                 # torch would keep a 0-dim alpha from promoting tz
                 dt = torch.promote_types(torch.promote_types(self.alpha.dtype, tz.dtype), x.dtype)
-                x = x.to(dt) + self.alpha.to(dt) * tz.to(dt)
+                if self.scale_z is None:
+                    x = x.to(dt) + self.alpha.to(dt) * tz.to(dt)
+                else:
+                    x = self.scale_z[b](z).to(dt) * x.to(dt) + self.alpha.to(dt) * tz.to(dt)
             x = block(x)
+            if self.ln is not None:
+                x = self.ln[b](x)
         out = self.lin_out(self.actvn(x))
         return out.to(torch.promote_types(torch.float32, zx.dtype))

@@ -1,9 +1,9 @@
 """2D U-Net smoothing the triplanes (counterpart of gennerf_tpu/models/unet.py).
 
 NCHW throughout. Per level two 3x3 convs + ReLU and a 2x2 max-pool down;
-2x2 stride-2 transposed convs up, concatenated with the skip (the 'concat'
-merge; config.check_supported rejects 'add'), then two 3x3 convs + ReLU;
-a final 1x1 conv. Parameter names follow the
+2x2 stride-2 transposed convs up, concatenated with the skip ('concat')
+or added to it ('add', where the first conv of each up block takes half
+the channels), then two 3x3 convs + ReLU; a final 1x1 conv. Parameter names follow the
 reference (down_convs.{i}.conv1|conv2, up_convs.{i}.upconv|conv1|conv2,
 conv_final). flax's ConvTranspose kernel is the spatial flip of torch's
 (utils/port_params.py maps it).
@@ -40,22 +40,29 @@ class _DownConv(nn.Module):
 
 
 class _UpConv(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, in_channels: int, out_channels: int, merge_mode: str = "concat",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if merge_mode not in ("concat", "add"):
+            raise NotImplementedError(f"UNet merge_mode {merge_mode!r}")
+        self.merge_mode = merge_mode
         self.upconv = cast_conv(ConvTranspose2d, in_channels, out_channels, 2, stride=2,
                                 dtype=dtype)
-        self.conv1 = cast_conv(Conv2d, 2 * out_channels, out_channels, 3, padding=1, dtype=dtype)
+        merged = 2 * out_channels if merge_mode == "concat" else out_channels
+        self.conv1 = cast_conv(Conv2d, merged, out_channels, 3, padding=1, dtype=dtype)
         self.conv2 = cast_conv(Conv2d, out_channels, out_channels, 3, padding=1, dtype=dtype)
 
     def forward(self, from_down, from_up):
-        x = torch.cat([self.upconv(from_up), from_down], dim=1)
+        up = self.upconv(from_up)
+        x = torch.cat([up, from_down], dim=1) if self.merge_mode == "concat" else up + from_down
         x = F.relu(self.conv1(x))
         return F.relu(self.conv2(x))
 
 
 class UNet(nn.Module):
     def __init__(self, num_classes: int, in_channels: int, depth: int = 5,
-                 start_filts: int = 64, dtype: torch.dtype = torch.float32):
+                 start_filts: int = 64, merge_mode: str = "concat",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.down_convs = nn.ModuleList()
         outs = in_channels
@@ -65,7 +72,7 @@ class UNet(nn.Module):
         self.up_convs = nn.ModuleList()
         for _ in range(depth - 1):
             ins, outs = outs, outs // 2
-            self.up_convs.append(_UpConv(ins, outs, dtype))
+            self.up_convs.append(_UpConv(ins, outs, merge_mode, dtype))
         self.conv_final = cast_conv(Conv2d, outs, num_classes, 1, dtype=dtype)
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):

@@ -59,6 +59,13 @@ def normalize_coordinate(p: torch.Tensor, padding: float = 0.1, plane: str = "xz
     return xy.clamp(0.0, 1.0 - 10e-6)
 
 
+def normalize_3d_coordinate(p: torch.Tensor, padding: float = 0.1) -> torch.Tensor:
+    """(..., 3) points -> coords in [0, 1 - 1e-3]: divide by (1 + padding +
+    1e-3), shift by 0.5, clamp (ConvONet's 3D variant, the grid plane's)."""
+    p = p / (1.0 + padding + 10e-4) + 0.5
+    return p.clamp(0.0, 1.0 - 10e-4)
+
+
 def coordinate2index(x: torch.Tensor, reso: int, coord_type: str = "2d") -> torch.Tensor:
     """Normalized coords in [0,1) -> flat cell indices (int64):
     `x0 + reso*x1` for planes, `x0 + reso*(x1 + reso*x2)` for grids."""

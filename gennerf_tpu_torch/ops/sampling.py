@@ -1,6 +1,7 @@
 """Point sampling (counterpart of gennerf_tpu/ops/sampling.py and the
 presample in gennerf_tpu/models/gen_nerf.py:256-267): the encoder's
-uniform presample and farthest-point sampling, and the training
+uniform presample, farthest-point sampling and its voxel_hash
+alternative (no kernel: sorts and a top-k, in both packages), and the training
 supervision's valid-pixel, ray and frustum samplers and the ray samples'
 distance bounds (iSDF) with their gradients.
 
@@ -16,6 +17,7 @@ draws, since the two frameworks' generators differ).
 from __future__ import annotations
 
 import functools
+import math
 import types
 from typing import Optional
 
@@ -273,6 +275,49 @@ def fps_cuda(xyz: torch.Tensor, npoint: int, start: torch.Tensor, cluster: int =
                        None if scratch is None else scratch.data_ptr(), B, N, npoint,
                        plan["cluster"], kernels.stream_ptr(xyz.device), record=plan)
     return out
+
+
+def topk_lower_index(score: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries of each row of (B, N), largest
+    first and the lower index first among equal values (lax.top_k's
+    order; torch.topk promises no order among ties)."""
+    return torch.argsort(score, dim=1, descending=True, stable=True)[:, :k]
+
+
+def voxel_hash_downsample(xyz: torch.Tensor, npoint: int,
+                          generator: Optional[torch.Generator] = None,
+                          rnd: Optional[torch.Tensor] = None):
+    """Voxel-hash sparsification of (B, N, 3) clouds (the 'voxel_hash'
+    sparsifier, in place of FPS): one random point per occupied cell of a
+    res^3 grid fitted to each cloud's bounding box, res = max(ceil(2 *
+    npoint^(1/3)), 2), then random others. `rnd` (B, N) uniform in [0, 1)
+    injects the draw.
+
+    The points sort by cell id + rnd/2 in float32 (ties within a cell past
+    res^3 of a few thousand: the stable sort keeps them in index order);
+    the first point of each cell in that order scores 1 + rnd * 1e-3, the
+    others rnd * 1e-3 (rnd by the point's own index, the score by its
+    sorted position, as the JAX function), and the npoint best scores
+    win, ties to the lower position.
+
+    Returns (sampled_xyz (B, npoint, 3), indices (B, npoint) int32)."""
+    B, N, _ = xyz.shape
+    res = max(int(math.ceil(npoint ** (1.0 / 3.0) * 2.0)), 2)
+    lo = xyz.amin(dim=1, keepdim=True)
+    hi = xyz.amax(dim=1, keepdim=True)
+    cell = ((xyz - lo) / torch.clamp_min(hi - lo, 1e-6) * res).clamp(0, res - 1).to(torch.int32)
+    ids = (cell[..., 0] * res + cell[..., 1]) * res + cell[..., 2]
+    if rnd is None:
+        rnd = draw_uniform((B, N), generator, xyz.device)
+    rnd = rnd.to(device=xyz.device, dtype=torch.float32)
+    order = torch.argsort(ids.to(torch.float32) + rnd * 0.5, dim=1, stable=True)
+    ids_sorted = torch.gather(ids, 1, order)
+    first = torch.cat([torch.ones_like(ids_sorted[:, :1], dtype=torch.bool),
+                       ids_sorted[:, 1:] != ids_sorted[:, :-1]], dim=1)
+    score = first.to(torch.float32) + rnd * 1e-3
+    idx = torch.gather(order, 1, topk_lower_index(score, npoint))
+    sampled = torch.gather(xyz, 1, idx[..., None].expand(B, npoint, 3))
+    return sampled, idx.to(torch.int32)
 
 
 def farthest_point_sample(xyz: torch.Tensor, npoint: int,

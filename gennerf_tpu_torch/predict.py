@@ -11,6 +11,8 @@ fusion prior under `mask_unobserved`.
         --ckpt RUN --data-dir D [--split val.txt] --out DIR
     python -m gennerf_tpu_torch.predict --config configs/experiment/seqs_multigeo_4cm.yaml \
         --params params.npz --frames frames.npz --out tsdf.npz
+    python -m gennerf_tpu_torch.predict --config configs/experiment/seqs_multigeo_4cm.yaml \
+        --params last.ckpt --frames frames.npz --out tsdf.npz
     python -m gennerf_tpu_torch.predict --config configs/experiment/seqs_multigeo_voxelnet.yaml \
         --ckpt RUN --data-dir D --split val.txt --out DIR [trainer.precision=32-true]
     python -m gennerf_tpu_torch.predict \
@@ -19,12 +21,15 @@ fusion prior under `mask_unobserved`.
 
 The weights come from `--ckpt` (a checkpoint file, or a training run's
 directory or its `checkpoints/`: the best monitored epoch there, else the
-latest) or `--params` (an npz of the JAX model's `params` tree with
-'/'-joined keys, utils/port_params.py, as the train CLI writes it);
-without either they are a seeded random init (with the spatial encoder's
-backbone npz grafted when the config names one). A params npz of a model
-with the spatial encoder also holds its BatchNorm running statistics
-under `batch_stats/`. `--frames` holds
+latest) or `--params`, read by the file's format: an npz of the JAX
+model's `params` tree with '/'-joined keys (utils/port_params.py, as the
+train CLI writes it and scripts/orbax_to_npz.py converts a JAX run), or a
+reference PyTorch Lightning `.ckpt` or state-dict `.pth`
+(utils/port_reference.py, strict: one that lacks port parameters goes
+through `tools/port_weights.py --partial` first); without either they are
+a seeded random init (with the spatial encoder's backbone npz grafted
+when the config names one). A params npz of a model with the spatial encoder also
+holds its BatchNorm running statistics under `batch_stats/`. `--frames` holds
 `projection` (T, 3, 4), `image` (T, 3, H, W) and `depth` (T, H, W). With
 `--data-dir`, every scene of the split (default: data.datasets_test) comes
 through the data module's predict loader (the inference path of
@@ -161,14 +166,29 @@ def predict_split(model: GenNerf, data_cfg: dict, out_dir: str, seed: int = 0) -
     return results
 
 
+def load_params(model: Union[GenNerf, VoxelNet], path: str, partial: bool = False) -> dict:
+    """`--params`: a params npz (the flax tree, train.tasks.load_flax_params)
+    or a reference `.ckpt` / `.pth` (utils/port_reference.load_reference,
+    `partial` as there), chosen by the file's format; another format raises
+    ValueError. Returns the format and the port keys left at init."""
+    from .train.tasks import load_flax_params
+    from .utils.port_params import load_params_npz
+    from .utils.port_reference import load_reference, weights_format
+
+    if weights_format(path) == "npz":
+        load_flax_params(model, load_params_npz(path))
+        return {"format": "npz", "unfilled": []}
+    return {"format": "reference", "unfilled": load_reference(model, path, partial).unfilled}
+
+
 def load_weights(model: Union[GenNerf, VoxelNet], ckpt: Optional[str] = None,
                  params: Optional[str] = None, precision: str = "32-true") -> dict:
     """Load the weights an entry point was given into `model`: the
-    checkpoint `select_checkpoint` picks for `ckpt`, or a params npz, or
-    none (the seeded init). Returns predict_meta.json's record: the file,
-    its epoch, how it was selected and the precision the model runs in."""
+    checkpoint `select_checkpoint` picks for `ckpt`, or a params file
+    (`load_params`), or none (the seeded init). Returns predict_meta.json's
+    record: the file, its epoch, how it was selected and the precision the
+    model runs in."""
     from .train.checkpoints import load_checkpoint, select_checkpoint
-    from .utils.port_params import load_params_npz
 
     meta = {"ckpt_path": None, "epoch": None, "selected_by": None, "precision": precision}
     if ckpt:
@@ -177,8 +197,9 @@ def load_weights(model: Union[GenNerf, VoxelNet], ckpt: Optional[str] = None,
         meta.update(ckpt_path=os.path.abspath(path), epoch=epoch, selected_by=selected_by)
         print(f"loaded {path} (epoch {epoch}, selected by {selected_by})", flush=True)
     elif params:
-        model.load_state_dict(task_for(model).params_from_flax(load_params_npz(params)))
-        meta.update(ckpt_path=os.path.abspath(params), selected_by="params")
+        loaded = load_params(model, params)
+        meta.update(ckpt_path=os.path.abspath(params), selected_by="params",
+                    params_format=loaded["format"], left_at_init=loaded["unfilled"])
     return meta
 
 
@@ -190,7 +211,8 @@ def main(argv=None):
     weights = parser.add_mutually_exclusive_group()
     weights.add_argument("--ckpt", help="checkpoint file, or a run or checkpoints/ directory "
                          "(its best monitored epoch, else the latest)")
-    weights.add_argument("--params", help="npz of the JAX params tree ('/'-joined keys)")
+    weights.add_argument("--params", help="npz of the JAX params tree ('/'-joined keys), or a "
+                         "reference Lightning .ckpt or state-dict .pth")
     source = parser.add_mutually_exclusive_group(required=True)
     source.add_argument("--frames", help="npz with projection, image, depth")
     source.add_argument("--data-dir", help="dataset root: reconstruct the scenes of a split")

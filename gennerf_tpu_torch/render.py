@@ -2,8 +2,9 @@
 depth against the measured depth (counterpart of
 scripts/local/render_views.py): encode the frames, march the field through
 the point-decode kernel (`make_point_tsdf_fn`; the f32 `GenNerf.decode` for
-a scene with a feature volume) inside the decode volume's box,
-turn ray distance into z-depth, and run `eval_depth`.
+a scene the kernel does not take, `train.predict.uses_grid_decode`: a
+feature volume, the 'grid' plane, SPADE, LayerNorm) inside the decode
+volume's box, turn ray distance into z-depth, and run `eval_depth`.
 
     python -m gennerf_tpu_torch.render --config configs/experiment/seqs_multigeo_4cm.yaml \\
         --ckpt RUN --data-dir D [--split val.txt] --out out_dir [--num-views 4] [--features]
@@ -13,8 +14,9 @@ turn ray distance into z-depth, and run `eval_depth`.
 The weights come from `--ckpt` (a checkpoint file, or a training run's
 directory or its `checkpoints/`: the best monitored epoch there, else the
 latest) or `--params` (an npz of the JAX model's `params` tree with
-'/'-joined keys, utils/port_params.py); without either they are a seeded
-random init. With `--data-dir`, every scene of the split (default:
+'/'-joined keys, utils/port_params.py, or a reference Lightning `.ckpt` or
+state-dict `.pth`, utils/port_reference.py, as in the predict CLI);
+without either they are a seeded random init. With `--data-dir`, every scene of the split (default:
 data.datasets_test) comes through the data module's test loader and
 `--num-views` of its frames are rendered; `--frames` holds one scene's
 `projection` (T, 3, 4), `image` (T, 3, H, W), `depth` (T, H, W),
@@ -43,7 +45,7 @@ from .device import resolve_device, set_reference_precision
 from .eval.metrics import eval_depth
 from .models.gen_nerf import GenNerf, SceneRepr
 from .models.renderer import SurfaceRenderer, pixels_to_rays
-from .train.predict import make_point_tsdf_fn
+from .train.predict import make_point_tsdf_fn, uses_grid_decode
 
 
 def view_indices(num_frames: int, num_views: int) -> np.ndarray:
@@ -124,10 +126,10 @@ def render_views(model: GenNerf, projection, image, depth, intrinsics, poses,
         depth: (T, H, W) measured z-depth; intrinsics: (T, 3, 3);
         poses: (T, 4, 4) camera2world.
         use_kernel_path: march through `make_point_tsdf_fn` (the point-decode
-            kernel on the card); False, and every scene with a feature
-            volume (the spatial encoder's or the teacher's, which the kernel
-            path does not take, as in the reference), marches the f32
-            `GenNerf.decode`.
+            kernel on the card); False, and every scene the kernel does
+            not take (`uses_grid_decode`: a feature volume, the 'grid'
+            plane, SPADE or LayerNorm, as in the reference), marches the
+            f32 `GenNerf.decode`.
         generator, sel, start: the encoder's draws (see GenNerf.encode).
     """
     set_reference_precision()
@@ -138,7 +140,7 @@ def render_views(model: GenNerf, projection, image, depth, intrinsics, poses,
     # a feature volume is encoded on the test grid at origin 0, the box the march clips to
     repr_ = model.encode(projection[None], image[None], depth[None], generator, sel, start,
                          model.cfg.voxel_dim_test)
-    use_kernel_path = use_kernel_path and not model.cfg.has_feature_volume
+    use_kernel_path = use_kernel_path and uses_grid_decode(model)
     tsdf_fn = make_point_tsdf_fn(model, repr_) if use_kernel_path else None
     return render_encoded(model, repr_, depth, intrinsics, poses, tsdf_fn, num_views, near, far,
                           features)
@@ -194,7 +196,8 @@ def main(argv=None) -> dict:
     weights = parser.add_mutually_exclusive_group()
     weights.add_argument("--ckpt", help="checkpoint file, or a run or checkpoints/ directory "
                          "(its best monitored epoch, else the latest)")
-    weights.add_argument("--params", help="npz of the JAX params tree ('/'-joined keys)")
+    weights.add_argument("--params", help="npz of the JAX params tree ('/'-joined keys), or a "
+                         "reference Lightning .ckpt or state-dict .pth")
     source = parser.add_mutually_exclusive_group(required=True)
     source.add_argument("--frames", help="npz with projection, image, depth, intrinsics, pose")
     source.add_argument("--data-dir", help="dataset root: render the scenes of a split")

@@ -31,8 +31,12 @@ voxel_dim_train), validated on one more scene from seed + 1. Neither
 augments, so both raise NotImplementedError when the config asks for
 random_rotation_3d or random_translation_3d.
 
-`--params` starts from a JAX params npz (utils/port_params.py), `--resume`
-continues a run from its checkpoint directory. The trainer settings come
+`--params` starts from a JAX params npz (utils/port_params.py;
+scripts/orbax_to_npz.py converts a JAX run) or a reference Lightning
+`.ckpt` / `.pth` (utils/port_reference.py, as in the predict CLI),
+`--resume` continues a run from its checkpoint directory (a
+reference `.ckpt`'s optimizer state is not ported: resuming one raises
+NotImplementedError). The trainer settings come
 from the config's `trainer` and `callbacks` groups
 (`train.loop.trainer_options`: every key is ported, accepted or raises
 NotImplementedError; early stopping from callbacks.early_stopping, the
@@ -90,9 +94,9 @@ import torch
 from ..data.datamodule import ScannetDataModule
 from ..data.synthetic import training_batch
 from ..device import resolve_device, set_reference_precision
-from ..predict import build_model
+from ..predict import build_model, load_params
 from ..utils.config import load_experiment_config
-from ..utils.port_params import load_params_npz, save_params_npz
+from ..utils.port_params import save_params_npz
 from ..utils.console import extras
 from .checkpoints import CheckpointManager, load_checkpoint, resolve_checkpoint
 from .loggers import MetricsLogger
@@ -156,7 +160,8 @@ def main(argv=None):
     source.add_argument("--batch", help="npz of one training batch")
     source.add_argument("--synthetic", action="store_true",
                         help="one synthetic batch built from the seed")
-    parser.add_argument("--params", help="npz of a JAX params tree to start from")
+    parser.add_argument("--params", help="npz of a JAX params tree, or a reference Lightning "
+                        ".ckpt or state-dict .pth, to start from")
     parser.add_argument("--epochs", type=int, help="max epochs (default: trainer.max_epochs)")
     parser.add_argument("--resume", help="checkpoint, or directory of an earlier run")
     parser.add_argument("--seed", type=int, help="run seed (default: the config's seed, else 0)")
@@ -194,7 +199,7 @@ def main(argv=None):
     model = build_model(cfg["model"], device, seed, str(options["precision"]))
     task = task_for(model)
     if args.params:
-        model.load_state_dict(task.params_from_flax(load_params_npz(args.params)))
+        load_params(model, args.params)
     optimizer = make_optimizer(model.parameters(), model.cfg.optimizer,
                                options.pop("gradient_clip_val"))
     if args.batch or args.synthetic:

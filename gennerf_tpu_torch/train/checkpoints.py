@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 from typing import Dict, Optional
 
 import torch
@@ -48,8 +49,20 @@ def load_checkpoint(path: str, model: torch.nn.Module,
                     val_generator: Optional[torch.Generator] = None) -> dict:
     """Restore what `save_checkpoint` wrote into the given objects (tensors
     onto the model's device); returns {'epoch', 'step'}."""
+    from ..utils.port_reference import is_reference_checkpoint
+
+    refused = NotImplementedError(
+        f"{path} is a reference Lightning checkpoint: resuming its optimizer state is not "
+        "ported; start from its weights with --params")
     device = next(model.parameters()).device
-    state = torch.load(path, map_location=device, weights_only=True)
+    try:
+        state = torch.load(path, map_location=device, weights_only=True)
+    except pickle.UnpicklingError:  # a Lightning checkpoint pickles foreign classes
+        if is_reference_checkpoint(path):
+            raise refused from None
+        raise
+    if "model" not in state and "state_dict" in state:
+        raise refused
     model.load_state_dict(state["model"])
     if optimizer is not None:
         optimizer.load_state_dict(state["optimizer"])

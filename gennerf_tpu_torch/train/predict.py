@@ -5,7 +5,9 @@ gennerf_tpu/train/predict.py).
 triplane-only decoder the separable formulation supports goes to the
 separable grid decode (the CUDA kernel on the card); every other config,
 among them every config with a feature volume (the spatial encoder's or
-the teacher's), goes to the chunked f32 per-point `decode_dense`. Both kernels take the head
+the teacher's), any plane set other than exactly {xz, xy, yz} (the
+'grid' plane) and a decoder with SPADE or LayerNorm, goes to the chunked
+f32 per-point `decode_dense`. Both kernels take the head
 bias folded into their last scalar, so trained weights reach them too.
 `predict_tsdf_volume_sparse` decodes only the fusion prior's near-surface
 band. `make_point_tsdf_fn` and `decode_dense_fused` feed the triplane
@@ -66,8 +68,10 @@ def decode_dense(model: GenNerf, repr_: SceneRepr, points: torch.Tensor, origin=
 
 
 def uses_grid_decode(model: GenNerf) -> bool:
-    """The static dispatch: separable grid decode for triplane-only scenes
-    (no feature volume) of a supported decoder."""
+    """The static dispatch of both decode kernels: the separable grid decode
+    (and the render's point decode) for triplane-only scenes (no feature
+    volume, exactly the xz, xy and yz planes, bilinear) of a supported
+    decoder (no SPADE or LayerNorm); every other scene decodes in f32."""
     cfg = model.cfg
     return (
         supports_grid_decode(cfg)

@@ -16,6 +16,7 @@ the losses stay float32. Both families take either precision.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Union
 
 import torch
@@ -101,3 +102,18 @@ def model_config(model_cfg: Union[dict, GenNerfConfig, VoxelNetConfig]):
     if isinstance(model_cfg, dict):
         return config_from_dict(task_for(model_cfg).config_cls, model_cfg)
     return model_cfg
+
+
+def load_flax_params(model: torch.nn.Module, tree: dict) -> None:
+    """Load a flax params tree (with its `batch_stats` branch, the npz
+    layout) into `model`, strictly but for the learned plane merger's conv:
+    flax creates it at the first merge, so a JAX run that never merged has
+    none, and the port's stays at its init (with a warning)."""
+    state = task_for(model).params_from_flax(tree)
+    own = model.state_dict()
+    lazy = [k for k in own if k.startswith("merger.") and k not in state]
+    if lazy:
+        warnings.warn(f"the params tree has no learned merger (flax creates it at the first "
+                      f"merge): {', '.join(lazy)} left at init")
+        state = {**{k: own[k] for k in lazy}, **state}
+    model.load_state_dict(state)

@@ -5,7 +5,13 @@ The input is the flax `params` tree (and, with the spatial encoder, its
 them). Dense kernels (in, out) transpose to torch's (out, in); Conv kernels
 (kh, kw, I, O) become (O, I, kh, kw); flax's ConvTranspose kernel is the
 spatial flip of torch's ConvTranspose2d weight (I, O, kh, kw). ResnetFC's
-`alpha` and the TSDF head carry over. The spatial encoder's ResNet maps
+`alpha` and the TSDF head carry over; SPADE's `scale_z_{i}` is
+`mlp.scale_z.{i}`, the LayerNorm `ln_{i}` (`scale`/`bias`) is
+`mlp.ln.{i}` (`weight`/`bias`), the learned merger's `merger/merge_conv`
+is `merger.conv`, and the grid's 3D U-Net `pointnet/unet3d/enc_{l}` /
+`dec_{l}` (`Conv_k`, `GroupNorm_k`) / `final` is `pointnet.unet3d.enc.{l}` /
+`dec.{l}` (`conv_k`, `norm_k`) / `final`, its Conv3d kernels (kd, kh, kw,
+I, O) becoming (O, I, kd, kh, kw). The spatial encoder's ResNet maps
 onto torchvision's names: `layer{s}_{b}` -> `layer{s}.{b}`,
 `down_conv`/`down_bn` -> `downsample.0`/`downsample.1`, BatchNorm
 `scale`/`bias` -> `weight`/`bias` and its batch_stats `mean`/`var` ->
@@ -25,8 +31,8 @@ A params npz ('/'-joined keys, `save_params_npz`) holds the params tree at
 its root and, for a model with running statistics, the batch_stats tree
 under `batch_stats/` (`gen_nerf_npz_tree` / `voxel_net_npz_tree` build
 both). Reading orbax
-checkpoints is left to the JAX side: save `params` (and `batch_stats`) to
-an npz with `save_params_npz` there, load it here with `load_params_npz`.
+checkpoints is left to the JAX side: scripts/orbax_to_npz.py writes a
+JAX run's checkpoint in this layout, and `load_params_npz` reads it here.
 """
 from __future__ import annotations
 
@@ -81,6 +87,18 @@ def resnet_state_from_flax(params: dict, stats: Optional[dict], prefix: str = ""
     return out
 
 
+def _conv3d(out: Dict, prefix: str, p: dict) -> None:
+    out[prefix + ".weight"] = np.asarray(p["kernel"], np.float32).transpose(4, 3, 0, 1, 2)
+    if "bias" in p:
+        out[prefix + ".bias"] = np.asarray(p["bias"], np.float32)
+
+
+def _norm(out: Dict, prefix: str, p: dict) -> None:
+    """A LayerNorm or GroupNorm (no running statistics)."""
+    out[prefix + ".weight"] = np.asarray(p["scale"], np.float32)
+    out[prefix + ".bias"] = np.asarray(p["bias"], np.float32)
+
+
 def _conv_transpose(out: Dict, prefix: str, p: dict) -> None:
     k = np.asarray(p["kernel"], np.float32)[::-1, ::-1]
     out[prefix + ".weight"] = k.transpose(2, 3, 0, 1)
@@ -112,6 +130,8 @@ def gen_nerf_params_from_flax(tree: dict, batch_stats: Optional[dict] = None
             _conv(out, "spatial.proj", sp["proj"])
     if "pointnet" in tree:
         _pointnet(out, tree["pointnet"])
+    if "merger" in tree:
+        _conv(out, "merger.conv", tree["merger"]["merge_conv"])
     _mlp_and_head(out, tree)
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
 
@@ -138,6 +158,16 @@ def _pointnet(out: Dict, pn: dict) -> None:
             _conv(out, f"pointnet.unet.up_convs.{i}.conv2", up["Conv_1"])
             i += 1
         _conv(out, "pointnet.unet.conv_final", un["conv_final"])
+    if "unet3d" in pn:
+        for name, node in pn["unet3d"].items():
+            if name == "final":
+                _conv3d(out, "pointnet.unet3d.final", node)
+                continue
+            side, level = name.split("_")
+            for sub, p in node.items():
+                kind, k = sub.split("_")
+                key = f"pointnet.unet3d.{side}.{level}.{'conv' if kind == 'Conv' else 'norm'}_{k}"
+                (_conv3d if kind == "Conv" else _norm)(out, key, p)
 
 
 def _mlp_and_head(out: Dict, tree: dict) -> None:
@@ -150,6 +180,10 @@ def _mlp_and_head(out: Dict, tree: dict) -> None:
         _block(out, f"mlp.blocks.{i}", mlp[f"block_{i}"])
         if f"lin_z_{i}" in mlp:
             _dense(out, f"mlp.lin_z.{i}", mlp[f"lin_z_{i}"])
+        if f"scale_z_{i}" in mlp:
+            _dense(out, f"mlp.scale_z.{i}", mlp[f"scale_z_{i}"])
+        if f"ln_{i}" in mlp:
+            _norm(out, f"mlp.ln.{i}", mlp[f"ln_{i}"])
         i += 1
     _dense(out, "head_geo.fc", tree["head_geo"]["Dense_0"])
 
@@ -202,6 +236,18 @@ def _resnet_inv(state: Dict, prefix: str):
     return params, stats
 
 
+def _conv3d_inv(state: Dict, prefix: str) -> dict:
+    w = _arr(state, prefix + ".weight").transpose(2, 3, 4, 1, 0)
+    p = {"kernel": np.ascontiguousarray(w)}
+    if prefix + ".bias" in state:
+        p["bias"] = _arr(state, prefix + ".bias")
+    return p
+
+
+def _norm_inv(state: Dict, prefix: str) -> dict:
+    return {"scale": _arr(state, prefix + ".weight"), "bias": _arr(state, prefix + ".bias")}
+
+
 def _conv_transpose_inv(state: Dict, prefix: str) -> dict:
     k = _arr(state, prefix + ".weight").transpose(2, 3, 0, 1)[::-1, ::-1]
     return {"kernel": np.ascontiguousarray(k), "bias": _arr(state, prefix + ".bias")}
@@ -228,6 +274,8 @@ def flax_variables_from_gen_nerf(state: Dict[str, torch.Tensor]):
             params["spatial"]["proj"] = _conv_inv(state, "spatial.proj")
     if "pointnet.fc_pos.weight" in state:
         params["pointnet"] = _pointnet_inv(state)
+    if "merger.conv.weight" in state:
+        params["merger"] = {"merge_conv": _conv_inv(state, "merger.conv")}
     params.update(_mlp_and_head_inv(state))
     return params, stats
 
@@ -268,6 +316,18 @@ def _pointnet_inv(state: Dict) -> dict:
                              "Conv_1": _conv_inv(state, pre + ".conv2")}
             i += 1
         pn["unet"] = un
+    if "pointnet.unet3d.final.weight" in state:
+        u3 = {"final": _conv3d_inv(state, "pointnet.unet3d.final")}
+        for key in state:
+            parts = key.split(".")
+            if parts[:2] != ["pointnet", "unet3d"] or parts[2] == "final" or parts[-1] != "weight":
+                continue
+            side, level, (kind, k) = parts[2], parts[3], parts[4].split("_")
+            prefix = ".".join(parts[:-1])
+            u3.setdefault(f"{side}_{level}", {})[
+                f"Conv_{k}" if kind == "conv" else f"GroupNorm_{k}"] = (
+                _conv3d_inv(state, prefix) if kind == "conv" else _norm_inv(state, prefix))
+        pn["unet3d"] = u3
     return pn
 
 
@@ -279,6 +339,10 @@ def _mlp_and_head_inv(state: Dict) -> dict:
         mlp[f"block_{i}"] = _block_inv(state, f"mlp.blocks.{i}")
         if f"mlp.lin_z.{i}.weight" in state:
             mlp[f"lin_z_{i}"] = _dense_inv(state, f"mlp.lin_z.{i}")
+        if f"mlp.scale_z.{i}.weight" in state:
+            mlp[f"scale_z_{i}"] = _dense_inv(state, f"mlp.scale_z.{i}")
+        if f"mlp.ln.{i}.weight" in state:
+            mlp[f"ln_{i}"] = _norm_inv(state, f"mlp.ln.{i}")
         i += 1
     return {"mlp": mlp, "head_geo": {"Dense_0": _dense_inv(state, "head_geo.fc")}}
 

@@ -223,15 +223,27 @@ def test_config_fields_match_jax():
     assert ours.encoder_latent == 32 and ours.mlp.d_hidden == 256
 
 
+# ported in float32 (tests/test_torch_options.py), raising under bf16-mixed
+FLOAT32_ONLY_OPTIONS = [
+    ({"encoder": {"pointnet": {"plane_type": ["grid"]}}}, "grid"),
+    ({"encoder": {"pointnet": {"sparsifier": "voxel_hash"}}}, "voxel_hash"),
+    ({"encoder": {"plane_merger": {"strategy": "learn"}}}, "learn"),
+    ({"mlp": {"use_spade": True}}, "use_spade"),
+    ({"mlp": {"use_layer_norm": True}}, "use_layer_norm"),
+    ({"encoder": {"pointnet": {"unet_kwargs": {"merge_mode": "add"}}}}, "add"),
+]
+
+
+def _merge(a, b):
+    out = dict(a)
+    for k, v in b.items():
+        out[k] = _merge(a.get(k, {}), v) if isinstance(v, dict) else v
+    return out
+
+
 @pytest.mark.parametrize("override", [
     {"encoder": {"use_spatial": True, "spatial": {"norm_type": "sync_batch"}}},
     {"encoder": {"use_auxiliary": True, "auxiliary_dim": 8}, "teacher": {"type": "maskclip"}},
-    {"encoder": {"pointnet": {"plane_type": ["grid"]}}},
-    {"encoder": {"pointnet": {"sparsifier": "voxel_hash"}}},
-    {"encoder": {"plane_merger": {"strategy": "learn"}}},
-    {"mlp": {"use_spade": True}},
-    {"mlp": {"use_layer_norm": True}},
-    {"encoder": {"pointnet": {"unet_kwargs": {"merge_mode": "add"}}}},
     {"encoder": {"use_pointnet": False}},
     {"sampling_mode": "grid"},
     {"sampling_mode": "frustum", "loss": {"use_gradient": True}},
@@ -242,17 +254,24 @@ def test_config_fields_match_jax():
     {"scheduler": {"type": "CosineAnnealingLR"}},
 ])
 def test_unsupported_options_raise(override):
-    def merge(a, b):
-        out = dict(a)
-        for k, v in b.items():
-            out[k] = merge(a.get(k, {}), v) if isinstance(v, dict) else v
-        return out
-
-    cfg = config_from_dict(GenNerfConfig, merge(SMALL_CFG, override))
+    cfg = config_from_dict(GenNerfConfig, _merge(SMALL_CFG, override))
     with pytest.raises(NotImplementedError):
         check_supported(cfg)
     with pytest.raises(NotImplementedError):
         GenNerf(cfg)
+
+
+@pytest.mark.parametrize("override,name", FLOAT32_ONLY_OPTIONS,
+                         ids=[n for _, n in FLOAT32_ONLY_OPTIONS])
+def test_ported_options_under_bf16_raise(override, name):
+    """Each option lifted from check_supported builds in float32 and raises
+    NotImplementedError, naming it, under bf16-mixed (no bf16 parity test
+    against the JAX package yet)."""
+    cfg = config_from_dict(GenNerfConfig, _merge(SMALL_CFG, override))
+    check_supported(cfg)
+    assert GenNerf(cfg).dtype == torch.float32
+    with pytest.raises(NotImplementedError, match=name):
+        GenNerf(cfg, dtype=torch.bfloat16)
 
 
 def test_bf16_precision_raises():
