@@ -219,6 +219,42 @@ from csrc/host/ with the host C++ compiler, then:
      after the steps printed);
      PointNet++ on one (8, 16384) cloud (K1 at npoint 128, then 32 on 128
      centroids, each index-exact, its plan printed);
+ 16. model_options: the remaining model options, on the data phase's
+     dataset (and the distill phase's scene). (a) seqs_multigeo_voxelnet
+     at full width in its bf16-mixed with backbone3d.norm GN and drop 0.1
+     (VOXELNET_OPTIONS): 3 loader-batch train steps (the masks drawn from
+     the step's generator) and a held-out `reconstruct`, counted (K1-K3
+     all 0), then the same with heads.tsdf.loss_split none; the bf16
+     forward loss against the float32 one of the same weights, batch and
+     masks (OPTIONS_BF16_LOSS_RTOL); on OTHER_FRAMES frames the CPU's
+     volume refined in float32 on the card and on the CPU with the card's
+     masks injected (the loss within OPTIONS_DEVICE_RTOL; the first step's
+     3D backbone and head gradients against a float64 refine on the CPU,
+     as the option groups'); (b) seqs_multigeo_spatial: one encode each
+     with spatial.norm_type batch, sync_batch and instance on the same
+     weights and draws (counted, K1 once each), sync_batch and instance
+     bit for bit the batch volume and planes, only instance warning; one
+     encode at num_layers 1 with upsample_interp nearest on the card
+     against the CPU on the CPU's sparse points; (c) the flagship
+     seq1_frames8_evenspaced_pointnet at full width in its bf16-mixed on
+     FLAGSHIP_DATA_KEYS, with each group of BF16_OPTION_GROUPS ((i) SPADE +
+     LayerNorm, (ii) the grid plane + UNet3D, (iii) voxel_hash + the UNet's
+     'add' + the learned merger): 3 steps with injected draws (counted: K1
+     once a step in (i) and (ii), each launch index-exact against the
+     plain FPS; 0 under voxel_hash), their losses within
+     OPTIONS_BF16_LOSS_RTOL of the same steps in float32, a `reconstruct`
+     at FLAGSHIP_GRID (counted: decode_dense in (i) and (ii); K2 in (iii)
+     on bf16 planes, on the field centred there, within the grid
+     tolerances of the plain decode with a tenth of it live), in (iii)
+     the learned merger's merge of two bf16 encodes, and a held-out 480x640
+     view through K3 (counted) against the plain march, K3 against its
+     plain version on 2^18 points in the box; (d) distill_synthetic and
+     distill_render_synthetic in bf16-mixed: 3 steps each (counted, K1
+     once a step), train_distill within OPTIONS_BF16_LOSS_RTOL of the same
+     float32 steps, K2 through `reconstruct` and K3 through a test view on
+     the bf16 surface model's d_geo-64 head against their plain versions,
+     and one use_auxiliary step (K1 once, decode_dense route) within
+     OPTIONS_BF16_LOSS_RTOL of its float32 loss;
 then a `kernels` JSON line, the nvidia-smi line and the final result line.
 Every phase raises on failure. Needs one CUDA card; exits non-zero without.
 """
@@ -397,6 +433,20 @@ OPTION_GROUPS = {
     "c": ("encoder.pointnet.sparsifier=voxel_hash",),
 }
 OPTIONS_STEPS, OPTIONS_DEVICE_RTOL, OTHER_FRAMES = 3, 1e-4, 2
+# the model_options phase: VoxelNet with GroupNorm and dropout (its masks
+# injected where the card is held against the CPU), and the GenNerf options
+# at the flagship's widths in bf16-mixed, in three groups; a bf16-mixed
+# loss against the float32 loss of the same weights, batch and draws
+# within OPTIONS_BF16_LOSS_RTOL (several bf16 steps, as VoxelNet's)
+VOXELNET_DROP = 0.1
+VOXELNET_OPTIONS = ("model.backbone3d.norm=GN", f"model.backbone3d.drop={VOXELNET_DROP}")
+BF16_OPTION_GROUPS = {
+    "i": ("mlp.use_spade=true", "mlp.use_layer_norm=true"),
+    "ii": ("encoder.pointnet.plane_type=[xz,xy,yz,grid]", "encoder.pointnet.unet3d=true"),
+    "iii": ("encoder.pointnet.sparsifier=voxel_hash",
+            "encoder.pointnet.unet_kwargs.merge_mode=add", "encoder.plane_merger.strategy=learn"),
+}
+OPTIONS_BF16_LOSS_RTOL = 2e-2
 FRAME_KEYS = ("projection", "image", "depth", "intrinsics", "pose")
 # a field sample counts as live below 0.9 of the head's bound (tanh not
 # saturated); a kernel check or a march on the flagship needs a tenth of
@@ -3101,9 +3151,12 @@ def weights_options_phase(torch, dev, smi: str, root: str) -> tuple:
         view = {k: torch.as_tensor(np.asarray(scene_batch[k][0])).to(dev)
                 for k in ("projection", "image", "depth", "intrinsics", "pose")}
         mcfg = model.cfg
+        kernels.reset_launch_counts()
         with torch.no_grad():
             repr_ = model.encode(view["projection"][None], view["image"][None],
                                  view["depth"][None], torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        encode_launches = read_launches()
         surface = get_3d_points(view["depth"][:1], view["projection"][:1]).reshape(-1, 3)
         shift = center_field(torch, model, repr_, surface[view["depth"][0].reshape(-1) > 0])
         reference["mlp.lin_out.bias"] = model.mlp.lin_out.bias.detach().cpu().numpy()
@@ -3442,6 +3495,579 @@ def weights_options_phase(torch, dev, smi: str, root: str) -> tuple:
                                    "depth_agree": RENDER_DEPTH_AGREE,
                                    "min_hit_share": RENDER_MIN_HIT_SHARE},
                         "card_vs_cpu_rel": OPTIONS_DEVICE_RTOL},
+          "phase_s": time.perf_counter() - t_phase, "card": smi})
+    return totals, errors
+
+
+def model_options_phase(torch, dev, smi: str, root: str, synth_root: str) -> tuple:
+    """Phase 16 (see the module docstring); returns the launch counts of
+    the main-path runs (VoxelNet's steps and predicts, the spatial
+    forwards, the bf16 option groups' steps, reconstructs and view, the
+    bf16 distillation steps, reconstruct and view, the use_auxiliary step)
+    and each kernel's largest error against its plain version there."""
+    import warnings
+    from unittest import mock
+
+    import numpy as np
+
+    from gennerf_tpu_torch.data.datamodule import ScannetDataModule
+    from gennerf_tpu_torch.data.synthetic import ring_frames
+    from gennerf_tpu_torch.models.backbone3d import DropoutDraws
+    from gennerf_tpu_torch.models.positional_encoding import positional_encoding
+    from gennerf_tpu_torch.models.voxel_net import VolumeRepr, VoxelNet
+    from gennerf_tpu_torch.ops import grid_decode as grid_decode_module
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.ops import sampling as sampling_module
+    from gennerf_tpu_torch.ops.grid_decode import extract_resnetfc_weights
+    from gennerf_tpu_torch.ops.point_decode import (
+        fused_resnetfc_tsdf_cuda, fused_resnetfc_tsdf_plain, pack_point_weights,
+    )
+    from gennerf_tpu_torch.ops.projection import get_3d_points
+    from gennerf_tpu_torch.predict import build_model, reconstruct
+    from gennerf_tpu_torch.render import render_encoded
+    from gennerf_tpu_torch.train.predict import (
+        dense_grid_points, make_point_tsdf_fn, triplane_feat_fast, triplane_gather_setup,
+        uses_grid_decode,
+    )
+    from gennerf_tpu_torch.train.state import make_optimizer
+    from gennerf_tpu_torch.train.step import batch_to_device, forward_loss, train_step
+
+    t_phase = time.perf_counter()
+    totals = {k.name: 0 for k in kernels.KERNELS}
+    errors = {"fps": 0.0, "grid_decode": 0.0, "point_decode": 0.0}
+    cpu = torch.device("cpu")
+
+    def read_launches():
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        for name, n in counts.items():
+            totals[name] += n
+        return counts
+
+    def first_batch(data_cfg, frames=None):
+        batch = batch_to_device(next(iter(ScannetDataModule(data_cfg, seed=SEED)
+                                          .train_dataloader())), dev)
+        if frames:
+            batch = {k: v[:, :frames] if v.dim() > 2 and k in FRAME_KEYS else v
+                     for k, v in batch.items()}
+        return batch
+
+    def held_out_view(data_cfg):
+        scene_batch = next(iter(ScannetDataModule(data_cfg, seed=SEED).predict_dataloader()))
+        return {k: torch.as_tensor(np.asarray(scene_batch[k][0])).to(dev) for k in FRAME_KEYS}
+
+    sampled, decoded = [], []
+    real_k1, real_k2 = sampling_module.fps_cuda, grid_decode_module.grid_decode_cuda
+
+    def recording_k1(xyz, npoint, start, cluster=0):
+        out = real_k1(xyz, npoint, start, cluster)
+        sampled.append((xyz, npoint, start, out))
+        return out
+
+    def recording_k2(tables, weights):
+        out = real_k2(tables, weights)
+        decoded.append((tables, weights, out))
+        return out
+
+    def recording():
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(sampling_module, "fps_cuda", recording_k1))
+        stack.enter_context(mock.patch.object(grid_decode_module, "grid_decode_cuda",
+                                              recording_k2))
+        return stack
+
+    def kernels_vs_plain(bound):
+        """Each recorded K1 launch against the plain FPS (index
+        mismatches) and each K2 launch against the plain bf16-feed decode
+        of its tables (max and mean error, the live share of its field)."""
+        k1 = [int((out != sampling_module.farthest_point_sample_plain(xyz, n, s)).sum())
+              for xyz, n, s, out in sampled]
+        k2 = []
+        for tables, weights, out in decoded:
+            err = (out - grid_decode_module.separable_grid_decode_plain(
+                tables, weights, bf16_feeds=True)).abs()
+            k2.append({"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+                       "live_share": float((out.abs() < FIELD_LIVE * bound).double().mean())})
+        sampled.clear()
+        decoded.clear()
+        if k1:
+            errors["fps"] = max(errors["fps"], float(max(k1)))
+        for r in k2:
+            errors["grid_decode"] = max(errors["grid_decode"], r["max_abs_err"])
+        return k1, k2
+
+    def k2_ok(runs):
+        return all(r["max_abs_err"] <= GRID_MAX_ABS_TOL and r["mean_abs_err"]
+                   <= GRID_MEAN_ABS_TOL for r in runs)
+
+    def k3_view(model, view, box_dim):
+        """A held-out view through K3 (counted) against the plain march,
+        and K3 against its plain bf16-feed version on 2^18 points in the
+        march's box (a comparison, not counted), on the field centred on
+        the view's measured surface (so that its rays cross zero)."""
+        mcfg, bound = model.cfg, model.cfg.mlp.head_smoothing
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            repr_ = model.encode(view["projection"][None], view["image"][None],
+                                 view["depth"][None], torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        encode_launches = read_launches()
+        surface = get_3d_points(view["depth"][:1], view["projection"][:1]).reshape(-1, 3)
+        shift = center_field(torch, model, repr_, surface[view["depth"][0].reshape(-1) > 0])
+        box_pts = dense_grid_points(box_dim, mcfg.voxel_size, (0, 0, 0), dev)
+        pts = box_pts[torch.randperm(box_pts.shape[0], generator=torch.Generator().manual_seed(
+            SEED))[:N_POINTS // 4].to(dev)]
+        feat = triplane_feat_fast(*triplane_gather_setup(model, repr_.planes), pts[None])[0]
+        code = positional_encoding(pts, mcfg.code.num_freqs, mcfg.code.freq_factor,
+                                   mcfg.code.include_input)
+        pweights = pack_point_weights(extract_resnetfc_weights(
+            model.mlp, model.head_geo, mcfg.mlp.d_out_geo, bound))
+        pk = fused_resnetfc_tsdf_cuda(feat, code, pweights)
+        pp = fused_resnetfc_tsdf_plain(feat, code, pweights, bf16_feeds=True)
+        perr = (pk - pp).abs()
+        render_args = (model, repr_, view["depth"], view["intrinsics"], view["pose"])
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rk = render_encoded(*render_args, make_point_tsdf_fn(model, repr_), 1)
+        torch.cuda.synchronize()
+        view_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        rp = render_encoded(*render_args, make_point_tsdf_fn(model, repr_, plain=True), 1)
+        hk, hp = rk["ray_depth"] > 0, rp["ray_depth"] > 0
+        ddiff = np.abs(rk["ray_depth"] - rp["ray_depth"])[hk & hp]
+        rec = {"image": list(view["depth"].shape[-2:]), "d_in": int(feat.shape[1]),
+               "planes_dtype": str(repr_.planes["xz"].dtype), "field_shift": shift,
+               "points": int(pts.shape[0]), "max_abs_err": float(perr.max()),
+               "mean_abs_err": float(perr.mean()),
+               "live_share": float((pp.abs() < FIELD_LIVE * bound).double().mean()),
+               "encode_launches": encode_launches, "launches": launches, "view_ms": view_ms,
+               "hit_share": float(hk.mean()),
+               "vs_plain_mask_agree": float((hk == hp).mean()),
+               "vs_plain_depth_agree": float((ddiff <= RENDER_DEPTH_TOL).mean())
+               if ddiff.size else 0.0}
+        errors["point_decode"] = max(errors["point_decode"], rec["max_abs_err"])
+        if not (launches["point_decode"] >= 1 and launches["fps"] == 0
+                and rec["max_abs_err"] <= POINT_MAX_ABS_TOL
+                and rec["mean_abs_err"] <= POINT_MEAN_ABS_TOL
+                and rec["live_share"] >= FIELD_MIN_LIVE_SHARE
+                and rec["hit_share"] >= RENDER_MIN_HIT_SHARE
+                and rec["vs_plain_mask_agree"] >= RENDER_MASK_AGREE
+                and rec["vs_plain_depth_agree"] >= RENDER_DEPTH_AGREE):
+            raise RuntimeError(f"K3 on a bf16 option model: {rec}")
+        return rec
+
+    class RecordedDropout(DropoutDraws):
+        """The keep masks drawn from a generator, kept to inject elsewhere."""
+
+        def __init__(self, p, generator):
+            super().__init__(p, None, generator)
+            self.drawn = []
+
+        def next(self, shape, device):
+            mask = super().next(shape, device)
+            self.drawn.append(mask)
+            return mask
+
+    def same_steps_f32(cfg_, batch, step_draws, states, key):
+        """The float32 forward of each bf16 step on that step's weights,
+        batch and draws (no_grad, training mode; a comparison, not
+        counted): metric `key` of each."""
+        m32 = build_model(cfg_, dev, SEED).train()
+        out = []
+        for d, state in zip(step_draws, states):
+            m32.load_state_dict(state)
+            with torch.no_grad():
+                out.append(float(forward_loss(m32, batch, draws=d)[1][key]))
+        kernels.reset_launch_counts()
+        return out
+
+    # (a) VoxelNet with GroupNorm and dropout, in its bf16-mixed, then with
+    # the loss split 'none'
+    vrec = {}
+    for split in ("pred", "none"):
+        vcfg = experiment_config(VOXELNET_EXPERIMENT, [
+            f"paths.data_dir={root}", *VOXELNET_OPTIONS,
+            *(["model.heads.tsdf.loss_split=none"] if split == "none" else [])])
+        precision = str(vcfg["trainer"]["precision"])
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            vmodel = build_model(vcfg["model"], dev, SEED, precision).train()
+        vc = vmodel.cfg
+        if not (isinstance(vmodel, VoxelNet) and vmodel.dtype == torch.bfloat16
+                and vc.backbone3d.norm == "GN" and vc.backbone3d.drop == VOXELNET_DROP
+                and vc.heads.tsdf_loss_split == split and vc.backbone3d.channels == (32, 64, 128)
+                and not [w for w in caught if issubclass(w.category, UserWarning)]):
+            raise RuntimeError(f"not the GN + dropout VoxelNet: {precision}, {vc}, "
+                               f"{[str(w.message) for w in caught]}")
+        init = {k: v.detach().clone() for k, v in vmodel.state_dict().items()}
+        batch = first_batch(vcfg["data"])
+        opt = make_optimizer(vmodel.parameters(), vc.optimizer)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [float(train_step(vmodel, opt, batch, gen)["tsdf_loss"])
+                  for _ in range(OPTIONS_STEPS)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / OPTIONS_STEPS
+        vmodel.eval()
+        view = held_out_view(vcfg["data"])
+        vol = reconstruct(vmodel, view["projection"], view["image"], view["depth"])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        rec = {"losses": losses, "step_ms": step_ms, "launches": launches,
+               "predict": {"voxel_dim": list(vol.shape),
+                           "finite": bool(torch.isfinite(vol).all()),
+                           "abs_max": float(vol.abs().max())}}
+        if not (all(map(math.isfinite, losses)) and launches == {k: 0 for k in launches}
+                and rec["predict"]["finite"] and tuple(vol.shape) == vc.voxel_dim_test
+                and rec["predict"]["abs_max"] <= vc.heads.tsdf_label_smoothing):
+            raise RuntimeError(f"the GN + dropout VoxelNet ({split}): {rec}")
+        if split == "pred":
+            # bf16 against float32: the same weights, batch and masks
+            targets = {k: batch[k] for k in ("vol_%02d_tsdf" % vs for vs in vc.voxel_sizes)}
+            m16 = build_model(vc, dev, SEED, precision).train()
+            m16.load_state_dict(init)
+            m32 = build_model(vc, dev, SEED).train()
+            m32.load_state_dict(init)
+            drawn = RecordedDropout(vc.backbone3d.drop, torch.Generator(device=dev).manual_seed(
+                SEED + 1))
+            with torch.no_grad():
+                loss16 = float(sum(m16(batch["projection"], batch["image"], vc.voxel_dim_train,
+                                       None, targets, drawn)[1].values()))
+                loss32 = float(sum(m32(batch["projection"], batch["image"], vc.voxel_dim_train,
+                                       None, targets, DropoutDraws(vc.backbone3d.drop,
+                                                                   drawn.drawn))[1].values()))
+            rec["bf16_vs_f32"] = {"loss16": loss16, "loss32": loss32,
+                                  "rel": abs(loss16 - loss32) / abs(loss32),
+                                  "masks": len(drawn.drawn),
+                                  "keep_share": float(torch.cat([m.reshape(-1) for m in
+                                                                 drawn.drawn]).double().mean())}
+            del m16
+            # float32 on the card against the CPU (OTHER_FRAMES frames): the
+            # CPU's volume refined on both with the card's masks, the loss
+            # and the first step's 3D backbone and head gradients, each
+            # held to a float64 step on the CPU as the option groups'
+            small = {k: v[:, :OTHER_FRAMES] if v.dim() > 2 and k in FRAME_KEYS else v
+                     for k, v in batch.items()}
+            mcpu = build_model(vc, cpu, SEED).train()
+            mcpu.load_state_dict({k: v.cpu() for k, v in init.items()})
+            with torch.no_grad():
+                volume = mcpu.encode(small["projection"].cpu(), small["image"].cpu(),
+                                     vc.voxel_dim_train)
+            drawn = RecordedDropout(vc.backbone3d.drop, torch.Generator(device=dev).manual_seed(
+                SEED + 2))
+            steps = {}
+            m64 = VoxelNet(vc).to(torch.float64).train()
+            m64.load_state_dict({k: v.cpu().double() for k, v in init.items()})
+            for name, m, device, dt in (("card", m32, dev, torch.float32),
+                                        ("cpu", mcpu, cpu, torch.float32),
+                                        ("cpu_f64", m64, cpu, torch.float64)):
+                m.zero_grad(set_to_none=True)
+                masks = drawn if name == "card" else DropoutDraws(vc.backbone3d.drop,
+                                                                  drawn.drawn)
+                with deterministic_algorithms(torch):
+                    _, ls = m.refine(VolumeRepr(*(t.to(device, dt) for t in volume)),
+                                     {k: v.to(device, dt) for k, v in targets.items()}, masks)
+                    loss = sum(ls.values())
+                    loss.backward()
+                steps[name] = (float(loss.detach()), {k: p.grad.detach().cpu().double()
+                                             for k, p in m.named_parameters()
+                                             if p.grad is not None})
+            del m32, mcpu, m64
+
+            def to_f64(name):
+                g64 = steps["cpu_f64"][1]
+                errs = {k: float((steps[name][1][k] - g).abs().max())
+                        / max(float(g.abs().max()), 1e-30) for k, g in g64.items()}
+                worst = max(errs, key=errs.get)
+                return errs[worst], worst
+
+            rec["card_vs_cpu_f32"] = {
+                "frames": OTHER_FRAMES, "masks": len(drawn.drawn),
+                "loss_card": steps["card"][0], "loss_cpu": steps["cpu"][0],
+                "loss_rel_err": abs(steps["card"][0] - steps["cpu"][0]) / abs(steps["cpu"][0]),
+                "grads": len(steps["cpu_f64"][1]),
+                "grad_vs_f64_over_max_abs": {"card": to_f64("card"), "cpu": to_f64("cpu")}}
+            dist = rec["card_vs_cpu_f32"]["grad_vs_f64_over_max_abs"]
+            if not (rec["bf16_vs_f32"]["rel"] <= OPTIONS_BF16_LOSS_RTOL
+                    and rec["card_vs_cpu_f32"]["loss_rel_err"] <= OPTIONS_DEVICE_RTOL
+                    and dist["card"][0] <= max(TRAIN_GRAD_TOL,
+                                               EIKONAL_NOISE_FACTOR * dist["cpu"][0])):
+                raise RuntimeError(f"the GN + dropout VoxelNet against float32 and the CPU: "
+                                   f"{rec}")
+        vrec[split] = rec
+        del vmodel, opt, batch, vol
+
+    # (b) the spatial encoder's norm_type and upsample options on
+    # seqs_multigeo_spatial (OTHER_FRAMES frames of its loader batch)
+    scfg = experiment_config(SPATIAL_EXPERIMENT, [f"paths.data_dir={root}"])
+    sbatch = first_batch(scfg["data"], frames=OTHER_FRAMES)
+    base = None
+    srec = {}
+    kernels.reset_launch_counts()
+    for norm_type in ("batch", "sync_batch", "instance"):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            smodel = build_model(experiment_config(SPATIAL_EXPERIMENT, [
+                f"paths.data_dir={root}", f"model.encoder.spatial.norm_type={norm_type}"])["model"],
+                dev, SEED)
+        warned = [str(w.message) for w in caught if "norm_type" in str(w.message)]
+        if base is None:
+            draws = ray_draws(torch, dev, smodel.cfg, sbatch, SEED + 4)
+            state = smodel.state_dict()
+        smodel.load_state_dict(state)
+        with torch.no_grad(), deterministic_algorithms(torch):
+            r = smodel.encode(sbatch["projection"], sbatch["image"], sbatch["depth"],
+                              sel=draws.sel, start=draws.start,
+                              voxel_dim=smodel.cfg.voxel_dim_train)
+        if base is None:
+            base = r
+        srec[norm_type] = {"warned": warned,
+                           "equal_to_batch": bool(torch.equal(r.volume, base.volume) and all(
+                               torch.equal(r.planes[k], v) for k, v in base.planes.items()))}
+        del smodel, r
+    srec["launches"] = read_launches()
+    # one layer without a resize: the stem's map alone, card against CPU on
+    # the CPU's sparse points
+    ucfg = experiment_config(SPATIAL_EXPERIMENT, [
+        f"paths.data_dir={root}", "model.encoder.spatial.num_layers=1",
+        "model.encoder.spatial.upsample_interp=nearest"])
+    umodel = build_model(ucfg["model"], dev, SEED)
+    ucpu = build_model(ucfg["model"], cpu, SEED)
+    ucpu.load_state_dict({k: v.cpu() for k, v in umodel.state_dict().items()})
+    same = same_sparse(torch, dev, umodel.cfg, sbatch, draws)
+    outs = {}
+    for device, m in ((dev, umodel), (cpu, ucpu)):
+        b = {k: v.to(device) for k, v in sbatch.items()}
+        d = to_device(draws, device)
+        with torch.no_grad(), same():
+            r = m.encode(b["projection"], b["image"], b["depth"], sel=d.sel, start=d.start,
+                         voxel_dim=m.cfg.voxel_dim_train)
+        outs[device.type] = {"volume": r.volume.cpu(), **{k: v.cpu() for k, v in r.planes.items()}}
+    urec = {}
+    for k, v in outs["cpu"].items():
+        err = (outs[dev.type][k] - v).abs()
+        urec[k] = {"max_rel": float(err.max()) / float(v.abs().max()),
+                   "share_within": float((err <= OPTIONS_DEVICE_RTOL * v.abs().max())
+                                         .double().mean())}
+    srec["nearest_one_layer"] = {"d_in": umodel.cfg.encoder_latent, "card_vs_cpu": urec}
+    del umodel, ucpu, outs
+    if not (srec["sync_batch"]["equal_to_batch"] and srec["instance"]["equal_to_batch"]
+            and not srec["batch"]["warned"] and not srec["sync_batch"]["warned"]
+            and len(srec["instance"]["warned"]) == 1
+            and srec["launches"] == {"fps": 3, "grid_decode": 0, "point_decode": 0}
+            and all(r["share_within"] >= VOXELNET_DEVICE_SHARE if k == "volume"
+                    else r["max_rel"] <= OPTIONS_DEVICE_RTOL for k, r in urec.items())):
+        raise RuntimeError(f"the spatial options: {srec}")
+
+    # (c) the GenNerf options in bf16-mixed at the flagship's widths
+    data_overrides = flagship_overrides(root)
+    frames = [torch.from_numpy(a).to(dev) for a in ring_frames(
+        NUM_FRAMES, HEIGHT, WIDTH, SCENE_CENTER, PRIMITIVES, seed=SEED)]
+    grec = {}
+    for group, overrides in BF16_OPTION_GROUPS.items():
+        gcfg = experiment_config(FLAGSHIP_EXPERIMENT, [
+            f"paths.data_dir={root}", *data_overrides, *(f"model.{o}" for o in overrides)])
+        precision = str(gcfg["trainer"]["precision"])
+        g16 = build_model(gcfg["model"], dev, SEED, precision).train()
+        gc = g16.cfg
+        if not (g16.dtype == torch.bfloat16 and gc.encoder.pointnet.c_dim == 64
+                and gc.encoder.pointnet.plane_resolution == 128
+                and gc.encoder.pointnet.num_sparse_points == 512):
+            raise RuntimeError(f"not the flagship's widths in bf16: {precision}, {gc}")
+        voxel_hash = gc.encoder.pointnet.sparsifier == "voxel_hash"
+        init = {k: v.detach().clone() for k, v in g16.state_dict().items()}
+        batch = first_batch(gcfg["data"])
+        B, T, H, W = batch["depth"].shape
+        step_draws = []
+        for i in range(OPTIONS_STEPS):
+            d = ray_draws(torch, dev, gc, batch, SEED + 40 + i)
+            if voxel_hash:
+                g = torch.Generator(device=dev).manual_seed(SEED + 50 + i)
+                d = d._replace(start=torch.rand((B * T, gc.encoder.pointnet.fps_presample),
+                                                generator=g, device=dev))
+            step_draws.append(d)
+        opt = make_optimizer(g16.parameters(), gc.optimizer)
+        states = []
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with recording():
+            losses16 = []
+            for d in step_draws:
+                states.append({k: v.detach().clone() for k, v in g16.state_dict().items()})
+                losses16.append(float(train_step(g16, opt, batch, draws=d)["combined"]))
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / OPTIONS_STEPS
+            step_launches = read_launches()
+            step_k1, _ = kernels_vs_plain(gc.mlp.head_smoothing)
+        losses32 = same_steps_f32(gc, batch, step_draws, states, "combined")
+        del opt, states
+        g16.eval()
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses16, losses32)]
+        rec = {"overrides": list(overrides), "step_ms": step_ms, "step_launches": step_launches,
+               "losses_bf16": losses16, "losses_f32_same_weights": losses32,
+               "loss_rel": rel, "k1_index_mismatches": step_k1,
+               "route": "grid_decode" if uses_grid_decode(g16) else "decode_dense"}
+        if group == "iii":
+            # the learned merger's merge of two bf16 encodes
+            with torch.no_grad():
+                r = g16.encode(*(f[None] for f in frames), torch.Generator().manual_seed(SEED))
+                merged = g16.merge(r, r).planes
+            rec["merge"] = {k: {"dtype": str(v.dtype), "finite": bool(torch.isfinite(v).all())}
+                            for k, v in merged.items()}
+            rec["field_shift"] = center_field(torch, g16, r, dense_grid_points(
+                FLAGSHIP_GRID, gc.voxel_size, (0, 0, 0), dev)[::7])
+            del r, merged
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with recording():
+            vol = reconstruct(g16, *frames, FLAGSHIP_GRID, torch.Generator().manual_seed(SEED))
+            torch.cuda.synchronize()
+            rec["reconstruct_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["reconstruct_launches"] = read_launches()
+            recon_k1, recon_k2 = kernels_vs_plain(gc.mlp.head_smoothing)
+        rec.update(k2_vs_plain=recon_k2, reconstruct_k1_mismatches=recon_k1,
+                   volume_finite=bool(torch.isfinite(vol).all()))
+        del vol
+        expect_fps = 0 if voxel_hash else 1
+        expect_k2 = 1 if group == "iii" else 0
+        if group == "iii":
+            rec["view"] = k3_view(g16, held_out_view(gcfg["data"]), gc.voxel_dim_test)
+        grec[group] = rec
+        if not (all(r_ <= OPTIONS_BF16_LOSS_RTOL for r_ in rel)
+                and step_launches == {"fps": expect_fps * OPTIONS_STEPS, "grid_decode": 0,
+                                      "point_decode": 0}
+                and len(step_k1) == expect_fps * OPTIONS_STEPS and not any(step_k1)
+                and rec["reconstruct_launches"] == {"fps": expect_fps, "grid_decode": expect_k2,
+                                                    "point_decode": 0}
+                and not any(recon_k1) and rec["route"] == ("grid_decode" if expect_k2
+                                                           else "decode_dense")
+                and rec["volume_finite"] and k2_ok(recon_k2)
+                and all(r_["live_share"] >= FIELD_MIN_LIVE_SHARE for r_ in recon_k2)
+                and all(v["dtype"] == "torch.bfloat16" and v["finite"]
+                        for v in rec.get("merge", {}).values())):
+            raise RuntimeError(f"bf16 option group {group}: {rec}")
+        del g16, batch, init
+
+    # (d) distillation in bf16-mixed: both modes' steps against float32, K2
+    # and K3 on the bf16 surface model's d_geo-64 head, a use_auxiliary step
+    drec = {}
+    for name, path in (("surface", DISTILL_EXPERIMENT), ("render", DISTILL_RENDER_EXPERIMENT)):
+        dcfg = experiment_config(path, [f"paths.data_dir={synth_root}",
+                                        "trainer.precision=bf16-mixed"])
+        d16 = build_model(dcfg["model"], dev, SEED, "bf16-mixed").train()
+        dc = d16.cfg
+        if not (d16.dtype == torch.bfloat16 and d16.teacher is not None
+                and dc.loss.distill.mode == name and dc.mlp.d_out_geo == 64
+                and uses_grid_decode(d16)):
+            raise RuntimeError(f"not the bf16 {name} distillation model: {dc}")
+        init = {k: v.detach().clone() for k, v in d16.state_dict().items()}
+        batch = first_batch(dcfg["data"])
+        B, T, H, W = batch["depth"].shape
+        step_draws = []
+        for i in range(OPTIONS_STEPS):
+            g = torch.Generator(device=dev).manual_seed(SEED + 60 + i)
+            step_draws.append(ray_draws(torch, dev, dc, batch, SEED + 60 + i)._replace(
+                render_scores=torch.argsort(torch.rand((B * T, H * W), generator=g, device=dev),
+                                            dim=1).to(torch.float32) / (H * W)))
+        opt = make_optimizer(d16.parameters(), dc.optimizer)
+        states = []
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics16 = []
+        for d in step_draws:
+            states.append({k: v.detach().clone() for k, v in d16.state_dict().items()})
+            metrics16.append({k: float(v) for k, v in train_step(d16, opt, batch,
+                                                                 draws=d).items()})
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / OPTIONS_STEPS
+        step_launches = read_launches()
+        distill32 = same_steps_f32(dc, batch, step_draws, states, "distill")
+        del opt, states
+        rel = [abs(a["distill"] - b) / abs(b) for a, b in zip(metrics16, distill32)]
+        rec = {"step_ms": step_ms, "step_launches": step_launches,
+               "train_distill_bf16": [m_["distill"] for m_ in metrics16],
+               "train_distill_f32_same_weights": distill32, "distill_rel": rel,
+               "combined_bf16": [m_["combined"] for m_ in metrics16]}
+        if name == "render":
+            rec["render_hit_rate"] = [m_["render_hit_rate"] for m_ in metrics16]
+        if not (all(r_ <= OPTIONS_BF16_LOSS_RTOL for r_ in rel)
+                and step_launches == {"fps": OPTIONS_STEPS, "grid_decode": 0, "point_decode": 0}
+                and all(math.isfinite(v) for m_ in metrics16 for v in m_.values())):
+            raise RuntimeError(f"bf16 {name} distillation: {rec}")
+        if name == "surface":
+            # K2 on the d_geo-64 head: reconstruct of the scene's test
+            # frames on the field centred on the test grid
+            d16.eval()
+            view = held_out_view(dcfg["data"])
+            scene = (view["projection"], view["image"], view["depth"])
+            with torch.no_grad():
+                r = d16.encode(*(f[None] for f in scene), torch.Generator().manual_seed(SEED))
+            rec["field_shift"] = center_field(torch, d16, r, dense_grid_points(
+                dc.voxel_dim_test, dc.voxel_size, (0, 0, 0), dev))
+            del r
+            kernels.reset_launch_counts()
+            with recording():
+                vol = reconstruct(d16, *scene, None, torch.Generator().manual_seed(SEED))
+                torch.cuda.synchronize()
+                rec["reconstruct_launches"] = read_launches()
+                recon_k1, recon_k2 = kernels_vs_plain(dc.mlp.head_smoothing)
+            rec.update(k2_vs_plain=recon_k2, reconstruct_k1_mismatches=recon_k1,
+                       volume_finite=bool(torch.isfinite(vol).all()))
+            rec["view"] = k3_view(d16, view, dc.voxel_dim_test)
+            if not (rec["reconstruct_launches"] == {"fps": 1, "grid_decode": 1,
+                                                    "point_decode": 0}
+                    and not any(recon_k1) and rec["volume_finite"] and k2_ok(recon_k2)
+                    and recon_k2[0]["live_share"] >= FIELD_MIN_LIVE_SHARE):
+                raise RuntimeError(f"K2 on the bf16 distillation head: {rec}")
+            del vol
+        drec[name] = rec
+        del d16, batch, init
+    acfg = experiment_config(DISTILL_EXPERIMENT, [f"paths.data_dir={synth_root}",
+                                                  "trainer.precision=bf16-mixed", *AUX_OVERRIDES])
+    aux = build_model(acfg["model"], dev, SEED, "bf16-mixed").train()
+    abatch = first_batch(acfg["data"])
+    aopt = make_optimizer(aux.parameters(), aux.cfg.optimizer)
+    kernels.reset_launch_counts()
+    ametrics = train_step(aux, aopt, abatch, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    drec["use_auxiliary"] = {"d_in": aux.cfg.encoder_latent, "launches": read_launches(),
+                             "metrics": {k: float(v) for k, v in ametrics.items()},
+                             "route": "grid_decode" if uses_grid_decode(aux) else "decode_dense"}
+    with torch.no_grad():
+        aloss32 = float(forward_loss(build_model(aux.cfg, dev, SEED).train(), abatch,
+                                     torch.Generator(device=dev).manual_seed(SEED))[0])
+    a = drec["use_auxiliary"]
+    a.update(loss_f32_same_draws=aloss32,
+             loss_rel=abs(a["metrics"]["combined"] - aloss32) / abs(aloss32))
+    del aux, aopt, abatch
+    if not (a["launches"] == {"fps": 1, "grid_decode": 0, "point_decode": 0}
+            and a["loss_rel"] <= OPTIONS_BF16_LOSS_RTOL
+            and a["route"] == "decode_dense" and "distill" in a["metrics"]
+            and all(map(math.isfinite, a["metrics"].values()))):
+        raise RuntimeError(f"the bf16 use_auxiliary step: {a}")
+
+    emit({"phase": "model_options",
+          "configs": {"voxelnet": "configs/experiment/seqs_multigeo_voxelnet.yaml",
+                      "spatial": "configs/experiment/seqs_multigeo_spatial.yaml",
+                      "bf16_groups": "configs/experiment/seq1_frames8_evenspaced_pointnet.yaml",
+                      "distill": ["configs/experiment/distill_synthetic.yaml",
+                                  "configs/experiment/distill_render_synthetic.yaml"]},
+          "voxelnet": {"overrides": list(VOXELNET_OPTIONS), **vrec}, "spatial": srec,
+          "bf16_groups": grec, "distill_bf16": drec,
+          "tolerance": {"bf16_loss_rel": OPTIONS_BF16_LOSS_RTOL,
+                        "card_vs_cpu_rel": OPTIONS_DEVICE_RTOL,
+                        "volume_share": VOXELNET_DEVICE_SHARE,
+                        "grad_vs_f64": {"tol": TRAIN_GRAD_TOL,
+                                        "cpu_factor": EIKONAL_NOISE_FACTOR},
+                        "grid": {"max_abs": GRID_MAX_ABS_TOL, "mean_abs": GRID_MEAN_ABS_TOL},
+                        "point": {"max_abs": POINT_MAX_ABS_TOL, "mean_abs": POINT_MEAN_ABS_TOL},
+                        "render": {"mask_agree": RENDER_MASK_AGREE, "depth_m": RENDER_DEPTH_TOL,
+                                   "depth_agree": RENDER_DEPTH_AGREE,
+                                   "min_hit_share": RENDER_MIN_HIT_SHARE},
+                        "min_live_share": FIELD_MIN_LIVE_SHARE},
           "phase_s": time.perf_counter() - t_phase, "card": smi})
     return totals, errors
 
@@ -3964,6 +4590,11 @@ def main() -> int:
         # and VoxelNet readers, the GenNerf options on the card against the
         # CPU, PointNet++'s K1
         weights_launches, weights_errors = weights_options_phase(torch, dev, smi, root)
+        # 16. model_options: VoxelNet's GroupNorm, dropout and loss split, the
+        # spatial norm_type and upsample, the GenNerf options and
+        # distillation in bf16-mixed (K1, K2, K3)
+        options_launches, options_errors = model_options_phase(
+            torch, dev, smi, root, os.path.join(data_tmp, "synth0"))
 
     kernel_line = {"kernels": [
         {"name": "fps", "route": "cuda", "source": "gennerf_tpu_torch/csrc/fps.cu",
@@ -3972,9 +4603,11 @@ def main() -> int:
                       + sparse_launches["fps"] + train_launches["fps"] + data_launches["fps"]
                       + spatial_launches["fps"] + voxelnet_launches["fps"]
                       + flagship_launches["fps"] + distill_launches["fps"]
-                      + harness_launches["fps"] + weights_launches["fps"]),
+                      + harness_launches["fps"] + weights_launches["fps"]
+                      + options_launches["fps"]),
          "max_abs_err": max(float((idx_k - idx_p).abs().max()), flagship_errors["fps"],
-                            harness_errors["fps"], weights_errors["fps"]),
+                            harness_errors["fps"], weights_errors["fps"],
+                            options_errors["fps"]),
          "ms": fps_ms,
          "plain_ms": fps_plain_ms, "bound_ms": fps_bound, "bound_by": "operations",
          "library_ms": None},
@@ -3983,10 +4616,11 @@ def main() -> int:
          "launches": (launches["grid_decode"] + mesh_launches["grid_decode"]
                       + data_launches["grid_decode"] + voxelnet_launches["grid_decode"]
                       + flagship_launches["grid_decode"] + distill_launches["grid_decode"]
-                      + harness_launches["grid_decode"] + weights_launches["grid_decode"]),
+                      + harness_launches["grid_decode"] + weights_launches["grid_decode"]
+                      + options_launches["grid_decode"]),
          "max_abs_err": max(grid_max, flagship_errors["grid_decode"],
                             distill_errors["grid_decode"], harness_errors["grid_decode"],
-                            weights_errors["grid_decode"]),
+                            weights_errors["grid_decode"], options_errors["grid_decode"]),
          "ms": grid_ms,
          "plain_ms": grid_plain_ms, "bound_ms": grid_bound,
          "bound_by": "operations" if grid_flops / PEAK_BF16 >= grid_bytes / PEAK_BYTES else "bytes",
@@ -3996,9 +4630,10 @@ def main() -> int:
          "launches": (render_launches["point_decode"] + data_launches["point_decode"]
                       + voxelnet_launches["point_decode"] + flagship_launches["point_decode"]
                       + distill_launches["point_decode"] + harness_launches["point_decode"]
-                      + weights_launches["point_decode"]),
+                      + weights_launches["point_decode"] + options_launches["point_decode"]),
          "max_abs_err": max(point_max, flagship_errors["point_decode"],
-                            distill_errors["point_decode"]), "ms": point_ms,
+                            distill_errors["point_decode"], options_errors["point_decode"]),
+         "ms": point_ms,
          "plain_ms": point_plain_ms, "bound_ms": point_bound,
          "bound_by": "operations" if point_flops / PEAK_BF16 >= point_bytes / PEAK_BYTES else "bytes",
          "library_ms": None},

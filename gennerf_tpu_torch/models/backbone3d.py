@@ -15,28 +15,78 @@ dtype; the norms compute in float32 and return float32 (`_norm_dtype` of
 the JAX module), so the stream between blocks is float32 and every
 convolution casts its input again. With `remat` every residual block is a
 checkpoint region whose recompute leaves the running statistics alone.
+
+Norms: 'BN' / 'nnSyncBN' (one card: the same) are flax-semantics
+BatchNorm, 'GN' flax's GroupNorm with min(32, C) groups (epsilon 1e-6, the
+zero-init scales kept), '' none. Dropout (`drop` > 0, training mode only)
+sits where the JAX module's does: after both norms of every residual
+block and after each down stage's norm (the reference Sequential's slot 2),
+with flax's semantics: keep with probability 1 - p, kept values scaled by
+1 / (1 - p). Its keep masks come from a `DropoutDraws`, in the JAX call
+order, injected or drawn from a generator; each block's masks are drawn
+before its checkpoint region and passed in, so a recompute in backward
+reuses them, as JAX's remat replays its key (torch.utils.checkpoint
+replays the global RNG only, not an explicit generator).
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..ops.sampling import draw_uniform
 from .gen_nerf import _remat
 from .resnet import BatchNorm, conv3d
+from .unet3d import GroupNorm
 
 
 def norm3d(norm: str, channels: int, zero_init: bool = False,
            dtype: torch.dtype = torch.float32) -> nn.Module:
     """'BN' / 'nnSyncBN' (one card: the same) -> a float32-returning
-    BatchNorm; '' -> identity ('GN' is rejected by the config gate)."""
+    BatchNorm; 'GN' -> flax's GroupNorm over min(32, channels) groups
+    (float32 out); '' -> identity."""
     if norm in ("BN", "nnSyncBN"):
         return BatchNorm(channels, dtype=dtype, float_output=True, zero_init=zero_init)
+    if norm == "GN":
+        return GroupNorm(min(32, channels), channels, zero_init=zero_init)
     if norm == "":
         return _NoNorm()
     raise NotImplementedError(f"backbone3d.norm {norm!r}")
+
+
+class DropoutDraws:
+    """The keep masks of one forward's dropout sites at rate `p`, taken in
+    the JAX module's call order: `masks` injected (bool, channels-first,
+    one per site), else drawn from `generator` (uniform < 1 - p, as
+    jax.random.bernoulli; None: the global generator)."""
+
+    def __init__(self, p: float, masks: Optional[Sequence[torch.Tensor]] = None,
+                 generator: Optional[torch.Generator] = None):
+        self.p, self.generator = float(p), generator
+        self.masks = None if masks is None else list(masks)
+        self.taken = 0
+
+    def next(self, shape, device) -> torch.Tensor:
+        if self.masks is None:
+            return draw_uniform(tuple(shape), self.generator, device) < 1.0 - self.p
+        if self.taken >= len(self.masks):
+            raise ValueError(f"{len(self.masks)} dropout masks injected, the forward needs more")
+        mask = self.masks[self.taken].to(device=device, dtype=torch.bool)
+        self.taken += 1
+        if tuple(mask.shape) != tuple(shape):
+            raise ValueError(f"dropout mask {self.taken - 1} has shape {tuple(mask.shape)}, "
+                             f"the site {tuple(shape)}")
+        return mask
+
+
+def dropout(x: torch.Tensor, mask: Optional[torch.Tensor], p: float) -> torch.Tensor:
+    """flax's nn.Dropout in training: x / (1 - p) where `mask`, else 0;
+    None (eval mode, or no dropout) leaves x as it is."""
+    if mask is None:
+        return x
+    return torch.where(mask, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class _NoNorm(nn.Module):
@@ -49,8 +99,9 @@ class BasicBlock3d(nn.Module):
     stride or the width changes."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, norm: str = "BN",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop: float = 0.0):
         super().__init__()
+        self.drop = drop
         self.conv1 = conv3d(inplanes, planes, 3, stride, 1, dtype=dtype)
         self.bn1 = norm3d(norm, planes, dtype=dtype)
         self.conv2 = conv3d(planes, planes, 3, 1, 1, dtype=dtype)
@@ -58,9 +109,12 @@ class BasicBlock3d(nn.Module):
         self.downsample = (conv3d(inplanes, planes, 1, stride, dtype=dtype)
                            if stride != 1 or inplanes != planes else None)
 
-    def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x), update_stats))
-        out = self.bn2(self.conv2(out), update_stats)
+    def forward(self, x: torch.Tensor, mask1: Optional[torch.Tensor] = None,
+                mask2: Optional[torch.Tensor] = None, update_stats: bool = True) -> torch.Tensor:
+        """`mask1` / `mask2`: the keep masks of the dropouts after bn1 and
+        bn2 (None: no dropout)."""
+        out = F.relu(dropout(self.bn1(self.conv1(x), update_stats), mask1, self.drop))
+        out = dropout(self.bn2(self.conv2(out), update_stats), mask2, self.drop)
         identity = x if self.downsample is None else self.downsample(x)
         return F.relu(out + identity)
 
@@ -97,20 +151,23 @@ class EncoderDecoder(nn.Module):
     def __init__(self, channels: Sequence[int] = (32, 64, 128),
                  layers_down: Sequence[int] = (1, 2, 3), layers_up: Sequence[int] = (3, 3, 3),
                  norm: str = "BN", cond_proj: bool = True, remat: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop: float = 0.0):
         super().__init__()
         channels = list(channels)
-        self.cond_proj, self.remat = cond_proj, remat
+        self.cond_proj, self.remat, self.drop = cond_proj, remat, float(drop)
+
+        def block(width):
+            return BasicBlock3d(width, width, norm=norm, dtype=dtype, drop=self.drop)
+
         self.layers_down = nn.ModuleList()
-        self.layers_down.append(nn.ModuleList(
-            BasicBlock3d(channels[0], channels[0], norm=norm, dtype=dtype)
-            for _ in range(layers_down[0])))
+        self.layers_down.append(nn.ModuleList(block(channels[0])
+                                              for _ in range(layers_down[0])))
         for i in range(1, len(channels)):
-            # the reference's Sequential: conv, norm, dropout, ReLU, blocks
+            # the reference's Sequential: conv, norm, dropout (its slot holds
+            # no parameters; forward applies the mask), ReLU, blocks
             stage = [conv3d(channels[i - 1], channels[i], 3, 2, 1, bias=norm == "", dtype=dtype),
                      norm3d(norm, channels[i], dtype=dtype), nn.Identity(), nn.ReLU()]
-            stage += [BasicBlock3d(channels[i], channels[i], norm=norm, dtype=dtype)
-                      for _ in range(layers_down[i])]
+            stage += [block(channels[i]) for _ in range(layers_down[i])]
             self.layers_down.append(nn.ModuleList(stage))
         rev = channels[::-1]
         self.layers_up_conv = nn.ModuleList(conv3d(rev[i], rev[i + 1], 1, dtype=dtype)
@@ -118,25 +175,41 @@ class EncoderDecoder(nn.Module):
         self.proj = nn.ModuleList(ConditionalProjection(rev[i + 1], rev[i + 1], norm, cond_proj,
                                                         dtype) for i in range(len(rev) - 1))
         self.layers_up_res = nn.ModuleList(
-            nn.ModuleList(BasicBlock3d(rev[i + 1], rev[i + 1], norm=norm, dtype=dtype)
-                          for _ in range(layers_up[i])) for i in range(len(rev) - 1))
+            nn.ModuleList(block(rev[i + 1]) for _ in range(layers_up[i]))
+            for i in range(len(rev) - 1))
 
-    def _block(self, block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    def _mask(self, draws: Optional[DropoutDraws], x: torch.Tensor, channels: int):
+        """The next site's keep mask for an output of `channels` at x's
+        size, or None when no dropout runs (eval mode, p 0)."""
+        if not (self.training and self.drop > 0):
+            return None
+        return draws.next((x.shape[0], channels) + tuple(x.shape[2:]), x.device)
+
+    def _block(self, block: nn.Module, x: torch.Tensor,
+               draws: Optional[DropoutDraws]) -> torch.Tensor:
+        width = block.conv1.out_channels  # every block has stride 1
+        masks = (self._mask(draws, x, width), self._mask(draws, x, width))
         if self.remat and torch.is_grad_enabled():
-            return _remat(block, x)
-        return block(x)
+            return _remat(block, x, *masks)
+        return block(x, *masks)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, draws: Optional[DropoutDraws] = None
+                ) -> List[torch.Tensor]:
+        """`draws`: the dropout masks (training mode with drop > 0; None
+        draws them from the global generator)."""
+        if self.training and self.drop > 0 and draws is None:
+            draws = DropoutDraws(self.drop)
         if self.cond_proj:
             valid_mask = (x != 0).any(dim=1, keepdim=True)
         xs = []
         for block in self.layers_down[0]:
-            x = self._block(block, x)
+            x = self._block(block, x, draws)
         xs.append(x)
         for stage in self.layers_down[1:]:
-            x = stage[3](stage[2](stage[1](stage[0](x))))
+            x = stage[1](stage[0](x))
+            x = stage[3](dropout(x, self._mask(draws, x, x.shape[1]), self.drop))
             for block in stage[4:]:
-                x = self._block(block, x)
+                x = self._block(block, x, draws)
             xs.append(x)
 
         xs = xs[::-1]
@@ -152,6 +225,6 @@ class EncoderDecoder(nn.Module):
             y = self.proj[i](xs[i + 1], x, mask)
             x = (x + y) / 2
             for block in self.layers_up_res[i]:
-                x = self._block(block, x)
+                x = self._block(block, x, draws)
             out.append(x)
         return out

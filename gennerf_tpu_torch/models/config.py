@@ -5,10 +5,10 @@ pointnet triplanes, the spatial feature volume, the teacher's features,
 or a mix) and of VoxelNet read are kept; `config_from_dict` ignores every
 other key of an experiment yaml (a frustum's `N` and `M`, ...), exactly as
 the reference's does for bookkeeping keys.
-Defaults are the reference's. Options the port does not implement yet are rejected by
-`check_supported` / `check_supported_voxel_net`, called at model
-construction, rather than computed differently; `options_without_bf16`
-names the GenNerf options that compute in float32 only.
+Defaults are the reference's. Options the JAX package refuses or cannot
+run are rejected by `check_supported` / `check_supported_voxel_net`,
+called at model construction, each message saying why; options the JAX
+package ignores are accepted and warned about where the model is built.
 """
 from __future__ import annotations
 
@@ -278,7 +278,8 @@ class Backbone3dConfig:
     channels: Tuple[int, ...] = (32, 64, 128, 256)
     layers_down: Tuple[int, ...] = (1, 2, 3, 4)
     layers: Tuple[int, ...] = (3, 2, 1)
-    norm: str = "BN"  # 'BN' | 'nnSyncBN' (alike on one card) | '' ('GN' is not ported)
+    norm: str = "BN"  # 'BN' | 'nnSyncBN' (alike on one card) | 'GN' | ''
+    # dropout after each block's norms and each down stage's norm (training only)
     drop: float = 0.0
     conditional_skip: bool = False
 
@@ -289,7 +290,7 @@ class HeadsConfig:
     tsdf_multi_scale: bool = True
     tsdf_loss_weight: float = 1.0
     tsdf_label_smoothing: float = 1.05
-    tsdf_loss_split: str = "pred"  # 'none' | 'pred'
+    tsdf_loss_split: str = "pred"  # 'pred'; any other value computes 'none'
     tsdf_loss_log_transform: bool = True
     tsdf_loss_log_transform_shift: float = 1.0
     tsdf_sparse_threshold: Tuple[float, ...] = (0.99, 0.99, 0.99)
@@ -330,78 +331,58 @@ def _raise_unsupported(unsupported: dict) -> None:
 
 
 def check_supported_voxel_net(cfg: VoxelNetConfig) -> None:
-    """Raise NotImplementedError for every VoxelNet option the port does
-    not implement. 'BN' and 'nnSyncBN' are alike on one card (the JAX
-    norm syncs only under a bound axis name)."""
-    b, s = cfg.backbone3d, cfg.encoder.spatial
+    """Raise NotImplementedError for every VoxelNet option the JAX package
+    cannot run either. 'BN' and 'nnSyncBN' are alike on one card (the JAX
+    norm syncs only under a bound axis name); the options the JAX VoxelNet
+    ignores (encoder.use_pointnet, encoder.use_spatial false, a spatial
+    norm_type other than 'batch', a loss split other than 'pred') build and
+    warn in models/voxel_net.py."""
+    b = cfg.backbone3d
     _raise_unsupported({
-        # flax's GroupNorm takes epsilon 1e-6, torch's 1e-5
-        "backbone3d.norm 'GN'": b.norm not in ("BN", "nnSyncBN", ""),
-        # the JAX dropout draws from a key
-        "backbone3d.drop > 0": b.drop > 0,
-        "heads.use_tsdf false": not cfg.heads.use_tsdf,
-        "heads.tsdf_loss_split other than 'pred' or 'none'":
-            cfg.heads.tsdf_loss_split not in ("pred", "none"),
-        "encoder.use_pointnet": cfg.encoder.use_pointnet,
-        "encoder.use_spatial false": not cfg.encoder.use_spatial,
-        "spatial.norm_type other than 'batch'": s.norm_type != "batch",
-        "spatial.upsample_interp other than 'bilinear'": s.upsample_interp != "bilinear",
-        "optimizer.type other than 'Adam'": cfg.optimizer.type != "Adam",
-        "scheduler.type other than 'StepLR' or None":
+        # the JAX heads then return no output and no loss: its train step's
+        # sum({}) is the int 0, which jax.value_and_grad refuses (TypeError)
+        "heads.use_tsdf false (no loss to train: the JAX train step fails too)":
+            not cfg.heads.use_tsdf,
+        "backbone3d.norm other than 'BN', 'nnSyncBN', 'GN' or '' (the JAX norm raises)":
+            b.norm not in ("BN", "nnSyncBN", "GN", ""),
+        "optimizer.type other than 'Adam' (the JAX make_optimizer raises)":
+            cfg.optimizer.type != "Adam",
+        "scheduler.type other than 'StepLR' or None (the JAX lr_for_epoch raises)":
             cfg.scheduler.type not in ("StepLR", "None", None),
     })
 
 
 def check_supported(cfg: GenNerfConfig) -> None:
-    """Raise NotImplementedError for every option this slice of the port
-    does not implement (later slices lift these one by one)."""
-    enc, p, m, loss = cfg.encoder, cfg.encoder.pointnet, cfg.mlp, cfg.loss
-    s = enc.spatial
+    """Raise NotImplementedError for every GenNerf option the JAX package
+    refuses or cannot run, or whose weights are not in the repository."""
+    enc, p, loss = cfg.encoder, cfg.encoder.pointnet, cfg.loss
     unsupported = {
-        "sampling_mode other than 'ray' or 'frustum'":
+        "sampling_mode other than 'ray' or 'frustum' (the JAX step raises too)":
             cfg.sampling_mode not in ("ray", "frustum"),
-        # the frustum samples carry no normals (the reference fails there too)
-        "loss.use_gradient under sampling_mode 'frustum'":
+        "loss.use_gradient under sampling_mode 'frustum' (no normals: the JAX step fails too)":
             loss.use_gradient and cfg.sampling_mode != "ray",
-        "teacher.type other than 'none' or 'random_projection'":
+        "teacher.type other than 'none' or 'random_projection' (the JAX make_teacher raises; "
+        "no VLM weights are in the repository)":
             cfg.teacher.type not in ("none", "random_projection"),
-        "optimizer.type other than 'Adam'": cfg.optimizer.type != "Adam",
-        "scheduler.type other than 'StepLR' or None":
+        "optimizer.type other than 'Adam' (the JAX make_optimizer raises)":
+            cfg.optimizer.type != "Adam",
+        "scheduler.type other than 'StepLR' or None (the JAX lr_for_epoch raises)":
             cfg.scheduler.type not in ("StepLR", "None", None),
-        "neither encoder.use_spatial nor encoder.use_pointnet":
-            not (enc.use_spatial or enc.use_pointnet),
-        "spatial.norm_type other than 'batch'": enc.use_spatial and s.norm_type != "batch",
-        "spatial.upsample_interp other than 'bilinear'":
-            enc.use_spatial and s.upsample_interp != "bilinear",
-        "pointnet.plane_type other than 'xz', 'xy', 'yz' or 'grid'":
+        "neither encoder.use_spatial nor encoder.use_pointnet (the JAX map_features then has "
+        "no spatial or plane features to decode)": not (enc.use_spatial or enc.use_pointnet),
+        "pointnet.plane_type other than 'xz', 'xy', 'yz' or 'grid' (the JAX "
+        "normalize_coordinate raises)":
             not set(p.plane_type) <= {"xz", "xy", "yz", "grid"},
-        "pointnet.unet_merge_mode other than 'concat' or 'add'":
+        "pointnet.unet_merge_mode other than 'concat' or 'add' (an unknown name, which the JAX "
+        "UNet would take as 'add')":
             p.unet_merge_mode not in ("concat", "add"),
-        "pointnet.sparsifier other than 'fps' or 'voxel_hash'":
+        "pointnet.sparsifier other than 'fps' or 'voxel_hash' (an unknown name, which the JAX "
+        "encoder would take as 'fps')":
             p.sparsifier not in ("fps", "voxel_hash"),
-        "plane_merger.strategy other than 'average' or 'learn'":
+        "plane_merger.strategy other than 'average' or 'learn' (the JAX merger raises)":
             enc.plane_merger.strategy not in ("average", "learn"),
     }
     _raise_unsupported(unsupported)
-
-
-def options_without_bf16(cfg: GenNerfConfig) -> list:
-    """The options of `cfg` that compute in float32 only: each has a parity
-    test against the JAX package in float32 and none yet under bf16-mixed,
-    so GenNerf raises for them under bf16 (as for distillation)."""
-    enc, p, m = cfg.encoder, cfg.encoder.pointnet, cfg.mlp
-    return [name for name, on in (
-        ("loss.use_distill", cfg.loss.use_distill),
-        ("encoder.use_auxiliary", enc.use_auxiliary),
-        ("mlp.use_spade", m.use_spade),
-        ("mlp.use_layer_norm", m.use_layer_norm),
-        ("pointnet.plane_type 'grid'", enc.use_pointnet and "grid" in p.plane_type),
-        ("pointnet.unet_merge_mode 'add'",
-         enc.use_pointnet and p.unet and p.unet_merge_mode == "add"),
-        ("pointnet.sparsifier 'voxel_hash'", enc.use_pointnet and p.sparsifier == "voxel_hash"),
-        ("plane_merger.strategy 'learn'",
-         enc.use_pointnet and enc.plane_merger.strategy == "learn"),
-    ) if on]
 
 
 def config_from_dict(cls, d: dict):

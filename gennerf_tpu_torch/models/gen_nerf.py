@@ -21,7 +21,9 @@ training step's backward is then a double backward through the gathers,
 the positional code and ResnetFC).
 
 Precision: the model computes in `dtype` where the JAX GenNerf does
-(bf16-mixed: the ResNet, the pointnet, its UNet, ResnetFC and the head);
+(bf16-mixed: the ResNet, the pointnet, its UNet, the learned merger,
+ResnetFC and the head; the grid's UNet3D, ResnetFC's LayerNorm and the
+teacher compute in float32, as flax infers them without a dtype);
 parameters, running statistics, the volume and its counts stay float32.
 The planes come out in the compute dtype and are sampled with float32
 weights, so the decoder's features are float32, as are its outputs but
@@ -42,7 +44,7 @@ from ..ops.coords import normalize_3d_coordinate, normalize_coordinate
 from ..ops.interpolation import sample_plane_feature, trilinear_interpolation
 from ..ops.projection import backproject_fold, get_3d_points
 from ..ops.sampling import farthest_point_sample, uniform_presample, voxel_hash_downsample
-from .config import GenNerfConfig, check_supported, options_without_bf16
+from .config import GenNerfConfig, check_supported
 from .heads import TSDFHeadSimple
 from .pointnet import FeaturePlaneMerger, LocalPoolPointnet
 from .positional_encoding import positional_encoding, positional_encoding_dim
@@ -128,10 +130,6 @@ class GenNerf(nn.Module):
         if dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(f"GenNerf computes in float32 or bfloat16, not {dtype}")
         enc = cfg.encoder
-        f32_only = options_without_bf16(cfg)
-        if dtype != torch.float32 and f32_only:
-            raise NotImplementedError(f"gennerf_tpu_torch computes {', '.join(f32_only)} "
-                                      f"in float32 only, not {dtype}")
         if enc.use_auxiliary and teacher is None:
             raise ValueError("encoder.use_auxiliary needs a teacher (make_teacher of a "
                              "config whose teacher.type is not 'none')")
@@ -140,7 +138,8 @@ class GenNerf(nn.Module):
             s = enc.spatial
             self.spatial = SpatialEncoder(
                 s.backbone, s.num_layers, s.feature_scale, s.use_first_pool, s.blur_image,
-                s.kernel_size, s.sigma, s.out_channels, dtype=dtype)
+                s.kernel_size, s.sigma, s.out_channels, dtype=dtype, norm_type=s.norm_type,
+                upsample_interp=s.upsample_interp)
         if enc.use_pointnet:
             p = enc.pointnet
             self.pointnet = LocalPoolPointnet(

@@ -3,6 +3,7 @@ TSDFHeadSimple of GenNerf (parameter name head_geo.fc as in the reference
 checkpoint) and VoxelNet's multi-scale volumetric TSDFHead / VoxelHeads."""
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -52,7 +53,9 @@ class TSDFHead(nn.Module):
     bf16 tanh by the weak-typed 1.05 (1.046875 in bf16). Under loss_split
     'pred' a finer scale keeps its value where the upsampled coarser
     prediction lies inside the sparse threshold, and the coarse sign times
-    0.999 elsewhere. Outputs and losses are float32."""
+    0.999 elsewhere; every other value computes 'none', as the JAX head
+    tests `== "pred"` only, and a value other than 'none' warns. Outputs
+    and losses are float32."""
 
     def __init__(self, channels: Sequence[int], voxel_size: float, multi_scale: bool = True,
                  loss_weight: float = 1.0, label_smoothing: float = 1.05,
@@ -61,6 +64,9 @@ class TSDFHead(nn.Module):
                  sparse_threshold: Sequence[float] = (0.99, 0.99, 0.99),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        if loss_split not in ("pred", "none"):
+            warnings.warn(f"heads.tsdf_loss_split {loss_split!r} computes 'none': the JAX "
+                          f"package's TSDF head splits only under 'pred'")
         self.multi_scale, self.loss_weight = multi_scale, loss_weight
         self.label_smoothing, self.loss_split = label_smoothing, loss_split
         self.log_transform, self.shift = loss_log_transform, loss_log_transform_shift

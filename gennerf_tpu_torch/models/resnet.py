@@ -27,6 +27,7 @@ running statistics stay float32.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import List
 
 import torch
@@ -218,11 +219,21 @@ RESNET_SPECS = {
 class ResNetStages(nn.Module):
     """The stem and the first `num_stages` residual stages; forward returns
     [stem, stage1, ..., stage_num_stages] (B, C, H, W) maps in the compute
-    dtype."""
+    dtype.
+
+    `norm_type` is the JAX module's: every norm is BatchNorm whatever its
+    value, as the JAX ResNet builds `nn.BatchNorm` for each ('sync_batch'
+    only binds an axis name, the same norm on one card); any value other
+    than 'batch' or 'sync_batch' ('instance', 'group', 'none', ...) is
+    ignored there too, so it computes BatchNorm here and warns."""
 
     def __init__(self, backbone: str = "resnet34", num_stages: int = 4,
-                 use_first_pool: bool = True, dtype: torch.dtype = torch.float32):
+                 use_first_pool: bool = True, dtype: torch.dtype = torch.float32,
+                 norm_type: str = "batch"):
         super().__init__()
+        if norm_type not in ("batch", "sync_batch"):
+            warnings.warn(f"spatial.norm_type {norm_type!r} computes BatchNorm: the JAX "
+                          f"package's ResNet ignores it and builds BatchNorm for every value")
         block_cls, layer_counts = RESNET_SPECS[backbone]
         self.use_first_pool = use_first_pool
         self.conv1 = conv2d(3, 64, 7, 2, 3, dtype=dtype)

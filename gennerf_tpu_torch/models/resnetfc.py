@@ -107,7 +107,10 @@ class ResnetFC(nn.Module):
 
     Under a compute dtype the float32 `alpha` promotes the injection, and
     with it the residual stream, to float32 (JAX's promotion of an f32
-    array times a bf16 one); the output is float32 at least."""
+    array times a bf16 one); SPADE's product sz * x is taken before that
+    promotion (bf16 times bf16 at the first block), and the LayerNorm
+    computes in the float32 stream, as flax infers it. The output is
+    float32 at least."""
 
     def __init__(self, d_in: int, d_out: int = 4, n_blocks: int = 5, d_latent: int = 0,
                  d_hidden: int = 128, beta: float = 0.0, combine_layer: int = 1000,
@@ -140,7 +143,9 @@ class ResnetFC(nn.Module):
                 if self.scale_z is None:
                     x = x.to(dt) + self.alpha.to(dt) * tz.to(dt)
                 else:
-                    x = self.scale_z[b](z).to(dt) * x.to(dt) + self.alpha.to(dt) * tz.to(dt)
+                    # sz * x in their own promoted dtype (bf16 at block 0, where
+                    # the stream is still lin_in's bf16), as JAX multiplies them
+                    x = (self.scale_z[b](z) * x).to(dt) + self.alpha.to(dt) * tz.to(dt)
             x = block(x)
             if self.ln is not None:
                 x = self.ln[b](x)

@@ -5,6 +5,11 @@ align-corners bilinear up; < 1: average pooling down), the ResNet stem and
 its first `num_layers - 1` stages, every map resized to the stem's
 resolution (align-corners bilinear) and concatenated along channels, and an
 optional 1x1 `proj` conv (with bias) to `out_channels`. NCHW throughout.
+With an `upsample_interp` other than 'bilinear' the maps are not resized,
+as in the JAX encoder: the concatenation then works only where every map
+has the stem's size (one layer), and raises ValueError naming the sizes
+elsewhere (the JAX concatenate fails there too). `norm_type`: see
+models/resnet.ResNetStages.
 Under a compute `dtype` (bf16-mixed) the ResNet and `proj` compute in it
 and the stage resizes weight in their input's dtype, as the JAX encoder's;
 the input image and its rescale stay float32.
@@ -57,12 +62,14 @@ class SpatialEncoder(nn.Module):
     def __init__(self, backbone: str = "resnet34", num_layers: int = 4,
                  feature_scale: float = 1.0, use_first_pool: bool = True,
                  blur_image: bool = False, kernel_size: int = 5, sigma: float = 1.0,
-                 out_channels: Optional[int] = None, dtype: torch.dtype = torch.float32):
+                 out_channels: Optional[int] = None, dtype: torch.dtype = torch.float32,
+                 norm_type: str = "batch", upsample_interp: str = "bilinear"):
         super().__init__()
         self.feature_scale = float(feature_scale)
         self.blur_image, self.kernel_size, self.sigma = blur_image, kernel_size, sigma
+        self.resize = upsample_interp == "bilinear"
         # the stem counts as the first map
-        self.resnet = ResNetStages(backbone, num_layers - 1, use_first_pool, dtype)
+        self.resnet = ResNetStages(backbone, num_layers - 1, use_first_pool, dtype, norm_type)
         latent = spatial_latent_size(backbone, num_layers)
         self.proj = (conv2d(latent, out_channels, 1, bias=True, dtype=dtype)
                      if out_channels else None)
@@ -82,5 +89,11 @@ class SpatialEncoder(nn.Module):
             x = torch.nn.functional.avg_pool2d(x, f, f)
         feats = self.resnet(x, update_stats)
         target = feats[0].shape[-2:]
-        latent = torch.cat([resize_bilinear_align_corners(f, target) for f in feats], dim=1)
+        if self.resize:
+            feats = [resize_bilinear_align_corners(f, target) for f in feats]
+        elif any(f.shape[-2:] != target for f in feats):
+            raise ValueError(f"spatial.upsample_interp other than 'bilinear' leaves the maps "
+                             f"unresized, and their sizes {[tuple(f.shape[-2:]) for f in feats]} "
+                             f"differ: only one layer (or maps of one size) can be concatenated")
+        latent = torch.cat(feats, dim=1)
         return latent if self.proj is None else self.proj(latent)

@@ -8,7 +8,10 @@ Channels-first (B, C, X, Y, Z) throughout. Per level a double conv (two
 nearest x2 repeats up, cropped to the skip's shape and concatenated before
 it; a final 1x1x1 conv with bias. Module names: enc.{level}.conv_{k} /
 norm_{k}, dec.{level}.conv_{k} / norm_{k}, final (flax: enc_{level},
-dec_{level} with Conv_k / GroupNorm_k, final). Float32 only.
+dec_{level} with Conv_k / GroupNorm_k, final). It computes in float32
+under any model dtype, as the JAX module, which is given no dtype: flax
+infers float32 from the float32 parameters, so a bf16 grid comes out
+float32. flax's GroupNorm (`GroupNorm`) also serves VoxelNet's 'GN'.
 """
 from __future__ import annotations
 
@@ -32,15 +35,22 @@ class GroupNorm(nn.Module):
     """flax's nn.GroupNorm on channels-first tensors: epsilon 1e-6, each
     group's statistics over its channels and every spatial position, the
     variance as E[x^2] - E[x]^2 clipped at 0, then (x - mean) *
-    (rsqrt(var + eps) * weight) + bias."""
+    (rsqrt(var + eps) * weight) + bias, in float32 at least (a bf16 input
+    is normalized and returned in float32, as flax's norm in float32);
+    `zero_init` starts the scale at 0. It keeps no running statistics, so
+    `update_stats` (the BatchNorm signature) changes nothing."""
 
-    def __init__(self, num_groups: int, channels: int, eps: float = 1e-6):
+    def __init__(self, num_groups: int, channels: int, eps: float = 1e-6,
+                 zero_init: bool = False):
         super().__init__()
+        if channels % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide {channels} channels")
         self.num_groups, self.eps = num_groups, eps
-        self.weight = nn.Parameter(torch.ones(channels))
+        self.weight = nn.Parameter(torch.zeros(channels) if zero_init else torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         B, C = x.shape[:2]
         per_group, shape = C // self.num_groups, (1,) * (x.dim() - 2)
         g = x.reshape(B, self.num_groups, -1)

@@ -37,18 +37,24 @@ near-surface noise, then the render mode's pixel scores), or are injected
 A VoxelNet step encodes the frames into the feature volume at origin 0,
 refines it into the multi-scale TSDF volumes and sums the per-scale losses
 against the batch's ground truth at each scale (vol_08_tsdf, vol_04_tsdf,
-...); it draws nothing. Its metrics are each `vol_XX_tsdf_loss` and their
-sum `tsdf_loss`, the loss.
+...). It draws only the 3D backbone's dropout masks (backbone3d.drop > 0,
+in training), from the step's generator or injected (`StepDraws.dropout`,
+in the JAX module's call order). Its metrics are each `vol_XX_tsdf_loss`
+and their sum `tsdf_loss`, the loss.
+
+Under bf16-mixed the render mode's march reads the model's bf16 TSDF, as
+the JAX march does; its depths and points are float32.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import set_reference_precision
 from ..models.config import GenNerfConfig
+from ..models.backbone3d import DropoutDraws
 from ..models.gen_nerf import GenNerf
 from ..models.voxel_net import VoxelNet
 from ..models.losses import calculate_loss
@@ -73,6 +79,8 @@ class StepDraws(NamedTuple):
     frustum_u: Optional[torch.Tensor] = None   # (B*T, N_free) uniform frustum depths
     near_noise: Optional[torch.Tensor] = None  # (B*T, N_near, 3) standard normal
     render_scores: Optional[torch.Tensor] = None  # (B*T, H*W) uniform, render distillation
+    # VoxelNet: the 3D backbone's dropout keep masks (bool, channels-first), in call order
+    dropout: Optional[Sequence[torch.Tensor]] = None
 
 
 def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
@@ -250,17 +258,22 @@ def gen_nerf_forward_loss(model: GenNerf, batch: Dict[str, torch.Tensor],
     return metrics["combined"], {**metrics, **extra}
 
 
-def voxel_net_forward_loss(model: VoxelNet, batch: Dict[str, torch.Tensor], voxel_dim=None
+def voxel_net_forward_loss(model: VoxelNet, batch: Dict[str, torch.Tensor], voxel_dim=None,
+                           generator: Optional[torch.Generator] = None,
+                           draws: StepDraws = StepDraws()
                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Encode at `voxel_dim` (default voxel_dim_train) and origin 0, refine,
-    and the per-scale losses against the batch's ground truth volumes
-    (every scale's key must be present). Returns (the summed loss,
-    metrics): each vol_XX_tsdf_loss and tsdf_loss."""
+    """Encode at `voxel_dim` (default voxel_dim_train) and origin 0, refine
+    (in training mode with backbone3d.drop > 0 the dropout masks are
+    `draws.dropout`, else drawn from `generator`), and the per-scale
+    losses against the batch's ground truth volumes (every scale's key
+    must be present). Returns (the summed loss, metrics): each
+    vol_XX_tsdf_loss and tsdf_loss."""
     cfg = model.cfg
     origin = torch.zeros(3, dtype=torch.float32, device=batch["image"].device)
     targets = {k: batch[k] for k in ("vol_%02d_tsdf" % vs for vs in model.cfg.voxel_sizes)}
+    dropout = DropoutDraws(cfg.backbone3d.drop, draws.dropout, generator)
     _, losses = model(batch["projection"], batch["image"], voxel_dim or cfg.voxel_dim_train,
-                      origin, targets)
+                      origin, targets, dropout)
     loss = sum(losses.values())
     return loss, {**losses, "tsdf_loss": loss}
 
@@ -269,7 +282,7 @@ def forward_loss(model, batch: Dict[str, torch.Tensor], generator=None,
                  draws: StepDraws = StepDraws(), voxel_dim=None):
     """The family's forward and loss: (loss, metrics)."""
     if isinstance(model, VoxelNet):
-        return voxel_net_forward_loss(model, batch, voxel_dim)
+        return voxel_net_forward_loss(model, batch, voxel_dim, generator, draws)
     return gen_nerf_forward_loss(model, batch, generator, draws, voxel_dim)
 
 

@@ -22,7 +22,9 @@ VoxelNet's 3D backbone maps the JAX module names onto the reference's:
 `layers_down.{i}.0` / `.1`, `down{i}_b{j}` -> `layers_down.{i}.{4+j}`,
 `up{i}_conv` -> `layers_up_conv.{i}`, `proj{i}` -> `proj.{i}`, `up{i}_b{j}`
 -> `layers_up_res.{i}.{j}`, a block's `down` -> `downsample` (each norm's
-`BatchNorm_0` level dropped); Conv3d kernels (kd, kh, kw, I, O) become (O,
+`BatchNorm_0` level dropped, or under backbone3d.norm 'GN' its
+`GroupNorm_0` level: `scale`/`bias` -> `weight`/`bias`, no running
+statistics); Conv3d kernels (kd, kh, kw, I, O) become (O,
 I, kd, kh, kw); the head's `tsdf_head/decoder_{i}` Dense kernel (C, 1)
 becomes the 1x1x1 Conv3d weight `heads3d.heads.0.decoders.{i}` (1, C, 1,
 1, 1).
@@ -369,31 +371,36 @@ def _b3d_prefix(name: str) -> str:
     raise KeyError(f"unknown backbone3d module {name!r}")
 
 
-def _b3d_flax_name(parts) -> tuple:
-    """torch key parts under backbone3d (without the leaf) -> flax path."""
+_NORM_LEVELS = ("BatchNorm_0", "GroupNorm_0")
+
+
+def _b3d_flax_name(parts, level: str) -> tuple:
+    """torch key parts under backbone3d (without the leaf) -> flax path;
+    `level` is the norms' flax level (BatchNorm_0 or GroupNorm_0)."""
     if parts[0] == "layers_down":
         i, k = int(parts[1]), int(parts[2])
         if i == 0:
-            return (f"down0_b{k}",) + _b3d_sub(parts[3:])
+            return (f"down0_b{k}",) + _b3d_sub(parts[3:], level)
         if k < 2:
-            return (f"down{i}_{'conv' if k == 0 else 'norm'}",) + _b3d_sub(parts[3:], k == 1)
-        return (f"down{i}_b{k - 4}",) + _b3d_sub(parts[3:])
+            return ((f"down{i}_{'conv' if k == 0 else 'norm'}",)
+                    + _b3d_sub(parts[3:], level, k == 1))
+        return (f"down{i}_b{k - 4}",) + _b3d_sub(parts[3:], level)
     if parts[0] == "layers_up_conv":
         return (f"up{parts[1]}_conv",)
     if parts[0] == "proj":
-        return (f"proj{parts[1]}",) + _b3d_sub(parts[2:])
+        return (f"proj{parts[1]}",) + _b3d_sub(parts[2:], level)
     if parts[0] == "layers_up_res":
-        return (f"up{parts[1]}_b{parts[2]}",) + _b3d_sub(parts[3:])
+        return (f"up{parts[1]}_b{parts[2]}",) + _b3d_sub(parts[3:], level)
     raise KeyError(".".join(parts))
 
 
-def _b3d_sub(parts, norm: bool = False) -> tuple:
+def _b3d_sub(parts, level: str, norm: bool = False) -> tuple:
     """Sub-module names inside a block / projection: norms gain flax's
-    BatchNorm_0 level, `downsample` is `down`."""
+    `level`, `downsample` is `down`."""
     if not parts:
-        return ("BatchNorm_0",) if norm else ()
+        return (level,) if norm else ()
     name = {"downsample": "down"}.get(parts[0], parts[0])
-    return (name, "BatchNorm_0") if name.startswith(("bn", "norm")) else (name,)
+    return (name, level) if name.startswith(("bn", "norm")) else (name,)
 
 
 def _leaves(tree: dict, path=()):
@@ -419,7 +426,7 @@ def voxel_net_params_from_flax(tree: dict, batch_stats: Optional[dict] = None
     _conv(out, "spatial.proj", sp["proj"])
     for branch in (tree["backbone3d"], batch_stats.get("backbone3d") or {}):
         for path, v in _leaves(branch):
-            sub = [p for p in path[1:-1] if p != "BatchNorm_0"]
+            sub = [p for p in path[1:-1] if p not in _NORM_LEVELS]
             key = ".".join(["backbone3d", _b3d_prefix(path[0])] + [
                 {"down": "downsample"}.get(p, p) for p in sub] + [_LEAF[path[-1]]])
             v = np.asarray(v, np.float32)
@@ -439,14 +446,17 @@ def flax_variables_from_voxel_net(state: Dict[str, torch.Tensor]):
               "backbone3d": {}, "heads3d": {"tsdf_head": {}}}
     stats = {"spatial": {"resnet": resnet_stats}, "backbone3d": {}}
     inverse = {v: k for k, v in _LEAF.items() if k != "scale"}
+    # BatchNorm keeps running statistics, GroupNorm none
+    level = ("BatchNorm_0" if any(k.startswith("backbone3d.") and k.endswith(".running_mean")
+                                  for k in state) else "GroupNorm_0")
     for key in state:
         parts = key.split(".")
         if parts[0] == "backbone3d":
             leaf = parts[-1]
             if leaf == "num_batches_tracked":
                 continue
-            path = _b3d_flax_name(parts[1:-1])
-            is_norm = path[-1] == "BatchNorm_0"
+            path = _b3d_flax_name(parts[1:-1], level)
+            is_norm = path[-1] == level
             name = ("scale" if is_norm and leaf == "weight" else inverse[leaf])
             node = (stats if leaf.startswith("running_") else params)["backbone3d"]
             for p in path:

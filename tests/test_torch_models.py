@@ -10,6 +10,7 @@ on the torch side. Outputs agree within 1e-4 absolute: float32 in another
 summation order through several layers.
 """
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -223,8 +224,9 @@ def test_config_fields_match_jax():
     assert ours.encoder_latent == 32 and ours.mlp.d_hidden == 256
 
 
-# ported in float32 (tests/test_torch_options.py), raising under bf16-mixed
-FLOAT32_ONLY_OPTIONS = [
+# ported in float32 (tests/test_torch_options.py) and under bf16-mixed
+# (tests/test_torch_options_bf16.py)
+BF16_OPTIONS = [
     ({"encoder": {"pointnet": {"plane_type": ["grid"]}}}, "grid"),
     ({"encoder": {"pointnet": {"sparsifier": "voxel_hash"}}}, "voxel_hash"),
     ({"encoder": {"plane_merger": {"strategy": "learn"}}}, "learn"),
@@ -242,12 +244,10 @@ def _merge(a, b):
 
 
 @pytest.mark.parametrize("override", [
-    {"encoder": {"use_spatial": True, "spatial": {"norm_type": "sync_batch"}}},
     {"encoder": {"use_auxiliary": True, "auxiliary_dim": 8}, "teacher": {"type": "maskclip"}},
     {"encoder": {"use_pointnet": False}},
     {"sampling_mode": "grid"},
     {"sampling_mode": "frustum", "loss": {"use_gradient": True}},
-    {"encoder": {"use_spatial": True, "spatial": {"upsample_interp": "nearest"}}},
     {"loss": {"use_distill": True}, "teacher": {"type": "clip"}},
     {"teacher": {"type": "dino"}},
     {"optimizer": {"type": "SGD"}},
@@ -261,17 +261,43 @@ def test_unsupported_options_raise(override):
         GenNerf(cfg)
 
 
-@pytest.mark.parametrize("override,name", FLOAT32_ONLY_OPTIONS,
-                         ids=[n for _, n in FLOAT32_ONLY_OPTIONS])
-def test_ported_options_under_bf16_raise(override, name):
-    """Each option lifted from check_supported builds in float32 and raises
-    NotImplementedError, naming it, under bf16-mixed (no bf16 parity test
-    against the JAX package yet)."""
+@pytest.mark.parametrize("norm_type,warns", [("sync_batch", False), ("instance", True)])
+def test_spatial_norm_type_builds(norm_type, warns):
+    """A spatial norm_type other than 'batch' builds: 'sync_batch' is
+    'batch' on one card, silently; a value the JAX ResNet ignores computes
+    BatchNorm too and warns (tests/test_torch_spatial_options.py holds both
+    against JAX)."""
+    cfg = config_from_dict(GenNerfConfig, _merge(SMALL_CFG, {"encoder": {
+        "use_spatial": True, "spatial": {"norm_type": norm_type}}}))
+    check_supported(cfg)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        GenNerf(cfg)
+    assert any("norm_type" in str(w.message) for w in caught) == warns
+
+
+def test_spatial_upsample_interp_builds():
+    """A non-bilinear spatial upsample builds; with more than one layer the
+    unresized maps cannot be concatenated, a ValueError naming their sizes
+    (the JAX concatenate fails there too: tests/test_torch_spatial_options.py)."""
+    cfg = config_from_dict(GenNerfConfig, _merge(SMALL_CFG, {"encoder": {
+        "use_spatial": True, "spatial": {"upsample_interp": "nearest", "num_layers": 2,
+                                         "backbone": "resnet18"}}}))
+    check_supported(cfg)
+    model = GenNerf(cfg)
+    with torch.no_grad(), pytest.raises(ValueError, match="sizes"):
+        model.spatial(torch.zeros(1, 3, 32, 32))
+
+
+@pytest.mark.parametrize("override,name", BF16_OPTIONS, ids=[n for _, n in BF16_OPTIONS])
+def test_ported_options_build_under_bf16(override, name):
+    """Each option builds in float32 and in bfloat16 (bf16-mixed): its
+    layers compute in the model's dtype where flax's do
+    (tests/test_torch_options_bf16.py holds them against JAX's bf16)."""
     cfg = config_from_dict(GenNerfConfig, _merge(SMALL_CFG, override))
     check_supported(cfg)
     assert GenNerf(cfg).dtype == torch.float32
-    with pytest.raises(NotImplementedError, match=name):
-        GenNerf(cfg, dtype=torch.bfloat16)
+    assert GenNerf(cfg, dtype=torch.bfloat16).dtype == torch.bfloat16
 
 
 def test_bf16_precision_raises():

@@ -28,6 +28,7 @@ equal, loss within 1e-6 relative, gradients within 1e-5 of max-abs.
 import copy
 import os
 import shutil
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -681,12 +682,17 @@ def test_check_supported_spatial_configs():
     assert (s.backbone, s.num_layers, s.feature_scale, s.blur_image, s.frame_chunk, drive.remat,
             drive.voxel_dim_train) == ("resnet34", 4, 2.0, False, 1, True, (80, 80, 40))
     base = _cfg(COMBINED)
+    # norm_type is ported (tests/test_torch_spatial_options.py): sync_batch
+    # is batch on one card and builds without a word
+    sync = copy.deepcopy(base)
+    sync["encoder"]["spatial"].update(norm_type="sync_batch")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        GenNerf(config_from_dict(GenNerfConfig, sync))
     # use_auxiliary is ported (tests/test_torch_distill.py); without a
     # teacher it raises ValueError, as the JAX GenNerf does
     for over, match, error in (
             (lambda c: c["encoder"].update(use_auxiliary=True), "use_auxiliary", ValueError),
-            (lambda c: c["encoder"]["spatial"].update(norm_type="sync_batch"), "norm_type",
-             NotImplementedError),
             (lambda c: c["encoder"].update(use_pointnet=False, use_spatial=False), "neither",
              NotImplementedError)):
         cfg = copy.deepcopy(base)
