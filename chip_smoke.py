@@ -255,12 +255,41 @@ from csrc/host/ with the host C++ compiler, then:
      the bf16 surface model's d_geo-64 head against their plain versions,
      and one use_auxiliary step (K1 once, decode_dense route) within
      OPTIONS_BF16_LOSS_RTOL of its float32 loss;
+ 17. prepare: data preparation from raw ScanNet, then the flagship on it. A
+     'rooms' scene (data/prepare/synthetic_scannet.py) of PREPARE_FRAMES
+     frames rendered at ScanNet's sizes (colour 1296x968, depth 640x480 in
+     mm, ScanNet-like intrinsics) written as scans/scene0244_01/
+     scene0244_01.sens by the port's writer (its own JPEG encoder, quality
+     95); tools.read_scannet --tar, tools.build_scannet, then
+     prepare_scannet (info.json, the split files, colour fusion at 4, 8 and
+     16 cm on the card, clean_info); gates: every exported depth PNG equal
+     to the written array, every exported JPEG (the second generation)
+     within PREPARE_PSNR_MIN of the render and PREPARE_GENERATION_DB of the
+     first generation, each voxel size fused again on the card from the
+     prepared frames equal to the volume prepare wrote (and timed), the 16
+     cm fusion on the card equal to the CPU's bit for bit (weights, TSDF and
+     colour sums), mesh_04.ply non-empty,
+     coloured and read back, a labelled 16 cm fusion's semseg mesh in the
+     NYU40 palette; then seq1_frames8_evenspaced_pointnet at full width in
+     bf16-mixed through its own data keys on the prepared JPEG frames
+     (sequence_length cut to the scene): PREPARE_EPOCHS steps of
+     `Trainer.fit` and one validation, counters reset just before and read
+     just after (K1 = steps + eval batches + tails, K2 = tails = 1, the
+     tail's K2 within the grid tolerance of the plain decode); K1 on a
+     loader batch's clouds index-exact against its plain version; on the
+     scene's validation item a reconstruct at FLAGSHIP_GRID, the field centred
+     there (K2 against the plain decode, a tenth of it live), K3 at 2^20
+     points in the box against its plain version and a 480x640 view through
+     K3 against the plain march; the .sens write, export per frame, JPEG
+     decode, fusion per voxel size, loader wait and step times, and the
+     phase's seconds on a line of their own;
 then a `kernels` JSON line, the nvidia-smi line and the final result line.
 Every phase raises on failure. Needs one CUDA card; exits non-zero without.
 """
 import contextlib
 import csv
 import dataclasses
+import io
 import json
 import math
 import os
@@ -447,6 +476,26 @@ BF16_OPTION_GROUPS = {
             "encoder.pointnet.unet_kwargs.merge_mode=add", "encoder.plane_merger.strategy=learn"),
 }
 OPTIONS_BF16_LOSS_RTOL = 2e-2
+# the prepare phase: a 'rooms' scene (room shell, box, cylinder and sphere
+# furniture, cameras inside) at ScanNet's sizes written as a raw .sens by the
+# port, exported (read_scannet --tar, build_scannet) and prepared on the card
+# (prepare_scannet: info.json, splits, colour fusion at PREPARE_VOXEL_SIZES),
+# then the flagship trained from the prepared JPEG frames through its own data
+# keys. Cut: PREPARE_FRAMES frames where ScanNet's scenes hold ~1,500, and the
+# flagship's sequence_length (710) cut to match, so the scene is one window of
+# one item: an epoch is one step
+PREPARE_SCENE, PREPARE_FRAMES, PREPARE_EPOCHS = "scene0244_01", 48, 3
+PREPARE_VOXEL_SIZES, PREPARE_MAX_DEPTH = (4, 8, 16), 3.0
+# the exported colour against the rendered frame: two JPEG generations at
+# quality 95 in 4:2:0 (the .sens, then the export), whose chroma halves blur
+# the render's hard-edged, fully saturated primitives: each frame's PSNR at
+# least PREPARE_PSNR_MIN dB, the second generation costing at most
+# PREPARE_GENERATION_DB
+PREPARE_PSNR_MIN, PREPARE_GENERATION_DB = 22.0, 1.5
+# the 16 cm fusion on the card against the CPU's on the same frames must
+# agree bit for bit (weights, TSDF and colour sums): the projection is
+# device-independent (tsdf/fusion._frame_pixels), the division a true
+# one on both, and every other step elementwise in the same order
 FRAME_KEYS = ("projection", "image", "depth", "intrinsics", "pose")
 # a field sample counts as live below 0.9 of the head's bound (tanh not
 # saturated); a kernel check or a march on the flagship needs a tenth of
@@ -4072,6 +4121,387 @@ def model_options_phase(torch, dev, smi: str, root: str, synth_root: str) -> tup
     return totals, errors
 
 
+def prepare_phase(torch, dev, smi: str, work: str) -> tuple:
+    """Phase 17 (see the module docstring): raw ScanNet in, ground truth out,
+    then the flagship trained on it. Returns the launch counts of the
+    main-path runs (the fit with its validation, the reconstruct at the
+    flagship's grid, the rendered view) and each kernel's largest error
+    against its plain version in the phase."""
+    from unittest import mock
+
+    import numpy as np
+
+    from gennerf_tpu_torch.data.colormaps import NYU40_COLORMAP
+    from gennerf_tpu_torch.data.datamodule import ScannetDataModule
+    from gennerf_tpu_torch.data.datasets import load_info_json
+    from gennerf_tpu_torch.data.prepare import prepare_data
+    from gennerf_tpu_torch.data.prepare.sensor_data import SensorData
+    from gennerf_tpu_torch.data.prepare.synthetic_scannet import COLOR_SIZE, DEPTH_SIZE, write_scene
+    from gennerf_tpu_torch.models.positional_encoding import positional_encoding
+    from gennerf_tpu_torch.ops import grid_decode as grid_decode_module
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.ops.grid_decode import extract_resnetfc_weights
+    from gennerf_tpu_torch.ops.point_decode import (
+        fused_resnetfc_tsdf_cuda, fused_resnetfc_tsdf_plain, pack_point_weights,
+    )
+    from gennerf_tpu_torch.ops.projection import get_3d_points
+    from gennerf_tpu_torch.ops.sampling import (
+        farthest_point_sample_plain, fps_cuda, uniform_presample,
+    )
+    from gennerf_tpu_torch.predict import build_model, reconstruct
+    from gennerf_tpu_torch.render import render_encoded
+    from gennerf_tpu_torch.tools import build_scannet, read_scannet
+    from gennerf_tpu_torch.tools.measure import FPS_INNER, cuda_ms
+    from gennerf_tpu_torch.train import loop as loop_module
+    from gennerf_tpu_torch.train.checkpoints import CheckpointManager
+    from gennerf_tpu_torch.train.loop import Trainer
+    from gennerf_tpu_torch.train.predict import (
+        dense_grid_points, make_point_tsdf_fn, triplane_feat_fast, triplane_gather_setup,
+    )
+    from gennerf_tpu_torch.train.state import make_optimizer
+    from gennerf_tpu_torch.train.step import batch_to_device
+    from gennerf_tpu_torch.tsdf.fusion import TSDFFusion
+    from gennerf_tpu_torch.tsdf.tsdf import TSDF
+    from gennerf_tpu_torch.data.transforms import ResizeImage
+    from gennerf_tpu_torch.utils.image import decode_jpeg, read_jpeg, read_png
+    from gennerf_tpu_torch.utils.mesh import Mesh
+
+    totals = {k.name: 0 for k in kernels.KERNELS}
+
+    def read_launches():
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        for name, n in counts.items():
+            totals[name] += n
+        return counts
+
+    t_phase = time.perf_counter()
+    raw, export, data = (os.path.join(work, d) for d in ("raw", "export", "data"))
+    scene = f"scans/{PREPARE_SCENE}"
+    scene_dir = os.path.join(data, scene)
+    cpu = torch.device("cpu")
+
+    # 1. the raw scene through the port's .sens writer
+    written = write_scene(raw, PREPARE_SCENE, PREPARE_FRAMES, seed=SEED,
+                          threads=os.cpu_count() or 1)
+    # 2. exported into archives, unpacked, prepared with fusion on the card
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        read_scannet.main(["--path", raw, "--output", export, "--workers", "1", "--tar"])
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        build_scannet.main(["--source", export, "--target", data, "--workers", "1"])
+        build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stages = prepare_data.prepare_scannet(data, data, max_depth=PREPARE_MAX_DEPTH, verbose=0,
+                                          voxel_sizes=PREPARE_VOXEL_SIZES, device=dev)[scene]
+    prepare_s = time.perf_counter() - t0
+    info = load_info_json(os.path.join(scene_dir, "info.json"))
+    splits = sorted(f for f in os.listdir(data) if f.endswith(".txt"))
+
+    # 3. the exports: depth lossless, colour within the bound of the render
+    sens = SensorData(written["sens"])
+    if not (len(info["frames"]) == PREPARE_FRAMES and "file_name_image_temp" not in
+            info["frames"][0] and all(f"file_name_vol_{vs:02d}" in info
+                                      for vs in PREPARE_VOXEL_SIZES)):
+        raise RuntimeError(f"prepare_scannet's info.json: {sorted(info)}, "
+                           f"{len(info['frames'])} frames")
+
+    def psnr(a, b):
+        mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+        return 10 * math.log10(255.0 ** 2 / mse) if mse else math.inf
+
+    depth_equal, psnr_db, generation_db = 0, [], []
+    for t, frame in enumerate(info["frames"]):
+        depth_equal += int(np.array_equal(read_png(frame["file_name_depth"]),
+                                          written["depth_mm"][t]))
+        exported = read_jpeg(frame["file_name_image"])
+        first = sens.frames[t].decompress_color(sens.color_compression_type)
+        psnr_db.append(psnr(exported, written["color"][t]))
+        generation_db.append(psnr(first, written["color"][t]) - psnr_db[-1])
+    with open(info["frames"][0]["file_name_image"], "rb") as f:
+        jpeg_bytes = f.read()
+    decode_ms = host_ms(torch, lambda: decode_jpeg(jpeg_bytes), 20)
+    # the loaders' pad (1296x968 -> 1296x972) and bilinear reduction to
+    # 640x480 of that frame, in the host library
+    reduce_ms = host_ms(torch, lambda: ResizeImage((640, 480))({"frames": [
+        {"image": exported, "intrinsics": np.eye(3, dtype=np.float32)}]}), 20)
+    exports = {"depth_frames_equal": depth_equal, "psnr_db_min": min(psnr_db),
+               "psnr_db_median": statistics.median(psnr_db),
+               "second_generation_db_max": max(generation_db),
+               "color_shape": list(exported.shape)}
+    if not (depth_equal == PREPARE_FRAMES and min(psnr_db) >= PREPARE_PSNR_MIN
+            and max(generation_db) <= PREPARE_GENERATION_DB
+            and tuple(exported.shape[:2]) == COLOR_SIZE):
+        raise RuntimeError(f"the exported frames: {exports}")
+
+    # 4. the fused volumes: each voxel size fused again on the card from the
+    # prepared frames (loaded once), timed, equal to the volume prepare wrote;
+    # 16 cm against the CPU; the 4 cm mesh; a labelled fusion's semseg mesh
+    dataset = prepare_data.scene_frames(os.path.join(scene_dir, "info.json"))
+    t0 = time.perf_counter()
+    frames = list(prepare_data.prefetch(dataset, range(len(dataset))))
+    load_s = time.perf_counter() - t0
+    card_frames = [prepare_data.frame_tensors(f, PREPARE_MAX_DEPTH, dev) for f in frames]
+    volumes, fusion_s, fused = {}, {}, {}
+    for vs in PREPARE_VOXEL_SIZES:
+        saved = TSDF.load(info[f"file_name_vol_{vs:02d}"])
+        grid = (tuple(saved.tsdf_vol.shape), vs / 100, saved.origin.reshape(3))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fusion = TSDFFusion(*grid, color=True, device=dev)
+        for P_, d_, im_ in card_frames:
+            fusion.integrate(P_, d_, im_)
+        torch.cuda.synchronize()
+        fusion_s[vs] = time.perf_counter() - t0
+        again = fusion.get_tsdf()
+        volumes[vs] = {"voxel_dim": list(grid[0]), "origin": saved.origin.reshape(3).tolist(),
+                       "band_share": float((saved.tsdf_vol.abs() < 1).double().mean()),
+                       "same_as_prepared": bool(
+                           torch.equal(again.tsdf_vol.cpu(), saved.tsdf_vol) and torch.equal(
+                               again.attribute_vols["color"].cpu(),
+                               saved.attribute_vols["color"]))}
+        fused[vs] = (grid, fusion.state)
+    grid16, card16 = fused[16]
+    cpu_fusion = TSDFFusion(*grid16, color=True, device=cpu)
+    for frame in frames:
+        cpu_fusion.integrate(*prepare_data.frame_tensors(frame, PREPARE_MAX_DEPTH, cpu))
+    cpu16 = cpu_fusion.state
+    card_vs_cpu = {"weight_mismatches": int((card16.weight.cpu() != cpu16.weight).sum()),
+                   "tsdf_mismatches": int((card16.tsdf.cpu() != cpu16.tsdf).sum()),
+                   "color_mismatches": int((card16.color.cpu() != cpu16.color).sum()),
+                   "touched_voxels": int((cpu16.weight > 0).sum())}
+    mesh04 = Mesh.load(os.path.join(scene_dir, "mesh_04.ply"))
+    mesh_rec = {"vertices": int(len(mesh04.vertices)), "faces": int(len(mesh04.faces)),
+                "colours": 0 if mesh04.vertex_colors is None
+                else int(len(np.unique(mesh04.vertex_colors, axis=0))),
+                "faces_meshed_again": int(len(TSDF.load(info["file_name_vol_04"])
+                                              .get_mesh().faces))}
+    # labels: NYU40 classes 1-3 by each pixel's strongest colour channel
+    semseg = TSDFFusion(*grid16, color=False, label=True, device=dev)
+    for P_, d_, im_ in card_frames:
+        semseg.integrate(P_, d_, None, (im_.argmax(0) + 1).to(torch.int32))
+    sem_mesh = semseg.get_tsdf("semseg").get_mesh("semseg")
+    palette = {tuple(c) for c in NYU40_COLORMAP}
+    sem_colours = {tuple(int(v) for v in c) for c in sem_mesh.vertex_colors}
+    mesh_rec.update(semseg_faces=int(len(sem_mesh.faces)), semseg_colours=len(sem_colours),
+                    semseg_colours_in_palette=sem_colours <= palette)
+    del card_frames, fused, card16, cpu16
+    if not (all(v["same_as_prepared"] for v in volumes.values())
+            and card_vs_cpu["weight_mismatches"] == card_vs_cpu["tsdf_mismatches"]
+            == card_vs_cpu["color_mismatches"] == 0
+            and mesh_rec["faces"] > 1000 and mesh_rec["colours"] > 10
+            and mesh_rec["faces_meshed_again"] == mesh_rec["faces"]
+            and mesh_rec["semseg_faces"] > 100 and mesh_rec["semseg_colours"] >= 2
+            and mesh_rec["semseg_colours_in_palette"]):
+        raise RuntimeError(f"the fused ground truth: {volumes}, {card_vs_cpu}, {mesh_rec}")
+
+    # 5. the flagship at full width in bf16-mixed from the prepared JPEG
+    # frames, through its own data keys (sequence_length cut to the scene)
+    run_dir = os.path.join(work, "run")
+    cfg = experiment_config(FLAGSHIP_EXPERIMENT, [
+        f"paths.data_dir={data}", f"paths.output_dir={run_dir}",
+        f"data.sequence_length={PREPARE_FRAMES}"])
+    precision = str(cfg["trainer"]["precision"])
+    model = build_model(cfg["model"], dev, SEED, precision)
+    mcfg, p = model.cfg, model.cfg.encoder.pointnet
+    opt = make_optimizer(model.parameters(), mcfg.optimizer,
+                         cfg["trainer"].get("gradient_clip_val"))
+    ckpt_cfg = cfg["callbacks"]["model_checkpoint"]
+    checkpoints = CheckpointManager(ckpt_cfg["dirpath"], ckpt_cfg["save_top_k"],
+                                    monitor=ckpt_cfg["monitor"], mode=ckpt_cfg.get("mode", "min"))
+    trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), run_dir,
+                      max_epochs=PREPARE_EPOCHS, check_val_every_n_epoch=PREPARE_EPOCHS,
+                      checkpoints=checkpoints, precision=precision, num_sanity_val_steps=0)
+    datamodule = ScannetDataModule(cfg["data"], seed=SEED)
+    encodes, decoded = [], []
+    real_k2 = grid_decode_module.grid_decode_cuda
+
+    def counted(fn):
+        def wrapper(*a, **k):
+            encodes.append(fn.__name__)
+            return fn(*a, **k)
+        return wrapper
+
+    def recording_k2(tables, weights):
+        out = real_k2(tables, weights)
+        decoded.append((tables, weights, out))
+        return out
+
+    bound = mcfg.mlp.head_smoothing
+
+    def k2_vs_plain():
+        """(max, mean abs error, least live share) over the recorded K2 calls."""
+        errs = []
+        for tables, weights, out in decoded:
+            err = (out - grid_decode_module.separable_grid_decode_plain(
+                tables, weights, bf16_feeds=True)).abs()
+            errs.append((float(err.max()), float(err.mean()),
+                         float((out.abs() < FIELD_LIVE * bound).double().mean())))
+        decoded.clear()
+        return tuple(f(e[i] for e in errs) for i, f in enumerate((max, max, min)))
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with mock.patch.object(loop_module, "eval_step", counted(loop_module.eval_step)), \
+            mock.patch.object(loop_module, "reconstruct", counted(loop_module.reconstruct)), \
+            mock.patch.object(grid_decode_module, "grid_decode_cuda", recording_k2):
+        t0 = time.perf_counter()
+        trainer.fit(datamodule.train_dataloader(), datamodule.val_dataloader())
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    fit_launches = read_launches()
+    steps = trainer.global_step
+    n_eval, n_tail = encodes.count("eval_step"), encodes.count("reconstruct")
+    tail_grid = k2_vs_plain()
+    fit_rec = {"precision": precision, "steps": steps, "eval_batches": n_eval, "tails": n_tail,
+               "launches": fit_launches, "fit_s": fit_s,
+               "step_ms": [t["step_ms"] for t in trainer.timings],
+               "data_wait_ms": [t["data_wait_ms"] for t in trainer.timings],
+               "metrics": dict(trainer.metrics),
+               "tail_k2_vs_plain": {"max_abs": tail_grid[0], "mean_abs": tail_grid[1]}}
+    if not (model.dtype == torch.bfloat16 and steps == PREPARE_EPOCHS
+            and fit_launches["fps"] == steps + n_eval + n_tail
+            and fit_launches["grid_decode"] == n_tail == 1
+            and math.isfinite(fit_rec["metrics"].get("val_recon_tsdf_l1", math.nan))
+            and tail_grid[0] <= GRID_MAX_ABS_TOL and tail_grid[1] <= GRID_MEAN_ABS_TOL):
+        raise RuntimeError(f"the flagship fit on the prepared scene: {fit_rec}")
+
+    # K1 against its plain version on a loader batch's clouds (a comparison)
+    batch = batch_to_device(next(iter(datamodule.train_dataloader())), dev)
+    B, Tn, H, W = batch["depth"].shape
+    gen = torch.Generator().manual_seed(SEED)
+    cloud = get_3d_points(batch["depth"].reshape(B * Tn, H, W),
+                          batch["projection"].reshape(B * Tn, 3, 4)).reshape(B * Tn, -1, 3)
+    xyz = uniform_presample(cloud, p.fps_presample, gen).contiguous()
+    start = torch.randint(0, xyz.shape[1], (B * Tn,), generator=gen).to(dev, torch.int32)
+    idx_k = fps_cuda(xyz, p.num_sparse_points, start)
+    idx_p = farthest_point_sample_plain(xyz, p.num_sparse_points, start)
+    k1_rec = {"shape": list(xyz.shape), "npoint": p.num_sparse_points,
+              "plan": dict(kernels.FPS.last_launch),
+              "index_mismatches": int((idx_k != idx_p).sum()),
+              "ms": cuda_ms(torch, lambda: fps_cuda(xyz, p.num_sparse_points, start), reps=10,
+                            inner=FPS_INNER)}
+    if k1_rec["index_mismatches"] or list(batch["image"].shape[-2:]) != [480, 640]:
+        raise RuntimeError(f"K1 on the prepared scene's batch: {k1_rec}, "
+                           f"{list(batch['image'].shape)}")
+    del batch, cloud, xyz
+
+    # the scene's validation item (8 frames of 480x640, the volume centred on
+    # the ground truth's extent, so the room lies in the 190x180x50 box; the
+    # predict loader's offset would leave the floor at the 2 m box's top):
+    # one reconstruct at the flagship's grid, the field centred there first
+    # (K2 against the plain decode), then a view through K3 against the
+    # plain march, the field centred on the march's box, and K3 against its
+    # plain version there
+    item = next(iter(datamodule.val_dataloader()))
+    view = {k: torch.as_tensor(item[k][0]).to(dev) for k in FRAME_KEYS}
+    model.eval()
+    with torch.no_grad():
+        repr_ = model.encode(view["projection"][None], view["image"][None], view["depth"][None],
+                             torch.Generator().manual_seed(SEED))
+    grid_pts = dense_grid_points(FLAGSHIP_GRID, mcfg.voxel_size, (0, 0, 0), dev)
+    recon_shift = center_field(torch, model, repr_, grid_pts[::7])
+    del grid_pts
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(grid_decode_module, "grid_decode_cuda", recording_k2):
+        vol = reconstruct(model, view["projection"], view["image"], view["depth"], FLAGSHIP_GRID,
+                          torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    recon_ms = (time.perf_counter() - t0) * 1e3
+    recon_launches = read_launches()
+    recon_grid = k2_vs_plain()
+    k2_rec = {"voxel_dim": list(FLAGSHIP_GRID), "launches": recon_launches,
+              "reconstruct_ms": recon_ms, "field_shift": recon_shift,
+              "max_abs_err": recon_grid[0], "mean_abs_err": recon_grid[1],
+              "live_share": recon_grid[2], "negative_share": float((vol < 0).double().mean())}
+    if not (recon_launches["grid_decode"] == 1 and recon_launches["fps"] == 1
+            and bool(torch.isfinite(vol).all()) and recon_grid[0] <= GRID_MAX_ABS_TOL
+            and recon_grid[1] <= GRID_MEAN_ABS_TOL and recon_grid[2] >= FIELD_MIN_LIVE_SHARE):
+        raise RuntimeError(f"K2 on the prepared scene: {k2_rec}")
+    del vol
+    box = np.array(mcfg.voxel_dim_test, np.float32) * mcfg.voxel_size
+    render_shift = center_field(torch, model, repr_, dense_grid_points(
+        mcfg.voxel_dim_test, mcfg.voxel_size, (0, 0, 0), dev)[::7])
+    pts = torch.from_numpy(np.random.default_rng(SEED).uniform(0, box, (N_POINTS, 3))
+                           .astype(np.float32)).to(dev)
+    feat = triplane_feat_fast(*triplane_gather_setup(model, repr_.planes), pts[None])[0]
+    code = positional_encoding(pts, mcfg.code.num_freqs, mcfg.code.freq_factor,
+                               mcfg.code.include_input)
+    pweights = pack_point_weights(extract_resnetfc_weights(
+        model.mlp, model.head_geo, mcfg.mlp.d_out_geo, bound))
+    pk = fused_resnetfc_tsdf_cuda(feat, code, pweights)
+    pp = fused_resnetfc_tsdf_plain(feat, code, pweights, bf16_feeds=True)
+    perr = (pk - pp).abs()
+    k3_rec = {"points": N_POINTS, "d_in": int(feat.shape[1]), "max_abs_err": float(perr.max()),
+              "mean_abs_err": float(perr.mean()),
+              "live_share": float((pp.abs() < FIELD_LIVE * bound).double().mean()),
+              "field_shift": render_shift}
+    del pts, feat, code, pk, pp, perr
+    if not (k3_rec["max_abs_err"] <= POINT_MAX_ABS_TOL
+            and k3_rec["mean_abs_err"] <= POINT_MEAN_ABS_TOL
+            and k3_rec["live_share"] >= FIELD_MIN_LIVE_SHARE):
+        raise RuntimeError(f"K3 on the prepared scene's planes: {k3_rec}")
+    render_args = (model, repr_, view["depth"], view["intrinsics"], view["pose"])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rk = render_encoded(*render_args, make_point_tsdf_fn(model, repr_), 1)
+    torch.cuda.synchronize()
+    view_ms = (time.perf_counter() - t0) * 1e3
+    render_launches = read_launches()
+    rp = render_encoded(*render_args, make_point_tsdf_fn(model, repr_, plain=True), 1)
+    hk, hp = rk["ray_depth"] > 0, rp["ray_depth"] > 0
+    ddiff = np.abs(rk["ray_depth"] - rp["ray_depth"])[hk & hp]
+    render_rec = {"image": list(rk["ray_depth"].shape[-2:]), "launches": render_launches,
+                  "view_ms": view_ms, "hit_share": float(hk.mean()),
+                  "vs_plain_mask_agree": float((hk == hp).mean()),
+                  "vs_plain_depth_agree": float((ddiff <= RENDER_DEPTH_TOL).mean())
+                  if ddiff.size else 0.0}
+    if not (render_launches["point_decode"] >= 1
+            and render_rec["image"] == [DEPTH_SIZE[0], DEPTH_SIZE[1]]
+            and render_rec["hit_share"] >= RENDER_MIN_HIT_SHARE
+            and render_rec["vs_plain_mask_agree"] >= RENDER_MASK_AGREE
+            and render_rec["vs_plain_depth_agree"] >= RENDER_DEPTH_AGREE):
+        raise RuntimeError(f"the view through K3 on the prepared scene: {render_rec}")
+    del repr_, rk, rp, model, opt, trainer
+
+    phase_s = time.perf_counter() - t_phase
+    timing = {"phase": "prepare_timing", "sens_write_s": written["write_s"],
+              "sens_render_s": written["render_s"],
+              "export_ms_per_frame": export_s / PREPARE_FRAMES * 1e3,
+              "jpeg_decode_ms_1296x968": decode_ms,
+              "pad_and_reduce_ms_1296x968_to_640x480": reduce_ms,
+              "fusion_s_on_card": {f"{vs}cm": s for vs, s in fusion_s.items()},
+              "loader_wait_ms_median": statistics.median(fit_rec["data_wait_ms"]),
+              "step_ms_median": statistics.median(fit_rec["step_ms"]),
+              "phase_s": phase_s, "card": smi}
+    emit({"phase": "prepare", "scene": scene, "frames": PREPARE_FRAMES,
+          "color": list(COLOR_SIZE), "depth": list(DEPTH_SIZE),
+          "reduced": {"frames": f"{PREPARE_FRAMES} (a ScanNet scene holds ~1,500)",
+                      "data.sequence_length": f"{PREPARE_FRAMES} (the config's 710)",
+                      "epochs": f"{PREPARE_EPOCHS} (the config's 300)"},
+          "sens": {"render_s": written["render_s"], "write_s": written["write_s"],
+                   "bytes": os.path.getsize(written["sens"])},
+          "export_s": export_s, "build_s": build_s, "prepare_s": prepare_s,
+          "prepare_stages_s": stages, "splits": splits, "exports": exports,
+          "frames_load_s": load_s, "fusion_s": fusion_s, "volumes": volumes,
+          "card_vs_cpu_16cm": card_vs_cpu, "meshes": mesh_rec, "fit": fit_rec,
+          "k1": k1_rec, "k2_flagship_grid": k2_rec, "k3": k3_rec, "render": render_rec,
+          "tolerance": {"psnr_db_min": PREPARE_PSNR_MIN,
+                        "second_generation_db": PREPARE_GENERATION_DB,
+                        "fusion_card_vs_cpu": "bit for bit",
+                        "grid": {"max_abs": GRID_MAX_ABS_TOL, "mean_abs": GRID_MEAN_ABS_TOL},
+                        "point": {"max_abs": POINT_MAX_ABS_TOL, "mean_abs": POINT_MEAN_ABS_TOL},
+                        "render": {"mask_agree": RENDER_MASK_AGREE, "depth_m": RENDER_DEPTH_TOL,
+                                   "depth_agree": RENDER_DEPTH_AGREE}},
+          "card": smi})
+    emit(timing)
+    errors = {"fps": float((idx_k - idx_p).abs().max()),
+              "grid_decode": max(tail_grid[0], recon_grid[0]),
+              "point_decode": k3_rec["max_abs_err"]}
+    return totals, errors
+
+
 def evaluate_held_out(dev, evaluation, info_files, pred_dir: str, oracle_dir: str,
                       load_info_json) -> dict:
     """`evaluation.process` on each held-out scene's prediction (every
@@ -4094,7 +4524,8 @@ def evaluate_held_out(dev, evaluation, info_files, pred_dir: str, oracle_dir: st
     class RecordingFusion(evaluation.TSDFFusion):
         def integrate(self, projection, depth):
             super().integrate(projection, depth)
-            devices.update(t.device.type for t in (*self.state, projection, depth))
+            devices.update(t.device.type for t in (*self.state, projection, depth)
+                           if t is not None)
 
     os.makedirs(oracle_dir)
     out = {}
@@ -4595,6 +5026,10 @@ def main() -> int:
         # distillation in bf16-mixed (K1, K2, K3)
         options_launches, options_errors = model_options_phase(
             torch, dev, smi, root, os.path.join(data_tmp, "synth0"))
+        # 17. prepare: a raw ScanNet .sens through export and preparation
+        # (fusion on the card), then the flagship trained on it (K1, K2, K3)
+        prepare_launches, prepare_errors = prepare_phase(
+            torch, dev, smi, os.path.join(data_tmp, "prepare"))
 
     kernel_line = {"kernels": [
         {"name": "fps", "route": "cuda", "source": "gennerf_tpu_torch/csrc/fps.cu",
@@ -4604,10 +5039,10 @@ def main() -> int:
                       + spatial_launches["fps"] + voxelnet_launches["fps"]
                       + flagship_launches["fps"] + distill_launches["fps"]
                       + harness_launches["fps"] + weights_launches["fps"]
-                      + options_launches["fps"]),
+                      + options_launches["fps"] + prepare_launches["fps"]),
          "max_abs_err": max(float((idx_k - idx_p).abs().max()), flagship_errors["fps"],
                             harness_errors["fps"], weights_errors["fps"],
-                            options_errors["fps"]),
+                            options_errors["fps"], prepare_errors["fps"]),
          "ms": fps_ms,
          "plain_ms": fps_plain_ms, "bound_ms": fps_bound, "bound_by": "operations",
          "library_ms": None},
@@ -4617,10 +5052,11 @@ def main() -> int:
                       + data_launches["grid_decode"] + voxelnet_launches["grid_decode"]
                       + flagship_launches["grid_decode"] + distill_launches["grid_decode"]
                       + harness_launches["grid_decode"] + weights_launches["grid_decode"]
-                      + options_launches["grid_decode"]),
+                      + options_launches["grid_decode"] + prepare_launches["grid_decode"]),
          "max_abs_err": max(grid_max, flagship_errors["grid_decode"],
                             distill_errors["grid_decode"], harness_errors["grid_decode"],
-                            weights_errors["grid_decode"], options_errors["grid_decode"]),
+                            weights_errors["grid_decode"], options_errors["grid_decode"],
+                            prepare_errors["grid_decode"]),
          "ms": grid_ms,
          "plain_ms": grid_plain_ms, "bound_ms": grid_bound,
          "bound_by": "operations" if grid_flops / PEAK_BF16 >= grid_bytes / PEAK_BYTES else "bytes",
@@ -4630,9 +5066,11 @@ def main() -> int:
          "launches": (render_launches["point_decode"] + data_launches["point_decode"]
                       + voxelnet_launches["point_decode"] + flagship_launches["point_decode"]
                       + distill_launches["point_decode"] + harness_launches["point_decode"]
-                      + weights_launches["point_decode"] + options_launches["point_decode"]),
+                      + weights_launches["point_decode"] + options_launches["point_decode"]
+                      + prepare_launches["point_decode"]),
          "max_abs_err": max(point_max, flagship_errors["point_decode"],
-                            distill_errors["point_decode"], options_errors["point_decode"]),
+                            distill_errors["point_decode"], options_errors["point_decode"],
+                            prepare_errors["point_decode"]),
          "ms": point_ms,
          "plain_ms": point_plain_ms, "bound_ms": point_bound,
          "bound_by": "operations" if point_flops / PEAK_BF16 >= point_bytes / PEAK_BYTES else "bytes",

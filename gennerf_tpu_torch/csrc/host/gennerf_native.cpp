@@ -14,14 +14,18 @@
 //    truth's views with it).
 //  * rasterize_shaded: the same z-buffer with each face lambert-shaded
 //    into an RGB image (the validation tail's comparison renders).
+//  * jpeg_decode / jpeg_encode: baseline JPEG with libjpeg's default
+//    arithmetic (ScanNet's colour frames; see the section's comment).
 //
 // Built on first use by gennerf_tpu_torch/utils/native.py (the host C++
 // compiler, -O3 -march=native -std=c++17 -shared -fPIC) and loaded with
 // ctypes; plain C entry points.
 
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <new>
 #include <cmath>
 #include <unordered_map>
 #include <vector>
@@ -379,6 +383,1046 @@ void nn_distances(const float* queries, int n_q, const float* targets, int n_t,
     float best = INFINITY;
     query_kd(nodes, root, queries + 3 * i, best);
     out[i] = std::sqrt(best);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// JPEG: baseline sequential Huffman decode and encode, 8-bit samples
+// ---------------------------------------------------------------------------
+//
+// The arithmetic is libjpeg's (libjpeg-turbo's at its default settings,
+// the library PIL links): the islow integer IDCT and forward DCT, fancy
+// (triangle) upsampling of chroma, its fixed-point YCbCr <-> RGB tables,
+// h2v2 downsampling with alternating rounding bias, the standard
+// quantization tables scaled by quality and the standard Huffman tables.
+// So a decode gives PIL's pixels and an encode PIL's file at the same
+// quality. Progressive, arithmetic-coded, lossless and 12-bit files are
+// refused (status 1), corrupt ones too (status 2); the message names why.
+
+namespace jpeg {
+
+struct Failure {
+  int status;  // 1: not supported, 2: corrupt
+  char msg[160];
+};
+
+[[noreturn]] static void fail(int status, const char* msg, int value = -1) {
+  Failure f;
+  f.status = status;
+  if (value >= 0)
+    std::snprintf(f.msg, sizeof f.msg, "%s 0x%02X", msg, value);
+  else
+    std::snprintf(f.msg, sizeof f.msg, "%s", msg);
+  throw f;
+}
+
+// zigzag position -> natural (row-major) position; 16 extra entries absorb
+// a corrupt run past the block's end, as libjpeg's table does
+static const int kNatural[80] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// islow DCT constants: FIX(x) = round(x * 2^13)
+constexpr int kConstBits = 13, kPass1Bits = 2;
+constexpr int32_t F0_298 = 2446, F0_390 = 3196, F0_541 = 4433, F0_765 = 6270,
+                  F0_899 = 7373, F1_175 = 9633, F1_501 = 12299, F1_847 = 15137,
+                  F1_961 = 16069, F2_053 = 16819, F2_562 = 20995, F3_072 = 25172;
+
+static inline int32_t descale(int64_t x, int n) {
+  return (int32_t)((x + ((int64_t)1 << (n - 1))) >> n);
+}
+
+// libjpeg's post-IDCT range limit: the low 10 bits of the descaled value,
+// centred on 128 and saturating (a wrap beyond +-512, as its table does)
+static inline uint8_t idct_limit(int32_t x) {
+  int i = x & 1023;
+  if (i < 128) return (uint8_t)(i + 128);
+  if (i < 512) return 255;
+  if (i < 896) return 0;
+  return (uint8_t)(i - 896);
+}
+
+// jpeg_idct_islow: dequantize and inverse-transform one block into an
+// 8x8 window of `out` (row stride `stride`)
+static void idct_islow(const int16_t* coef, const uint16_t* quant, uint8_t* out,
+                       int stride) {
+  int32_t ws[64];
+  for (int c = 0; c < 8; ++c) {
+    const int16_t* in = coef + c;
+    const uint16_t* q = quant + c;
+    if (!in[8] && !in[16] && !in[24] && !in[32] && !in[40] && !in[48] && !in[56]) {
+      int32_t dc = (int32_t)in[0] * q[0] * (1 << kPass1Bits);
+      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = dc;
+      continue;
+    }
+    int64_t z2 = (int32_t)in[16] * q[16], z3 = (int32_t)in[48] * q[48];
+    int64_t z1 = (z2 + z3) * F0_541;
+    int64_t tmp2 = z1 + z3 * -F1_847, tmp3 = z1 + z2 * F0_765;
+    z2 = (int32_t)in[0] * q[0];
+    z3 = (int32_t)in[32] * q[32];
+    int64_t tmp0 = (z2 + z3) * (1 << kConstBits), tmp1 = (z2 - z3) * (1 << kConstBits);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = (int32_t)in[56] * q[56];
+    tmp1 = (int32_t)in[40] * q[40];
+    tmp2 = (int32_t)in[24] * q[24];
+    tmp3 = (int32_t)in[8] * q[8];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3, z5 = (z3 + z4) * F1_175;
+    tmp0 *= F0_298; tmp1 *= F2_053; tmp2 *= F3_072; tmp3 *= F1_501;
+    z1 *= -F0_899; z2 *= -F2_562; z3 *= -F1_961; z4 *= -F0_390;
+    z3 += z5; z4 += z5;
+    tmp0 += z1 + z3; tmp1 += z2 + z4; tmp2 += z2 + z3; tmp3 += z1 + z4;
+    const int n = kConstBits - kPass1Bits;
+    ws[0 * 8 + c] = descale(tmp10 + tmp3, n);
+    ws[7 * 8 + c] = descale(tmp10 - tmp3, n);
+    ws[1 * 8 + c] = descale(tmp11 + tmp2, n);
+    ws[6 * 8 + c] = descale(tmp11 - tmp2, n);
+    ws[2 * 8 + c] = descale(tmp12 + tmp1, n);
+    ws[5 * 8 + c] = descale(tmp12 - tmp1, n);
+    ws[3 * 8 + c] = descale(tmp13 + tmp0, n);
+    ws[4 * 8 + c] = descale(tmp13 - tmp0, n);
+  }
+  for (int r = 0; r < 8; ++r) {
+    const int32_t* w = ws + r * 8;
+    uint8_t* o = out + (size_t)r * stride;
+    if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
+      uint8_t v = idct_limit(descale(w[0], kPass1Bits + 3));
+      for (int i = 0; i < 8; ++i) o[i] = v;
+      continue;
+    }
+    int64_t z2 = w[2], z3 = w[6];
+    int64_t z1 = (z2 + z3) * F0_541;
+    int64_t tmp2 = z1 + z3 * -F1_847, tmp3 = z1 + z2 * F0_765;
+    int64_t tmp0 = ((int64_t)w[0] + w[4]) * (1 << kConstBits);
+    int64_t tmp1 = ((int64_t)w[0] - w[4]) * (1 << kConstBits);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = w[7]; tmp1 = w[5]; tmp2 = w[3]; tmp3 = w[1];
+    z1 = tmp0 + tmp3; z2 = tmp1 + tmp2; z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3, z5 = (z3 + z4) * F1_175;
+    tmp0 *= F0_298; tmp1 *= F2_053; tmp2 *= F3_072; tmp3 *= F1_501;
+    z1 *= -F0_899; z2 *= -F2_562; z3 *= -F1_961; z4 *= -F0_390;
+    z3 += z5; z4 += z5;
+    tmp0 += z1 + z3; tmp1 += z2 + z4; tmp2 += z2 + z3; tmp3 += z1 + z4;
+    const int n = kConstBits + kPass1Bits + 3;
+    o[0] = idct_limit(descale(tmp10 + tmp3, n));
+    o[7] = idct_limit(descale(tmp10 - tmp3, n));
+    o[1] = idct_limit(descale(tmp11 + tmp2, n));
+    o[6] = idct_limit(descale(tmp11 - tmp2, n));
+    o[2] = idct_limit(descale(tmp12 + tmp1, n));
+    o[5] = idct_limit(descale(tmp12 - tmp1, n));
+    o[3] = idct_limit(descale(tmp13 + tmp0, n));
+    o[4] = idct_limit(descale(tmp13 - tmp0, n));
+  }
+}
+
+// jpeg_fdct_islow on 64 level-shifted samples, in place (scaled by 8)
+static void fdct_islow(int32_t* d) {
+  for (int r = 0; r < 8; ++r) {
+    int32_t* p = d + r * 8;
+    int64_t tmp0 = p[0] + p[7], tmp7 = p[0] - p[7], tmp1 = p[1] + p[6], tmp6 = p[1] - p[6];
+    int64_t tmp2 = p[2] + p[5], tmp5 = p[2] - p[5], tmp3 = p[3] + p[4], tmp4 = p[3] - p[4];
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    p[0] = (int32_t)((tmp10 + tmp11) * (1 << kPass1Bits));
+    p[4] = (int32_t)((tmp10 - tmp11) * (1 << kPass1Bits));
+    int64_t z1 = (tmp12 + tmp13) * F0_541;
+    const int n = kConstBits - kPass1Bits;
+    p[2] = descale(z1 + tmp13 * F0_765, n);
+    p[6] = descale(z1 + tmp12 * -F1_847, n);
+    z1 = tmp4 + tmp7;
+    int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7, z5 = (z3 + z4) * F1_175;
+    tmp4 *= F0_298; tmp5 *= F2_053; tmp6 *= F3_072; tmp7 *= F1_501;
+    z1 *= -F0_899; z2 *= -F2_562; z3 *= -F1_961; z4 *= -F0_390;
+    z3 += z5; z4 += z5;
+    p[7] = descale(tmp4 + z1 + z3, n);
+    p[5] = descale(tmp5 + z2 + z4, n);
+    p[3] = descale(tmp6 + z2 + z3, n);
+    p[1] = descale(tmp7 + z1 + z4, n);
+  }
+  for (int c = 0; c < 8; ++c) {
+    int32_t* p = d + c;
+    int64_t tmp0 = p[0] + p[56], tmp7 = p[0] - p[56], tmp1 = p[8] + p[48], tmp6 = p[8] - p[48];
+    int64_t tmp2 = p[16] + p[40], tmp5 = p[16] - p[40], tmp3 = p[24] + p[32],
+            tmp4 = p[24] - p[32];
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    p[0] = descale(tmp10 + tmp11, kPass1Bits);
+    p[32] = descale(tmp10 - tmp11, kPass1Bits);
+    int64_t z1 = (tmp12 + tmp13) * F0_541;
+    const int n = kConstBits + kPass1Bits;
+    p[16] = descale(z1 + tmp13 * F0_765, n);
+    p[48] = descale(z1 + tmp12 * -F1_847, n);
+    z1 = tmp4 + tmp7;
+    int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7, z5 = (z3 + z4) * F1_175;
+    tmp4 *= F0_298; tmp5 *= F2_053; tmp6 *= F3_072; tmp7 *= F1_501;
+    z1 *= -F0_899; z2 *= -F2_562; z3 *= -F1_961; z4 *= -F0_390;
+    z3 += z5; z4 += z5;
+    p[56] = descale(tmp4 + z1 + z3, n);
+    p[40] = descale(tmp5 + z2 + z4, n);
+    p[24] = descale(tmp6 + z2 + z3, n);
+    p[8] = descale(tmp7 + z1 + z4, n);
+  }
+}
+
+// fixed-point colour conversion (jdcolor.c / jccolor.c), SCALEBITS 16
+constexpr int kScale = 16;
+constexpr int32_t kHalf = 1 << (kScale - 1);
+static inline int32_t fix16(double x) { return (int32_t)(x * (1 << kScale) + 0.5); }
+
+struct YccTables {
+  int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256];  // decode
+  int32_t enc[8][256];  // encode: R_Y G_Y B_Y R_CB G_CB B_CB(=R_CR) G_CR B_CR
+  YccTables() {
+    for (int i = 0; i < 256; ++i) {
+      int32_t x = i - 128;
+      cr_r[i] = (fix16(1.40200) * x + kHalf) >> kScale;
+      cb_b[i] = (fix16(1.77200) * x + kHalf) >> kScale;
+      cr_g[i] = -fix16(0.71414) * x;
+      cb_g[i] = -fix16(0.34414) * x + kHalf;
+      enc[0][i] = fix16(0.29900) * i;
+      enc[1][i] = fix16(0.58700) * i;
+      enc[2][i] = fix16(0.11400) * i + kHalf;
+      enc[3][i] = -fix16(0.16874) * i;
+      enc[4][i] = -fix16(0.33126) * i;
+      enc[5][i] = fix16(0.50000) * i + (128 << kScale) + kHalf - 1;
+      enc[6][i] = -fix16(0.41869) * i;
+      enc[7][i] = -fix16(0.08131) * i;
+    }
+  }
+};
+static const YccTables kYcc;
+
+static inline uint8_t clamp255(int32_t v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+// ------------------------------- decoder -----------------------------------
+
+struct Huff {
+  uint16_t look[1 << 9];  // 9-bit prefix -> (length << 8) | symbol; 0 = longer
+  int32_t maxcode[18], valoffset[18];
+  uint8_t vals[256];
+  bool defined = false;
+};
+
+static void build_huff(Huff& h, const uint8_t* counts, const uint8_t* vals, int nvals) {
+  std::memset(h.look, 0, sizeof h.look);
+  std::memcpy(h.vals, vals, nvals);
+  int32_t code = 0;
+  int k = 0;
+  for (int l = 1; l <= 16; ++l) {
+    h.valoffset[l] = k - code;
+    for (int i = 0; i < counts[l - 1]; ++i, ++k, ++code) {
+      if (code >= (1 << l)) fail(2, "corrupt JPEG: bad Huffman table");
+      if (l <= 9)
+        for (int j = 0; j < (1 << (9 - l)); ++j)
+          h.look[(code << (9 - l)) | j] = (uint16_t)((l << 8) | vals[k]);
+    }
+    h.maxcode[l] = counts[l - 1] ? code - 1 : -1;
+    code <<= 1;
+  }
+  h.maxcode[17] = 0x7fffffff;
+  h.defined = true;
+}
+
+// MSB-first bit reader over entropy-coded data: 0xFF00 is a data 0xFF; at a
+// marker it stops and feeds zero bits, as libjpeg does
+struct Bits {
+  const uint8_t* d;
+  size_t n, pos;
+  uint64_t acc = 0;
+  int nbits = 0;
+  bool at_marker = false;
+
+  void fill() {
+    while (nbits <= 56) {
+      uint32_t b = 0;
+      if (!at_marker && pos < n) {
+        b = d[pos];
+        if (b == 0xFF) {
+          size_t q = pos + 1;
+          while (q < n && d[q] == 0xFF) ++q;  // fill bytes
+          if (q < n && d[q] == 0x00) {
+            pos = q + 1;
+          } else {
+            at_marker = true;
+            pos = q - 1;  // at the marker's last 0xFF
+            b = 0;
+          }
+        } else {
+          ++pos;
+        }
+      }
+      acc |= (uint64_t)b << (56 - nbits);
+      nbits += 8;
+    }
+  }
+  int get(int s) {
+    if (s == 0) return 0;
+    if (nbits < s) fill();
+    int v = (int)(acc >> (64 - s));
+    acc <<= s;
+    nbits -= s;
+    return v;
+  }
+  int decode(const Huff& h) {
+    if (nbits < 16) fill();
+    uint16_t e = h.look[acc >> (64 - 9)];
+    if (e) {
+      int l = e >> 8;
+      acc <<= l;
+      nbits -= l;
+      return e & 0xFF;
+    }
+    for (int l = 10; l <= 16; ++l) {
+      int32_t code = (int32_t)(acc >> (64 - l));
+      if (code <= h.maxcode[l]) {
+        acc <<= l;
+        nbits -= l;
+        return h.vals[code + h.valoffset[l]];
+      }
+    }
+    acc <<= 16;  // corrupt code: libjpeg warns and takes symbol 0
+    nbits -= 16;
+    return 0;
+  }
+  // skip to the next marker (the bits left in the accumulator are padding)
+  void to_marker() {
+    acc = 0;
+    nbits = 0;
+    if (!at_marker) {
+      while (pos + 1 < n && !(d[pos] == 0xFF && d[pos + 1] != 0x00 && d[pos + 1] != 0xFF)) ++pos;
+    }
+    at_marker = false;
+  }
+};
+
+static inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
+
+struct Comp {
+  int id, h, v, tq, td = 0, ta = 0;
+  int bw, bh;        // allocated blocks (whole MCUs)
+  int dw, dh;        // downsampled size in samples
+  std::vector<int16_t> coef;
+  std::vector<uint8_t> plane;
+  int pred = 0;
+};
+
+struct Decoder {
+  const uint8_t* d;
+  size_t n, pos = 0;
+  uint16_t quant[4][64];  // natural order
+  bool quant_defined[4] = {false, false, false, false};
+  Huff dc[4], ac[4];
+  int restart = 0, width = 0, height = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
+  bool frame = false, jfif = false, adobe = false;
+  int adobe_transform = -1;
+  std::vector<Comp> comps;
+
+  int u8() {
+    if (pos >= n) fail(2, "corrupt JPEG: truncated");
+    return d[pos++];
+  }
+  int u16() { int a = u8(); return (a << 8) | u8(); }
+
+  void read_dqt(size_t end) {
+    while (pos < end) {
+      int pq = u8(), tq = pq & 15;
+      pq >>= 4;
+      if (tq > 3) fail(2, "corrupt JPEG: quantization table id");
+      for (int i = 0; i < 64; ++i) quant[tq][kNatural[i]] = (uint16_t)(pq ? u16() : u8());
+      quant_defined[tq] = true;
+    }
+  }
+  void read_dht(size_t end) {
+    while (pos < end) {
+      int tc = u8(), th = tc & 15;
+      tc >>= 4;
+      if (th > 3 || tc > 1) fail(2, "corrupt JPEG: Huffman table id");
+      uint8_t counts[16], vals[256];
+      int total = 0;
+      for (int i = 0; i < 16; ++i) total += counts[i] = (uint8_t)u8();
+      if (total > 256) fail(2, "corrupt JPEG: Huffman table size");
+      for (int i = 0; i < total; ++i) vals[i] = (uint8_t)u8();
+      build_huff(tc ? ac[th] : dc[th], counts, vals, total);
+    }
+  }
+  void read_sof(int marker) {
+    if (frame) fail(2, "corrupt JPEG: second frame header");
+    int precision = u8();
+    height = u16();
+    width = u16();
+    int nc = u8();
+    if (precision != 8) fail(1, "JPEG sample precision other than 8 bits is not supported:", precision);
+    if (height == 0) fail(1, "JPEG with the height in a DNL marker is not supported");
+    if (width == 0) fail(2, "corrupt JPEG: zero width");
+    if (nc != 1 && nc != 3) fail(1, "JPEG component count not supported:", nc);
+    comps.resize(nc);
+    for (auto& c : comps) {
+      c.id = u8();
+      int hv = u8();
+      c.h = hv >> 4;
+      c.v = hv & 15;
+      c.tq = u8();
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) fail(2, "corrupt JPEG: component header");
+      hmax = std::max(hmax, c.h);
+      vmax = std::max(vmax, c.v);
+    }
+    (void)marker;
+    mcux = (width + 8 * hmax - 1) / (8 * hmax);
+    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    for (auto& c : comps) {
+      if (hmax % c.h || vmax % c.v) fail(1, "JPEG with fractional sampling factors is not supported");
+      c.bw = mcux * c.h;
+      c.bh = mcuy * c.v;
+      c.dw = (width * c.h + hmax - 1) / hmax;
+      c.dh = (height * c.v + vmax - 1) / vmax;
+      c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+    }
+    frame = true;
+  }
+
+  void decode_block(Bits& bits, Comp& c, int16_t* blk) {
+    const Huff& hd = dc[c.td];
+    const Huff& ha = ac[c.ta];
+    int s = bits.decode(hd);
+    if (s) c.pred += extend(bits.get(s), s);
+    blk[0] = (int16_t)c.pred;
+    for (int k = 1; k < 64; ++k) {
+      int rs = bits.decode(ha), r = rs >> 4;
+      s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = (int16_t)extend(bits.get(s), s);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        break;
+      }
+    }
+  }
+
+  void read_scan() {
+    if (!frame) fail(2, "corrupt JPEG: scan before frame header");
+    int ns = u8();
+    if (ns < 1 || ns > (int)comps.size()) fail(2, "corrupt JPEG: scan component count");
+    std::vector<Comp*> sc;
+    for (int i = 0; i < ns; ++i) {
+      int id = u8(), t = u8();
+      Comp* found = nullptr;
+      for (auto& c : comps) if (c.id == id) found = &c;
+      if (!found) fail(2, "corrupt JPEG: scan names an unknown component");
+      found->td = t >> 4;
+      found->ta = t & 15;
+      if (found->td > 3 || found->ta > 3 || !dc[found->td].defined || !ac[found->ta].defined)
+        fail(2, "corrupt JPEG: scan uses an undefined Huffman table");
+      sc.push_back(found);
+    }
+    int ss = u8(), se = u8(), ahal = u8();
+    if (ss != 0 || se != 63 || ahal != 0) fail(2, "corrupt JPEG: spectral selection in a sequential scan");
+    for (auto* c : sc) c->pred = 0;
+    Bits bits{d, n, pos};
+    int units_x, units_y;
+    if (ns == 1) {  // non-interleaved: one block an MCU over the component's own blocks
+      units_x = (sc[0]->dw + 7) / 8;
+      units_y = (sc[0]->dh + 7) / 8;
+    } else {
+      units_x = mcux;
+      units_y = mcuy;
+    }
+    long total = (long)units_x * units_y, done = 0;
+    for (int my = 0; my < units_y; ++my) {
+      for (int mx = 0; mx < units_x; ++mx) {
+        if (restart && done && done % restart == 0) {
+          bits.to_marker();
+          if (bits.pos + 1 < n && d[bits.pos] == 0xFF && (d[bits.pos + 1] & 0xF8) == 0xD0) bits.pos += 2;
+          for (auto* c : sc) c->pred = 0;
+        }
+        if (ns == 1) {
+          Comp& c = *sc[0];
+          decode_block(bits, c, &c.coef[((size_t)my * c.bw + mx) * 64]);
+        } else {
+          for (auto* cp : sc) {
+            Comp& c = *cp;
+            for (int y = 0; y < c.v; ++y)
+              for (int x = 0; x < c.h; ++x)
+                decode_block(bits, c, &c.coef[((size_t)(my * c.v + y) * c.bw + mx * c.h + x) * 64]);
+          }
+        }
+        ++done;
+      }
+    }
+    (void)total;
+    bits.to_marker();
+    pos = bits.pos;
+  }
+
+  void parse() {
+    if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) fail(2, "not a JPEG: no SOI marker");
+    pos = 2;
+    bool scanned = false;
+    for (;;) {
+      // find the next marker, skipping fill bytes and stray data
+      while (pos < n && d[pos] != 0xFF) ++pos;
+      while (pos < n && d[pos] == 0xFF) ++pos;
+      if (pos >= n) {
+        if (scanned) return;  // a missing EOI: libjpeg takes the data it has
+        fail(2, "corrupt JPEG: no image data");
+      }
+      int m = d[pos++];
+      if (m == 0xD9) {
+        if (!scanned) fail(2, "corrupt JPEG: EOI before any scan");
+        return;
+      }
+      if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;  // TEM, stray RSTn
+      size_t start = pos;
+      int len = u16();
+      if (len < 2 || start + len > n) fail(2, "corrupt JPEG: marker length");
+      size_t end = start + len;
+      switch (m) {
+        case 0xC0: case 0xC1: read_sof(m); break;
+        case 0xC2: case 0xC6: case 0xCA: case 0xCE:
+          fail(1, "progressive JPEG is not supported: SOF marker", m);
+        case 0xC3: case 0xC7: case 0xCB: case 0xCF:
+          fail(1, "lossless JPEG is not supported: SOF marker", m);
+        case 0xC5: fail(1, "hierarchical JPEG is not supported: SOF marker", m);
+        case 0xC9: case 0xCD:
+          fail(1, "arithmetic-coded JPEG is not supported: SOF marker", m);
+        case 0xCC: fail(1, "arithmetic-coded JPEG is not supported: DAC marker", m);
+        case 0xC4: read_dht(end); break;
+        case 0xDB: read_dqt(end); break;
+        case 0xDD: restart = u16(); break;
+        case 0xDA:
+          pos = start + 2;
+          read_scan();
+          scanned = true;
+          continue;
+        case 0xE0:
+          if (len >= 7 && !std::memcmp(d + start + 2, "JFIF\0", 5)) jfif = true;
+          break;
+        case 0xEE:
+          if (len >= 14 && !std::memcmp(d + start + 2, "Adobe", 5)) {
+            adobe = true;
+            adobe_transform = d[start + 13];
+          }
+          break;
+        default: break;  // APPn, COM and others: skipped
+      }
+      pos = end;
+    }
+  }
+
+  bool rgb_space() const {  // libjpeg's default_decompress_parms for 3 components
+    if (jfif) return false;
+    if (adobe) return adobe_transform == 0;
+    return comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66;
+  }
+
+  // one full-width output row of component c at image row y (libjpeg's
+  // upsamplers: fullsize, fancy h2v1 / h1v2 / h2v2 with edge replication,
+  // plain replication otherwise)
+  void upsample_row(const Comp& c, int y, uint8_t* out) const {
+    const int hx = hmax / c.h, vy = vmax / c.v, stride = c.bw * 8;
+    const uint8_t* p = c.plane.data();
+    auto row = [&](int r) { return p + (size_t)std::min(std::max(r, 0), c.dh - 1) * stride; };
+    if (hx == 1 && vy == 1) {
+      std::memcpy(out, row(y), width);
+      return;
+    }
+    const int iy = y / vy;
+    const uint8_t* in0 = row(iy);
+    if (vy == 2 && (hx == 1 || (hx == 2 && c.dw > 2))) {
+      const bool upper = (y % 2) == 0;
+      const uint8_t* in1 = row(upper ? iy - 1 : iy + 1);
+      if (hx == 1) {
+        const int bias = upper ? 1 : 2;
+        for (int x = 0; x < c.dw; ++x) out[x] = (uint8_t)((in0[x] * 3 + in1[x] + bias) >> 2);
+        return;
+      }
+      // h2v2 fancy: 9/16, 3/16, 3/16, 1/16 with libjpeg's rounding
+      std::vector<int> cs(c.dw);
+      for (int x = 0; x < c.dw; ++x) cs[x] = in0[x] * 3 + in1[x];
+      std::vector<uint8_t> tmp(2 * c.dw);
+      tmp[0] = (uint8_t)((cs[0] * 4 + 8) >> 4);
+      tmp[1] = (uint8_t)((cs[0] * 3 + cs[1] + 7) >> 4);
+      for (int x = 1; x < c.dw - 1; ++x) {
+        tmp[2 * x] = (uint8_t)((cs[x] * 3 + cs[x - 1] + 8) >> 4);
+        tmp[2 * x + 1] = (uint8_t)((cs[x] * 3 + cs[x + 1] + 7) >> 4);
+      }
+      const int l = c.dw - 1;
+      tmp[2 * l] = (uint8_t)((cs[l] * 3 + cs[l - 1] + 8) >> 4);
+      tmp[2 * l + 1] = (uint8_t)((cs[l] * 4 + 7) >> 4);
+      std::memcpy(out, tmp.data(), width);
+      return;
+    }
+    if (hx == 2 && vy == 1 && c.dw > 2) {  // h2v1 fancy
+      std::vector<uint8_t> tmp(2 * c.dw);
+      tmp[0] = in0[0];
+      tmp[1] = (uint8_t)((in0[0] * 3 + in0[1] + 2) >> 2);
+      for (int x = 1; x < c.dw - 1; ++x) {
+        int v = in0[x] * 3;
+        tmp[2 * x] = (uint8_t)((v + in0[x - 1] + 1) >> 2);
+        tmp[2 * x + 1] = (uint8_t)((v + in0[x + 1] + 2) >> 2);
+      }
+      const int l = c.dw - 1;
+      tmp[2 * l] = (uint8_t)((in0[l] * 3 + in0[l - 1] + 1) >> 2);
+      tmp[2 * l + 1] = in0[l];
+      std::memcpy(out, tmp.data(), width);
+      return;
+    }
+    for (int x = 0; x < width; ++x) out[x] = in0[x / hx];  // int_upsample
+  }
+
+  void render(uint8_t* out) {
+    for (auto& c : comps) {
+      const uint16_t* q = quant[c.tq];
+      if (!quant_defined[c.tq]) fail(2, "corrupt JPEG: undefined quantization table");
+      const int stride = c.bw * 8;
+      c.plane.assign((size_t)stride * c.bh * 8, 0);
+      const int rows = (c.dh + 7) / 8, cols = (c.dw + 7) / 8;
+      for (int by = 0; by < rows; ++by)
+        for (int bx = 0; bx < cols; ++bx)
+          idct_islow(&c.coef[((size_t)by * c.bw + bx) * 64], q,
+                     &c.plane[(size_t)by * 8 * stride + bx * 8], stride);
+    }
+    const int nc = (int)comps.size();
+    if (nc == 1) {
+      for (int y = 0; y < height; ++y) upsample_row(comps[0], y, out + (size_t)y * width);
+      return;
+    }
+    std::vector<uint8_t> r0(width), r1(width), r2(width);
+    const bool rgb = rgb_space();
+    for (int y = 0; y < height; ++y) {
+      upsample_row(comps[0], y, r0.data());
+      upsample_row(comps[1], y, r1.data());
+      upsample_row(comps[2], y, r2.data());
+      uint8_t* o = out + (size_t)y * width * 3;
+      for (int x = 0; x < width; ++x) {
+        if (rgb) {
+          o[3 * x] = r0[x]; o[3 * x + 1] = r1[x]; o[3 * x + 2] = r2[x];
+          continue;
+        }
+        int yy = r0[x], cb = r1[x], cr = r2[x];
+        o[3 * x] = clamp255(yy + kYcc.cr_r[cr]);
+        o[3 * x + 1] = clamp255(yy + ((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> kScale));
+        o[3 * x + 2] = clamp255(yy + kYcc.cb_b[cb]);
+      }
+    }
+  }
+};
+
+// ------------------------------- encoder -----------------------------------
+
+static const uint8_t kLumQuant[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+static const uint8_t kChromQuant[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+static const uint8_t kDcLumCounts[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+static const uint8_t kDcChromCounts[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+static const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+static const uint8_t kAcLumCounts[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+static const uint8_t kAcLumVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61,
+    0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52,
+    0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25,
+    0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64,
+    0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99,
+    0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3,
+    0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8,
+    0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+static const uint8_t kAcChromCounts[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+static const uint8_t kAcChromVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61,
+    0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33,
+    0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18,
+    0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63,
+    0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97,
+    0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca,
+    0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
+    0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+struct HuffCodes {
+  uint16_t code[256];
+  uint8_t size[256];
+  HuffCodes(const uint8_t* counts, const uint8_t* vals) {
+    std::memset(size, 0, sizeof size);
+    int code_ = 0, k = 0;
+    for (int l = 1; l <= 16; ++l, code_ <<= 1)
+      for (int i = 0; i < counts[l - 1]; ++i, ++k, ++code_) {
+        code[vals[k]] = (uint16_t)code_;
+        size[vals[k]] = (uint8_t)l;
+      }
+  }
+};
+
+struct Writer {
+  std::vector<uint8_t> out;
+  uint32_t acc = 0;
+  int nbits = 0;
+  void byte(int b) { out.push_back((uint8_t)b); }
+  void word(int w) { byte(w >> 8); byte(w & 0xFF); }
+  void bits(uint32_t v, int n) {  // entropy data: 0xFF is stuffed with 0x00
+    acc = (acc << n) | (v & ((1u << n) - 1));
+    nbits += n;
+    while (nbits >= 8) {
+      int b = (acc >> (nbits - 8)) & 0xFF;
+      byte(b);
+      if (b == 0xFF) byte(0);
+      nbits -= 8;
+    }
+  }
+  void flush() {  // pad the last byte with one bits
+    if (nbits) bits(0x7F, 8 - nbits);
+    acc = 0;
+  }
+  void dht(int cls, int id, const uint8_t* counts, const uint8_t* vals) {
+    int total = 0;
+    for (int i = 0; i < 16; ++i) total += counts[i];
+    word(0xFFC4);
+    word(2 + 1 + 16 + total);
+    byte((cls << 4) | id);
+    for (int i = 0; i < 16; ++i) byte(counts[i]);
+    for (int i = 0; i < total; ++i) byte(vals[i]);
+  }
+};
+
+static inline int nbits_of(int v) {
+  int n = 0;
+  while (v) { ++n; v >>= 1; }
+  return n;
+}
+
+static void encode_block(Writer& w, const int32_t* coef, int& last_dc, const HuffCodes& dc,
+                         const HuffCodes& ac) {
+  int t = coef[0] - last_dc, t2 = t;
+  last_dc = coef[0];
+  if (t < 0) { t = -t; --t2; }
+  int nb = nbits_of(t);
+  w.bits(dc.code[nb], dc.size[nb]);
+  if (nb) w.bits((uint32_t)t2, nb);
+  int r = 0;
+  for (int k = 1; k < 64; ++k) {
+    t = coef[kNatural[k]];
+    if (!t) { ++r; continue; }
+    while (r > 15) { w.bits(ac.code[0xF0], ac.size[0xF0]); r -= 16; }
+    t2 = t;
+    if (t < 0) { t = -t; --t2; }
+    nb = nbits_of(t);
+    int sym = (r << 4) + nb;
+    w.bits(ac.code[sym], ac.size[sym]);
+    w.bits((uint32_t)t2, nb);
+    r = 0;
+  }
+  if (r > 0) w.bits(ac.code[0], ac.size[0]);
+}
+
+// (H, W, C) uint8 -> JPEG bytes as libjpeg writes them at `quality`:
+// JFIF, YCbCr 4:2:0 (C = 3) or grayscale (C = 1), baseline Huffman
+static std::vector<uint8_t> encode(const uint8_t* img, int H, int W, int C, int quality) {
+  if (C != 1 && C != 3) fail(1, "JPEG encode takes 1 or 3 channels, not", C);
+  if (H < 1 || W < 1 || H > 65535 || W > 65535) fail(2, "JPEG encode: image size out of range");
+  quality = std::min(std::max(quality, 1), 100);
+  const int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+  uint16_t q[2][64];
+  for (int i = 0; i < 64; ++i) {
+    for (int t = 0; t < 2; ++t) {
+      long v = ((long)(t ? kChromQuant[i] : kLumQuant[i]) * scale + 50) / 100;
+      q[t][i] = (uint16_t)std::min(std::max(v, 1L), 255L);
+    }
+  }
+  // colour conversion into full-resolution planes
+  const int nc = C;
+  std::vector<std::vector<uint8_t>> full(nc, std::vector<uint8_t>((size_t)H * W));
+  for (size_t i = 0; i < (size_t)H * W; ++i) {
+    if (nc == 1) { full[0][i] = img[i]; continue; }
+    int r = img[3 * i], g = img[3 * i + 1], b = img[3 * i + 2];
+    const auto& e = kYcc.enc;
+    full[0][i] = (uint8_t)((e[0][r] + e[1][g] + e[2][b]) >> kScale);
+    full[1][i] = (uint8_t)((e[3][r] + e[4][g] + e[5][b]) >> kScale);
+    full[2][i] = (uint8_t)((e[5][r] + e[6][g] + e[7][b]) >> kScale);
+  }
+  const int hmax = nc == 3 ? 2 : 1, vmax = hmax;
+  const int mcux = (W + 8 * hmax - 1) / (8 * hmax), mcuy = (H + 8 * vmax - 1) / (8 * vmax);
+  struct EComp { int h, v, wib, hib, stride; std::vector<uint8_t> plane; int last_dc = 0; };
+  std::vector<EComp> comps(nc);
+  for (int ci = 0; ci < nc; ++ci) {
+    EComp& c = comps[ci];
+    c.h = c.v = ci == 0 ? hmax : 1;
+    c.wib = (W * c.h + 8 * hmax - 1) / (8 * hmax);
+    c.hib = (H * c.v + 8 * vmax - 1) / (8 * vmax);
+    c.stride = c.wib * 8;
+    const int rows = mcuy * c.v * 8;
+    c.plane.resize((size_t)rows * c.stride);
+    const auto& f = full[ci];
+    const int real_rows = (H * c.v + vmax - 1) / vmax;
+    for (int y = 0; y < rows; ++y) {
+      const int ry = std::min(y, real_rows - 1);  // bottom edge replicated
+      uint8_t* o = &c.plane[(size_t)y * c.stride];
+      if (c.h == hmax) {  // fullsize, right edge replicated
+        const uint8_t* in = &f[(size_t)std::min(ry, H - 1) * W];
+        for (int x = 0; x < c.stride; ++x) o[x] = in[std::min(x, W - 1)];
+      } else {  // h2v2: the 2x2 mean with bias 1, 2, 1, 2, ... along the row
+        const uint8_t* in0 = &f[(size_t)std::min(2 * ry, H - 1) * W];
+        const uint8_t* in1 = &f[(size_t)std::min(2 * ry + 1, H - 1) * W];
+        int bias = 1;
+        for (int x = 0; x < c.stride; ++x) {
+          const int x0 = std::min(2 * x, W - 1), x1 = std::min(2 * x + 1, W - 1);
+          o[x] = (uint8_t)((in0[x0] + in0[x1] + in1[x0] + in1[x1] + bias) >> 2);
+          bias ^= 3;
+        }
+      }
+    }
+  }
+  const HuffCodes dc_codes[2] = {HuffCodes(kDcLumCounts, kDcVals), HuffCodes(kDcChromCounts, kDcVals)};
+  const HuffCodes ac_codes[2] = {HuffCodes(kAcLumCounts, kAcLumVals),
+                                 HuffCodes(kAcChromCounts, kAcChromVals)};
+
+  Writer w;
+  w.word(0xFFD8);
+  w.word(0xFFE0);  // JFIF 1.01, aspect 1:1, no thumbnail
+  w.word(16);
+  for (char ch : {'J', 'F', 'I', 'F', '\0'}) w.byte(ch);
+  w.byte(1); w.byte(1); w.byte(0); w.word(1); w.word(1); w.byte(0); w.byte(0);
+  for (int t = 0; t < (nc == 3 ? 2 : 1); ++t) {
+    w.word(0xFFDB);
+    w.word(67);
+    w.byte(t);
+    for (int i = 0; i < 64; ++i) w.byte(q[t][kNatural[i]]);
+  }
+  w.word(0xFFC0);
+  w.word(8 + 3 * nc);
+  w.byte(8); w.word(H); w.word(W); w.byte(nc);
+  for (int ci = 0; ci < nc; ++ci) {
+    w.byte(ci + 1);
+    w.byte((comps[ci].h << 4) | comps[ci].v);
+    w.byte(ci ? 1 : 0);
+  }
+  w.dht(0, 0, kDcLumCounts, kDcVals);
+  w.dht(1, 0, kAcLumCounts, kAcLumVals);
+  if (nc == 3) {
+    w.dht(0, 1, kDcChromCounts, kDcVals);
+    w.dht(1, 1, kAcChromCounts, kAcChromVals);
+  }
+  w.word(0xFFDA);
+  w.word(6 + 2 * nc);
+  w.byte(nc);
+  for (int ci = 0; ci < nc; ++ci) { w.byte(ci + 1); w.byte(ci ? 0x11 : 0x00); }
+  w.byte(0); w.byte(63); w.byte(0);
+
+  int32_t blk[64];
+  auto fdct_block = [&](EComp& c, int bx, int by, const uint16_t* qt, int32_t* dst) {
+    for (int y = 0; y < 8; ++y) {
+      const uint8_t* in = &c.plane[(size_t)(by * 8 + y) * c.stride + bx * 8];
+      for (int x = 0; x < 8; ++x) blk[y * 8 + x] = (int32_t)in[x] - 128;
+    }
+    fdct_islow(blk);
+    for (int i = 0; i < 64; ++i) {  // round half away from zero, divisor q << 3
+      const int32_t qv = (int32_t)qt[i] << 3;
+      int32_t t = blk[i];
+      dst[i] = t < 0 ? -((-t + (qv >> 1)) / qv) : (t + (qv >> 1)) / qv;
+    }
+  };
+  std::vector<int32_t> mcu((size_t)(nc == 3 ? 6 : 1) * 64);
+  if (nc == 1) {  // non-interleaved: one block an MCU, the component's own blocks
+    EComp& c = comps[0];
+    for (int by = 0; by < c.hib; ++by)
+      for (int bx = 0; bx < c.wib; ++bx) {
+        fdct_block(c, bx, by, q[0], mcu.data());
+        encode_block(w, mcu.data(), c.last_dc, dc_codes[0], ac_codes[0]);
+      }
+  } else {
+    for (int my = 0; my < mcuy; ++my)
+      for (int mx = 0; mx < mcux; ++mx) {
+        int blkn = 0;
+        for (int ci = 0; ci < nc; ++ci) {
+          EComp& c = comps[ci];
+          const uint16_t* qt = q[ci ? 1 : 0];
+          for (int yi = 0; yi < c.v; ++yi) {
+            const int by = my * c.v + yi;
+            for (int xi = 0; xi < c.h; ++xi) {
+              const int bx = mx * c.h + xi;
+              int32_t* dst = &mcu[(size_t)(blkn + xi) * 64];
+              if (by < c.hib && bx < c.wib) {
+                fdct_block(c, bx, by, qt, dst);
+              } else {  // dummy blocks: zero AC, the DC of libjpeg's choice
+                std::memset(dst, 0, 64 * sizeof(int32_t));
+                dst[0] = by < c.hib ? dst[-64] : mcu[(size_t)(blkn - 1) * 64];
+              }
+            }
+            blkn += c.h;
+          }
+        }
+        blkn = 0;
+        for (int ci = 0; ci < nc; ++ci) {
+          EComp& c = comps[ci];
+          for (int b = 0; b < c.h * c.v; ++b, ++blkn)
+            encode_block(w, &mcu[(size_t)blkn * 64], c.last_dc, dc_codes[ci ? 1 : 0],
+                         ac_codes[ci ? 1 : 0]);
+        }
+      }
+  }
+  w.flush();
+  w.word(0xFFD9);
+  return std::move(w.out);
+}
+
+static void set_message(const Failure& f, char* msg, int msg_len) {
+  if (msg && msg_len > 0) std::snprintf(msg, msg_len, "%s", f.msg);
+}
+
+}  // namespace jpeg
+
+// Decode a baseline JPEG of n bytes into a malloc'd (height, width,
+// channels) uint8 buffer (channels 1 or 3, RGB), freed with free_buffer.
+// Returns 0, or 1 (not supported) / 2 (corrupt) with a message in msg.
+int jpeg_decode(const uint8_t* data, long n, uint8_t** out, int* height, int* width,
+                int* channels, char* msg, int msg_len) {
+  *out = nullptr;
+  try {
+    jpeg::Decoder dec;
+    dec.d = data;
+    dec.n = (size_t)n;
+    dec.parse();
+    const size_t bytes = (size_t)dec.width * dec.height * dec.comps.size();
+    uint8_t* buf = (uint8_t*)std::malloc(bytes);
+    if (!buf) jpeg::fail(2, "JPEG decode: out of memory");
+    try {
+      dec.render(buf);
+    } catch (...) {
+      std::free(buf);
+      throw;
+    }
+    *out = buf;
+    *height = dec.height;
+    *width = dec.width;
+    *channels = (int)dec.comps.size();
+    return 0;
+  } catch (const jpeg::Failure& f) {
+    jpeg::set_message(f, msg, msg_len);
+    return f.status;
+  } catch (const std::bad_alloc&) {
+    jpeg::set_message({2, "JPEG decode: out of memory"}, msg, msg_len);
+    return 2;
+  }
+}
+
+// Encode (height, width, channels) uint8 pixels (channels 1 or 3, RGB)
+// into a malloc'd JPEG of *out_len bytes at `quality` (1-100), freed with
+// free_buffer. Returns 0, or 1 / 2 with a message in msg.
+int jpeg_encode(const uint8_t* pixels, int height, int width, int channels, int quality,
+                uint8_t** out, long* out_len, char* msg, int msg_len) {
+  *out = nullptr;
+  try {
+    std::vector<uint8_t> bytes = jpeg::encode(pixels, height, width, channels, quality);
+    uint8_t* buf = (uint8_t*)std::malloc(bytes.size());
+    if (!buf) jpeg::fail(2, "JPEG encode: out of memory");
+    std::memcpy(buf, bytes.data(), bytes.size());
+    *out = buf;
+    *out_len = (long)bytes.size();
+    return 0;
+  } catch (const jpeg::Failure& f) {
+    jpeg::set_message(f, msg, msg_len);
+    return f.status;
+  } catch (const std::bad_alloc&) {
+    jpeg::set_message({2, "JPEG encode: out of memory"}, msg, msg_len);
+    return 2;
+  }
+}
+
+}  // extern "C"
+
+namespace resample {
+
+inline uint8_t clip(int32_t acc, int bits) {
+  acc >>= bits;
+  return (uint8_t)(acc < 0 ? 0 : acc > 255 ? 255 : acc);
+}
+
+// The column pass at a channel count known when compiled: the taps of one
+// output pixel read its channels side by side into registers.
+template <int C>
+void columns(const uint8_t* src, int height, int width, int out_size, int taps,
+             const int* index, const int* weight, int bits, uint8_t* dst) {
+  const int32_t half = 1 << (bits - 1);
+  for (int y = 0; y < height; ++y) {
+    const uint8_t* row = src + (size_t)y * width * C;
+    uint8_t* out = dst + (size_t)y * out_size * C;
+    for (int o = 0; o < out_size; ++o) {
+      const int* idx = index + (size_t)o * taps;
+      const int* w = weight + (size_t)o * taps;
+      int32_t acc[C];
+      for (int c = 0; c < C; ++c) acc[c] = half;
+      for (int k = 0; k < taps; ++k) {
+        const uint8_t* px = row + (size_t)idx[k] * C;
+        for (int c = 0; c < C; ++c) acc[c] += w[k] * (int32_t)px[c];
+      }
+      for (int c = 0; c < C; ++c) out[o * C + c] = clip(acc[c], bits);
+    }
+  }
+}
+
+}  // namespace resample
+
+extern "C" {
+
+// One pass of 8-bit fixed-point resampling along one axis (0 rows, 1
+// columns) of a (height, width, channels) uint8 image: each output position
+// o sums taps source positions index[o, k] times weight[o, k], adds half of
+// 2^bits, shifts right by bits and clips to 0..255 (Resample.c's 8-bit
+// passes). The weights are non-negative and sum to about 2^bits, so an
+// int32 sum of 255 times them does not overflow.
+void resample_axis_u8(const uint8_t* src, int height, int width, int channels, int axis,
+                      int out_size, int taps, const int* index, const int* weight, int bits,
+                      uint8_t* dst) {
+  const int32_t half = 1 << (bits - 1);
+  auto clip = [bits](int32_t acc) { return resample::clip(acc, bits); };
+  if (axis == 1) {
+    switch (channels) {
+      case 1: return resample::columns<1>(src, height, width, out_size, taps, index, weight, bits, dst);
+      case 3: return resample::columns<3>(src, height, width, out_size, taps, index, weight, bits, dst);
+      case 4: return resample::columns<4>(src, height, width, out_size, taps, index, weight, bits, dst);
+    }
+    std::vector<int32_t> acc(channels);
+    for (int y = 0; y < height; ++y) {
+      const uint8_t* row = src + (size_t)y * width * channels;
+      uint8_t* out = dst + (size_t)y * out_size * channels;
+      for (int o = 0; o < out_size; ++o) {
+        const int* idx = index + (size_t)o * taps;
+        const int* w = weight + (size_t)o * taps;
+        std::fill(acc.begin(), acc.end(), half);
+        for (int k = 0; k < taps; ++k) {
+          const uint8_t* px = row + (size_t)idx[k] * channels;
+          for (int c = 0; c < channels; ++c) acc[c] += w[k] * (int32_t)px[c];
+        }
+        for (int c = 0; c < channels; ++c) out[o * channels + c] = clip(acc[c]);
+      }
+    }
+    return;
+  }
+  const size_t line = (size_t)width * channels;
+  std::vector<int32_t> acc(line);
+  for (int o = 0; o < out_size; ++o) {
+    std::fill(acc.begin(), acc.end(), half);
+    for (int k = 0; k < taps; ++k) {
+      const int32_t w = weight[(size_t)o * taps + k];
+      const uint8_t* row = src + (size_t)index[(size_t)o * taps + k] * line;
+      for (size_t j = 0; j < line; ++j) acc[j] += w * (int32_t)row[j];
+    }
+    uint8_t* out = dst + (size_t)o * line;
+    for (size_t j = 0; j < line; ++j) out[j] = clip(acc[j]);
   }
 }
 

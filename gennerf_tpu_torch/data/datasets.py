@@ -1,11 +1,11 @@
 """Dataset readers over the canonical ScanNet layout: info.json, frames as
-PNG files or in tar archives, tsdf_XX.npz ground truth (counterpart of
+PNG or JPEG files or in tar archives, tsdf_XX.npz ground truth (counterpart of
 gennerf_tpu/data/datasets.py).
 
-Host-side numpy: frames decode through the port's PNG reader
-(utils/image.py) into arrays; ground truth loads as `TSDF` on the CPU.
-Color frames must be PNG (the multigeo dataset's); a JPEG frame raises
-NotImplementedError, since the port has no JPEG decoder.
+Host-side numpy: frames decode through the port's PNG reader and JPEG
+codec (utils/image.py) into arrays, by file extension (ScanNet's colour
+frames are .jpg, the multigeo dataset's .png); ground truth loads as
+`TSDF` on the CPU.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..tsdf.tsdf import TSDF
-from ..utils.image import decode_png
+from ..utils.image import decode_jpeg, decode_png
 from . import transforms as T
 
 DEPTH_SHIFT = 1000.0
@@ -67,9 +67,12 @@ def load_info_json(json_file: str) -> dict:
 
 
 def _decode(path: str, raw: bytes, is_depth: bool) -> np.ndarray:
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(f"{path}: the port decodes PNG frames only")
-    img = decode_png(raw)
+    if path.lower().endswith((".jpg", ".jpeg")):
+        img = decode_jpeg(raw)
+    elif path.lower().endswith(".png"):
+        img = decode_png(raw)
+    else:
+        raise NotImplementedError(f"{path}: the port decodes PNG and JPEG frames")
     return img.astype(np.float32) / DEPTH_SHIFT if is_depth else img
 
 

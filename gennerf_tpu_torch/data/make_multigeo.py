@@ -56,7 +56,8 @@ def main(argv=None) -> None:
     parser.add_argument("--width", type=int, default=160)
     parser.add_argument("--voxel-sizes", type=int, nargs="+", default=[4, 8])
     parser.add_argument("--families", default="spheres,boxes",
-                        help="comma list of geometry families to cycle (spheres|boxes)")
+                        help="comma list of geometry families to cycle "
+                             "(spheres|boxes|cylinders|mixed|rooms)")
     args = parser.parse_args(argv)
     make_multigeo(args.out, args.train, args.frames, args.height, args.width,
                   args.voxel_sizes, tuple(args.families.split(",")), verbose=True)

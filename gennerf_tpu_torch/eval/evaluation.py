@@ -67,7 +67,8 @@ def process(info_file: str, results_dir: str, max_depth: float = 10.0, num_frame
         trgt_mesh = trgt_tsdf.get_mesh()
 
     origin = trgt_tsdf.origin.reshape(3)
-    refusion = TSDFFusion(tuple(trgt_tsdf.tsdf_vol.shape), voxel_size, origin, device=device)
+    refusion = TSDFFusion(tuple(trgt_tsdf.tsdf_vol.shape), voxel_size, origin, color=False,
+                          device=device)
     depth_metrics: Dict[str, float] = {}
     for i in range(len(dataset)):
         frame = dataset[i]
@@ -83,7 +84,7 @@ def process(info_file: str, results_dir: str, max_depth: float = 10.0, num_frame
     depth_metrics = {k: v / max(len(dataset), 1) for k, v in depth_metrics.items()}
 
     # the predicted mesh trimmed to what the re-fused renders observe
-    trimmed_mesh = TSDF(voxel_size, origin.reshape(1, 3), refusion.get_tsdf().cpu()).get_mesh()
+    trimmed_mesh = refusion.get_tsdf().get_mesh()
     metrics = {"scene": scene}
     metrics.update(depth_metrics)
     metrics.update(eval_tsdf(pred_tsdf, trgt_tsdf))

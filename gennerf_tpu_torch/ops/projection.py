@@ -29,6 +29,12 @@ def get_3d_points(depth: torch.Tensor, projection: torch.Tensor) -> torch.Tensor
     return pts_world_h[..., :3] / pts_world_h[..., 3:4]
 
 
+def depth_to_world(projection: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Unproject one (H, W) depth map through its (3, 4) projection:
+    (3, H*W) world points, row-major over the pixels."""
+    return get_3d_points(depth[None], projection[None])[0].reshape(-1, 3).T
+
+
 def project_voxels(voxel_dim, voxel_size: float, origin, projection: torch.Tensor,
                    height: int, width: int):
     """Project every voxel center of the grid through (B, 3, 4) projections,
@@ -40,6 +46,12 @@ def project_voxels(voxel_dim, voxel_size: float, origin, projection: torch.Tenso
     world = world_coordinates(voxel_dim, voxel_size, origin)
     world_h = torch.cat([world, torch.ones_like(world[:1])], dim=0)  # (4, V)
     camera = torch.einsum("bij,jv->biv", projection, world_h)  # (B, 3, V)
+    return camera_pixels(camera, height, width)
+
+
+def camera_pixels(camera: torch.Tensor, height: int, width: int):
+    """Round (B, 3, V) camera coordinates to pixels, as `project_voxels`
+    returns them."""
     z = camera[:, 2]
     safe_z = torch.where(z == 0, torch.full_like(z, 1e-8), z)
     px = torch.round(camera[:, 0] / safe_z).to(torch.int64)

@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..data.colormaps import NYU40_COLORMAP
 from ..utils.mesh import Mesh
 from ..utils.native import marching_cubes
 
@@ -169,12 +170,10 @@ class TSDF:
         coordinates (vertices * voxel_size + origin). Voxels at -1 (unknown)
         count as outside, so no surface closes along the unobserved border;
         a volume that does not cross 0 gives an empty mesh. Per-vertex
-        'instance' and, with attribute 'color', the colours come from the
-        attribute volumes at the rounded voxel index, and 'semseg' labels
-        where a volume holds them. Colouring by 'semseg' needs label fusion
-        and the NYU40 colormap, which are not ported."""
-        if attribute == "semseg":
-            raise NotImplementedError("semseg colours need label fusion, which is not ported")
+        'semseg' and 'instance' labels come from the attribute volumes at
+        the rounded voxel index; the colours, with attribute 'color', from
+        the colour volume (clipped to uint8), with attribute 'semseg', from
+        the NYU40 palette of the labels (0 for a label outside it)."""
         tsdf_vol = -np.asarray(self.tsdf_vol.detach().cpu(), np.float32)  # positive outside
         tsdf_vol[tsdf_vol == -1] = 1
         tsdf_vol = np.clip(tsdf_vol, -1, 1)
@@ -190,6 +189,11 @@ class TSDF:
         for key in ("semseg", "instance"):
             if key in self.attribute_vols:
                 vertex_attributes[key] = self.attribute_vols[key].cpu().numpy()[i, j, k]
+        if attribute == "semseg" and "semseg" in vertex_attributes:
+            palette = np.array(NYU40_COLORMAP)
+            label = vertex_attributes["semseg"].copy()
+            label[(label < 0) | (label >= len(palette))] = 0
+            colors = palette[label, :]
         if attribute == "color" and "color" in self.attribute_vols:
             color_vol = np.clip(self.attribute_vols["color"].cpu().numpy(), 0, 255).astype(np.uint8)
             colors = color_vol[:, i, j, k].T

@@ -1,8 +1,10 @@
-"""PNG reading and writing and the two image resizes of the data pipeline,
-with numpy and zlib only (the port's own copy of `write_png` and
-`encode_png` from gennerf_tpu/utils/image.py, without the PIL path, plus a
-PNG decoder and numpy versions of PIL's `Image.resize` in the modes the
-loaders use).
+"""PNG and JPEG reading and writing and the two image resizes of the data
+pipeline, without PIL (the port's own copy of `write_png` and `encode_png`
+from gennerf_tpu/utils/image.py, without the PIL path, plus a PNG decoder
+and PIL's `Image.resize` in the modes the loaders use). PNG is numpy and
+zlib; JPEG goes through the host library's baseline codec (utils/native.py),
+which decodes to PIL's pixels and encodes PIL's files; the bilinear
+resize's taps are computed here and its passes run in the host library.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
+
+from .native import jpeg_decode, jpeg_encode, resample_axis
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG color type -> samples per pixel
@@ -126,6 +130,31 @@ def read_png(path: str) -> np.ndarray:
         return decode_png(f.read())
 
 
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """Baseline JPEG bytes -> (H, W) uint8 (grayscale) or (H, W, 3) RGB, as
+    PIL decodes them; progressive and other non-baseline files raise
+    NotImplementedError."""
+    return jpeg_decode(data)
+
+
+def read_jpeg(path: str) -> np.ndarray:
+    """Decode the JPEG file at `path` (see decode_jpeg)."""
+    with open(path, "rb") as f:
+        return decode_jpeg(f.read())
+
+
+def encode_jpeg(array: np.ndarray, quality: int = 95) -> bytes:
+    """(H, W) or (H, W, 3) uint8 -> the JPEG PIL's `save(format="JPEG",
+    quality=quality)` writes (4:2:0 for colour)."""
+    return jpeg_encode(array, quality)
+
+
+def write_jpeg(path: str, array: np.ndarray, quality: int = 95) -> None:
+    """Write `array` (see encode_jpeg) to `path` as a JPEG."""
+    with open(path, "wb") as f:
+        f.write(encode_jpeg(array, quality))
+
+
 @lru_cache(maxsize=64)
 def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
     """PIL's nearest source index per output position: a double that
@@ -156,14 +185,14 @@ _PRECISION_BITS = 32 - 8 - 2
 def _bilinear_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
     """PIL's bilinear taps of one axis: (out, k) source indices and their
     fixed-point weights (precompute_coeffs + normalize_coeffs_8bpc in
-    Resample.c, in double as there)."""
+    Resample.c, in double as there), as int32."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = 1.0 * filterscale
     ss = 1.0 / filterscale
     ksize = int(np.ceil(support)) * 2 + 1
-    index = np.zeros((out_size, ksize), np.int64)
-    weight = np.zeros((out_size, ksize), np.int64)
+    index = np.zeros((out_size, ksize), np.int32)
+    weight = np.zeros((out_size, ksize), np.int32)
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
@@ -184,18 +213,10 @@ def _bilinear_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarra
 
 def _resample_axis(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
     """One pass of PIL's 8-bit bilinear resample along `axis` (0 rows, 1
-    columns) of an (H, W, C) uint8 array, rounded and clipped to uint8.
-    The sums fit int32 as in PIL: the weights are non-negative and sum to
-    about 2**22, times at most 255."""
+    columns) of an (H, W, C) uint8 array, rounded and clipped to uint8, in
+    the host library (PIL's int32 fixed point)."""
     index, weight = _bilinear_coeffs(img.shape[axis], out_size)
-    shape = (out_size, 1, 1) if axis == 0 else (1, out_size, 1)
-    acc = None
-    for k in range(index.shape[1]):
-        term = np.take(img, index[:, k], axis=axis).astype(np.int32) * weight[:, k].astype(
-            np.int32).reshape(shape)
-        acc = term if acc is None else acc + term
-    acc += 1 << (_PRECISION_BITS - 1)
-    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return resample_axis(img, axis, index, weight, _PRECISION_BITS)
 
 
 def resize_bilinear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:

@@ -1,7 +1,9 @@
 """The port's host C++ library (csrc/host/gennerf_native.cpp) through ctypes:
 marching cubes, KD-tree nearest-neighbour distances, the depth rasterizer
 and the shaded one, with the signatures and return conventions of the JAX
-package's native binding.
+package's native binding, the baseline JPEG codec (`jpeg_decode`,
+`jpeg_encode`) and the 8-bit fixed-point resample pass (`resample_axis`;
+utils/image.py wraps these three).
 
 The library is built on first use with the host C++ compiler (`$CXX`, else
 `g++`) and the flags in `CXX_FLAGS`, into `ops.kernels.build_dir()` (the
@@ -36,6 +38,7 @@ _lib = None
 build_info: dict = {}
 
 _F32P, _I32P = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
+_U8P = ctypes.POINTER(ctypes.c_ubyte)
 _SIGNATURES = {
     "free_buffer": (None, [ctypes.c_void_p]),
     "marching_cubes": (ctypes.c_int, [
@@ -49,7 +52,16 @@ _SIGNATURES = {
     "rasterize_shaded": (None, [
         _F32P, ctypes.c_int, _I32P, ctypes.c_int, _F32P,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, _F32P, _F32P, ctypes.POINTER(ctypes.c_ubyte), _F32P]),
+        ctypes.c_int, ctypes.c_int, _F32P, _F32P, _U8P, _F32P]),
+    "jpeg_decode": (ctypes.c_int, [
+        ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(_U8P), _I32P, _I32P, _I32P,
+        ctypes.c_char_p, ctypes.c_int]),
+    "jpeg_encode": (ctypes.c_int, [
+        _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_U8P),
+        ctypes.POINTER(ctypes.c_long), ctypes.c_char_p, ctypes.c_int]),
+    "resample_axis_u8": (None, [
+        _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _I32P, _I32P, ctypes.c_int, _U8P]),
 }
 
 
@@ -200,4 +212,76 @@ def nn_distances(queries: np.ndarray, targets: np.ndarray) -> np.ndarray:
     out = np.empty(len(q), dtype=np.float32)
     lib.nn_distances(_ptr(q, ctypes.c_float), len(q), _ptr(t, ctypes.c_float), len(t),
                      _ptr(out, ctypes.c_float))
+    return out
+
+
+def _codec_error(status: int, msg) -> Exception:
+    text = msg.value.decode(errors="replace")
+    return NotImplementedError(text) if status == 1 else ValueError(text)
+
+
+def jpeg_decode(data: bytes) -> np.ndarray:
+    """Baseline JPEG bytes -> (H, W) uint8 for one component, else (H, W, 3)
+    RGB, with libjpeg's default decode (islow IDCT, fancy upsampling, its
+    YCbCr tables). Progressive, arithmetic-coded, lossless and 12-bit files
+    raise NotImplementedError naming the marker; corrupt ones ValueError."""
+    lib = load_library()
+    buf = ctypes.c_char_p(bytes(data))
+    out = _U8P()
+    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    msg = ctypes.create_string_buffer(160)
+    rc = lib.jpeg_decode(buf, len(data), ctypes.byref(out), ctypes.byref(h), ctypes.byref(w),
+                         ctypes.byref(c), msg, len(msg))
+    if rc != 0:
+        raise _codec_error(rc, msg)
+    try:
+        shape = (h.value, w.value) if c.value == 1 else (h.value, w.value, c.value)
+        return np.ctypeslib.as_array(out, shape=shape).copy()
+    finally:
+        lib.free_buffer(out)
+
+
+def jpeg_encode(pixels: np.ndarray, quality: int) -> bytes:
+    """(H, W) or (H, W, 3) uint8 -> JPEG bytes as libjpeg writes them at
+    `quality`: JFIF, YCbCr 4:2:0 (or grayscale), the standard tables."""
+    lib = load_library()
+    img = np.ascontiguousarray(pixels, dtype=np.uint8)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = np.ascontiguousarray(img[:, :, 0])
+    if img.ndim not in (2, 3):
+        raise ValueError(f"expected an (H, W) or (H, W, 3) image, got {img.shape}")
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    out = _U8P()
+    n = ctypes.c_long()
+    msg = ctypes.create_string_buffer(160)
+    rc = lib.jpeg_encode(_ptr(img, ctypes.c_ubyte), img.shape[0], img.shape[1], channels,
+                         int(quality), ctypes.byref(out), ctypes.byref(n), msg, len(msg))
+    if rc != 0:
+        raise _codec_error(rc, msg)
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.free_buffer(out)
+
+
+def resample_axis(img: np.ndarray, axis: int, index: np.ndarray, weight: np.ndarray,
+                  bits: int) -> np.ndarray:
+    """One 8-bit fixed-point resample pass along `axis` (0 rows, 1 columns)
+    of an (H, W, C) uint8 image: output position o is the clipped
+    (sum_k weight[o, k] * img[index[o, k]] + 2**(bits-1)) >> bits, with
+    (out, taps) int32 index and non-negative weight tables."""
+    lib = load_library()
+    src = np.ascontiguousarray(img, dtype=np.uint8)
+    if src.ndim != 3:
+        raise ValueError(f"expected an (H, W, C) image, got {src.shape}")
+    index = np.ascontiguousarray(index, dtype=np.int32)
+    weight = np.ascontiguousarray(weight, dtype=np.int32)
+    H, W, C = src.shape
+    out_size, taps = index.shape
+    if index.min() < 0 or index.max() >= src.shape[axis]:
+        raise ValueError("resample index out of range")
+    out = np.empty((out_size, W, C) if axis == 0 else (H, out_size, C), dtype=np.uint8)
+    lib.resample_axis_u8(_ptr(src, ctypes.c_ubyte), H, W, C, axis, out_size, taps,
+                         _ptr(index, ctypes.c_int), _ptr(weight, ctypes.c_int), bits,
+                         _ptr(out, ctypes.c_ubyte))
     return out

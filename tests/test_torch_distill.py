@@ -62,6 +62,8 @@ from gennerf_tpu_torch.train.tasks import GenNerfTask as TTask
 from gennerf_tpu_torch.utils.config import load_experiment_model_config
 from gennerf_tpu_torch.utils.port_params import gen_nerf_params_from_flax
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOXEL_DIM = (16, 16, 8)
 VS = 0.08

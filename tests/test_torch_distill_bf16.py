@@ -33,6 +33,8 @@ from test_torch_options import _f32_highest  # noqa: F401
 from test_torch_options_bf16 import check_encode_decode
 from test_torch_options_bf16_steps import STRICT_BF16, check_step
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 
 def test_encode_decode_bf16():
     """The teacher-volume model, whose volume holds the teacher's channels

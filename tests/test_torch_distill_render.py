@@ -36,6 +36,8 @@ from test_torch_distill import (  # noqa: F401
     jax_loss_and_grads, jax_params, port_model, step_draws,
 )
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 RR = 12
 MARCH = {"render_rays": RR, "render_steps": 10, "render_fine": 4, "render_secant": 3,
          "render_near": 0.05, "render_far": 4.0}

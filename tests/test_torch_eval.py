@@ -57,6 +57,8 @@ from test_torch_predict import _jax_draws
 from test_torch_train import CFG as TRAIN_CFG
 from test_torch_train import TINY_EXPERIMENT, _model, batch, jax_params  # noqa: F401
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 METRIC_TOL = 1e-4
 DEPTH_KEYS = ("AbsRel", "AbsDiff", "SqRel", "RMSE", "LogRMSE", "r1", "r2", "r3", "complete")

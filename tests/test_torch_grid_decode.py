@@ -29,6 +29,8 @@ from gennerf_tpu_torch.models.heads import TSDFHeadSimple
 from gennerf_tpu_torch.models.resnetfc import ResnetFC
 from gennerf_tpu_torch.ops import grid_decode as gd
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 D_IN, D_CODE, H, NB, RESO = 8, 39, 32, 2, 16
 PE = dict(num_freqs=6, freq_factor=0.5, include_input=True, padding=0.1)
 

@@ -28,6 +28,8 @@ from gennerf_tpu_torch.ops import point_decode as pd
 from gennerf_tpu_torch.ops import sampling as tsamp
 from gennerf_tpu_torch.ops import weight_slabs as ws
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 
 @pytest.fixture
 def cuda():

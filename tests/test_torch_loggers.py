@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from gennerf_tpu.train import callbacks as jcallbacks
@@ -42,6 +43,8 @@ from gennerf_tpu_torch.utils import console, visuals
 from gennerf_tpu_torch.utils.config import load_experiment_config
 from gennerf_tpu_torch.utils.mesh import Mesh
 from gennerf_tpu_torch.utils.port_params import gen_nerf_params_from_flax
+
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = {
@@ -77,15 +80,16 @@ def _tree(root):
 
 @pytest.fixture(scope="module")
 def gt_mesh(tmp_path_factory):
-    """The fused 8 cm ground truth of a multigeo scene, as both packages'
-    Mesh, and the scene's first two views."""
+    """The fused 8 cm ground truth of a multigeo scene (coloured by the
+    colour fusion), as both packages' Mesh, and the scene's first two
+    views."""
     root = str(tmp_path_factory.mktemp("multigeo"))
     make_multigeo(root, train=1, frames=3, height=24, width=32, voxel_sizes=(8,))
     info = load_info_json(os.path.join(root, "scans", sorted(os.listdir(
         os.path.join(root, "scans")))[0], "info.json"))
     mesh = Mesh.load(info["file_name_mesh_gt"])
     frames = [(np.array(f["intrinsics"]), np.array(f["pose"])) for f in info["frames"][:2]]
-    return mesh, JMesh(mesh.vertices, mesh.faces), frames
+    return mesh, JMesh(mesh.vertices, mesh.faces, mesh.vertex_colors), frames
 
 
 @pytest.fixture(scope="module")

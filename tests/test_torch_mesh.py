@@ -29,6 +29,8 @@ from gennerf_tpu_torch.tsdf.tsdf import TSDF
 from gennerf_tpu_torch.utils import native
 from gennerf_tpu_torch.utils.mesh import Mesh
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VERT_TOL = 1e-5
 
@@ -121,14 +123,25 @@ def test_get_mesh_matches_jax(jax_written, attribute):
 
 def test_get_mesh_empty_and_semseg(jax_written):
     """A volume that does not cross 0 (every voxel at -1 counts as outside)
-    gives an empty mesh, as in JAX; semseg colours raise."""
+    gives an empty mesh, as in JAX; colouring by 'semseg' takes the NYU40
+    palette of a semseg volume's labels (labels outside it coloured 0) and
+    leaves a volume without one uncoloured, as in JAX."""
     for value in (1.0, -1.0):
         vol = torch.full((5, 6, 7), value)
         ours = TSDF(0.04, torch.zeros(1, 3), vol).get_mesh()
         ref = JTSDF(0.04, jnp.zeros((1, 3)), jnp.asarray(vol.numpy())).get_mesh()
         assert ours.is_empty and ref.is_empty and ours.vertices.shape == (0, 3)
-    with pytest.raises(NotImplementedError, match="label fusion"):
-        TSDF.load(jax_written).get_mesh("semseg")
+    ours, ref = TSDF.load(jax_written), JTSDF.load(jax_written)
+    no_labels = ours.get_mesh("semseg")
+    assert no_labels.vertex_colors is None and ref.get_mesh("semseg").vertex_colors is None
+    labels = np.random.default_rng(6).integers(-3, 45, tuple(ours.tsdf_vol.shape)).astype(np.int32)
+    ours.attribute_vols["semseg"] = torch.from_numpy(labels)
+    ref.attribute_vols["semseg"] = jnp.asarray(labels)
+    ours_mesh, ref_mesh = ours.get_mesh("semseg"), ref.get_mesh("semseg")
+    _assert_meshes_equal(ours_mesh, ref_mesh, 0.08)
+    np.testing.assert_array_equal(ours_mesh.vertex_attributes["semseg"],
+                                  ref_mesh.vertex_attributes["semseg"])
+    assert len(np.unique(ours_mesh.vertex_colors, axis=0)) > 10
 
 
 @pytest.mark.parametrize("colored", [False, True])

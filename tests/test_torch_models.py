@@ -37,6 +37,8 @@ from gennerf_tpu_torch.utils.port_params import (
     save_params_npz,
 )
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 ATOL = 1e-4
 
 SMALL_CFG = {

@@ -28,6 +28,8 @@ from gennerf_tpu_torch.ops import projection as tp
 from gennerf_tpu_torch.ops import sampling as tsamp
 from gennerf_tpu_torch.ops import scatter as ts
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 ATOL = 1e-5
 
 

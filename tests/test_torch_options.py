@@ -37,6 +37,8 @@ from gennerf_tpu_torch.models.gen_nerf import GenNerf, SceneRepr
 from gennerf_tpu_torch.models.resnetfc import ResnetFC
 from gennerf_tpu_torch.utils.port_params import gen_nerf_params_from_flax
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 VD = (16, 16, 8)
 T, H, W, PRESAMPLE = 2, 12, 16, 64
 R, M_GAUSS = 16, 3

@@ -55,6 +55,8 @@ from test_torch_options import (  # noqa: F401
     _merge, _randomize, _t,
 )
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 C_TEACHER = 8
 TEACHER = {"teacher": {"type": "random_projection", "feature_dim": C_TEACHER, "seed": 3},
            "mlp": {"d_out_sem": C_TEACHER}}

@@ -52,6 +52,8 @@ from gennerf_tpu_torch.utils.port_params import gen_nerf_params_from_flax
 from test_torch_options import _f32_highest  # noqa: F401
 from test_torch_options_bf16 import VD, _near, _np, _port, _step_draws, setup
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 GROUPS = {
     "spade_layer_norm_add": ("spade", "layer_norm", "add"),
     "grid_voxel_hash": ("grid", "voxel_hash"),

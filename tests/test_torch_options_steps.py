@@ -38,6 +38,8 @@ from test_torch_options import (  # noqa: F401
     _randomize, _t,
 )
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 
 def _jax_voxel_hash(xyz, npoint, rnd):
     """The JAX voxel_hash_downsample with its uniform draw replaced by `rnd`."""

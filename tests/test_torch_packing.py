@@ -17,6 +17,8 @@ import torch
 
 from gennerf_tpu_torch.ops import weight_slabs as ws
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "gennerf_tpu_torch", "csrc", "resnet_tile.cuh")
 

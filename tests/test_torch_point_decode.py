@@ -46,6 +46,8 @@ from gennerf_tpu_torch.tsdf.fusion import apply_fusion_prior
 from gennerf_tpu_torch.utils.port_params import gen_nerf_params_from_flax
 from test_torch_predict import CFG, VOXEL_DIM, _jax_draws, _t, scene, task_pair  # noqa: F401
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 NB, D_GEO, SMOOTHING = 2, 8, 1.05
 
 

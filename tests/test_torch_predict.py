@@ -34,6 +34,8 @@ from gennerf_tpu_torch.train import predict as tpred
 from gennerf_tpu_torch.tsdf.fusion import apply_fusion_prior, prior_classes
 from gennerf_tpu_torch.utils.port_params import gen_nerf_params_from_flax, save_params_npz
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-4
 VOXEL_DIM = (16, 16, 8)
@@ -230,9 +232,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "gennerf_tpu", "PIL", "skimage", "cv2", "s
 def test_port_imports_no_jax():
     """Importing the port and every submodule pulls in no jax, flax or
     gennerf_tpu module, no PIL, skimage or cv2 (the card's machine has
-    none of them), no scipy and no torchvision; meshing, the KD-tree and the rasterizer
-    then load nothing from the repo's native/ (the port builds its own
-    host library); and chip_smoke.py imports none of them."""
+    none of them), no scipy and no torchvision; meshing, the KD-tree, the rasterizer
+    and the JPEG codec then load nothing from the repo's native/ (the port
+    builds its own host library) and need no PIL; and chip_smoke.py
+    imports none of them."""
     code = (
         "import importlib, os, pkgutil, sys, numpy as np, gennerf_tpu_torch\n"
         "for m in pkgutil.walk_packages(gennerf_tpu_torch.__path__, 'gennerf_tpu_torch.'):\n"
@@ -246,6 +249,9 @@ def test_port_imports_no_jax():
         "            + 0 * x[None, None, :]).contiguous()).get_mesh()\n"
         "eval_mesh(mesh, mesh)\n"
         "rasterize_depth(mesh.vertices, mesh.faces, np.eye(3), np.eye(4), 4, 4)\n"
+        "from gennerf_tpu_torch.utils.image import decode_jpeg, encode_jpeg\n"
+        "img = np.arange(24 * 40 * 3, dtype=np.uint8).reshape(24, 40, 3)\n"
+        "assert decode_jpeg(encode_jpeg(img, 95)).shape == img.shape\n"
         f"bad = [k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r}]\n"
         "native = os.path.join(os.getcwd(), 'native') + os.sep\n"
         "maps = [line.split()[-1] for line in open('/proc/self/maps') if '/' in line]\n"

@@ -44,6 +44,8 @@ from gennerf_tpu_torch.utils.image import encode_png, write_png
 from gennerf_tpu_torch.utils.port_params import gen_nerf_params_from_flax, save_params_npz
 from test_torch_predict import CFG, PRIMS, REPO, VOXEL_DIM, _jax_draws, _t, scene, task_pair  # noqa: F401
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 D_GEO, SMOOTHING = 8, 1.05
 K_SPHERE = np.array([[[40.0, 0, 16], [0, 40.0, 12], [0, 0, 1]]], np.float32)
 

@@ -69,6 +69,8 @@ from gennerf_tpu_torch.utils.port_params import (
     gen_nerf_params_from_flax, load_params_npz, resnet_state_from_flax, save_params_npz,
 )
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOXEL_DIM = (16, 16, 8)
 VS = 0.08

@@ -40,6 +40,8 @@ from gennerf_tpu_torch.utils.port_params import (
     gen_nerf_params_from_flax, voxel_net_params_from_flax,
 )
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 VD = (16, 16, 8)
 VS = 0.08
 T, H, W = 2, 32, 40

@@ -68,6 +68,8 @@ from gennerf_tpu_torch.utils.port_params import (
     flax_params_from_gen_nerf, gen_nerf_params_from_flax, load_params_npz,
 )
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOXEL_DIM = (16, 16, 8)
 T, H, W = 2, 12, 16
@@ -318,14 +320,13 @@ def test_fuse_frames(batch):
 
 
 def test_random_primitives_match_jax():
-    for family in ("spheres", "boxes"):
+    for family in ("spheres", "boxes", "cylinders", "mixed", "rooms"):
         for seed in range(3):
             ours = random_primitives(np.random.default_rng(seed), family)
             ref = j_random_primitives(np.random.default_rng(seed), family)
             assert ours == ref
-    for family in ("cylinders", "mixed", "rooms"):
-        with pytest.raises(NotImplementedError):
-            random_primitives(np.random.default_rng(0), family)
+    with pytest.raises(ValueError, match="family"):
+        random_primitives(np.random.default_rng(0), "tori")
 
 
 # -- one step, three steps ------------------------------------------------------

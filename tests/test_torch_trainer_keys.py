@@ -34,6 +34,8 @@ from gennerf_tpu_torch.train import loop
 from gennerf_tpu_torch.train.state import make_optimizer
 from gennerf_tpu_torch.utils.config import load_experiment_config
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = dict(
     datasets_train=["train.txt"], datasets_val=["val.txt"], datasets_test=["val.txt"],

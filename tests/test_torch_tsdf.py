@@ -27,6 +27,8 @@ from gennerf_tpu_torch.eval.metrics import eval_tsdf
 from gennerf_tpu_torch.tsdf.fusion import fuse_frames
 from gennerf_tpu_torch.tsdf.tsdf import TSDF, _resample
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 VOXEL_SIZE = 0.08
 TRANSFORM_TOL, TIE_SHARE = 1e-5, 1e-3
 

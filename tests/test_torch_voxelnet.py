@@ -102,6 +102,8 @@ from gennerf_tpu_torch.utils.port_params import (
     voxel_net_params_from_flax,
 )
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VD = (16, 16, 8)
 VS = 0.08
@@ -543,6 +545,21 @@ def test_voxel_net_loss_and_gradients(pair):
         _close(named[n].grad, g.numpy(), rtol=1e-4)
 
 
+@pytest.fixture
+def default_threads():
+    """torch at its default thread count (the core count) for the test:
+    test_two_adam_steps holds Adam's first updates within 0.25 lr of JAX's,
+    which the ResNet stem's near-zero weight gradients meet at the default
+    but not at 1 to 4 threads (the parent tree fails there too), where the
+    convolution's backward sums in another order, some of those gradients
+    change sign and Adam's first step moves them by lr the other way."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.mark.usefixtures("default_threads")
 def test_two_adam_steps(pair):
     """Two steps of the port's train_step against make_voxel_net_train_step:
     the metrics, then every parameter and running statistic. Under

@@ -34,6 +34,8 @@ from gennerf_tpu_torch.models.config import VoxelNetConfig, config_from_dict
 from gennerf_tpu_torch.models.voxel_net import VoxelNet
 from gennerf_tpu_torch.utils.config import load_experiment_model_config
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "configs", "experiment", "seqs_multigeo_voxelnet.yaml")
 

@@ -56,6 +56,8 @@ from gennerf_tpu_torch.models.voxel_net import VolumeRepr, VoxelNet
 from gennerf_tpu_torch.train.step import StepDraws, batch_to_device, voxel_net_forward_loss
 from gennerf_tpu_torch.utils.port_params import voxel_net_params_from_flax
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 VD = (16, 16, 16)
 VS = 0.08
 KEYS = ("vol_08_tsdf", "vol_16_tsdf")

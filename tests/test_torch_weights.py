@@ -72,6 +72,8 @@ from gennerf_tpu_torch.utils.port_reference import (
     read_reference_checkpoint, reference_state_dict, weights_format,
 )
 
+import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 import orbax_to_npz  # noqa: E402
