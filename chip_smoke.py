@@ -122,10 +122,12 @@ from csrc/host/ with the host C++ compiler, then:
      bf16 steps (K1 once a step) and the same in float32; an epoch and a
      validation of the eikonal child in bf16 (the eikonal term finite and
      above 0), for 4 draws its float32 step on the card and on the CPU and
-     its bf16 step on the card against the CPU's float64 step (the loss
-     within 1e-5 of the CPU's float32 loss; the card's float32 gradients at
-     most EIKONAL_NOISE_FACTOR times as far from float64 as the CPU's, the
-     bf16 step's beyond that), its step ms against the flagship's; one
+     its bf16 step on the card against the CPU's float64 step, each on the
+     float64 step's ReLU and max-pool picks (the loss within 1e-5 of the
+     CPU's float32 loss; the card's float32 gradients at most
+     EIKONAL_NOISE_FACTOR times as far from float64 as the CPU's, the bf16
+     step's beyond that; the card's float32 step on its own picks read
+     beside them), its step ms against the flagship's; one
      bf16 step of the frustumN child and one with the gradient loss (every
      term and gradient finite, K1 once); the share of the step's samples,
      the encoded clouds and the grids whose plane coordinates are clamped;
@@ -283,12 +285,39 @@ from csrc/host/ with the host C++ compiler, then:
      K3 against the plain march; the .sens write, export per frame, JPEG
      decode, fusion per voxel size, loader wait and step times, and the
      phase's seconds on a line of their own;
+ 18. parallel: more than one GPU, on PARALLEL_BATCH loader items of the
+     data phase's dataset at full width (seqs_multigeo_4cm, f32;
+     seqs_multigeo_voxelnet, bf16-mixed, its BatchNorm global): (a) NCCL at
+     world size 1 in this process, every collective run: 10 steps of
+     `Trainer.fit` (prefetch 2) against the same steps through the plain
+     path (losses and parameters within PARALLEL_WORLD1_RTOL), K1 launched
+     once a step, K1 index-exact against the plain FPS on the rank's rows;
+     the coalesced gradient all-reduce's ms and the sharded step's ms
+     against the plain step's, for GenNerf and for VoxelNet; the sharded
+     grid decode (K2 once) equal to the whole grid; (b) 2 ranks spawned on
+     the one card over gloo (CUDA tensors): PARALLEL_STEPS steps of each
+     config on its rows against world size 1 (losses within the CPU tests'
+     bounds, PARALLEL_TOL / PARALLEL_BF16_TOL, the ranks' states
+     bit-equal, K1 once a GenNerf step; GenNerf's gradients and statistics
+     within those bounds; VoxelNet's refereed by the next wider step, no
+     farther from it than the world-size-1 evaluations: the whole batch,
+     each convolution one rank's rows at a time, the sharded step at world
+     size 1), two planted faults (gradients averaged, BatchNorm's backward
+     not all-reduced) reading beyond that bound, and the sharded decode (K2
+     once a rank, gathered equal to the whole grid);
+     (c) the same over NCCL, one card a rank, where the machine has two
+     (else printed as not run); (d) K2 on each x-slab of 96x96x56 and of
+     190x180x50 at d_in 64 (SLAB_COUNTS), concatenated: equal to K2 on the
+     whole grid and within K2's tolerances of the plain decode; (e) the
+     data phase's loader-fed fit at prefetch_batches 0 and 2 in turns:
+     median loader wait and step ms; the phase's seconds;
 then a `kernels` JSON line, the nvidia-smi line and the final result line.
 Every phase raises on failure. Needs one CUDA card; exits non-zero without.
 """
 import contextlib
 import csv
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -409,8 +438,11 @@ FLAGSHIP_DEVICE_TOL = 1e-4
 # float64, for each of EIKONAL_SEEDS draws: the step's weight gradients sum
 # 23,200 samples' double-backward terms that cancel, so a float32 step in
 # any summation order is off float64 by 1e-4 to 7e-4 of max-abs, the CPU's
-# as well as the card's; the card's distance may be at most
-# EIKONAL_NOISE_FACTOR times the CPU's float32 distance of the same draws,
+# as well as the card's; each step takes the float64 step's ReLU and
+# max-pool picks (ReluPicks: one pick made the other way moves a gradient
+# by up to 1e-2 of max-abs, on either device), and the card's distance may
+# be at most EIKONAL_NOISE_FACTOR times the CPU's float32 distance of the
+# same draws,
 # and the card's bf16-mixed step (the control a fault must look like) must
 # lie beyond that limit; the loss is held to the CPU's float32 loss
 # (TRAIN_LOSS_RTOL)
@@ -692,6 +724,99 @@ def cpu_inputs(torch, dev, cfg_, batch_, draws_):
         return stack
 
     return patched, mismatches
+
+
+class ReluPicks:
+    """A step's discrete picks (the mask of each ReLU's positive inputs, in
+    the pointnet's and the decoder's ResnetFC blocks and in the UNet, and
+    each UNet 2x2 max-pool's argmax), recorded in one reference step and
+    then replayed in other steps of the same weights and inputs, for the
+    float32-against-float64 comparisons. Summed in another order, an input
+    within an ulp of 0 or of its window's maximum can pick the other way:
+    the planes take gradient at few cells, so one such pick in the UNet can
+    move a convolution's weight gradient by 1e-2 of its max-abs, and one in
+    the decoder moves its weights' gradients, beyond every summation
+    order's continuous error. `replaying` counts, per kind, the picks
+    that a step's own inputs make otherwise (with `pin=False` it only
+    counts, and the step keeps its own picks)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.picks = []
+
+    @contextlib.contextmanager
+    def _patched(self, model, relu, max_pool2d):
+        import types
+        from unittest import mock
+
+        import torch.nn.functional as F
+
+        from gennerf_tpu_torch.models import unet as unet_module
+
+        blocks = [m for m in model.modules() if getattr(m, "actvn", None) is self.torch.relu]
+        functional = types.SimpleNamespace(**{k: getattr(F, k) for k in dir(F)
+                                              if not k.startswith("__")})
+        functional.relu, functional.max_pool2d = relu, max_pool2d
+        for m in blocks:
+            m.actvn = relu
+        try:
+            with mock.patch.object(unet_module, "F", functional):
+                yield
+        finally:
+            for m in blocks:
+                m.actvn = self.torch.relu
+
+    @contextlib.contextmanager
+    def recording(self, model):
+        import torch.nn.functional as F
+
+        self.picks = []
+
+        def relu(x):
+            self.picks.append(x.detach() > 0)
+            return F.relu(x)
+
+        def max_pool2d(x, kernel, stride):
+            y, idx = F.max_pool2d(x, kernel, stride, return_indices=True)
+            self.picks.append(idx)
+            return y
+
+        with self._patched(model, relu, max_pool2d):
+            yield
+
+    @contextlib.contextmanager
+    def replaying(self, model, pin: bool = True):
+        import torch.nn.functional as F
+
+        torch = self.torch
+        turns = iter(self.picks)
+        counts = {"relu": 0, "max_pool": 0, "calls": 0}
+
+        def take(kind, own):
+            pick = next(turns, None)
+            counts["calls"] += 1
+            if pick is None or pick.shape != own.shape or pick.dtype != own.dtype:
+                raise RuntimeError(f"pick {counts['calls']} ({kind}) does not match the "
+                                   f"recorded step")
+            pick = pick.to(own.device)
+            counts[kind] += int((own != pick).sum())
+            return pick
+
+        def relu(x):
+            mask = take("relu", x.detach() > 0)
+            return torch.where(mask, x, torch.zeros_like(x)) if pin else torch.relu(x)
+
+        def max_pool2d(x, kernel, stride):
+            y, own = F.max_pool2d(x.detach() if pin else x, kernel, stride,
+                                  return_indices=True)
+            idx = take("max_pool", own)
+            return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape) if pin else y
+
+        with self._patched(model, relu, max_pool2d):
+            yield counts
+        if counts["calls"] != len(self.picks):
+            raise RuntimeError(f"the step made {counts['calls']} picks, the recorded step "
+                               f"{len(self.picks)}")
 
 
 def k1_step_vs_plain(torch, dev, model, batch: dict, seed: int) -> dict:
@@ -1876,19 +2001,23 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
             raise RuntimeError(f"the eikonal term is missing, not finite or 0: {eik_metrics}")
         eik_state = {k: v.clone() for k, v in eik_model.state_dict().items()}
         # its float32 step on the card and on the CPU against float64 on the
-        # CPU, on the same inputs, and the card's bf16-mixed step as the
-        # control, for EIKONAL_SEEDS draws (deterministic algorithms on the card)
+        # CPU, on the same inputs and with the float64 step's ReLU and
+        # max-pool picks (ReluPicks), and the card's bf16-mixed step as the
+        # control, for EIKONAL_SEEDS draws (deterministic algorithms on the
+        # card); the card's float32 step on its own picks beside them, read
+        # and not gated
         cpu = torch.device("cpu")
         f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
-        runs = (("card", dev, f32, f32), ("cpu", cpu, f32, f32), ("cpu_f64", cpu, f64, f32),
-                ("card_bf16", dev, f32, bf16))
+        runs = (("cpu_f64", cpu, f64, f32), ("card", dev, f32, f32), ("cpu", cpu, f32, f32),
+                ("card_bf16", dev, f32, bf16), ("card_own_picks", dev, f32, f32))
         eik_seeds = []
         with deterministic_algorithms(torch):
             for seed in range(SEED + 2, SEED + 2 + EIKONAL_SEEDS):
                 eik_draws = ray_draws(torch, cpu, eik_model.cfg, batch, seed)
                 same_inputs, eik_fps_flips = cpu_inputs(torch, dev, eik_model.cfg, batch,
                                                          eik_draws)
-                steps_ = {}
+                relu_picks = ReluPicks(torch)
+                steps_, picks_off = {}, {}
                 for name, device, dtype, compute in runs:
                     m = fresh(device, compute, eik_model.cfg, eik_state).to(dtype).train()
 
@@ -1898,13 +2027,18 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
                     d = eik_draws._replace(**{k: to(getattr(eik_draws, k))
                                               for k in eik_draws._fields
                                               if getattr(eik_draws, k) is not None})
-                    with same_inputs():
+                    picks = (relu_picks.recording(m) if name == "cpu_f64" else
+                             relu_picks.replaying(m, pin=name != "card_own_picks"))
+                    with same_inputs(), picks as counts:
                         loss, metrics = gen_nerf_forward_loss(
                             m, {k: to(v) for k, v in batch.items()}, draws=d)
-                    loss.backward()
+                        loss.backward()
+                    if counts is not None:
+                        picks_off[name] = counts
                     steps_[name] = (float(loss.detach()), float(metrics["eikonal"].detach()),
                                     {n: q.grad.cpu().double() for n, q in m.named_parameters()})
                     del m
+                del relu_picks
 
                 def to_f64(a):
                     errs = {n: float((steps_[a][2][n] - g).abs().max())
@@ -1913,7 +2047,7 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
                     worst = max(errs, key=errs.get)
                     return errs[worst], worst
 
-                dist = {k: to_f64(k) for k in ("card", "cpu", "card_bf16")}
+                dist = {k: to_f64(k) for k in ("card", "cpu", "card_bf16", "card_own_picks")}
                 eik_seeds.append({
                     "seed": seed, "loss_card": steps_["card"][0], "loss_cpu": steps_["cpu"][0],
                     "loss_cpu_f64": steps_["cpu_f64"][0], "eikonal_card": steps_["card"][1],
@@ -1923,7 +2057,8 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
                     "grad_vs_f64_over_max_abs": {k: v[0] for k, v in dist.items()},
                     "worst_grad": {k: v[1] for k, v in dist.items()},
                     "ratio_to_cpu_f32": {k: dist[k][0] / dist["cpu"][0]
-                                         for k in ("card", "card_bf16")},
+                                         for k in ("card", "card_bf16", "card_own_picks")},
+                    "picks_off_f64": picks_off,
                     "k1_on_card_clouds_index_mismatches": eik_fps_flips})
                 del steps_
         if not all(r["loss_rel_err"] <= TRAIN_LOSS_RTOL
@@ -4635,6 +4770,622 @@ def mesh_phase(torch, dev, model, frames, planes_ref, table_args: dict, smi: str
     return launches, rec
 
 
+# -- 18. parallel ------------------------------------------------------------------
+
+# one data-parallel step against world size 1 on the same global batch of
+# PARALLEL_BATCH loader items, at the CPU tests' bounds (tests/test_torch_
+# parallel_step.py, test_torch_parallel_bn.py); float32: loss and metrics
+# 1e-5 relative, reduced gradients 1e-5 of max-abs, running statistics 1e-5
+# (floor 1e-5 of max-abs); bf16-mixed: loss 1e-4, gradients 2e-2 of
+# max-abs, running statistics 1e-5. One step, as there: Adam's first update
+# moves a parameter by lr in its gradient's sign, so a near-zero gradient's
+# float32 noise flips whole steps of lr, and three steps of VoxelNet put its
+# running statistics 1.6e-2 (float32) to 1.6e-1 (bf16) of max-abs apart
+# (H100 80GB HBM3, 700 W)
+PARALLEL_BATCH, PARALLEL_RANKS, PARALLEL_STEPS, PARALLEL_TRAINER_STEPS = 2, 2, 1, 10
+PARALLEL_TOL = {"loss": 1e-5, "grad": 1e-5, "stats": 1e-5}
+PARALLEL_BF16_TOL = {"loss": 1e-4, "grad": 2e-2, "stats": 1e-5}
+# VoxelNet at full width carries float32 noise of its own beyond the CPU
+# bounds: its world-size-1 evaluations (the whole batch; each convolution
+# one rank's rows at a time, `per_rank_convolutions`; the sharded step at
+# world size 1) lie 1.7e-3 to 2.1e-3 of max-abs (the worst gradient tensor,
+# a norm's scale or bias among them) from a float64 step and up to 2.1e-3
+# from one another (H100 80GB HBM3, 700 W). So its ranks are refereed by
+# the next wider step (float64 for float32, the float32 step for bf16): no
+# farther from it than PARALLEL_REFEREE_FACTOR times the farthest of those
+# evaluations
+PARALLEL_REFEREE_FACTOR = 1.25
+# the NCCL world-size-1 trainer against the plain steps: the same work, its
+# reductions over one rank (two-pass BatchNorm statistics, sums over
+# counts) in another float32 order
+PARALLEL_WORLD1_RTOL = 1e-5
+# K2's x-slab splits checked against the whole grid (slab counts)
+SLAB_COUNTS = {(96, 96, 56): (2, 4, 8), (190, 180, 50): (2, 5)}
+# prefetch_batches 0 against 2 on the data phase's loader-fed steps, in
+# turns; the same weights, batches and draws, so the first step's loss
+# differs only by the scatter atomics' order (no deterministic algorithms
+# while timing; over 16 Adam steps that order moved the last loss by up to
+# 6.1e-4 on an H100 80GB HBM3 at 700 W)
+PREFETCH_EPOCHS, PREFETCH_TURNS, PREFETCH_LOSS_RTOL = 2, (0, 2, 0, 2), 1e-5
+
+
+def _parallel_rank(rank: int, world: int, backend: str, port: int, job_path: str,
+                   out_path: str) -> None:
+    """One rank of the parallel phase (a spawned process): joins the group,
+    runs each case's steps on its rows of the global batch and the sharded
+    grid decode, the kernel counters reset just before and read just after
+    each, and saves what it got to out_path."""
+    from unittest import mock
+
+    import torch
+
+    from gennerf_tpu_torch import set_reference_precision
+    from gennerf_tpu_torch.models.gen_nerf import SceneRepr
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.parallel import distributed
+    from gennerf_tpu_torch.parallel.mesh import shard_batch
+    from gennerf_tpu_torch.predict import build_model
+    from gennerf_tpu_torch.train.predict import predict_tsdf_volume
+    from gennerf_tpu_torch.train.state import make_optimizer
+    from gennerf_tpu_torch.train.step import batch_to_device, train_step
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    set_reference_precision()
+    distributed.init_distributed(dev, backend=backend, coordinator_address=f"localhost:{port}",
+                                 num_processes=world, process_id=rank)
+    try:
+        job = torch.load(job_path, weights_only=False)
+        out = {"backend": distributed.backend(), "device": str(dev), "cases": {}}
+        for name, case in job["cases"].items():
+            model = build_model(case["model"], dev, SEED, case["precision"])
+            model.load_state_dict(case["state"])
+            opt = make_optimizer(model.parameters(), model.cfg.optimizer, case["clip"])
+            local, split = shard_batch(case["batch"])
+            batch = batch_to_device(local, dev)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            metrics, grads = [], None
+            # a planted fault: BatchNorm's statistics take a backward that
+            # is not all-reduced (each rank keeps its rows' share)
+            plant = (mock.patch.object(distributed._SharedSum, "backward",
+                                       distributed._GlobalSum.backward)
+                     if case.get("plant") == "local_bn_backward" else contextlib.nullcontext())
+            kernels.reset_launch_counts()
+            with deterministic_algorithms(torch), plant:
+                for step in range(PARALLEL_STEPS):
+                    m = train_step(model, opt, batch, gen, sharded=split)
+                    metrics.append({k: float(v) for k, v in m.items()})
+                    if grads is None:
+                        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                                 if p.grad is not None}
+            torch.cuda.synchronize()
+            out["cases"][name] = {
+                "rows": int(local["image"].shape[0]), "sharded": split, "metrics": metrics,
+                "grads": grads, "state": {k: v.detach().cpu() for k, v in
+                                          model.state_dict().items()},
+                "launches": {k.name: k.launches for k in kernels.KERNELS}}
+        decode = job["decode"]
+        if decode is None:
+            torch.save(out, out_path)
+            return
+        model = build_model(decode["model"], dev, SEED)
+        model.load_state_dict(decode["state"])
+        repr_ = SceneRepr({k: v.to(dev) for k, v in decode["planes"].items()})
+        kernels.reset_launch_counts()
+        vol = predict_tsdf_volume(model, repr_, decode["voxel_dim"], model.cfg.voxel_size,
+                                  torch.zeros(3, device=dev), sharded=True)
+        torch.cuda.synchronize()
+        out["decode"] = {"volume": vol.cpu(),
+                         "launches": {k.name: k.launches for k in kernels.KERNELS}}
+        torch.save(out, out_path)
+    finally:
+        distributed.shutdown()
+
+
+def run_parallel_ranks(torch, world: int, backend: str, job: dict, tmp: str) -> list:
+    """Each rank's results of `job` on `world` spawned ranks (raises if a
+    rank fails or does not finish in 600 s; every rank is stopped)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    job_path = os.path.join(tmp, f"job_{backend}.pt")
+    torch.save(job, job_path)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    outs = [os.path.join(tmp, f"{backend}_rank{r}.pt") for r in range(world)]
+    procs = [ctx.Process(target=_parallel_rank, args=(r, world, backend, port, job_path, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + 600
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world or not all(os.path.exists(o) for o in outs):
+        raise RuntimeError(f"{backend} ranks exited with {codes}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def _max_rel(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) / max(float(b.double().abs().max()),
+                                                              1e-30)
+
+
+@contextlib.contextmanager
+def per_rank_convolutions(parts: int):
+    """Within: every convolution of the port's models (`resnet._CastConv`)
+    runs on `parts` equal slices of its batch, one after the other and
+    concatenated, as `parts` ranks run it on their rows."""
+    from gennerf_tpu_torch.models import resnet
+
+    import torch
+
+    forward = resnet._CastConv.forward
+
+    def sliced(self, x):
+        if x.shape[0] % parts:
+            return forward(self, x)
+        return torch.cat([forward(self, c) for c in x.chunk(parts)])
+
+    resnet._CastConv.forward = sliced
+    try:
+        yield
+    finally:
+        resnet._CastConv.forward = forward
+
+
+def _distances(runs: list, ref: dict) -> dict:
+    """The worst gradient and running-statistic distance (each of its
+    tensor's max-abs) of runs ({"grads", "state"}) from ref's."""
+    return {"grad": max(_max_rel(run["grads"][n], g) for run in runs
+                        for n, g in ref["grads"].items()),
+            "stats": max([0.0] + [_max_rel(run["state"][k], v) for run in runs
+                                  for k, v in ref["state"].items() if "running_" in k])}
+
+
+def rank_distances(ranks: list, name: str, ref: dict) -> dict:
+    """The ranks' worst loss / metric (relative), gradient and
+    running-statistic distance from a world-size-1 step."""
+    runs = [r["cases"][name] for r in ranks]
+    loss = max(abs(m[k] - v) / max(abs(v), 1e-30) for run in runs
+               for m, mr in zip(run["metrics"], ref["metrics"]) for k, v in mr.items())
+    return {"loss": loss, **_distances(runs, ref)}
+
+
+def _within(d: dict, tol: dict) -> bool:
+    return all(d[k] <= tol[k] for k in tol)
+
+
+def compare_ranks(ranks: list, reference: dict, wider: dict) -> tuple:
+    """(report, failures) of the ranks' step against world size 1 (module
+    docstring): every case's loss within PARALLEL_TOL / PARALLEL_BF16_TOL
+    and the ranks' states bit-equal; GenNerf's gradients and statistics
+    within those bounds too; VoxelNet's refereed by the next wider step
+    (`wider`: float64 for float32, float32 for bf16), no farther from it
+    than PARALLEL_REFEREE_FACTOR times the farthest of the world-size-1
+    evaluations (the reference and its `variants`). Two planted faults on
+    the float32 VoxelNet case must read beyond that bound: the gradients
+    averaged over the ranks instead of summed, and BatchNorm's backward
+    not all-reduced (the `voxelnet_f32_planted_bn` case the ranks ran)."""
+    report, failures = {}, []
+    for name, ref in reference.items():
+        runs = [r["cases"][name] for r in ranks]
+        d = rank_distances(ranks, name, ref)
+        tol = PARALLEL_TOL if ref["precision"] == "32-true" else PARALLEL_BF16_TOL
+        equal = all(all(bool((runs[0]["state"][k] == run["state"][k]).all())
+                        for k in ref["state"]) for run in runs[1:])
+        rec = report[name] = {
+            "rows_per_rank": runs[0]["rows"], **d, "ranks_bit_equal": equal, "tolerance": tol,
+            "vector_params_grad": max(_max_rel(run["grads"][n], g) for run in runs
+                                      for n, g in ref["grads"].items() if g.dim() == 1),
+            "launches": [run["launches"] for run in runs]}
+        for label, variant in ref.get("variants", {}).items():
+            rec["vs_" + label] = rank_distances(ranks, name, variant)
+        ok = equal and d["loss"] <= tol["loss"]
+        if name in wider:
+            one = [ref, *ref.get("variants", {}).values()]
+            own = {k: max(_distances([o], wider[name])[k] for o in one) for k in ("grad", "stats")}
+            rec["vs_wider"] = {"ranks": _distances(runs, wider[name]), "one_process": own,
+                               "bound": {k: PARALLEL_REFEREE_FACTOR * v for k, v in own.items()}}
+            ok = ok and _within(rec["vs_wider"]["ranks"], rec["vs_wider"]["bound"])
+        else:
+            ok = ok and _within(d, tol)
+        if not ok:
+            failures.append(f"{name} on {len(ranks)} ranks disagrees with world size 1: {rec}")
+    halved = [dict(r["cases"]["voxelnet_f32"], grads={
+        n: g / len(ranks) for n, g in r["cases"]["voxelnet_f32"]["grads"].items()}) for r in ranks]
+    planted = {"gradients_averaged": _distances(halved, wider["voxelnet_f32"]),
+               "bn_backward_local": _distances([r["cases"]["voxelnet_f32_planted_bn"]
+                                                for r in ranks], wider["voxelnet_f32"])}
+    bound = report["voxelnet_f32"]["vs_wider"]["bound"]
+    report["planted_faults"] = {"vs_wider": planted, "bound": bound}
+    for k, d in planted.items():
+        if _within(d, bound):
+            failures.append(f"the planted fault {k} reads within the bounds: {d}")
+    return report, failures
+
+
+def parallel_phase(torch, dev, smi: str, root: str) -> tuple:
+    """Phase 18 (see the module docstring); returns (the launch counts of
+    the phase's main-path runs, its kernel errors)."""
+    import tempfile
+    from unittest import mock
+
+    from gennerf_tpu_torch.data.datamodule import ScannetDataModule
+    from gennerf_tpu_torch.models.gen_nerf import SceneRepr
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.ops.grid_decode import (
+        extract_resnetfc_weights, grid_decode_cuda, grid_tables, separable_grid_decode_plain,
+        slab_tables,
+    )
+    from gennerf_tpu_torch.ops.projection import get_3d_points
+    from gennerf_tpu_torch.ops.sampling import (
+        farthest_point_sample_plain, fps_cuda, uniform_presample,
+    )
+    from gennerf_tpu_torch.ops.weight_slabs import pack_decode_weights
+    from gennerf_tpu_torch.parallel import distributed
+    from gennerf_tpu_torch.predict import build_model
+    from gennerf_tpu_torch.tools.measure import cuda_ms
+    from gennerf_tpu_torch.train import loop as loop_module
+    from gennerf_tpu_torch.train.loop import Trainer
+    from gennerf_tpu_torch.train.predict import decode_grid, predict_tsdf_volume
+    from gennerf_tpu_torch.train.state import make_optimizer
+    from gennerf_tpu_torch.train.step import batch_to_device, train_step
+    from gennerf_tpu_torch.utils.config import load_experiment_config
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    totals = {k.name: 0 for k in kernels.KERNELS}
+    errors = {"fps": 0.0, "grid_decode": 0.0}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    # the global batches: PARALLEL_BATCH loader items of each config
+    cases = {}
+    for name, path, precision in (("gennerf", EXPERIMENT, None),
+                                  ("voxelnet", VOXELNET_EXPERIMENT, None),
+                                  ("voxelnet_f32", VOXELNET_EXPERIMENT, "32-true")):
+        cfg = load_experiment_config(path, "train", [f"paths.data_dir={root}"])
+        data_cfg = dict(cfg["data"], batch_size=PARALLEL_BATCH)
+        batch = next(iter(ScannetDataModule(data_cfg, seed=SEED).train_dataloader()))
+        batch = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+        precision = precision or str(cfg["trainer"].get("precision", "32-true"))
+        model = build_model(cfg["model"], dev, SEED, precision)
+        state = cases["voxelnet"]["state"] if name == "voxelnet_f32" else {
+            k: v.detach().cpu() for k, v in model.state_dict().items()}
+        cases[name] = {"model": cfg["model"], "precision": precision, "batch": batch,
+                       "clip": cfg["trainer"].get("gradient_clip_val"), "state": state}
+
+    def reference_run(case, per_rank: bool = False, sharded: bool = False):
+        model = build_model(case["model"], dev, SEED, case["precision"])
+        model.load_state_dict(case["state"])
+        opt = make_optimizer(model.parameters(), model.cfg.optimizer, case["clip"])
+        batch = batch_to_device(case["batch"], dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        metrics, grads = [], None
+        with deterministic_algorithms(torch), (per_rank_convolutions(PARALLEL_RANKS) if per_rank
+                                               else contextlib.nullcontext()):
+            for _ in range(PARALLEL_STEPS):
+                m = train_step(model, opt, batch, gen, sharded=sharded)
+                metrics.append({k: float(v) for k, v in m.items()})
+                if grads is None:
+                    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                             if p.grad is not None}
+        return {"precision": case["precision"], "metrics": metrics, "grads": grads,
+                "state": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+
+    reference = {}
+    for name, case in cases.items():
+        voxel = name.startswith("voxelnet")
+        reference[name] = reference_run(case, per_rank=voxel)
+        if voxel:
+            reference[name]["variants"] = {"whole": reference_run(case)}
+    # float64 gradients of VoxelNet's first step at world size 1 (the
+    # projections stay float32: the backprojection's lookup is float32)
+    case = cases["voxelnet_f32"]
+    m64 = build_model(case["model"], dev, SEED, "32-true")
+    m64.load_state_dict(case["state"])
+    m64 = m64.double().train()
+    b64 = {k: torch.from_numpy(v).to(dev, torch.float64) for k, v in case["batch"].items()}
+    with deterministic_algorithms(torch):
+        _, losses64 = m64(torch.from_numpy(case["batch"]["projection"]).to(dev),
+                          b64["image"], m64.cfg.voxel_dim_train, None,
+                          {k: b64[k] for k in b64 if k.endswith("_tsdf")})
+        sum(losses64.values()).backward()
+    wider = {"voxelnet_f32": {
+        "grads": {n: p.grad.detach().cpu() for n, p in m64.named_parameters()
+                  if p.grad is not None},
+        "state": {k: v.detach().cpu() for k, v in m64.state_dict().items()}}}
+    del m64, b64, losses64
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+
+    # the grid decode's scene: the GenNerf case's first item encoded
+    gcase = cases["gennerf"]
+    gmodel = build_model(gcase["model"], dev, SEED)
+    gmodel.load_state_dict(gcase["state"])
+    gb = batch_to_device({k: v[:1] for k, v in gcase["batch"].items()}, dev)
+    with torch.no_grad():
+        repr_ = gmodel.encode(gb["projection"], gb["image"], gb["depth"],
+                              torch.Generator(device=dev).manual_seed(SEED))
+    planes = {k: v.detach().cpu() for k, v in repr_.planes.items()}
+    decode_job = {"model": gcase["model"], "state": gcase["state"], "planes": planes,
+                  "voxel_dim": VOXEL_DIM}
+    whole = decode_grid(gmodel, repr_, VOXEL_DIM, gmodel.cfg.voxel_size,
+                        torch.zeros(3, device=dev)).cpu()
+
+    ran, failures = [], []
+    record = {"phase": "parallel", "global_batch": PARALLEL_BATCH,
+              "devices": torch.cuda.device_count(), "card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) NCCL at world size 1 in this process: the data-parallel
+        # trainer's steps against the plain steps, the machinery's cost
+        distributed.init_distributed(dev, backend="nccl",
+                                     coordinator_address=f"localhost:{_free_port()}",
+                                     num_processes=1, process_id=0)
+        try:
+            ran.append("nccl_world1")
+            for name in ("voxelnet", "voxelnet_f32"):
+                reference[name]["variants"]["sharded_world1"] = reference_run(
+                    cases[name], per_rank=True, sharded=True)
+            wider["voxelnet"] = reference["voxelnet_f32"]["variants"]["whole"]
+            case = cases["gennerf"]
+            batch_np = case["batch"]
+
+            def fresh(case):
+                model = build_model(case["model"], dev, SEED, case["precision"])
+                model.load_state_dict(case["state"])
+                return model, make_optimizer(model.parameters(), model.cfg.optimizer,
+                                             case["clip"])
+
+            def machinery_cost(case, dp, plain) -> dict:
+                """ms of the coalesced gradient all-reduce, and of the
+                sharded against the plain step (turns: sharded, plain,
+                sharded, plain; each the median of 10 steps)."""
+                batch = batch_to_device(case["batch"], dev)
+                gens = [torch.Generator(device=dev).manual_seed(SEED) for _ in range(2)]
+                steps = {"sharded": lambda: train_step(*dp, batch, gens[0], sharded=True),
+                         "plain": lambda: train_step(*plain, batch, gens[1])}
+                steps["sharded"]()  # the gradients the all-reduce sums
+                with distributed.sharded():
+                    allreduce = cuda_ms(torch, lambda: distributed.all_reduce_gradients(
+                        dp[0].parameters()), reps=20)
+                turns = {"sharded": [], "plain": []}
+                for label in ("sharded", "plain") * 2:
+                    turns[label].append(cuda_ms(torch, steps[label], reps=10))
+                return {"precision": case["precision"], "grad_allreduce_ms": allreduce,
+                        "grad_bytes": sum(p.numel() * p.element_size()
+                                          for p in dp[0].parameters()),
+                        "sharded_step_ms": turns["sharded"], "plain_step_ms": turns["plain"]}
+
+            plain_model, plain_opt = fresh(case)
+            plain_gen = torch.Generator(device=dev).manual_seed(SEED)
+            plain_batch = batch_to_device(batch_np, dev)
+            plain_losses = []
+            with deterministic_algorithms(torch):
+                for _ in range(PARALLEL_TRAINER_STEPS):
+                    plain_losses.append(float(train_step(plain_model, plain_opt, plain_batch,
+                                                         plain_gen)["combined"]))
+            dp_model, dp_opt = fresh(case)
+            dp_losses, dp_sharded = [], []
+
+            def recording_step(*a, **k):
+                dp_sharded.append(k.get("sharded", False))
+                m = train_step(*a, **k)
+                dp_losses.append(float(m["combined"]))
+                return m
+
+            trainer = Trainer(dp_model, dp_opt, torch.Generator(device=dev).manual_seed(SEED),
+                              None, max_epochs=1, log_every_n_steps=PARALLEL_TRAINER_STEPS,
+                              num_sanity_val_steps=0, prefetch_batches=2)
+            kernels.reset_launch_counts()
+            with deterministic_algorithms(torch), \
+                    mock.patch.object(loop_module, "train_step", recording_step):
+                trainer.fit([batch_np] * PARALLEL_TRAINER_STEPS)
+            torch.cuda.synchronize()
+            world1_launches = {k.name: k.launches for k in kernels.KERNELS}
+            add(world1_launches)
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(dp_losses, plain_losses))
+            plain_sd, dp_sd = plain_model.state_dict(), dp_model.state_dict()
+            param_rel = max(_max_rel(dp_sd[k], plain_sd[k]) for k in plain_sd)
+            param_equal = all(bool(torch.equal(dp_sd[k], plain_sd[k])) for k in plain_sd)
+            del plain_sd, dp_sd
+            # K1 on the rank's rows (every row at world size 1): the
+            # batch's presampled clouds against the plain FPS
+            cfg = plain_model.cfg
+            depth = plain_batch["depth"].flatten(0, 1)
+            clouds = get_3d_points(depth, plain_batch["projection"].flatten(0, 1))
+            xyz = uniform_presample(clouds.reshape(depth.shape[0], -1, 3),
+                                    cfg.encoder.pointnet.fps_presample,
+                                    torch.Generator().manual_seed(SEED)).contiguous()
+            start = torch.randint(0, xyz.shape[1], (xyz.shape[0],),
+                                  generator=torch.Generator().manual_seed(SEED)).to(dev)
+            npoint = cfg.encoder.pointnet.num_sparse_points
+            k1_mismatch = int((fps_cuda(xyz, npoint, start.to(torch.int32)).long()
+                               != farthest_point_sample_plain(xyz, npoint, start).long()).sum())
+            errors["fps"] = max(errors["fps"], float(k1_mismatch))
+            # the machinery's cost: the gradient all-reduce and the step
+            cost = {"gennerf": machinery_cost(case, (dp_model, dp_opt), (plain_model, plain_opt))}
+            del dp_model, dp_opt, plain_model, plain_opt, trainer
+            cost["voxelnet"] = machinery_cost(cases["voxelnet"], fresh(cases["voxelnet"]),
+                                              fresh(cases["voxelnet"]))
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the sharded grid decode at world size 1: K2 once, the whole grid
+            kernels.reset_launch_counts()
+            vol1 = predict_tsdf_volume(gmodel, repr_, VOXEL_DIM, gmodel.cfg.voxel_size,
+                                       torch.zeros(3, device=dev), sharded=True)
+            torch.cuda.synchronize()
+            decode1_launches = {k.name: k.launches for k in kernels.KERNELS}
+            add(decode1_launches)
+            record["nccl_world1"] = {
+                "backend": distributed.backend(), "steps": PARALLEL_TRAINER_STEPS,
+                "sharded_steps": sum(dp_sharded), "loss_rel": loss_rel,
+                "param_rel_over_max_abs": param_rel, "params_bit_equal": param_equal,
+                "tolerance_rel": PARALLEL_WORLD1_RTOL, "launches": world1_launches,
+                "k1_rows_index_mismatches": k1_mismatch, "k1_clouds": list(xyz.shape),
+                "machinery_cost": cost, "decode_launches": decode1_launches,
+                "decode_equal": bool(torch.equal(vol1.cpu(), whole))}
+        finally:
+            distributed.shutdown()
+        w1 = record["nccl_world1"]
+        if (w1["sharded_steps"] != PARALLEL_TRAINER_STEPS
+                or w1["loss_rel"] > PARALLEL_WORLD1_RTOL
+                or w1["param_rel_over_max_abs"] > PARALLEL_WORLD1_RTOL or k1_mismatch
+                or w1["launches"]["fps"] != PARALLEL_TRAINER_STEPS
+                or decode1_launches["grid_decode"] != 1 or not w1["decode_equal"]):
+            raise RuntimeError(f"NCCL world size 1 disagrees with the plain path: {w1}")
+
+        # (b) 2 ranks on the one card over gloo (CUDA tensors); (c) NCCL at
+        # world size 2 where the machine has two cards
+        job = {"cases": {name: {k: case[k] for k in ("model", "precision", "batch", "clip",
+                                                       "state")}
+                         for name, case in cases.items()},
+               "decode": decode_job}
+        job["cases"]["voxelnet_f32_planted_bn"] = dict(job["cases"]["voxelnet_f32"],
+                                                       plant="local_bn_backward")
+        runs = [("gloo_2ranks_one_card", "gloo")]
+        if torch.cuda.device_count() >= 2:
+            runs.append(("nccl_world2", "nccl"))
+        else:
+            record["nccl_world2"] = "not run: one card"
+        for label, backend in runs:
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ranks = run_parallel_ranks(torch, PARALLEL_RANKS, backend, job, tmp)
+            ran.append(label)
+            rep, failed = compare_ranks(ranks, reference, wider)
+            failures += failed
+            gathered = [r["decode"]["volume"] for r in ranks]
+            for r in ranks:
+                for c in r["cases"].values():
+                    add(c["launches"])
+                add(r["decode"]["launches"])
+            record[label] = {
+                "backend": [r["backend"] for r in ranks], "devices": [r["device"] for r in ranks],
+                "cases": rep, "seconds": time.perf_counter() - t0,
+                "decode_launches": [r["decode"]["launches"] for r in ranks],
+                "decode_equal_whole_k2": all(bool(torch.equal(g, whole)) for g in gathered)}
+            if not record[label]["decode_equal_whole_k2"] or any(
+                    r["decode"]["launches"]["grid_decode"] != 1 for r in ranks):
+                failures.append(f"{label}: the sharded decode is not the whole grid's "
+                                f"({record[label]['decode_launches']})")
+            for name in ranks[0]["cases"]:
+                fps = [r["cases"][name]["launches"]["fps"] for r in ranks]
+                if any(f != (PARALLEL_STEPS if name == "gennerf" else 0) for f in fps):
+                    failures.append(f"{label}: {name} launched K1 {fps} times")
+
+    # (d) K2's x-slab split: each slab through K2, concatenated, against the
+    # whole grid through K2 and the plain bf16-feed decode
+    slabs = {}
+    fcfg = load_experiment_config(FLAGSHIP_EXPERIMENT, "train", flagship_overrides(root))
+    fmodel = build_model(fcfg["model"], dev, SEED)
+    reso = fmodel.cfg.encoder.pointnet.plane_resolution
+    c_dim = fmodel.cfg.encoder.pointnet.c_dim
+    pgen = torch.Generator(device=dev).manual_seed(SEED)
+    fplanes = {k: 0.5 * torch.randn((1, c_dim, reso, reso), generator=pgen, device=dev)
+               for k in ("xz", "xy", "yz")}
+    for voxel_dim, (model, pl) in (((96, 96, 56), (gmodel, repr_.planes)),
+                                   ((190, 180, 50), (fmodel, fplanes))):
+        weights = pack_decode_weights(extract_resnetfc_weights(
+            model.mlp, model.head_geo, model.cfg.mlp.d_out_geo, model.cfg.mlp.head_smoothing),
+            point=False)
+        mcfg = model.cfg
+        extent = [d * mcfg.voxel_size for d in mcfg.voxel_dim_train]
+        norm = mcfg.encoder.pointnet.normalize_coords
+        tables = grid_tables(pl["xz"][0], pl["xy"][0], pl["yz"][0], torch.zeros(3, device=dev),
+                             weights, voxel_dim=voxel_dim, voxel_size=mcfg.voxel_size,
+                             num_freqs=mcfg.code.num_freqs, freq_factor=mcfg.code.freq_factor,
+                             include_input=mcfg.code.include_input,
+                             padding=mcfg.encoder.pointnet.padding,
+                             coord_center=tuple(e / 2 for e in extent) if norm else None,
+                             coord_scale=max(extent) if norm else None)
+        full = grid_decode_cuda(tables, weights)
+        plain = separable_grid_decode_plain(tables, weights, bf16_feeds=True)
+        for n in SLAB_COUNTS[voxel_dim]:
+            k = voxel_dim[0] // n
+            parts = [grid_decode_cuda(slab_tables(tables, i * k, (i + 1) * k), weights)
+                     for i in range(n)]
+            cat = torch.cat(parts, dim=0)
+            err = (cat - plain).abs()
+            slabs[f"{'x'.join(map(str, voxel_dim))}/{n}"] = {
+                "d_in": int(pl["xz"].shape[1]),
+                "equal_whole_k2": bool(torch.equal(cat, full)),
+                "vs_plain_max_abs": float(err.max()), "vs_plain_mean_abs": float(err.mean())}
+            errors["grid_decode"] = max(errors["grid_decode"], float(err.max()))
+    record["slabs"] = slabs
+    if not all(s["equal_whole_k2"] and s["vs_plain_max_abs"] <= GRID_MAX_ABS_TOL
+               and s["vs_plain_mean_abs"] <= GRID_MEAN_ABS_TOL for s in slabs.values()):
+        failures.append(f"K2's x-slab split disagrees: {slabs}")
+
+    # (e) prefetch_batches 0 against 2 on the data phase's loader-fed steps
+    prefetch = {}
+    cfg = load_experiment_config(EXPERIMENT, "train", [f"paths.data_dir={root}"])
+    for size in PREFETCH_TURNS:
+        model = build_model(cfg["model"], dev, SEED)
+        opt = make_optimizer(model.parameters(), model.cfg.optimizer,
+                             cfg["trainer"].get("gradient_clip_val"))
+        trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), None,
+                          max_epochs=PREFETCH_EPOCHS, log_every_n_steps=1,
+                          num_sanity_val_steps=0, prefetch_batches=size)
+        first = []
+
+        def first_loss(*a, **k):
+            metrics = train_step(*a, **k)
+            if not first:
+                first.append(metrics["combined"])
+            return metrics
+
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(loop_module, "train_step", first_loss):
+            trainer.fit(ScannetDataModule(cfg["data"], seed=SEED).train_dataloader())
+        fit_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        add(launches)
+        waits = [t["data_wait_ms"] for t in trainer.timings]
+        steps = [t["step_ms"] for t in trainer.timings]
+        prefetch.setdefault(str(size), []).append({
+            "steps": len(steps), "data_wait_ms_median": statistics.median(waits),
+            "step_ms_median": statistics.median(steps), "fit_s": fit_s,
+            "loss_first": float(first[0]), "loss_last": trainer.metrics["train_combined"],
+            "k1_launches": launches["fps"]})
+        if launches["fps"] != trainer.global_step or len(steps) < 16:
+            failures.append(f"prefetch {size}: {launches} in {trainer.global_step} steps")
+    losses = [run["loss_first"] for runs in prefetch.values() for run in runs]
+    spread = (max(losses) - min(losses)) / abs(min(losses))
+    record["prefetch"] = {"turns": list(PREFETCH_TURNS), **prefetch,
+                          "first_loss_spread_rel": spread, "tolerance_rel": PREFETCH_LOSS_RTOL}
+    if spread > PREFETCH_LOSS_RTOL:
+        failures.append(f"prefetch_batches changed the run: {prefetch}")
+    record.update(ran=ran, launches=totals, seconds=time.perf_counter() - t_phase,
+                  failures=failures)
+    emit(record)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return totals, errors
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5030,6 +5781,10 @@ def main() -> int:
         # (fusion on the card), then the flagship trained on it (K1, K2, K3)
         prepare_launches, prepare_errors = prepare_phase(
             torch, dev, smi, os.path.join(data_tmp, "prepare"))
+        # 18. parallel: the process group (NCCL at world size 1, 2 ranks on
+        # the card over gloo, NCCL at 2 on two cards), the data-parallel
+        # steps against world size 1, K2's x-slab split, host prefetch
+        parallel_launches, parallel_errors = parallel_phase(torch, dev, smi, root)
 
     kernel_line = {"kernels": [
         {"name": "fps", "route": "cuda", "source": "gennerf_tpu_torch/csrc/fps.cu",
@@ -5039,10 +5794,12 @@ def main() -> int:
                       + spatial_launches["fps"] + voxelnet_launches["fps"]
                       + flagship_launches["fps"] + distill_launches["fps"]
                       + harness_launches["fps"] + weights_launches["fps"]
-                      + options_launches["fps"] + prepare_launches["fps"]),
+                      + options_launches["fps"] + prepare_launches["fps"]
+                      + parallel_launches["fps"]),
          "max_abs_err": max(float((idx_k - idx_p).abs().max()), flagship_errors["fps"],
                             harness_errors["fps"], weights_errors["fps"],
-                            options_errors["fps"], prepare_errors["fps"]),
+                            options_errors["fps"], prepare_errors["fps"],
+                            parallel_errors["fps"]),
          "ms": fps_ms,
          "plain_ms": fps_plain_ms, "bound_ms": fps_bound, "bound_by": "operations",
          "library_ms": None},
@@ -5052,11 +5809,12 @@ def main() -> int:
                       + data_launches["grid_decode"] + voxelnet_launches["grid_decode"]
                       + flagship_launches["grid_decode"] + distill_launches["grid_decode"]
                       + harness_launches["grid_decode"] + weights_launches["grid_decode"]
-                      + options_launches["grid_decode"] + prepare_launches["grid_decode"]),
+                      + options_launches["grid_decode"] + prepare_launches["grid_decode"]
+                      + parallel_launches["grid_decode"]),
          "max_abs_err": max(grid_max, flagship_errors["grid_decode"],
                             distill_errors["grid_decode"], harness_errors["grid_decode"],
                             weights_errors["grid_decode"], options_errors["grid_decode"],
-                            prepare_errors["grid_decode"]),
+                            prepare_errors["grid_decode"], parallel_errors["grid_decode"]),
          "ms": grid_ms,
          "plain_ms": grid_plain_ms, "bound_ms": grid_bound,
          "bound_by": "operations" if grid_flops / PEAK_BF16 >= grid_bytes / PEAK_BYTES else "bytes",

@@ -7,6 +7,14 @@ resample) and whose batches assemble and yield strictly in order. Every
 random draw of an item comes from a generator seeded by (the mode's seed,
 the item's serial), so a batch depends neither on `num_workers` nor on
 thread scheduling, and the draws equal the JAX package's.
+
+Under data parallelism (`world` ranks) each rank's loader decodes only its
+rows [r*k, (r+1)*k) of every global batch, each item keeping its global
+serial, so the ranks' batches put together are the one-process batch bit
+for bit (the shuffle is the same on every rank). A batch whose rows the
+ranks do not divide (a final partial batch) is decoded whole on every
+rank. A rank's batches carry `shard`: whether they hold its rows (True)
+or the whole batch (False).
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..parallel.distributed import local_batch_slice, process_index
 from . import transforms as T
 from .datasets import (
     FrameDataset, ItemCache, OneSceneDataset, ScenesDataset, ScenesSequencesDataset, collate_fn,
@@ -71,12 +80,14 @@ class DataLoader:
     PREFETCH batches load concurrently on a thread pool.
 
     With `item_rng`, each item runs under item_rng.item_scope((seed,
-    serial)), `serial` counting items in submission order across epochs."""
+    serial)), `serial` counting items in submission order across epochs.
+    With `world` > 1 it yields rank `rank`'s rows of each batch (module
+    docstring); serials count the global batch's items."""
 
     PREFETCH = 2
 
     def __init__(self, dataset, batch_size=1, shuffle=False, seed=0, num_workers=4,
-                 item_rng: Optional[LockedGenerator] = None):
+                 item_rng: Optional[LockedGenerator] = None, world: int = 1, rank: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -84,15 +95,31 @@ class DataLoader:
         self.seed = seed
         self.rng = np.random.default_rng(seed)
         self.item_rng = item_rng
+        self.world, self.rank = int(world), int(rank)
         self._serial = 0
 
-    def _job(self, i: int):
-        """A zero-argument loader of item i; its serial is taken now, in
-        submission order, whichever thread runs it later."""
+    def _jobs(self, chunk: List[int]):
+        """(zero-argument loaders of this rank's items of a batch, whether
+        they are its rows); the serials are taken now, in submission order,
+        whichever thread runs them later."""
+        first = self._serial
+        self._serial += len(chunk)
+        take, split = slice(0, len(chunk)), False
+        if self.world > 1 and len(chunk) % self.world == 0:
+            take, split = local_batch_slice(len(chunk), self.world, self.rank), True
+        return [self._job(chunk[j], first + j)
+                for j in range(len(chunk))[take]], split
+
+    def _collate(self, items, split: bool):
+        batch = collate_fn(items)
+        if self.world > 1:
+            batch["shard"] = split
+        return batch
+
+    def _job(self, i: int, serial: int):
+        """A zero-argument loader of item i under its serial's draws."""
         if self.item_rng is None:
             return lambda: self.dataset[i]
-        serial = self._serial
-        self._serial += 1
 
         def job():
             with self.item_rng.item_scope((self.seed, serial)):
@@ -113,34 +140,47 @@ class DataLoader:
     def __iter__(self):
         if self.num_workers <= 0:
             for chunk in self._index_batches():
-                yield collate_fn([self._job(i)() for i in chunk])
+                jobs, split = self._jobs(chunk)
+                yield self._collate([job() for job in jobs], split)
             return
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             pending: "queue.SimpleQueue" = queue.SimpleQueue()
             chunks = self._index_batches()
             in_flight = 0
+            def submit(chunk):
+                jobs, split = self._jobs(chunk)
+                pending.put(([pool.submit(job) for job in jobs], split))
+
             for chunk in chunks:
-                pending.put([pool.submit(self._job(i)) for i in chunk])
+                submit(chunk)
                 in_flight += 1
                 if in_flight >= self.PREFETCH + 1:
                     break
             while in_flight:
-                futures = pending.get()
+                futures, split = pending.get()
                 in_flight -= 1
-                batch = collate_fn([f.result() for f in futures])
+                batch = self._collate([f.result() for f in futures], split)
                 nxt = next(chunks, None)
                 if nxt is not None:
-                    pending.put([pool.submit(self._job(i)) for i in nxt])
+                    submit(nxt)
                     in_flight += 1
                 yield batch
 
 
 class ScannetDataModule:
-    """Datasets and loaders of a `data` config for each mode."""
+    """Datasets and loaders of a `data` config for each mode. `num_devices`
+    is the data-parallel world size (the batch size must be a multiple of
+    it); the train, val and test loaders then yield rank `rank`'s rows
+    (default: this process's rank in the process group)."""
 
-    def __init__(self, cfg: Dict, num_devices: int = 1, seed: int = 0):
+    def __init__(self, cfg: Dict, num_devices: int = 1, seed: int = 0,
+                 rank: Optional[int] = None):
         self.cfg = dict(cfg)
         self.seed = seed
+        self.world = max(int(num_devices), 1)
+        if rank is None:
+            rank = process_index() if self.world > 1 else 0
+        self.rank = int(rank)
         c = self.cfg
         self.voxel_size = c["voxel_size"]
         self.voxel_types = c.get("voxel_types", ["tsdf"])
@@ -221,7 +261,7 @@ class ScannetDataModule:
                           seed=self.mode_seed(mode),
                           num_workers=self.cfg.get(f"num_workers_{mode}",
                                                    self.cfg.get("num_workers", 4)),
-                          item_rng=rng)
+                          item_rng=rng, world=self.world, rank=self.rank)
 
     def train_dataloader(self) -> DataLoader:
         return self._loader("train", self.cfg.get("shuffle_train", True))

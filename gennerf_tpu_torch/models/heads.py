@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from ..ops.value_transforms import log_transform
+from ..parallel.distributed import global_ratio
 from .resnet import conv3d
 from .resnetfc import linear
 
@@ -108,8 +109,8 @@ class TSDFHead(nn.Module):
             loss = (pred - trgt).abs() * self.loss_weight
             if self.loss_split == "pred" and i > 0:
                 wanted = wanted & surface[i - 1]
-            denom = wanted.sum().clamp_min(1)
-            losses[key + "_loss"] = torch.where(wanted, loss, torch.zeros_like(loss)).sum() / denom
+            losses[key + "_loss"] = global_ratio(
+                torch.where(wanted, loss, torch.zeros_like(loss)).sum(), wanted.sum())
         return output, losses
 
 

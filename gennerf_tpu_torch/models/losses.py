@@ -4,6 +4,12 @@ Per-element loss matrices plus the aggregated dict; all loss math runs in
 float32 (a bf16 model's outputs are cast first). The distillation term
 has its own sample set (one point a ray): its masked mean is added to the
 combined loss outside the point-wise masked mean.
+
+Every mean is global in a data-parallel step (`parallel.distributed.
+sharded`): the sums of the numerator and of the count over all ranks, as
+the JAX package's one global program computes them, so that ranks holding
+different valid counts give the whole batch's masked mean (an average of
+per-rank means would not); one process computes the expressions as before.
 """
 from __future__ import annotations
 
@@ -12,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops.value_transforms import log_transform, smooth_log_transform
+from ..parallel.distributed import global_mean, global_ratio
 from .config import LossConfig
 
 
@@ -78,7 +85,7 @@ def loss_gradient(cfg: LossConfig, outputs, targets, num_rays: int) -> torch.Ten
 
 def loss_feat(cfg: LossConfig, outputs, targets) -> torch.Tensor:
     """Encourage non-degenerate encoder features: 1 / mean feature norm."""
-    contribution = _safe_norm(outputs["feat"], dim=-1).mean()
+    contribution = global_mean(_safe_norm(outputs["feat"], dim=-1))
     return 1.0 / torch.clamp(contribution, min=1e-12)
 
 
@@ -103,9 +110,9 @@ def loss_distill(cfg: LossConfig, outputs, targets) -> torch.Tensor:
 def _masked_mean(m: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
     """Mean over valid samples only; `valid` is (B, N, 1) in {0, 1} or None."""
     if valid is None:
-        return m.mean()
+        return global_mean(m)
     w = torch.broadcast_to(valid, m.shape)
-    return (m * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return global_ratio((m * w).sum(), w.sum())
 
 
 def calculate_loss(cfg: LossConfig, outputs: Dict[str, torch.Tensor],
@@ -152,14 +159,13 @@ def calculate_loss(cfg: LossConfig, outputs: Dict[str, torch.Tensor],
     if cfg.use_distill and "teacher_feat" in targets:
         m = loss_distill(cfg, outputs, targets)
         tm = targets.get("teacher_mask")
-        d = m.mean() if tm is None else m.sum() / torch.clamp(
-            torch.broadcast_to(tm, m.shape).sum(), min=1.0)
+        d = global_mean(m) if tm is None else _masked_mean(m, tm)
         losses["distill"] = d
         if tm is not None:
-            losses["distill_coverage"] = tm.mean()
+            losses["distill_coverage"] = global_mean(tm)
         loss_scalar = loss_scalar + cfg.distill.weight * d
     combined = _masked_mean(loss_mat, valid) + loss_scalar
     if valid is not None:
-        losses["valid_coverage"] = valid.mean()
+        losses["valid_coverage"] = global_mean(valid)
     losses["combined"] = combined
     return combined, losses

@@ -23,6 +23,12 @@ after the convolution, in that dtype, as flax does), BatchNorm computes
 its statistics and the normalization in float32 and returns the compute
 dtype (`float_output` returns float32, the 3D norm's rule). Parameters and
 running statistics stay float32.
+
+In a data-parallel step (`parallel.distributed.sharded`) every BatchNorm
+takes its training statistics over the global batch, all ranks' rows: the
+JAX package's norms bind no axis name, but its jit-global program over a
+batch-sharded mesh computes them over the whole batch, whichever norm the
+config names ('BN', 'nnSyncBN', 'batch', 'sync_batch').
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..parallel import distributed
 from .resnetfc import compute_dtype_of
 
 # flax's truncated_normal keeps the variance: its stddev is divided by the
@@ -137,6 +144,9 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
             if not self.flax_expressions:
                 return F.batch_norm(x, mean, var, self.weight, self.bias, False, 0.0, self.eps)
+        elif distributed.active():
+            mean, var = self._global_statistics(x)
+            self._update(mean, var, update_stats)
         elif self.flax_expressions:
             dims = (0,) + tuple(range(2, x.dim()))
             mean = x.mean(dims)
@@ -150,6 +160,23 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
         return y.to(self.out_dtype)
+
+    def _global_statistics(self, x: torch.Tensor):
+        """Mean and biased variance over every rank's batch of a sharded
+        step (the JAX package's jit-global statistics): under bf16 flax's
+        E[x^2] - E[x]^2 from one reduction of the sums of x and x^2, in
+        float32 two passes (the mean, then the squared deviations); their
+        backward is that of the global statistics (`shared_sum`)."""
+        dims = (0,) + tuple(range(2, x.dim()))
+        count = x.numel() // x.shape[1] * distributed.shard_count()
+        if self.flax_expressions:
+            sums = distributed.shared_sum(torch.stack([x.sum(dims), (x * x).sum(dims)]))
+            mean = sums[0] / count
+            return mean, torch.clamp_min(sums[1] / count - mean * mean, 0.0)
+        mean = distributed.shared_sum(x.sum(dims)) / count
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        dev = x - mean.reshape(shape)
+        return mean, distributed.shared_sum((dev * dev).sum(dims)) / count
 
     @torch.no_grad()
     def _update(self, mean: torch.Tensor, var: torch.Tensor, update_stats: bool) -> None:

@@ -167,6 +167,15 @@ def grid_tables(plane_xz, plane_xy, plane_yz, origin, weights: dict, *, voxel_di
     )
 
 
+def slab_tables(tables: GridTables, x0: int, x1: int) -> GridTables:
+    """The tables of the grid's x-slab [x0, x1): the x tables (q_xz, q_xy,
+    z_x) cut, the others whole; its decode is rows x0..x1-1 of the whole
+    grid's."""
+    q_yz, q_xz, q_xy, z_x, z_y, z_z = tables
+    return GridTables(q_yz, q_xz[x0:x1].contiguous(), q_xy[x0:x1].contiguous(),
+                      z_x[x0:x1].contiguous(), z_y, z_z)
+
+
 def _feed(a: torch.Tensor, bf16_feeds: bool) -> torch.Tensor:
     """A product input: rounded to bf16 and held in f32 (the product of two
     bf16 values is exact in f32, so an f32 matmul of rounded inputs is a

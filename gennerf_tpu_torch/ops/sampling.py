@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.distributed import local_batch_slice, shard_count, shard_index
 from . import kernels
 
 
@@ -30,20 +31,35 @@ def _gen_device(generator: Optional[torch.Generator]) -> torch.device:
     return generator.device if generator is not None else torch.device("cpu")
 
 
+def _global_rows(draw, shape, device) -> torch.Tensor:
+    """`draw(shape)` of one step's batch rows. In a data-parallel step
+    (parallel.distributed.sharded) every rank holds the same generator
+    state, draws the global batch's rows (axis 0 times the ranks) and keeps
+    its own, so the stream stays the one-process run's."""
+    n = shard_count()
+    shape = tuple(shape)
+    if n == 1 or not shape:
+        return draw(shape).to(device)
+    rows = local_batch_slice(shape[0] * n, n, shard_index())
+    return draw((shape[0] * n,) + shape[1:])[rows].to(device)
+
+
 def _draw(high: int, shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     """Uniform int64 in [0, high), drawn on the generator's device."""
-    return torch.randint(0, high, shape, generator=generator,
-                         device=_gen_device(generator)).to(device)
+    return _global_rows(lambda sh: torch.randint(0, high, sh, generator=generator,
+                                                 device=_gen_device(generator)), shape, device)
 
 
 def draw_uniform(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     """Uniform float32 in [0, 1), drawn on the generator's device."""
-    return torch.rand(shape, generator=generator, device=_gen_device(generator)).to(device)
+    return _global_rows(lambda sh: torch.rand(sh, generator=generator,
+                                              device=_gen_device(generator)), shape, device)
 
 
 def draw_normal(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     """Standard normal float32, drawn on the generator's device."""
-    return torch.randn(shape, generator=generator, device=_gen_device(generator)).to(device)
+    return _global_rows(lambda sh: torch.randn(sh, generator=generator,
+                                               device=_gen_device(generator)), shape, device)
 
 
 # -- supervision pixels and rays ---------------------------------------------

@@ -80,6 +80,17 @@ default) the run saves the current epoch at the next step boundary and
 exits 0 without the test pass; `--resume out` continues at the next
 epoch. Runs on the card unless `--device cpu` is given, and raises when
 there is none.
+
+More than one rank (parallel/): start N ranks with the launcher,
+    python -m gennerf_tpu_torch.tools.launch_local -n N -- --config ... --out ... \
+        trainer.devices=N
+or `torchrun --nproc_per_node=N -m gennerf_tpu_torch.train ...`. Each rank
+drives one card (cuda:LOCAL_RANK, NCCL; under `--device cpu`, the CPU and
+gloo) and trains on its rows of every global batch (data.batch_size is
+the global batch; the ranks must divide it), computing what one process
+computes at that batch. Rank 0 writes the files and prints; a hyperparameter
+sweep runs in one process. `trainer.devices` > 1 in a process started
+without a launcher raises, naming it.
 """
 from __future__ import annotations
 
@@ -93,7 +104,9 @@ import torch
 
 from ..data.datamodule import ScannetDataModule
 from ..data.synthetic import training_batch
-from ..device import resolve_device, set_reference_precision
+from ..device import set_reference_precision
+from ..parallel import distributed
+from ..parallel.platform import is_rank0, select_platform
 from ..predict import build_model, load_params
 from ..utils.config import load_experiment_config
 from ..utils.port_params import save_params_npz
@@ -181,8 +194,14 @@ def main(argv=None):
     if cfg.get("hparams_search"):
         from .sweep import main as sweep_main
 
+        if distributed.launcher_env() or distributed.is_multiprocess():
+            raise NotImplementedError("hparams_search runs its trials in one process; start "
+                                      "the sweep without a launcher")
         return sweep_main(["--output", args.out, "--", *_sweep_arguments(argv)],
                           spec=cfg["hparams_search"])
+    joined = distributed.is_multiprocess()
+    device = select_platform(cfg.get("trainer"), args.device)
+    world = distributed.process_count()
     if cfg.get("print_config") is False and cfg.get("extras"):
         cfg["extras"] = dict(cfg["extras"], print_config=False)
     extras(cfg)
@@ -194,7 +213,6 @@ def main(argv=None):
 
     data_cfg = cfg["data"]
     options = trainer_options(cfg.get("trainer"), cfg.get("callbacks"))
-    device = resolve_device(args.device)
     set_reference_precision()
     model = build_model(cfg["model"], device, seed, str(options["precision"]))
     task = task_for(model)
@@ -206,7 +224,7 @@ def main(argv=None):
         train_data, val_data = fixed_batches(args, data_cfg, model.cfg, seed)
         test_data = val_data
     else:
-        datamodule = ScannetDataModule(data_cfg, seed=seed)
+        datamodule = ScannetDataModule(data_cfg, num_devices=world, seed=seed)
         train_data, val_data = datamodule.train_dataloader(), datamodule.val_dataloader()
         test_data = datamodule.test_dataloader() if cfg.get("test") else None
     ckpt_cfg = (cfg.get("callbacks") or {}).get("model_checkpoint") or {}
@@ -219,20 +237,37 @@ def main(argv=None):
         options["max_epochs"] = args.epochs
     trainer = Trainer(model, optimizer, torch.Generator(device=device).manual_seed(seed),
                       args.out, checkpoints=checkpoints,
-                      logger=MetricsLogger(args.out, cfg.get("logger")), **options)
+                      logger=MetricsLogger(args.out, cfg.get("logger")) if is_rank0() else None,
+                      **options)
+    result = _run(cfg, args, trainer, model, task, checkpoints, resume, train_data, val_data,
+                  test_data)
+    if distributed.is_multiprocess() and not joined:
+        # a failing rank raises without this barrier: the launcher stops the others
+        distributed.barrier()
+        distributed.shutdown()
+    return result
+
+
+def _run(cfg, args, trainer, model, task, checkpoints, resume, train_data, val_data,
+         test_data):
+    """Fit and test as the config asks (every rank; rank 0 writes and
+    prints)."""
+    say = print if is_rank0() else (lambda *a, **k: None)
     trained = cfg.get("train", True)
     if trained:
         metrics = trainer.fit(train_data, val_data, ckpt_path=resume, config_snapshot=cfg)
         if trainer.preempted:
-            print(f"preempted at step {trainer.global_step}: resume with --resume {args.out}")
+            say(f"preempted at step {trainer.global_step}: resume with --resume {args.out}")
             return trainer
-        save_params_npz(os.path.join(args.out, "params.npz"), task.npz_tree(model.state_dict()))
-        print(f"trained {trainer.global_step} steps: "
-              + ", ".join(f"{k}={v:.5g}" for k, v in sorted(metrics.items())))
+        if is_rank0():
+            save_params_npz(os.path.join(args.out, "params.npz"),
+                            task.npz_tree(model.state_dict()))
+        say(f"trained {trainer.global_step} steps: "
+            + ", ".join(f"{k}={v:.5g}" for k, v in sorted(metrics.items())))
     else:
         path = resolve_checkpoint(resume or checkpoints.directory)
         trainer.global_step = load_checkpoint(path, model)["step"]
-        print(f"train: false, restored {path}")
+        say(f"train: false, restored {path}")
     if cfg.get("test"):
         best = checkpoints.best_epoch() if trained else None
         if best is not None:
@@ -240,7 +275,7 @@ def main(argv=None):
         metrics = trainer.test(test_data)
         label = (f"epoch {best}, best {checkpoints.monitor}" if best is not None
                  else "last epoch" if trained else "restored checkpoint")
-        print(f"test ({label}): " + ", ".join(f"{k}={v:.5g}" for k, v in sorted(metrics.items())))
+        say(f"test ({label}): " + ", ".join(f"{k}={v:.5g}" for k, v in sorted(metrics.items())))
     return trainer
 
 

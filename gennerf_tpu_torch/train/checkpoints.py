@@ -112,13 +112,17 @@ class CheckpointManager:
         self.ranked: Dict[int, Optional[float]] = {}
         self.last_epoch: Optional[int] = None
         os.makedirs(self.directory, exist_ok=True)
+        self.refresh()
+
+    def refresh(self) -> None:
+        """Read the ranking the directory holds (another rank's writes)."""
         path = os.path.join(self.directory, RANKING_FILE)
         if os.path.exists(path):
             with open(path) as f:
                 saved = json.load(f)
-            if (saved["monitor"], saved["mode"]) != (monitor, mode):
+            if (saved["monitor"], saved["mode"]) != (self.monitor, self.mode):
                 raise ValueError(f"{self.directory} ranks by {saved['monitor']!r} "
-                                 f"({saved['mode']}), not {monitor!r} ({mode})")
+                                 f"({saved['mode']}), not {self.monitor!r} ({self.mode})")
             self.ranked = {int(k): v for k, v in saved["ranked"].items()}
             self.last_epoch = saved["last_epoch"]
 

@@ -8,8 +8,11 @@ import-guarded external trackers, `log_hyperparameters` and the
 framing with masked CRC32C) that stock TensorBoard reads; its records are
 byte for byte the JAX writer's. The external trackers (wandb, mlflow,
 neptune, comet_ml, aim) are imported only inside their adapters'
-constructors; a missing one is warned about and skipped. One card is one
-process, so the JAX package's rank-0 gate is always open here.
+constructors; a missing one is warned about and skipped. Under more than
+one rank (parallel/), the console logger prefixes its rank and logs
+WARNING and above on the others, and `MetricsLogger` writes on rank 0
+only (the metrics are global and the same on every rank), as the JAX
+package's gate does.
 """
 from __future__ import annotations
 
@@ -27,9 +30,18 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 
-def get_logger(name: str = "gennerf_tpu_torch", process_index: int = 0) -> logging.Logger:
+def get_logger(name: str = "gennerf_tpu_torch",
+               process_index: Optional[int] = None) -> logging.Logger:
     """Rank-prefixed console logger on stdout; a non-zero process logs at
-    WARNING and above (the reference's RankedLogger filtering)."""
+    WARNING and above (the reference's RankedLogger filtering). The rank
+    defaults to this process's in the process group; a rank's logger is
+    its own (`name` and the rank)."""
+    if process_index is None:
+        from ..parallel.distributed import process_index as rank
+
+        process_index = rank()
+    if process_index:
+        name = f"{name}.rank{process_index}"
     logger = logging.getLogger(name)
     if not logger.handlers:
         handler = logging.StreamHandler(sys.stdout)
@@ -524,11 +536,21 @@ class MetricsLogger:
         self.local = LocalWriter(local_cfg.get("save_dir", save_dir),
                                  mute=local_cfg.get("mute_local", False))
 
+    @staticmethod
+    def _rank0() -> bool:
+        from ..parallel.platform import is_rank0
+
+        return is_rank0()
+
     def log_metrics(self, metrics: Dict[str, Any], step: int) -> None:
+        if not self._rank0():
+            return
         for lg in self.scalar_loggers:
             lg.log_metrics(metrics, step)
 
     def log_hparams(self, hparams: Dict[str, Any]) -> None:
+        if not self._rank0():
+            return
         for lg in self.scalar_loggers:
             if hasattr(lg, "log_hparams"):
                 lg.log_hparams(hparams)
@@ -536,6 +558,8 @@ class MetricsLogger:
     def log_image(self, tag: str, image, step: int = 0) -> None:
         """To every backend that takes images (the tfevents writer) and to
         the local PNG sink."""
+        if not self._rank0():
+            return
         for lg in self.scalar_loggers:
             if hasattr(lg, "log_image"):
                 lg.log_image(tag, np.asarray(image), step)
@@ -544,6 +568,8 @@ class MetricsLogger:
     def log_mesh(self, tag: str, mesh, step: int = 0) -> None:
         """`mesh` (utils.mesh.Mesh) as mesh-plugin summaries to every backend
         that takes them and as a .ply to the local sink."""
+        if not self._rank0():
+            return
         verts = np.asarray(mesh.vertices, np.float32)
         faces = np.asarray(mesh.faces, np.int32) if mesh.faces is not None else None
         colors = mesh.vertex_colors

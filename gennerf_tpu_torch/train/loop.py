@@ -70,10 +70,27 @@ The harness around the steps, as the reference's `Trainer`:
   them. The reference treats a failing tail as best-effort logging and
   warns; here it raises.
 
-Not ported: multi-device runs (devices, num_slices or num_nodes above 1).
+More than one rank (parallel/; the process group joined by the CLI through
+`parallel.platform.select_platform`): each rank trains on its rows of
+every global batch (a rank-aware loader's batches, or `shard_batch` of a
+global one; a final partial batch runs whole on every rank) and the steps
+make the losses, gradients, metrics and BatchNorm statistics global, so
+the run computes what one process computes at the same global batch. The
+console logger, the loggers, the CSV, the progress line, the profiler,
+the checkpoints and the reconstruction tail act on rank 0, with a barrier
+after each write (the tail's metrics and the validation generator's state
+go from rank 0 to the others); the preempt flag is agreed at every step
+boundary (any rank's SIGTERM stops every rank after the same step) and
+the early-stopping decision is rank 0's. A resume reads the same file on
+every rank. With `prefetch_batches` > 0 a background thread takes the
+next batches from the loader and uploads them to the device while the
+step runs (parallel.mesh.prefetch_shard), never pulling more batches than
+the synchronous path would (0: the synchronous path).
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import math
 import os
 import signal
@@ -85,6 +102,9 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import distributed
+from ..parallel.mesh import prefetch_shard, shard_batch
+from ..parallel.platform import is_rank0
 from ..predict import reconstruct
 from ..tsdf.tsdf import TSDF
 from .callbacks import ProgressBar, clear_device_caches, summarize_params
@@ -103,11 +123,11 @@ PORTED_TRAINER_KEYS = ("max_epochs", "min_epochs", "log_every_n_steps",
                        "limit_test_batches", "profile_dir", "profile_steps",
                        "early_stopping_monitor", "early_stopping_patience",
                        "early_stopping_mode", "save_on_preempt", "model_summary_depth",
-                       "progress_bar", "clear_cache")
-# devices, num_slices and num_nodes are accepted at 1 (one card) and raise
-# above it; the node keys act only with num_nodes > 1
-ACCEPTED_TRAINER_KEYS = ("accelerator", "devices", "deterministic", "prefetch_batches",
-                         "num_slices", "num_nodes", "coordinator_address", "node_rank")
+                       "progress_bar", "clear_cache", "prefetch_batches")
+# the platform keys (parallel.platform.select_platform reads them: the
+# process group, this rank's device) and deterministic
+ACCEPTED_TRAINER_KEYS = ("accelerator", "devices", "deterministic", "num_slices", "num_nodes",
+                         "coordinator_address", "node_rank")
 PORTED_CALLBACKS = ("model_checkpoint", "early_stopping", "rich_progress_bar", "clear_cache",
                     "model_summary")
 EARLY_STOPPING_KEYS = ("early_stopping_monitor", "early_stopping_patience",
@@ -122,17 +142,11 @@ def trainer_options(trainer_cfg: dict, callbacks_cfg: Optional[dict] = None) -> 
     reference's CLI), model_summary_depth from callbacks.model_summary
     (its max_depth, 1 by default), progress_bar from
     callbacks.rich_progress_bar and clear_cache from callbacks.clear_cache
-    (a trainer key of the same name wins). Raises NotImplementedError,
-    naming the key, for devices, num_slices or num_nodes above 1; warns
-    about a key the reference's Trainer does not know."""
+    (a trainer key of the same name wins), prefetch_batches (2 by
+    default, the JAX Trainer's). The platform keys (devices, num_nodes,
+    num_slices, accelerator) are select_platform's. Warns about a key the
+    reference's Trainer does not know."""
     trainer_cfg, callbacks_cfg = dict(trainer_cfg or {}), dict(callbacks_cfg or {})
-    bad = [k for k in ("num_slices", "num_nodes") if int(trainer_cfg.get(k) or 1) > 1]
-    devices = trainer_cfg.get("devices", "auto")
-    if devices not in ("auto", None) and int(devices) > 1:
-        bad.append("devices")
-    if bad:
-        raise NotImplementedError(f"gennerf_tpu_torch's trainer does not implement: "
-                                  f"{', '.join(bad)}")
     unknown = sorted(set(trainer_cfg) - set(PORTED_TRAINER_KEYS + ACCEPTED_TRAINER_KEYS))
     unknown += sorted(f"callbacks.{k}" for k in set(callbacks_cfg) - set(PORTED_CALLBACKS))
     if unknown:
@@ -160,6 +174,7 @@ def trainer_options(trainer_cfg: dict, callbacks_cfg: Optional[dict] = None) -> 
                                 else (1 if summary else None)),
         "progress_bar": bool(callbacks_cfg.get("rich_progress_bar")),
         "clear_cache": bool(callbacks_cfg.get("clear_cache")),
+        "prefetch_batches": int(trainer_cfg.get("prefetch_batches", 2)),
     }
     options.update({k: trainer_cfg[k] for k in EARLY_STOPPING_KEYS + (
         "model_summary_depth", "progress_bar", "clear_cache") if k in trainer_cfg})
@@ -201,7 +216,8 @@ class Trainer:
                  early_stopping_mode: str = "min", save_on_preempt: bool = True,
                  profile_dir: Optional[str] = None, profile_steps: int = 5,
                  model_summary_depth: Optional[int] = None, progress_bar: bool = False,
-                 clear_cache: bool = False, logger: Optional[MetricsLogger] = None):
+                 clear_cache: bool = False, logger: Optional[MetricsLogger] = None,
+                 prefetch_batches: int = 2):
         """`generator` supplies every train step's draws, a second generator
         seeded with its initial seed + 1 the validation draws; with
         `out_dir`, metrics go to out_dir/metrics.csv and to `logger`
@@ -211,7 +227,8 @@ class Trainer:
         computing in another dtype raises ValueError.
         `num_sanity_val_steps` validation batches go through the eval step
         before the first epoch and on resume, as in the reference. The
-        harness options are the reference Trainer's (module docstring)."""
+        harness options are the reference Trainer's (module docstring).
+        In a process group, the files and the console are rank 0's."""
         self.model, self.optimizer, self.generator = model, optimizer, generator
         self.task = task_for(model)
         if precision is not None and dtype_for_precision(precision) != model.dtype:
@@ -239,12 +256,14 @@ class Trainer:
         self.profile_trace: Optional[str] = None
         self._profiler = None
         self.model_summary_depth = model_summary_depth
-        self.progress = ProgressBar(enabled=progress_bar)
+        self.rank0 = is_rank0()
+        self.progress = ProgressBar(enabled=progress_bar and self.rank0)
         self.clear_cache = bool(clear_cache)
+        self.prefetch_batches = int(prefetch_batches)
         self.log = get_logger()
-        self.csv = CSVLogger(out_dir, name="") if out_dir else None
-        self.logger = logger if logger is not None else (MetricsLogger(out_dir) if out_dir
-                                                         else None)
+        self.csv = CSVLogger(out_dir, name="") if out_dir and self.rank0 else None
+        self.logger = None if not self.rank0 else logger if logger is not None else (
+            MetricsLogger(out_dir) if out_dir else None)
         if checkpoints is None and out_dir:
             checkpoints = CheckpointManager(os.path.join(out_dir, "checkpoints"))
         self.ckpt = checkpoints
@@ -278,6 +297,9 @@ class Trainer:
         device = next(self.model.parameters()).device
         if next(iter(train_loader), None) is None:
             raise ValueError("the train loader yielded no batches")
+        if distributed.is_multiprocess():
+            self.log.info(f"rank {distributed.process_index()} of "
+                          f"{distributed.process_count()} ({distributed.backend()})")
         n_params = sum(p.numel() for p in self.model.parameters())
         self.log.info(f"{self.task.name}: {n_params:,} params on {device}")
         if self.model_summary_depth is not None:
@@ -292,10 +314,11 @@ class Trainer:
             start_epoch, self.global_step = info["epoch"] + 1, info["step"]
             self.log.info(f"resumed from {ckpt_path} at epoch {start_epoch}")
         if self.num_sanity_val_steps:
-            for i, batch in enumerate(val_loader):
-                if i >= self.num_sanity_val_steps:
-                    break
-                eval_step(self.model, batch_to_device(batch, device), self.val_generator)
+            with self._batches(val_loader, device, self.num_sanity_val_steps) as batches:
+                for i, (_, batch, split) in enumerate(batches):
+                    if i >= self.num_sanity_val_steps:
+                        break
+                    eval_step(self.model, batch, self.val_generator, **_sharded(split))
         previous = None
         if self.save_on_preempt and threading.current_thread() is threading.main_thread():
             previous = (signal.signal(signal.SIGTERM, self._on_sigterm),)
@@ -306,6 +329,34 @@ class Trainer:
                 signal.signal(signal.SIGTERM, previous[0])
             if self._profiler is not None:
                 self._stop_profiler(device)
+
+    @contextlib.contextmanager
+    def _batches(self, loader, device: torch.device, limit: Optional[int]):
+        """The (raw, device batch, sharded) triples of a pass over `loader`
+        (this rank's rows, `local_rows`), at most `limit` + 1 pulled from
+        the loader, as the synchronous pass pulls (None: all), uploaded
+        `prefetch_batches` ahead on a background thread; closing the
+        context releases that thread."""
+        source = loader if limit is None else itertools.islice(loader, limit + 1)
+        gen = prefetch_shard(source, device, self.prefetch_batches,
+                             lambda b, d: batch_to_device(local_rows(b)[0], d))
+        try:
+            yield ((raw, staged, local_rows(raw)[1]) for raw, staged in gen)
+        finally:
+            gen.close()
+
+    def _save(self, epoch: int, metrics) -> None:
+        """The epoch's checkpoint, written by rank 0; the other ranks wait
+        for it and read the ranking."""
+        if self.ckpt is None:
+            return
+        if self.rank0:
+            self.ckpt.save(epoch, self.global_step, self.model, self.optimizer,
+                           self.generator, self.val_generator, metrics=metrics)
+        if distributed.is_multiprocess():
+            distributed.barrier()
+            if not self.rank0:
+                self.ckpt.refresh()
 
     def _on_sigterm(self, signum, frame) -> None:
         self.preempted = True
@@ -328,35 +379,36 @@ class Trainer:
             self.progress.start_epoch(epoch, batches_per_epoch if limit is None
                                       else min(limit, batches_per_epoch or limit))
             step_in_epoch = 0
-            batches = iter(train_loader)
-            while True:
-                t0 = time.perf_counter()
-                batch = next(batches, None)
-                if batch is None or (limit is not None and step_in_epoch >= limit):
-                    break
-                wait_ms = (time.perf_counter() - t0) * 1e3
-                if self.profile_dir and self.global_step == 1:
-                    self._start_profiler(device)
-                begin = _mark(device)
-                metrics = train_step(self.model, self.optimizer, batch_to_device(batch, device),
-                                     self.generator)
-                self._pending.append((wait_ms, begin, _mark(device)))
-                if self._profiler is not None and self.global_step == 1 + self.profile_steps:
-                    self._stop_profiler(device)
-                self.global_step += 1
-                step_in_epoch += 1
-                if self.global_step % self.log_every_n_steps == 0:
-                    self._log_step(metrics, lr, epoch)
-                    metrics = None
-                self.progress.update(step_in_epoch, self._shown or None)
-                if self.preempted:
-                    break
+            with self._batches(train_loader, device, limit) as batches:
+                while True:
+                    t0 = time.perf_counter()
+                    item = next(batches, None)
+                    if item is None or (limit is not None and step_in_epoch >= limit):
+                        break
+                    _, batch, split = item
+                    wait_ms = (time.perf_counter() - t0) * 1e3
+                    if self.profile_dir and self.global_step == 1 and self.rank0:
+                        self._start_profiler(device)
+                    begin = _mark(device)
+                    metrics = train_step(self.model, self.optimizer, batch, self.generator,
+                                         **_sharded(split))
+                    self._pending.append((wait_ms, begin, _mark(device)))
+                    if self._profiler is not None and self.global_step == 1 + self.profile_steps:
+                        self._stop_profiler(device)
+                    self.global_step += 1
+                    step_in_epoch += 1
+                    if self.global_step % self.log_every_n_steps == 0:
+                        self._log_step(metrics, lr, epoch)
+                        metrics = None
+                    self.progress.update(step_in_epoch, self._shown or None)
+                    self.preempted = distributed.any_rank(self.preempted)
+                    if self.preempted:
+                        break
             self.progress.end_epoch()
             batches_per_epoch = step_in_epoch or batches_per_epoch
             if self.preempted:
                 if step_in_epoch and self.ckpt is not None:
-                    self.ckpt.save(epoch, self.global_step, self.model, self.optimizer,
-                                   self.generator, self.val_generator, metrics=None)
+                    self._save(epoch, None)
                     self.log.info(f"preempted during epoch {epoch} (step {self.global_step}): "
                                   "checkpoint saved; resume to continue at epoch "
                                   f"{epoch + 1}")
@@ -397,9 +449,8 @@ class Trainer:
                             self.log.info(f"early stopping: {monitor} stale for {stale_epochs} "
                                           f"validations (best {best_monitor:.5f})")
                             stop = True
-            if self.ckpt is not None:
-                self.ckpt.save(epoch, self.global_step, self.model, self.optimizer,
-                               self.generator, self.val_generator, metrics=val_metrics)
+                stop = distributed.broadcast_object(stop)
+            self._save(epoch, val_metrics)
             self.epoch_seconds.append(time.perf_counter() - t_epoch)
             self.log.info(f"epoch {epoch}: " + ", ".join(
                 f"{k}={v:.4f}" for k, v in self._last_row.items())
@@ -457,16 +508,25 @@ class Trainer:
         sums: Dict[str, torch.Tensor] = {}
         count = 0
         last = None
-        for batch in loader:
-            if limit is not None and count >= limit:
-                break
-            last = batch_to_device(batch, device)
-            for k, v in eval_step(self.model, last, self.val_generator).items():
-                sums[k] = v if k not in sums else sums[k] + v
-            count += 1
+        with self._batches(loader, device, limit) as batches:
+            for _, batch, split in batches:
+                if limit is not None and count >= limit:
+                    break
+                last = batch
+                for k, v in eval_step(self.model, last, self.val_generator,
+                                      **_sharded(split)).items():
+                    sums[k] = v if k not in sums else sums[k] + v
+                count += 1
         out = {f"{mode}_{k}": float(v) / max(count, 1) for k, v in sums.items()}
         if last is not None:
-            out.update(self._reconstruction_tail(last, mode, step=epoch))
+            tail = self._reconstruction_tail(last, mode, step=epoch) if self.rank0 else None
+            if distributed.is_multiprocess():
+                # rank 0's tail moved the validation generator: every rank
+                # takes its state (and the tail's metrics)
+                state = self.val_generator.get_state()
+                tail, state = distributed.broadcast_object((tail, state))
+                self.val_generator.set_state(state)
+            out.update(tail)
         return out
 
     def _reconstruction_tail(self, batch: Dict[str, torch.Tensor], mode: str,
@@ -525,6 +585,21 @@ class Trainer:
         metrics = self.validate(loader, mode="test")
         self._log(metrics)
         return metrics
+
+
+def local_rows(batch: Dict) -> Tuple[Dict, bool]:
+    """(this rank's rows of a batch, whether they are a share of it): a
+    rank-aware loader's batch as it is (its `shard` flag), else
+    `shard_batch` of the global batch."""
+    if "shard" in batch:
+        return batch, bool(batch["shard"])
+    return shard_batch(batch)
+
+
+def _sharded(split: bool) -> dict:
+    """The steps' keyword for a rank's share of a batch (none for a whole
+    batch)."""
+    return {"sharded": True} if split else {}
 
 
 def _mark(device: torch.device):

@@ -10,7 +10,8 @@ the teacher's), any plane set other than exactly {xz, xy, yz} (the
 f32 per-point `decode_dense`. Both kernels take the head
 bias folded into their last scalar, so trained weights reach them too.
 `predict_tsdf_volume_sparse` decodes only the fusion prior's near-surface
-band. `make_point_tsdf_fn` and `decode_dense_fused` feed the triplane
+band. `decode_grid_sharded` splits the grid decode's x axis over the
+process group's ranks (`predict_tsdf_volume(..., sharded=True)`). `make_point_tsdf_fn` and `decode_dense_fused` feed the triplane
 gather and the positional code of arbitrary points to the point-decode
 kernel. There is no fall-through on runtime errors: a kernel that fails
 raises, and an unsupported model raises NotImplementedError up front.
@@ -28,6 +29,7 @@ from ..ops.grid_decode import (
     extract_resnetfc_weights,
     grid_decode,
     grid_tables,
+    slab_tables,
     supports_grid_decode,
 )
 from ..ops.point_decode import (
@@ -37,6 +39,7 @@ from ..ops.point_decode import (
     supports_fused_decode,
 )
 from ..ops.weight_slabs import pack_decode_weights
+from ..parallel import distributed
 from ..tsdf.fusion import prior_classes
 
 
@@ -82,10 +85,9 @@ def uses_grid_decode(model: GenNerf) -> bool:
     )
 
 
-@torch.no_grad()
-def decode_grid(model: GenNerf, repr_: SceneRepr, voxel_dim, voxel_size: float,
-                origin) -> torch.Tensor:
-    """Dense decode through the separable tables and the grid decode."""
+def grid_setup(model: GenNerf, repr_: SceneRepr, voxel_dim, voxel_size: float, origin):
+    """(the separable tables of the decode grid, the grid decode's packed
+    weights) of one scene."""
     cfg = model.cfg
     planes = repr_.planes
     if planes["xz"].shape[0] != 1:
@@ -104,14 +106,50 @@ def decode_grid(model: GenNerf, repr_: SceneRepr, voxel_dim, voxel_size: float,
         include_input=bool(cfg.code.include_input), padding=float(cfg.encoder.pointnet.padding),
         coord_center=coord_center, coord_scale=coord_scale,
     )
-    return grid_decode(tables, weights)
+    return tables, weights
+
+
+@torch.no_grad()
+def decode_grid(model: GenNerf, repr_: SceneRepr, voxel_dim, voxel_size: float,
+                origin) -> torch.Tensor:
+    """Dense decode through the separable tables and the grid decode."""
+    return grid_decode(*grid_setup(model, repr_, voxel_dim, voxel_size, origin))
+
+
+@torch.no_grad()
+def decode_grid_sharded(model: GenNerf, repr_: SceneRepr, voxel_dim, voxel_size: float,
+                        origin) -> torch.Tensor:
+    """The dense decode split over the process group's ranks along the
+    grid's x axis (counterpart of decode_grid_fused_sharded and
+    fused_grid_decode_sharded): every rank builds the tables once and
+    decodes its x-slab (the grid decode kernel on the card, with no
+    collective), then one all-gather assembles the (nx, ny, nz) volume on
+    every rank. Raises NotImplementedError when the ranks do not divide
+    nx."""
+    n, r = distributed.process_count(), distributed.process_index()
+    nx = int(voxel_dim[0])
+    if nx % n:
+        raise NotImplementedError(f"nx={nx} not divisible by {n} ranks")
+    tables, weights = grid_setup(model, repr_, voxel_dim, voxel_size, origin)
+    k = nx // n
+    part = grid_decode(slab_tables(tables, r * k, (r + 1) * k), weights)
+    return distributed.all_gather_cat(part, dim=0)
 
 
 @torch.no_grad()
 def predict_tsdf_volume(model: GenNerf, repr_: SceneRepr, voxel_dim: Tuple[int, int, int],
-                        voxel_size: float, origin, chunk_size: int = 32768) -> torch.Tensor:
+                        voxel_size: float, origin, chunk_size: int = 32768,
+                        sharded: bool = False) -> torch.Tensor:
     """Dense (nx, ny, nz) f32 TSDF volume of one scene on the grid at
-    `origin` (which also places the feature volume)."""
+    `origin` (which also places the feature volume). With `sharded`, the
+    grid decode's x-slabs over the process group's ranks
+    (`decode_grid_sharded`; NotImplementedError for a model off the grid
+    decode)."""
+    if sharded:
+        if not uses_grid_decode(model):
+            raise NotImplementedError("the sharded decode takes the grid decode's models "
+                                      "(pointnet-only triplanes, no feature volume)")
+        return decode_grid_sharded(model, repr_, voxel_dim, voxel_size, origin)
     if uses_grid_decode(model):
         return decode_grid(model, repr_, voxel_dim, voxel_size, origin)
     device = next(model.parameters()).device

@@ -44,6 +44,16 @@ and their sum `tsdf_loss`, the loss.
 
 Under bf16-mixed the render mode's march reads the model's bf16 TSDF, as
 the JAX march does; its depths and points are float32.
+
+Data parallel (`sharded=True`, one rank of a process group holding its
+rows of the global batch; parallel/): every rank holds the same generator
+state and draws the global batch's rows, keeping its own (ops/sampling.py),
+and injected draws are global too (each rank takes its rows), so the
+stream is the one-process run's; the losses, metrics and BatchNorm
+statistics are global (parallel.distributed.global_sum), and
+`train_step` sums the gradients over the ranks after backward, before the
+optimizer (and its clip). The result is the one-process step's on the
+global batch, up to summation order.
 """
 from __future__ import annotations
 
@@ -63,6 +73,7 @@ from ..models.teacher import sample_teacher_features
 from ..ops.interpolation import trilinear_interpolation
 from ..ops.normals import estimate_pointcloud_normals
 from ..ops.projection import get_3d_points
+from ..parallel import distributed
 from ..ops.sampling import (
     bounds_pc_batch, draw_normal, sample_points_in_frustum, sample_points_on_rays,
     sample_valid_depth_pixels, sample_valid_pixels,
@@ -248,7 +259,7 @@ def gen_nerf_forward_loss(model: GenNerf, batch: Dict[str, torch.Tensor],
             points, h, w, mask, hit = render_distill_points(
                 model, batch, repr_, origin, voxel_dim, generator, draws.render_scores)
             feat_sem = model.decode(repr_, points, origin)["feat_sem"].reshape(BT, h.shape[1], -1)
-            extra["render_hit_rate"] = hit.to(torch.float32).mean()
+            extra["render_hit_rate"] = distributed.global_mean(hit.to(torch.float32))
         tmap = model.teacher(batch["image"].reshape(BT, 3, H, W))
         outputs_bt["feat_sem_surface"] = feat_sem
         targets_bt["teacher_feat"] = sample_teacher_features(tmap, h, w, (H, W))
@@ -286,19 +297,42 @@ def forward_loss(model, batch: Dict[str, torch.Tensor], generator=None,
     return gen_nerf_forward_loss(model, batch, generator, draws, voxel_dim)
 
 
+def rank_draws(draws: StepDraws) -> StepDraws:
+    """This rank's rows of injected global-batch draws in a data-parallel
+    step (axis 0 of every tensor, in lists and tuples too); unchanged
+    outside one."""
+    n = distributed.shard_count()
+    if n == 1:
+        return draws
+    i = distributed.shard_index()
+
+    def rows(x):
+        if x is None:
+            return None
+        if isinstance(x, (list, tuple)):
+            return type(x)(rows(v) for v in x)
+        return x[distributed.local_batch_slice(x.shape[0], n, i)]
+
+    return StepDraws(*(rows(v) for v in draws))
+
+
 def train_step(model, optimizer: torch.optim.Optimizer, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
-               draws: StepDraws = StepDraws()) -> Dict[str, torch.Tensor]:
+               draws: StepDraws = StepDraws(), sharded: bool = False) -> Dict[str, torch.Tensor]:
     """Forward (the feature volume at voxel_dim_train), backward and one
     optimizer step of a GenNerf or a VoxelNet; in training mode the
     spatial encoder's (and the 3D backbone's) running BatchNorm statistics
-    move once per step (per frame chunk for the encoder). Returns the
-    detached metrics (device tensors: reading them waits for the step)."""
+    move once per step (per frame chunk for the encoder). With `sharded`,
+    `batch` is this rank's rows of the global batch (module docstring).
+    Returns the detached metrics (device tensors: reading them waits for
+    the step)."""
     set_reference_precision()
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    loss, metrics = forward_loss(model, batch, generator, draws)
-    loss.backward()
+    with distributed.sharded(sharded):
+        loss, metrics = forward_loss(model, batch, generator, rank_draws(draws))
+        loss.backward()
+        distributed.all_reduce_gradients(model.parameters())
     optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}
 
@@ -306,10 +340,12 @@ def train_step(model, optimizer: torch.optim.Optimizer, batch: Dict[str, torch.T
 @torch.no_grad()
 def eval_step(model, batch: Dict[str, torch.Tensor],
               generator: Optional[torch.Generator] = None,
-              draws: StepDraws = StepDraws()) -> Dict[str, torch.Tensor]:
+              draws: StepDraws = StepDraws(), sharded: bool = False) -> Dict[str, torch.Tensor]:
     """The forward and loss of a step without gradients (the feature
     volume at voxel_dim_val, BatchNorm on its running statistics); returns
-    the metrics."""
+    the metrics (global with `sharded`)."""
     set_reference_precision()
     model.eval()
-    return forward_loss(model, batch, generator, draws, model.cfg.voxel_dim_val)[1]
+    with distributed.sharded(sharded):
+        return forward_loss(model, batch, generator, rank_draws(draws),
+                            model.cfg.voxel_dim_val)[1]

@@ -38,6 +38,13 @@ def format_config_tree(cfg: Dict[str, Any],
     return "\n".join(lines) + "\n"
 
 
+def _rank0() -> bool:
+    """The rank-zero gate (parallel.platform.is_rank0)."""
+    from ..parallel.platform import is_rank0
+
+    return is_rank0()
+
+
 def _save(cfg: Dict[str, Any], name: str, text: str) -> None:
     out_dir = (cfg.get("paths") or {}).get("output_dir")
     if out_dir:
@@ -49,7 +56,9 @@ def _save(cfg: Dict[str, Any], name: str, text: str) -> None:
 def print_config_tree(cfg: Dict[str, Any], print_order: Sequence[str] = DEFAULT_PRINT_ORDER,
                       save_to_file: bool = False) -> None:
     """Print the config tree; with `save_to_file` also write it to
-    <paths.output_dir>/config_tree.log."""
+    <paths.output_dir>/config_tree.log. Rank 0 only."""
+    if not _rank0():
+        return
     text = format_config_tree(cfg, print_order)
     print(text, end="")
     if save_to_file:
@@ -65,7 +74,7 @@ def enforce_tags(cfg: Dict[str, Any], save_to_file: bool = False) -> None:
 
     log = get_logger()
     if not cfg.get("tags"):
-        if sys.stdin is not None and sys.stdin.isatty():
+        if _rank0() and sys.stdin is not None and sys.stdin.isatty():
             log.warning("No tags provided in config. Prompting user...")
             raw = input("Enter a list of comma separated tags [dev]: ") or "dev"
         else:
@@ -74,7 +83,7 @@ def enforce_tags(cfg: Dict[str, Any], save_to_file: bool = False) -> None:
             raw = "dev"
         cfg["tags"] = [t.strip() for t in raw.split(",") if t.strip()]
         log.info(f"Tags: {cfg['tags']}")
-    if save_to_file:
+    if save_to_file and _rank0():
         _save(cfg, "tags.log", repr(cfg["tags"]) + "\n")
 
 

@@ -137,15 +137,20 @@ def test_fit_feeds_the_batches_of_the_jax_trainer(dataset, monkeypatch):
 
 
 @pytest.mark.parametrize("key,value", [("devices", 2), ("num_slices", 2), ("num_nodes", 2)])
-def test_unported_trainer_keys_raise(key, value):
-    """More than one device raises NotImplementedError naming the key."""
-    trainer, callbacks = {"max_epochs": 1}, {}
-    if key.startswith("callbacks."):
-        callbacks[key.split(".", 1)[1]] = value
-    else:
-        trainer[key] = value
-    with pytest.raises(NotImplementedError, match=key):
-        loop.trainer_options(trainer, callbacks)
+def test_unported_trainer_keys_raise(key, value, monkeypatch):
+    """More than one rank is ported (parallel/): the trainer options take
+    the key silently, and a process started without a launcher raises,
+    naming the key and the launcher."""
+    from gennerf_tpu_torch.parallel.platform import select_platform
+
+    for var in ("WORLD_SIZE", "GENNERF_NUM_PROCESSES", "RANK", "GENNERF_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    trainer = {"max_epochs": 1, key: value}
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        loop.trainer_options(trainer, {})
+    with pytest.raises(RuntimeError, match=f"(?s){key}={value}.*launch_local"):
+        select_platform(trainer, "cpu")
 
 
 @pytest.mark.parametrize("key,value,option", [
@@ -210,7 +215,8 @@ def test_distill_experiments_read_through(name):
                        "limit_test_batches": None, "profile_dir": None, "profile_steps": 5,
                        "early_stopping_monitor": None, "early_stopping_patience": 3,
                        "early_stopping_mode": "min", "save_on_preempt": True,
-                       "model_summary_depth": None, "progress_bar": True, "clear_cache": True}
+                       "model_summary_depth": None, "progress_bar": True, "clear_cache": True,
+                       "prefetch_batches": 2}
 
 
 def test_zero_coverage_warns(monkeypatch):

@@ -65,6 +65,7 @@ distance here: one flipped voxel can reach it, and a voxel on either side
 of the sparse threshold differs by up to 2 between JAX's own bf16 and
 float32 outputs.
 """
+import copy
 import os
 import shutil
 import warnings
@@ -545,28 +546,38 @@ def test_voxel_net_loss_and_gradients(pair):
         _close(named[n].grad, g.numpy(), rtol=1e-4)
 
 
-@pytest.fixture
-def default_threads():
-    """torch at its default thread count (the core count) for the test:
-    test_two_adam_steps holds Adam's first updates within 0.25 lr of JAX's,
-    which the ResNet stem's near-zero weight gradients meet at the default
-    but not at 1 to 4 threads (the parent tree fails there too), where the
-    convolution's backward sums in another order, some of those gradients
-    change sign and Adam's first step moves them by lr the other way."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(os.cpu_count() or 1)
-    yield
-    torch.set_num_threads(before)
+def _float64_first_gradients(model, batch) -> dict:
+    """Every parameter's gradient of the first step's loss, taken on a
+    float64 copy of `model` and the batch (the projections stay float32:
+    the backprojection's voxel lookup is float32; every product and every
+    gradient's sum is float64)."""
+    m64 = copy.deepcopy(model).double().train()
+    b64 = {k: torch.from_numpy(np.asarray(v, np.float64)) for k, v in batch.items()}
+    _, losses = m64(_t(batch["projection"]), b64["image"], VD, None, {k: b64[k] for k in KEYS})
+    sum(losses.values()).backward()
+    return {n: p.grad.detach() for n, p in m64.named_parameters()}
 
 
-@pytest.mark.usefixtures("default_threads")
 def test_two_adam_steps(pair):
     """Two steps of the port's train_step against make_voxel_net_train_step:
     the metrics, then every parameter and running statistic. Under
     loss_split 'none': with 'pred' the finer scale's loss mask and values
     jump where a coarse prediction crosses the sparse threshold, and after
     one step a voxel on the threshold can fall on either side in the two
-    frameworks (the forward and gradient tests above cover 'pred')."""
+    frameworks (the forward and gradient tests above cover 'pred').
+
+    Adam's first update moves a parameter by lr * g / (|g| + 1e-8): by lr
+    in the gradient's sign, whatever its size. Where a first gradient is
+    below the float32 noise of its tensor's backward (some of the ResNet
+    stem's weights), its sign depends on the summation order, which changes
+    with the thread count, and the update lands a step of lr the other way
+    in one framework; the second step's gradients then differ elsewhere
+    too. Those first gradients are held to a float64 step instead: an
+    element whose float64 gradient is within the noise floor (1e-4 of its
+    tensor's largest float64 gradient, the bound of the gradient test
+    above) takes JAX's first update, and the port's float32 gradient, every
+    element of it, must lie within that floor of the float64 one. Every
+    other element keeps the 0.25 lr bound against JAX after two steps."""
     from gennerf_tpu.train.state import create_train_state
 
     _, params, stats, b = pair
@@ -574,26 +585,37 @@ def test_two_adam_steps(pair):
     task = VoxelNetTask(cfg)
     state = create_train_state({"params": params, "batch_stats": stats}, task.tx)
     model = _port(params, stats, cfg)
+    g64 = _float64_first_gradients(model, b)
     opt = make_optimizer(model.parameters(), model.cfg.optimizer)
     batch = batch_to_device(b, "cpu")
     jb = {k: jnp.asarray(v) for k, v in b.items()}
-    for rel in (1e-5, 1e-4):
+    noise = {}
+    for step, rel in enumerate((1e-5, 1e-4)):
         with jax.default_matmul_precision("highest"):
             state, ref = task.train_step(state, jb, jax.random.PRNGKey(0))
         metrics = train_step(model, opt, batch)
         assert set(metrics) == set(ref)
         for k in ref:
             assert float(metrics[k]) == pytest.approx(float(ref[k]), rel=rel), k
+        if step:
+            continue
+        first = voxel_net_params_from_flax(jax.tree.map(np.asarray, state.params))
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                floor = 1e-4 * float(g64[n].abs().max())
+                assert float((p.grad.double() - g64[n]).abs().max()) <= floor, n
+                noise[n] = g64[n].abs() <= floor
+                p[noise[n]] = first[n][noise[n]]
     ref_sd = voxel_net_params_from_flax(jax.tree.map(np.asarray, state.params),
                                         jax.tree.map(np.asarray, state.batch_stats))
     lr, far = model.cfg.optimizer.lr, []
     for k, v in model.state_dict().items():
         if "running_" in k:
             _close(v, ref_sd[k].numpy(), rtol=1e-4)
-        else:
-            diff = (v - ref_sd[k]).abs()
-            assert float(diff.max()) <= 0.25 * lr, k
-            far.append((diff > 1e-2 * lr).flatten())
+            continue
+        diff = (v - ref_sd[k]).abs()
+        assert float(torch.where(noise[k], 0.0, diff).max()) <= 0.25 * lr, k
+        far.append((diff > 1e-2 * lr).flatten())
     assert float(torch.cat(far).float().mean()) <= 1e-3
 
 
