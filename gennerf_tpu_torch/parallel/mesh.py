@@ -15,7 +15,8 @@ step's reductions make it global (parallel/distributed.py):
   (pinned memory, non_blocking) while the step runs; it yields (raw
   batch, device batch). size 0 is the synchronous path. A loader error is
   raised on the consumer's side; an abandoned generator (an early break)
-  releases the thread and drops what it staged.
+  releases the thread and drops what it staged, having taken at most
+  consumed + size + 1 batches from the loader.
 
 `num_slices` has no mesh here: parallel/platform.py maps it onto nodes.
 """
@@ -74,7 +75,9 @@ def prefetch_shard(loader, device, size: int = 2,
     """Yield (raw batch, device batch) for every batch of `loader`, the
     next `size` batches uploaded on a background thread (module
     docstring). `upload(batch, device)` makes the device batch (default:
-    train.step.batch_to_device)."""
+    train.step.batch_to_device). Closed after yielding c batches, the
+    generator has taken at most c + size + 1 batches from `loader` (at
+    most `size` queued and one in hand), and takes none after."""
     if upload is None:
         from ..train.step import batch_to_device as upload
     device = torch.device(device)
@@ -101,9 +104,17 @@ def prefetch_shard(loader, device, size: int = 2,
         return False
 
     def worker():
+        # `stop` is checked before every pull, which is after every put: a
+        # put may still land once the consumer has drained the queue, and
+        # the check keeps the loop from pulling again, so an abandoned pass
+        # takes at most consumed + size + 1 batches (the queue full and one
+        # in hand), whatever the threads' timing
         try:
-            for batch in loader:
-                if stop.is_set():
+            it = iter(loader)
+            while not stop.is_set():
+                try:
+                    batch = next(it)
+                except StopIteration:
                     return
                 if stream is None:
                     item = (batch, upload(batch, device), None)

@@ -84,8 +84,10 @@ boundary (any rank's SIGTERM stops every rank after the same step) and
 the early-stopping decision is rank 0's. A resume reads the same file on
 every rank. With `prefetch_batches` > 0 a background thread takes the
 next batches from the loader and uploads them to the device while the
-step runs (parallel.mesh.prefetch_shard), never pulling more batches than
-the synchronous path would (0: the synchronous path).
+step runs (parallel.mesh.prefetch_shard; 0: the synchronous path). A full
+pass pulls what the synchronous pass pulls; a pass abandoned after c
+batches has pulled at most c + prefetch_batches + 1, whatever the
+threads' timing, and pulls none after.
 """
 from __future__ import annotations
 

@@ -10,7 +10,8 @@ needed).
   whole on every rank.
 - `prefetch_shard` yields the loader's batches in order, raises a
   loader's error on the consumer's side and leaves no thread behind an
-  early break.
+  early break, having pulled at most consumed + size + 1 batches (a put
+  that lands after the consumer's drain does not pull again).
 - `select_platform` in a 2-rank group: devices must equal the ranks on
   the node, num_slices must split them evenly; a batch size the ranks do
   not divide raises in the data module; trainer.node_rank is the node's
@@ -24,8 +25,9 @@ needed).
   test_torch_grid_decode's kernel test (fewer than 0.1% of points more
   than 1e-4 apart, mean under 1e-5, largest under 5e-2).
 """
+import queue
 import threading
-import time
+import types
 import warnings
 
 import jax
@@ -144,26 +146,42 @@ def test_prefetch_reraises_a_loader_error():
     assert seen == ["0", "1", "2"]
 
 
-def test_prefetch_break_leaves_no_thread():
-    """An early break closes the generator: the thread stops and takes
-    no more than its queue ahead from the loader."""
-    pulled = []
+@pytest.mark.parametrize("size,consumed", [(1, 1), (2, 3), (3, 2)])
+def test_prefetch_break_leaves_no_thread(monkeypatch, size, consumed):
+    """An early break closes the generator: its thread stops, and the pass
+    has taken at most consumed + size + 1 batches from the loader. The
+    consumer breaks off while the thread, its queue full, is inside a put
+    with the last batch the bound allows in hand (the test's queue waits
+    for room without a timeout, so that put lands after the consumer's
+    drain on every run); the thread must then stop without pulling again."""
+    pulled, threads = [], set()
+    in_hand = consumed + size + 1
+    full_put = threading.Event()
 
     def loader():
         for b in _batches(100):
+            threads.add(threading.current_thread())
             pulled.append(b)
             yield b
 
-    gen = mesh.prefetch_shard(loader(), "cpu", 2)
+    class WaitingQueue(queue.Queue):
+        def put(self, item, block=True, timeout=None):
+            if self.full() and len(pulled) == in_hand:
+                full_put.set()
+            super().put(item, block, None)
+
+    monkeypatch.setattr(mesh, "queue", types.SimpleNamespace(
+        Queue=WaitingQueue, Full=queue.Full, Empty=queue.Empty))
+    gen = mesh.prefetch_shard(loader(), "cpu", size)
     for i, _ in enumerate(gen):
-        if i == 2:
+        if i == consumed - 1:
             break
+    assert full_put.wait(5)
     gen.close()
-    deadline = time.time() + 5
-    while any(t.name == "prefetch_shard" for t in threading.enumerate()) and time.time() < deadline:
-        time.sleep(0.05)
-    assert not any(t.name == "prefetch_shard" for t in threading.enumerate())
-    assert len(pulled) <= 3 + 2 + 1
+    (worker,) = threads
+    worker.join(5)
+    assert not worker.is_alive()
+    assert len(pulled) <= in_hand, (len(pulled), in_hand)
 
 
 def test_platform_keys_in_a_two_rank_group():

@@ -29,7 +29,8 @@ GroupNorm takes E[x^2] - E[x]^2 in both packages, in another summation
 order, and JAX's float32 is the farther from float64); other outputs
 within 1e-5 of the largest magnitude; gradients within 1e-4 of their tensor's largest
 magnitude (the tests/test_torch_train.py bound: the same float32
-differences carried back through every norm's statistics). bf16-mixed:
+differences carried back through every norm's statistics), the GN step's
+refereed by a float64 step (its docstring, tests/_torch_referee.py). bf16-mixed:
 the bounds of tests/test_torch_voxelnet.py: each output volume's mean
 absolute difference to JAX's bf16 output at most half of JAX's own
 bf16-to-float32 mean distance, and within 1e-2 (train mode); the losses
@@ -47,6 +48,7 @@ from flax import linen as fnn
 from jax import lax, random
 
 from gennerf_tpu.models.backbone3d import _Norm3d as JNorm3d
+from gennerf_tpu.models.voxel_net import VoxelNet as JVoxelNet
 from gennerf_tpu.train.state import create_train_state
 from gennerf_tpu.train.tasks import VoxelNetTask
 from gennerf_tpu_torch.data.synthetic import training_batch
@@ -57,6 +59,7 @@ from gennerf_tpu_torch.train.step import StepDraws, batch_to_device, voxel_net_f
 from gennerf_tpu_torch.utils.port_params import voxel_net_params_from_flax
 
 import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+from _torch_referee import assert_nearer_float64
 
 VD = (16, 16, 16)
 VS = 0.08
@@ -300,13 +303,46 @@ def test_gn_forward_matches_jax(weights, train):
 
 def test_gn_step_matches_jax(weights):
     """One train-mode forward's summed loss and every gradient against
-    jax.value_and_grad of the JAX train step's loss (GN, no dropout)."""
+    jax.value_and_grad of the JAX train step's loss (GN, no dropout). The
+    gradients are refereed by the port's float64 step on the same weights
+    and batch: JAX's in float64 (x64) within 1e-4 of its tensor's max-abs
+    (the weights mapped alike), the port's float32 gradients at most
+    _torch_referee.FACTOR times as far from it as JAX's float32 ones and
+    within 1e-4 of its max-abs (the file's gradient bound). Both float32
+    steps lie up to 3e-5 (the port) and 4.8e-5 (JAX) of max-abs from
+    float64, so the two read up to 0.54 of that bound against each other:
+    they are not compared with each other."""
+    params, stats, b = weights
     ref_loss, ref_grads = _jax_value_and_grad(CFG, weights)
     model = _port(weights).train()
-    loss, metrics = voxel_net_forward_loss(model, batch_to_device(weights[2], "cpu"))
+    loss, metrics = voxel_net_forward_loss(model, batch_to_device(b, "cpu"))
     loss.backward()
     assert float(loss) == pytest.approx(float(ref_loss), rel=1e-5)
-    _check_grads(model, ref_grads)
+    m64 = copy.deepcopy(_port(weights)).double().train()
+    b64 = {k: v.double() if v.is_floating_point() and k != "projection" else v
+           for k, v in batch_to_device(b, "cpu").items()}  # the lookup stays float32
+    voxel_net_forward_loss(m64, b64)[0].backward()
+    with jax.enable_x64(True):
+        model64 = JVoxelNet(VoxelNetTask(CFG).cfg, dtype=jnp.float64)
+        args = _jargs(b)
+        stats64 = jax.tree.map(lambda a: np.asarray(a, np.float64), stats)
+
+        def loss_fn(p):
+            (_, losses), _ = model64.apply(
+                {"params": p, "batch_stats": stats64}, *(a.astype(jnp.float64) for a in args[:3]),
+                *args[3:5], {k: v.astype(jnp.float64) for k, v in args[5].items()}, train=True,
+                mutable=["batch_stats"])
+            return sum(losses.values())
+
+        jax64 = jax.grad(loss_fn)(jax.tree.map(lambda a: np.asarray(a, np.float64), params))
+    jax64 = voxel_net_params_from_flax(jax.tree.map(np.asarray, jax64))
+    jax32 = voxel_net_params_from_flax(jax.tree.map(np.asarray, ref_grads))
+    ours = dict(model.named_parameters())
+    assert set(jax64) == set(jax32) == set(ours)
+    for n, p in m64.named_parameters():
+        _close(jax64[n], p.grad.numpy(), rtol=1e-4, name=n)
+        assert_nearer_float64(ours[n].grad, jax32[n], p.grad, n,
+                              cap=1e-4 * float(p.grad.abs().max()))
 
 
 # -- dropout ------------------------------------------------------------------------------

@@ -30,9 +30,11 @@ encoding, the pointnet on one cloud, the spatial volume. Tolerance:
 GenNerf outputs within 1e-5 of the reference's largest magnitude
 (float32 in another summation order); VoxelNet's eval-mode outputs within
 1e-5 relative with that floor (tests/test_torch_voxelnet.py's eval bound:
-BatchNorms and 3D convolutions summed in another order); weights that only
-move between files bit for bit.
+BatchNorms and 3D convolutions summed in another order), except the
+reader's VoxelNet, refereed by float64 (its test's docstring); weights that
+only move between files bit for bit.
 """
+import copy
 import functools
 import hashlib
 import json
@@ -50,6 +52,7 @@ from gennerf_tpu.models.config import GenNerfConfig as JGenNerfConfig
 from gennerf_tpu.models.config import config_from_dict as j_config_from_dict
 from gennerf_tpu.models.gen_nerf import GenNerf as JGenNerf
 from gennerf_tpu.models.gen_nerf import SceneRepr as JRepr
+from gennerf_tpu.models.voxel_net import VoxelNet as JVoxelNet
 from gennerf_tpu.train.checkpoints import CheckpointManager as JCheckpointManager
 from gennerf_tpu.train.state import create_train_state
 from gennerf_tpu.train.tasks import GenNerfTask, VoxelNetTask
@@ -73,6 +76,7 @@ from gennerf_tpu_torch.utils.port_reference import (
 )
 
 import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
+from _torch_referee import assert_nearer_float64
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
@@ -290,7 +294,16 @@ def test_reader_voxel_net_against_jax_porters(tmp_path):
     JAX side and the reader (partial: the 2D spatial.proj, whose reference
     name is not documented, stays at the port's init and is copied into the
     JAX model) on the port's: eval-mode outputs equal (He-init
-    convolutions, BatchNorm parameters and statistics at random)."""
+    convolutions, BatchNorm parameters and statistics at random).
+
+    Refereed by the port's VoxelNet in float64 on the same weights and
+    inputs: the JAX model in float64 (x64) within TOL of its max-abs (the
+    reader maps every weight as the porters do; both packages accumulate
+    the backprojected volume in float32, which leaves ~1e-6), and the
+    port's float32 output at most _torch_referee.FACTOR times as far from it
+    as JAX's float32 output. Through ~20 convolutions the two float32
+    outputs each lie 1e-6 to 2e-5 of max-abs from float64, so a bound of
+    1e-5 between them fired by chance."""
     b = _frames(24, 32)
     rng = np.random.default_rng(4)
     model = VoxelNet(config_from_dict(VoxelNetConfig, VOXEL_NET))
@@ -331,11 +344,19 @@ def test_reader_voxel_net_against_jax_porters(tmp_path):
         (ref, _), _ = task.model.apply(variables, *args, VD, jnp.zeros(3), None, train=False,
                                        mutable=["batch_stats"])
     model.eval()
+    m64 = copy.deepcopy(model).double()
     with torch.no_grad():
         ours, _ = model(_t(b["projection"]), _t(b["image"]), VD)
-    assert set(ours) == set(ref)
+        out64, _ = m64(_t(b["projection"]), _t(b["image"]).double(), VD)
+    with jax.enable_x64(True):
+        (ref64, _), _ = JVoxelNet(task.cfg, dtype=jnp.float64).apply(
+            jax.tree.map(lambda a: np.asarray(a, np.float64), variables),
+            *(a.astype(jnp.float64) for a in args), VD, jnp.zeros(3), None, train=False,
+            mutable=["batch_stats"])
+    assert set(ours) == set(ref) == set(ref64)
     for k in ref:
-        _close(ours[k], ref[k], rtol=TOL)
+        _close(np.asarray(ref64[k]), out64[k].numpy())
+        assert_nearer_float64(ours[k], ref[k], out64[k], k)
 
 
 # -- the writer -------------------------------------------------------------------------
