@@ -44,6 +44,7 @@ from ..ops.coords import normalize_3d_coordinate, normalize_coordinate
 from ..ops.interpolation import sample_plane_feature, trilinear_interpolation
 from ..ops.projection import backproject_fold, get_3d_points
 from ..ops.sampling import farthest_point_sample, uniform_presample, voxel_hash_downsample
+from ..utils.spans import span
 from .config import GenNerfConfig, check_supported
 from .heads import TSDFHeadSimple
 from .pointnet import FeaturePlaneMerger, LocalPoolPointnet
@@ -200,12 +201,13 @@ class GenNerf(nn.Module):
         """
         enc = self.cfg.encoder
         volume = valid = planes = None
-        if self.cfg.has_feature_volume:
-            volume, valid = encode_feature_volume(
-                self.features_2d, projection, image, voxel_dim, self.cfg.voxel_size, origin,
-                enc.spatial.frame_chunk if enc.use_spatial else 0, self.cfg.remat)
-        if enc.use_pointnet:
-            planes = self._encode_planes(projection, depth, generator, sel, start)
+        with span("gennerf.encode"):
+            if self.cfg.has_feature_volume:
+                volume, valid = encode_feature_volume(
+                    self.features_2d, projection, image, voxel_dim, self.cfg.voxel_size, origin,
+                    enc.spatial.frame_chunk if enc.use_spatial else 0, self.cfg.remat)
+            if enc.use_pointnet:
+                planes = self._encode_planes(projection, depth, generator, sel, start)
         return SceneRepr(planes, volume, valid)
 
     def features_2d(self, images: torch.Tensor, update_stats: bool = True) -> torch.Tensor:

@@ -28,6 +28,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from ..utils.spans import span
 from .backbone3d import DropoutDraws, EncoderDecoder
 from .config import VoxelNetConfig, check_supported_voxel_net
 from .gen_nerf import encode_feature_volume, normalized_volume
@@ -69,17 +70,19 @@ class VoxelNet(nn.Module):
         feature volume at `origin` (default 0). In training mode the
         spatial encoder's running statistics move once per frame chunk."""
         cfg = self.cfg
-        return VolumeRepr(*encode_feature_volume(
-            self.spatial, projection, image, voxel_dim, cfg.voxel_size, origin,
-            cfg.encoder.spatial.frame_chunk, cfg.remat))
+        with span("gennerf.encode"):
+            return VolumeRepr(*encode_feature_volume(
+                self.spatial, projection, image, voxel_dim, cfg.voxel_size, origin,
+                cfg.encoder.spatial.frame_chunk, cfg.remat))
 
     def refine(self, repr_: VolumeRepr, targets: Optional[Dict[str, torch.Tensor]] = None,
                dropout: Optional[DropoutDraws] = None
                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """Normalize the volume by its counts (0 where unseen), run the 3D
         backbone and the heads: ({vol_XX_tsdf: (B, 1, ...)}, {vol_XX_tsdf_loss})."""
-        xs = self.backbone3d(normalized_volume(repr_.volume, repr_.valid), dropout)
-        return self.heads3d(xs, targets)
+        with span("gennerf.refine"):
+            xs = self.backbone3d(normalized_volume(repr_.volume, repr_.valid), dropout)
+            return self.heads3d(xs, targets)
 
     def forward(self, projection: torch.Tensor, image: torch.Tensor, voxel_dim,
                 origin: Optional[torch.Tensor] = None,

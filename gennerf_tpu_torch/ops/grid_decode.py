@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.spans import count
 from . import kernels
 from .coords import linspace
 
@@ -253,6 +254,7 @@ def grid_decode(tables: GridTables, weights: dict) -> torch.Tensor:
     for CPU tables (the JAX package's own off-TPU numerics). `weights` from
     `pack_decode_weights(..., point=False)`."""
     device = tables.q_yz.device
+    count("decode.voxels", tables.q_xz.shape[0] * tables.q_xy.shape[1] * tables.q_xz.shape[1])
     if device.type == "cuda":
         return grid_decode_cuda(tables, weights)
     if device.type == "cpu":

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.spans import count
 from .coords import world_coordinates
 
 
@@ -106,4 +107,6 @@ def backproject_fold(feat_2d: torch.Tensor, projection: torch.Tensor, image_hw, 
         vol, val = backproject(voxel_dim, voxel_size, origin, projection[:, t] * scale, feat[:, t])
         volume = vol if volume is None else volume + vol
         valid = val if valid is None else valid + val
+    count("backproject.pairs", B * T * valid[0, 0].numel())
+    count("backproject.observed", valid)
     return volume, valid

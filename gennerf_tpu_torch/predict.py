@@ -63,6 +63,7 @@ from .models.voxel_net import VoxelNet
 from .train.predict import predict_tsdf_volume, predict_tsdf_volume_sparse
 from .train.tasks import dtype_for_precision, model_config, task_for
 from .tsdf.fusion import apply_fusion_prior
+from .utils.spans import span
 
 
 def build_model(model_cfg: Union[dict, GenNerfConfig, VoxelNetConfig], device=None,
@@ -102,30 +103,31 @@ def reconstruct(model: Union[GenNerf, VoxelNet], projection: torch.Tensor, image
         sel, start: injected encoder draws (see GenNerf.encode; VoxelNet
             draws nothing).
     """
-    set_reference_precision()
-    cfg = model.cfg
-    device = next(model.parameters()).device
-    projection, image, depth = (torch.as_tensor(a, dtype=torch.float32).to(device)
-                                for a in (projection, image, depth))
-    voxel_dim = tuple(int(d) for d in (voxel_dim or cfg.voxel_dim_test))
-    origin = torch.zeros(3, dtype=torch.float32, device=device)
-    if isinstance(model, VoxelNet):
-        model.eval()
-        outputs, _ = model(projection[None], image[None], voxel_dim, origin)
-        vol = outputs["vol_%02d_tsdf" % cfg.voxel_sizes[0]][0, 0]
-        if cfg.mask_unobserved:
-            vol = apply_fusion_prior(vol, cfg.voxel_size, origin, projection, depth)
+    with span("gennerf.reconstruct"):
+        set_reference_precision()
+        cfg = model.cfg
+        device = next(model.parameters()).device
+        projection, image, depth = (torch.as_tensor(a, dtype=torch.float32).to(device)
+                                    for a in (projection, image, depth))
+        voxel_dim = tuple(int(d) for d in (voxel_dim or cfg.voxel_dim_test))
+        origin = torch.zeros(3, dtype=torch.float32, device=device)
+        if isinstance(model, VoxelNet):
+            model.eval()
+            outputs, _ = model(projection[None], image[None], voxel_dim, origin)
+            vol = outputs["vol_%02d_tsdf" % cfg.voxel_sizes[0]][0, 0]
+            if cfg.mask_unobserved:
+                vol = apply_fusion_prior(vol, cfg.voxel_size, origin, projection, depth)
+            return vol.to(torch.float32)
+        repr_ = model.encode(projection[None], image[None], depth[None], generator, sel, start,
+                             voxel_dim, origin)
+        if cfg.mask_unobserved and cfg.sparse_band_decode:
+            vol = predict_tsdf_volume_sparse(model, repr_, voxel_dim, cfg.voxel_size, origin,
+                                             projection, depth)
+        else:
+            vol = predict_tsdf_volume(model, repr_, voxel_dim, cfg.voxel_size, origin)
+            if cfg.mask_unobserved:
+                vol = apply_fusion_prior(vol, cfg.voxel_size, origin, projection, depth)
         return vol.to(torch.float32)
-    repr_ = model.encode(projection[None], image[None], depth[None], generator, sel, start,
-                         voxel_dim, origin)
-    if cfg.mask_unobserved and cfg.sparse_band_decode:
-        vol = predict_tsdf_volume_sparse(model, repr_, voxel_dim, cfg.voxel_size, origin,
-                                         projection, depth)
-    else:
-        vol = predict_tsdf_volume(model, repr_, voxel_dim, cfg.voxel_size, origin)
-        if cfg.mask_unobserved:
-            vol = apply_fusion_prior(vol, cfg.voxel_size, origin, projection, depth)
-    return vol.to(torch.float32)
 
 
 def predict_split(model: GenNerf, data_cfg: dict, out_dir: str, seed: int = 0) -> dict:

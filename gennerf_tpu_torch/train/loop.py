@@ -57,7 +57,12 @@ The harness around the steps, as the reference's `Trainer`:
 - with `profile_dir`, a torch.profiler window (CPU, and CUDA on the card)
   from global step 1 to step 1 + `profile_steps`, exported as a Chrome
   trace into `profile_dir` (at the end of `fit` if the run stops inside
-  the window);
+  the window); beside the operators and kernels it carries the program's
+  spans (utils/spans.py): each step's `gennerf.step` and inside it
+  `gennerf.forward` (with `gennerf.encode`, and VoxelNet's
+  `gennerf.refine`), `gennerf.backward`, `gennerf.allreduce` and
+  `gennerf.optimizer`, each on the host and, on the card, as the device's
+  range of the same name;
 - the callbacks (train/callbacks.py): the parameter table at fit start
   (`model_summary_depth`), the progress line (`progress_bar`), and
   `clear_cache` at train start and around each validation;

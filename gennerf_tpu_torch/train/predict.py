@@ -41,6 +41,7 @@ from ..ops.point_decode import (
 from ..ops.weight_slabs import pack_decode_weights
 from ..parallel import distributed
 from ..tsdf.fusion import prior_classes
+from ..utils.spans import span
 
 
 def dense_grid_points(voxel_dim, voxel_size: float, origin, device=None) -> torch.Tensor:
@@ -145,17 +146,18 @@ def predict_tsdf_volume(model: GenNerf, repr_: SceneRepr, voxel_dim: Tuple[int, 
     grid decode's x-slabs over the process group's ranks
     (`decode_grid_sharded`; NotImplementedError for a model off the grid
     decode)."""
-    if sharded:
-        if not uses_grid_decode(model):
-            raise NotImplementedError("the sharded decode takes the grid decode's models "
-                                      "(pointnet-only triplanes, no feature volume)")
-        return decode_grid_sharded(model, repr_, voxel_dim, voxel_size, origin)
-    if uses_grid_decode(model):
-        return decode_grid(model, repr_, voxel_dim, voxel_size, origin)
-    device = next(model.parameters()).device
-    pts = dense_grid_points(voxel_dim, voxel_size, origin, device)
-    return decode_dense(model, repr_, pts, origin, chunk_size).reshape(
-        tuple(int(d) for d in voxel_dim))
+    if sharded and not uses_grid_decode(model):
+        raise NotImplementedError("the sharded decode takes the grid decode's models "
+                                  "(pointnet-only triplanes, no feature volume)")
+    with span("gennerf.decode"):
+        if sharded:
+            return decode_grid_sharded(model, repr_, voxel_dim, voxel_size, origin)
+        if uses_grid_decode(model):
+            return decode_grid(model, repr_, voxel_dim, voxel_size, origin)
+        device = next(model.parameters()).device
+        pts = dense_grid_points(voxel_dim, voxel_size, origin, device)
+        return decode_dense(model, repr_, pts, origin, chunk_size).reshape(
+            tuple(int(d) for d in voxel_dim))
 
 
 @torch.no_grad()
@@ -169,23 +171,24 @@ def predict_tsdf_volume_sparse(model: GenNerf, repr_: SceneRepr, voxel_dim, voxe
     `decode_dense`; the result equals apply_fusion_prior of the dense
     gather decode. `projections` (T, 3, 4) and `depths` (T, H, W) are the
     encoded input frames."""
-    nx, ny, nz = (int(d) for d in voxel_dim)
-    device = depths.device
-    origin = torch.as_tensor(origin, dtype=torch.float32, device=device).reshape(3)
-    near, farfront = prior_classes((nx, ny, nz), float(voxel_size), origin,
-                                   float(voxel_size) * trunc_ratio, projections, depths)
-    one = torch.ones((), dtype=torch.float32, device=device)
-    out = torch.where(farfront, -one, one)
-    idx = torch.nonzero(near)[:, 0]
-    if idx.numel():
-        # flat index -> grid position as the reference computes it (numpy
-        # f32: index * voxel_size*n/(n-1), plus origin)
-        ijk = torch.stack([idx // (ny * nz), (idx // nz) % ny, idx % nz], dim=-1)
-        step = torch.tensor([voxel_size * n / max(n - 1, 1) for n in (nx, ny, nz)],
-                            dtype=torch.float32, device=device)
-        pts = ijk.to(torch.float32) * step + origin
-        out[idx] = decode_dense(model, repr_, pts, origin, chunk_size)
-    return out.reshape(nx, ny, nz)
+    with span("gennerf.decode"):
+        nx, ny, nz = (int(d) for d in voxel_dim)
+        device = depths.device
+        origin = torch.as_tensor(origin, dtype=torch.float32, device=device).reshape(3)
+        near, farfront = prior_classes((nx, ny, nz), float(voxel_size), origin,
+                                       float(voxel_size) * trunc_ratio, projections, depths)
+        one = torch.ones((), dtype=torch.float32, device=device)
+        out = torch.where(farfront, -one, one)
+        idx = torch.nonzero(near)[:, 0]
+        if idx.numel():
+            # flat index -> grid position as the reference computes it (numpy
+            # f32: index * voxel_size*n/(n-1), plus origin)
+            ijk = torch.stack([idx // (ny * nz), (idx // nz) % ny, idx % nz], dim=-1)
+            step = torch.tensor([voxel_size * n / max(n - 1, 1) for n in (nx, ny, nz)],
+                                dtype=torch.float32, device=device)
+            pts = ijk.to(torch.float32) * step + origin
+            out[idx] = decode_dense(model, repr_, pts, origin, chunk_size)
+        return out.reshape(nx, ny, nz)
 
 
 _PLANES = ("xz", "xy", "yz")

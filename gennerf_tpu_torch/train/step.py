@@ -78,6 +78,7 @@ from ..ops.sampling import (
     bounds_pc_batch, draw_normal, sample_points_in_frustum, sample_points_on_rays,
     sample_valid_depth_pixels, sample_valid_pixels,
 )
+from ..utils.spans import span
 
 
 class StepDraws(NamedTuple):
@@ -327,14 +328,19 @@ def train_step(model, optimizer: torch.optim.Optimizer, batch: Dict[str, torch.T
     Returns the detached metrics (device tensors: reading them waits for
     the step)."""
     set_reference_precision()
-    model.train()
-    optimizer.zero_grad(set_to_none=True)
-    with distributed.sharded(sharded):
-        loss, metrics = forward_loss(model, batch, generator, rank_draws(draws))
-        loss.backward()
-        distributed.all_reduce_gradients(model.parameters())
-    optimizer.step()
-    return {k: v.detach() for k, v in metrics.items()}
+    with span("gennerf.step"):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        with distributed.sharded(sharded):
+            with span("gennerf.forward"):
+                loss, metrics = forward_loss(model, batch, generator, rank_draws(draws))
+            with span("gennerf.backward"):
+                loss.backward()
+            with span("gennerf.allreduce"):
+                distributed.all_reduce_gradients(model.parameters())
+        with span("gennerf.optimizer"):
+            optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
 
 
 @torch.no_grad()

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops.projection import camera_pixels, project_voxels, world_coordinates
+from ..utils.spans import count, span
 from .tsdf import TSDF
 
 
@@ -177,8 +178,10 @@ def apply_fusion_prior(tsdf_vol: torch.Tensor, voxel_size: float, origin,
     of those frames gives deterministically: -1 where some frame sees the
     voxel more than the truncation in front of its surface, else +1."""
     voxel_dim = tuple(int(s) for s in tsdf_vol.shape)
-    near, farfront = prior_classes(voxel_dim, float(voxel_size), origin,
-                                   float(voxel_size) * trunc_ratio, projections, depths)
-    flat = tsdf_vol.reshape(-1)
-    one = torch.ones((), dtype=flat.dtype, device=flat.device)
-    return torch.where(near, flat, torch.where(farfront, -one, one)).reshape(voxel_dim)
+    with span("gennerf.prior"):
+        near, farfront = prior_classes(voxel_dim, float(voxel_size), origin,
+                                       float(voxel_size) * trunc_ratio, projections, depths)
+        count("prior.kept_voxels", near)
+        flat = tsdf_vol.reshape(-1)
+        one = torch.ones((), dtype=flat.dtype, device=flat.device)
+        return torch.where(near, flat, torch.where(farfront, -one, one)).reshape(voxel_dim)

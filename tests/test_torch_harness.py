@@ -486,6 +486,25 @@ def test_profiler_writes_a_cpu_trace(tmp_path, monkeypatch):
     assert len([e for e in events if e.get("name") == "aten::mm"]) == 3
 
 
+def test_profiler_trace_holds_the_step_spans(dataset, tmp_path):
+    """With real steps of the tiny GenNerf, the profile window's Chrome
+    trace holds the program's spans of each step (utils/spans.py): the
+    step, and inside it the forward, backward, all-reduce and optimizer."""
+    model = build_model(MODEL, "cpu")
+    mod = tdm.ScannetDataModule(dict(DATA, data_dir=dataset), seed=4)
+    trainer = loop.Trainer(model, make_optimizer(model.parameters(), model.cfg.optimizer, None),
+                           torch.Generator().manual_seed(0), None, max_epochs=1,
+                           log_every_n_steps=1, limit_train_batches=3,
+                           profile_dir=str(tmp_path / "prof"), profile_steps=1)
+    trainer.fit(mod.train_dataloader())
+    with open(trainer.profile_trace) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name") for e in events]
+    for span in ("gennerf.step", "gennerf.forward", "gennerf.encode", "gennerf.backward",
+                 "gennerf.allreduce", "gennerf.optimizer"):
+        assert names.count(span) == 2, span
+
+
 def test_hparams_search_runs_a_two_trial_sweep(tiny_config, dataset, tmp_path):
     """`hparams_search=tiny_grid` hands the run to the sweep: two trials over
     model.optimizer.lr, one epoch of one batch each with real steps and
