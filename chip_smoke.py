@@ -96,8 +96,12 @@ from csrc/host/ with the host C++ compiler, then:
      channels [32, 64, 128], the 8 and 4 cm heads), on the data phase's
      dataset: one epoch of `Trainer.fit` (8 steps) with its validation
      (val_tsdf_loss-monitored top-3, the tail's val_recon_tsdf_l1 finite),
-     the kernel counters reset before the phase and all 0 after it (the
-     JAX VoxelNet runs no Pallas kernel); on one loader batch the float32
+     the kernel counters reset before the phase, the TPU-kernel ports' all 0
+     after it (the JAX VoxelNet runs no Pallas kernel); the fused lift's
+     (csrc/spatial_lift.cu, the bf16 spatial encoder's) launches exactly
+     those its steps imply (one lift a frame chunk, again in a remat's
+     recompute, one backward gather a resized map a chunk) in the remat and
+     no-remat steps and the timed steps below; on one loader batch the float32
      model's forward and loss on the card (TF32 off) against the CPU, the
      precision discipline (parameters and running statistics float32
      after a bf16 step; the ResNet's output bf16, the volume, the 3D
@@ -318,6 +322,23 @@ from csrc/host/ with the host C++ compiler, then:
      whole grid and within K2's tolerances of the plain decode; (e) the
      data phase's loader-fed fit at prefetch_batches 0 and 2 in turns:
      median loader wait and step ms; the phase's seconds;
+ 19. lift: the spatial encoder's fused lift (csrc/spatial_lift.cu) at the
+     VoxelNet benchmark cell's shapes (LIFT_IMAGES images of ResNet-50 at
+     feature_scale 2 on 480x640 frames: LIFT_MAPS, 1,856 -> LIFT_OUT)
+     against its plain version (the unfused resizes, concat and cast
+     conv): no element beyond one bf16 step at each of its two roundings,
+     under LIFT_DIFFERING_SHARE of them differing at all; two runs
+     bit-equal; on LIFT_GRAD_IMAGES of them the gradients no farther from
+     the float64 lift on the same bf16 interpolation weights than
+     LIFT_GRAD_FACTOR times the unfused autograd's; the forward's
+     ms against its bound (the maps read once, the output written once,
+     or its products at the bf16 peak) and the plain version's, the
+     backward gather's (csrc/spatial_lift.cu's lift_resize_t, one launch a
+     resized map) summed ms against its bound (the gradient read once a
+     map, each map's f32 sums written once) and its plain version's (two
+     float32 products), and both paths' forward + backward ms and peak
+     memory; the `kernels` line takes both kernels' launches from the
+     voxelnet phase;
 then a `gates` JSON line, a `kernels` JSON line, the nvidia-smi line and
 the final result line. Every phase raises on failure. Needs one CUDA card;
 exits non-zero without. `--phases` names which of phases 8-18 run (PHASES;
@@ -2163,9 +2184,11 @@ def spatial_phase(torch, dev, smi: str, root: str) -> dict:
     return totals
 
 
-def voxelnet_phase(torch, dev, smi: str, root: str) -> dict:
-    """Phase 11 (see the module docstring); returns the launch counts of the
-    whole phase (all 0: VoxelNet's path has no TPU kernel)."""
+def voxelnet_phase(torch, dev, smi: str, root: str) -> tuple:
+    """Phase 11 (see the module docstring); returns the TPU-kernel ports'
+    launch counts of the whole phase (all 0: VoxelNet's path has no TPU
+    kernel) and {"lift_launches": the lift kernels' counts of the whole
+    phase} (its bf16 spatial encoder runs the fused lift)."""
     GATES.phase = "voxelnet"
     from gennerf_tpu_torch import predict as predict_cli
     from gennerf_tpu_torch import set_reference_precision
@@ -2315,11 +2338,38 @@ def voxelnet_phase(torch, dev, smi: str, root: str) -> dict:
                          VOXELNET_BF16_LOSS_RTOL)):
             raise RuntimeError(f"the bf16-mixed policy is broken: {precision_rec}")
 
+        # the lift kernels' launches over `steps` forwards and backwards
+        # against what the steps imply: one lift a frame chunk, again in a
+        # remat's recompute, and in the backward one gather a resized map a
+        # chunk (the resized maps: those of the ResNet not at the stem's size)
+        resnet_sizes = []
+        size_hook = model.spatial.resnet.register_forward_hook(
+            lambda module, args, out: resnet_sizes.append([tuple(f.shape[-2:]) for f in out]))
+        with torch.no_grad():
+            model.spatial(torch.zeros(1, 3, *batch["image"].shape[-2:], device=dev), False)
+        size_hook.remove()
+        resized = sum(hw != resnet_sizes[0][0] for hw in resnet_sizes[0][1:])
+        fc = mcfg.encoder.spatial.frame_chunk
+        chunks = -(-T // fc) if 0 < fc < T else 1
+        lift_rec = {"frame_chunks": chunks, "resized_maps": resized}
+
+        def lift_counts():
+            return {k.name: k.launches for k in kernels.LIFT_KERNELS}
+
+        def lift_gates(name, before, steps, remat):
+            implied = {"spatial_lift": steps * chunks * (2 if remat else 1),
+                       "lift_resize_t": steps * chunks * resized}
+            got = {k: v - before[k] for k, v in lift_counts().items()}
+            lift_rec[name] = {"launches": got, "implied": implied}
+            return all([gate(f"lift_launches.{name}.{k}", abs(got[k] - implied[k]), 0)
+                        for k in implied])
+
         # remat against no remat: one bf16 forward and backward in training
         # mode, deterministic algorithms where torch has them (the gather's
         # backward adds with atomics; the trilinear upsample's backward has
         # no deterministic version, warn only)
-        def forward_backward(m):
+        def forward_backward(m, remat):
+            before = lift_counts()
             m.train()
             m.zero_grad(set_to_none=True)
             torch.cuda.synchronize()
@@ -2328,14 +2378,17 @@ def voxelnet_phase(torch, dev, smi: str, root: str) -> dict:
             loss, _ = voxel_net_forward_loss(m, batch)
             loss.backward()
             torch.cuda.synchronize()
+            if not lift_gates("remat" if remat else "no_remat", before, 1, remat):
+                raise RuntimeError(f"the lift's launches are not the step's: {lift_rec}")
             return (float(loss.detach()), {n: p.grad.clone() for n, p in m.named_parameters()},
                     {k: v.clone() for k, v in m.state_dict().items() if "running_" in k},
                     torch.cuda.max_memory_allocated(), (time.perf_counter() - t) * 1e3)
 
         with deterministic_algorithms(torch):
             loss_r, grads_r, stats_r, peak_r, ms_r = forward_backward(
-                fresh(dev, torch.bfloat16, remat=True))
-            loss_p, grads_p, stats_p, peak_p, ms_p = forward_backward(fresh(dev, torch.bfloat16))
+                fresh(dev, torch.bfloat16, remat=True), True)
+            loss_p, grads_p, stats_p, peak_p, ms_p = forward_backward(
+                fresh(dev, torch.bfloat16, remat=False), False)
         grad_err = {n: float((grads_r[n] - grads_p[n]).abs().max())
                     / max(float(grads_p[n].abs().max()), 1e-30) for n in grads_p}
         stats_err = max(float((stats_r[k] - stats_p[k]).abs().max())
@@ -2363,6 +2416,7 @@ def voxelnet_phase(torch, dev, smi: str, root: str) -> dict:
         model.load_state_dict(fitted)
         train_ms = []
         torch.cuda.reset_peak_memory_stats()
+        before = lift_counts()
         for _ in range(VOXELNET_WARMUP + VOXELNET_TIMED_STEPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2370,6 +2424,9 @@ def voxelnet_phase(torch, dev, smi: str, root: str) -> dict:
             torch.cuda.synchronize()
             train_ms.append((time.perf_counter() - t0) * 1e3)
         step_peak = torch.cuda.max_memory_allocated()
+        if not lift_gates("timed_steps", before, VOXELNET_WARMUP + VOXELNET_TIMED_STEPS,
+                          mcfg.remat):
+            raise RuntimeError(f"the lift's launches are not the steps': {lift_rec}")
         med_ms = statistics.median(train_ms[VOXELNET_WARMUP:])
         prof = profile_device(torch, lambda: train_step(model, opt, batch), med_ms, smi)
 
@@ -2392,10 +2449,11 @@ def voxelnet_phase(torch, dev, smi: str, root: str) -> dict:
         if empty:
             raise RuntimeError(f"empty held-out meshes: {empty}")
         launches = {k.name: k.launches for k in kernels.KERNELS}
+        lift_launches = lift_counts()
         if any(launches.values()):
-            raise RuntimeError(f"the VoxelNet phase launched TPU-kernel ports: {launches}")
+            raise RuntimeError(f"the VoxelNet phase launched TPU-kernel ports ({launches})")
         emit({"phase": "voxelnet", "config": "configs/experiment/seqs_multigeo_voxelnet.yaml",
-              "precision": precision,
+              "precision": precision, "lift_launches": lift_launches, "lift_steps": lift_rec,
               "batch": {"frames": [T, H, W], "resnet_input": [2 * H, 2 * W],
                         "voxel_dim_train": list(mcfg.voxel_dim_train)},
               "fit": fit_rec, "launches": launches, "card_vs_cpu_f32": device_rec,
@@ -2407,7 +2465,7 @@ def voxelnet_phase(torch, dev, smi: str, root: str) -> dict:
               "card": smi})
         emit({"phase": "voxelnet_profile", "what": "one loader-batch bf16-mixed VoxelNet train_step",
               **prof})
-    return launches
+    return launches, {"lift_launches": lift_launches}
 
 
 def flagship_overrides(root: str) -> list:
@@ -6210,8 +6268,132 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+# the lift phase: the VoxelNet benchmark cell's maps (frame_chunk 4 x batch 3)
+LIFT_IMAGES, LIFT_GRAD_IMAGES, LIFT_OUT = 12, 2, 32
+LIFT_MAPS = ((64, 480, 640), (256, 240, 320), (512, 120, 160), (1024, 60, 80))
+# the kernel and the plain path sum the same bf16 products in f32 in other
+# orders (~1e-6 of a sum), so a rounding flips on ~1e-3 of the elements
+LIFT_DIFFERING_SHARE = 0.01
+# gradients against a float64 lift: at most this times the unfused path's distance
+LIFT_GRAD_FACTOR = 5.0
+
+
+def lift_phase(torch, dev, smi: str) -> tuple:
+    """Phase 19 (see the module docstring); returns the phase's launches of
+    the TPU-kernel ports (none) and no errors."""
+    GATES.phase = "lift"
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.ops.spatial_lift import (
+        resize_transpose_cuda, resize_transpose_plain, spatial_lift, spatial_lift_cuda,
+        spatial_lift_float64, spatial_lift_plain,
+    )
+    from gennerf_tpu_torch.tools.measure import cuda_ms
+
+    kernels.reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf16 = torch.bfloat16
+    maps = [torch.randn((LIFT_IMAGES, *s), device=dev, generator=gen).to(bf16) for s in LIFT_MAPS]
+    K = sum(s[0] for s in LIFT_MAPS)
+    weight = torch.randn(LIFT_OUT, K, 1, 1, device=dev, generator=gen) / math.sqrt(K)
+    bias = torch.randn(LIFT_OUT, device=dev, generator=gen) * 0.1
+
+    def steps(v):  # one bf16 step (2^-7 of the binade) at each value
+        return torch.ldexp(torch.ones_like(v, dtype=torch.float32), torch.frexp(v.float())[1] - 8)
+
+    out = spatial_lift_cuda(maps, weight, bias)
+    again = spatial_lift_cuda(maps, weight, bias)
+    plain = spatial_lift_plain(maps, weight, bias)
+    y = spatial_lift_plain(maps, weight, torch.zeros_like(bias))
+    diff = (out.float() - plain.float()).abs()
+    beyond = int((diff > steps(y) + steps(plain)).sum())
+    differing = float((diff > 0).float().mean())
+    rerun_differs = int((out != again).sum())
+    del again, plain, y, diff
+    torch.cuda.synchronize()
+
+    # forward times; the bound: the maps read once and the output written once, or the products
+    HW = LIFT_MAPS[0][1] * LIFT_MAPS[0][2]
+    n_bytes = 2 * LIFT_IMAGES * (sum(c * h * w for c, h, w in LIFT_MAPS) + LIFT_OUT * HW)
+    flops = 2 * LIFT_IMAGES * HW * K * LIFT_OUT
+    bound_ms = 1e3 * max(n_bytes / PEAK_BYTES, flops / PEAK_BF16)
+    ms = cuda_ms(torch, lambda: spatial_lift_cuda(maps, weight, bias), 5)
+    plain_ms = cuda_ms(torch, lambda: spatial_lift_plain(maps, weight, bias), 3)
+
+    # forward + backward of both paths: ms and peak memory
+    g = torch.randn(LIFT_IMAGES, LIFT_OUT, *LIFT_MAPS[0][1:], device=dev, generator=gen).to(bf16)
+
+    # the backward's gather, one launch a resized map: their ms summed against
+    # the bound (g read once a map, each G written once in f32) and the plain
+    # version's (two float32 products with the interpolation matrices)
+    resized = [tuple(s[1:]) for s in LIFT_MAPS[1:]]
+    g32 = g.float()
+    gather_ms = sum(cuda_ms(torch, lambda hw=hw: resize_transpose_cuda(g, hw), 5) for hw in resized)
+    gather_plain_ms = sum(cuda_ms(torch, lambda hw=hw: resize_transpose_plain(g32, hw, bf16), 3)
+                          for hw in resized)
+    gather_bytes = sum(2 * g.numel() + 4 * LIFT_IMAGES * LIFT_OUT * h * w for h, w in resized)
+    gather = {"ms": gather_ms, "plain_ms": gather_plain_ms,
+              "bound_ms": 1e3 * gather_bytes / PEAK_BYTES, "bytes": gather_bytes,
+              "launches": len(resized)}
+    del g32
+
+    def grads(fn, maps_, weight_, bias_, g_):
+        leaves = [m.detach().requires_grad_() for m in (*maps_, weight_, bias_)]
+        out_ = fn(leaves[:-2], leaves[-2], leaves[-1])
+        return torch.autograd.grad(out_, leaves, g_.to(out_.dtype))
+
+    timing = {}
+    for name, fn in (("fused", spatial_lift), ("plain", spatial_lift_plain)):
+        fb_ms = cuda_ms(torch, lambda: grads(fn, maps, weight, bias, g),
+                        3 if name == "fused" else 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        grads(fn, maps, weight, bias, g)
+        torch.cuda.synchronize()
+        timing[name] = {"forward_backward_ms": fb_ms,
+                        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+    # gradients on LIFT_GRAD_IMAGES images, refereed by a float64 lift
+    n = LIFT_GRAD_IMAGES
+    sub = [m[:n] for m in maps]
+    fused_g = grads(spatial_lift, sub, weight, bias, g[:n])
+    plain_g = grads(spatial_lift_plain, sub, weight, bias, g[:n])
+    ref_g = grads(lambda m, w, b: spatial_lift_float64(m, w, b, bf16), [m.double() for m in sub],
+                  weight.double(), bias.double(), g[:n].double())
+    names = [f"map{i}" for i in range(len(sub))] + ["weight", "bias"]
+    grad_rec = {}
+    for name, a, b, r in zip(names, fused_g, plain_g, ref_g):
+        grad_rec[name] = {"fused_vs_f64": float((a.double() - r).abs().max()),
+                          "plain_vs_f64": float((b.double() - r).abs().max()),
+                          "dtype": str(a.dtype)}
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise RuntimeError(f"lift gradient {name}: {a.dtype} {tuple(a.shape)} against "
+                               f"{b.dtype} {tuple(b.shape)}")
+    twice = grads(spatial_lift, sub, weight, bias, g[:n])
+    grads_rerun_differ = sum(int((a != b).sum()) for a, b in zip(fused_g, twice))
+    del sub, fused_g, plain_g, ref_g, twice
+    torch.cuda.synchronize()
+    lift_launches = {k.name: k.launches for k in kernels.LIFT_KERNELS}
+    rec = {"images": LIFT_IMAGES, "maps": [list(s) for s in LIFT_MAPS], "out_channels": LIFT_OUT,
+           "beyond_one_step_per_rounding": beyond, "differing_share": differing,
+           "rerun_differing": rerun_differs, "grads_rerun_differing": grads_rerun_differ,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if n_bytes / PEAK_BYTES >= flops / PEAK_BF16 else "operations",
+           "bytes": n_bytes, "flops": flops, "gather": gather, "forward_backward": timing,
+           "grads": grad_rec,
+           "launches": lift_launches, "card": smi}
+    emit({"phase": "lift", **rec})
+    ok = (gate("beyond_one_step_per_rounding", beyond, 0)
+          & gate("differing_share", differing, LIFT_DIFFERING_SHARE)
+          & gate("rerun_differing", rerun_differs + grads_rerun_differ, 0)
+          & all([gate(f"grad_vs_f64.{name}", r["fused_vs_f64"],
+                      LIFT_GRAD_FACTOR * r["plain_vs_f64"]) for name, r in grad_rec.items()]))
+    if not ok:
+        raise RuntimeError(f"the fused lift disagrees with its plain version: {rec}")
+    return {k.name: k.launches for k in kernels.KERNELS}, rec
+
+
 PHASES = ("train", "data", "spatial", "voxelnet", "flagship_bf16", "distill", "harness",
-          "weights_options", "model_options", "prepare", "parallel")
+          "weights_options", "model_options", "prepare", "parallel", "lift")
 # the phases that read the data phase's dataset
 DATASET_PHASES = {"spatial", "voxelnet", "flagship_bf16", "harness", "weights_options",
                   "model_options", "parallel"}
@@ -6644,7 +6826,7 @@ def _main(phases: set) -> int:
                 ("spatial", lambda: (spatial_phase(torch, dev, smi, root), {})),
                 # 11. voxelnet: the second model family in bf16-mixed on the
                 # same dataset, then a held-out predict and evaluation
-                ("voxelnet", lambda: (voxelnet_phase(torch, dev, smi, root), {})),
+                ("voxelnet", lambda: voxelnet_phase(torch, dev, smi, root)),
                 # 12. flagship_bf16: the flagship GenNerf in bf16-mixed, its
                 # eikonal and frustum children and the gradient loss on the
                 # same dataset, then a held-out predict, the flagship's grid,
@@ -6676,7 +6858,10 @@ def _main(phases: set) -> int:
                 # on the card over gloo, NCCL at 2 on two cards), the
                 # data-parallel steps against world size 1, K2's x-slab split,
                 # host prefetch
-                ("parallel", lambda: parallel_phase(torch, dev, smi, root))):
+                ("parallel", lambda: parallel_phase(torch, dev, smi, root)),
+                # 19. lift: the spatial encoder's fused lift at the VoxelNet
+                # cell's shapes against its plain version
+                ("lift", lambda: lift_phase(torch, dev, smi))):
             if name in phases:
                 runs[name] = fn()
 
@@ -6713,6 +6898,23 @@ def _main(phases: set) -> int:
          "bound_by": "operations" if point_flops / PEAK_BF16 >= point_bytes / PEAK_BYTES else "bytes",
          "library_ms": None},
     ]}
+    if "lift" in runs:
+        # the times at the VoxelNet cell's shapes (the lift phase), the
+        # launches of the VoxelNet phase's own run (None where it did not run)
+        lift, gather = runs["lift"][1], runs["lift"][1]["gather"]
+        voxelnet_lifts = runs["voxelnet"][1]["lift_launches"] if "voxelnet" in runs else None
+        kernel_line["kernels"] += [
+            {"name": "spatial_lift", "route": "cuda",
+             "source": "gennerf_tpu_torch/csrc/spatial_lift.cu", "replaces": None,
+             "launches": voxelnet_lifts and voxelnet_lifts["spatial_lift"],
+             "beyond_one_step_per_rounding": lift["beyond_one_step_per_rounding"],
+             "ms": lift["ms"], "plain_ms": lift["plain_ms"], "bound_ms": lift["bound_ms"],
+             "bound_by": lift["bound_by"], "library_ms": None},
+            {"name": "lift_resize_t", "route": "cuda",
+             "source": "gennerf_tpu_torch/csrc/spatial_lift.cu", "replaces": None,
+             "launches": voxelnet_lifts and voxelnet_lifts["lift_resize_t"],
+             "ms": gather["ms"], "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
+             "bound_by": "bytes", "library_ms": None}]
     emit(GATES.line())
     emit(kernel_line)
     print(smi, flush=True)

@@ -13,6 +13,14 @@ models/resnet.ResNetStages.
 Under a compute `dtype` (bf16-mixed) the ResNet and `proj` compute in it
 and the stage resizes weight in their input's dtype, as the JAX encoder's;
 the input image and its rescale stay float32.
+
+With a `proj`, bilinear resizes and the bf16 compute dtype, the resizes,
+the concatenation and `proj` of CUDA maps run as one fused operation
+(ops/spatial_lift.spatial_lift: the csrc/spatial_lift.cu kernel, whose
+latent never reaches device memory, and a reassociated float32 backward);
+every other case, the CPU among them, runs them unfused. Counters (while
+a profiler records): `lift.pixels`, the output pixels of every call, and
+`lift.fused_pixels`, those of the fused calls.
 """
 from __future__ import annotations
 
@@ -21,9 +29,11 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.coords import linspace
+from ..ops.spatial_lift import resize_bilinear_align_corners, spatial_lift
 from ..ops.value_transforms import apply_gaussian_smoothing
+from ..utils.spans import count
 from .resnet import RESNET_SPECS, ResNetStages, conv2d
+from .resnetfc import compute_dtype_of
 
 
 def spatial_latent_size(backbone: str, num_layers: int) -> int:
@@ -31,31 +41,6 @@ def spatial_latent_size(backbone: str, num_layers: int) -> int:
     block, _ = RESNET_SPECS[backbone]
     widths = [64] + [64 * 2 ** i * block.expansion for i in range(4)]
     return sum(widths[:num_layers])
-
-
-def _lerp_axis(x: torch.Tensor, dim: int, out_size: int) -> torch.Tensor:
-    """Align-corners linear resize of one axis, the source coordinates
-    rounded as the reference's compiled jnp.linspace (F.interpolate computes
-    them in another order, which moves `floor` at exact texel hits)."""
-    size = x.shape[dim]
-    src = linspace(0.0, size - 1.0, out_size, x.device)
-    i0 = torch.floor(src).to(torch.int64).clamp(0, size - 1)
-    i1 = (i0 + 1).clamp(0, size - 1)
-    shape = [1] * x.dim()
-    shape[dim] = out_size
-    w = (src - i0.to(src.dtype)).to(x.dtype).reshape(shape)
-    return x.index_select(dim, i0) * (1 - w) + x.index_select(dim, i1) * w
-
-
-def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """(B, C, H, W) -> (B, C, OH, OW) with align_corners=True: the width
-    pass, then the height pass. The values equal the reference's four-tap
-    formula term for term: its top row is the width pass at row y0, its
-    bottom row the width pass at row y1."""
-    OH, OW = (int(s) for s in out_hw)
-    if (OH, OW) == tuple(x.shape[-2:]):
-        return x
-    return _lerp_axis(_lerp_axis(x, 3, OW), 2, OH)
 
 
 class SpatialEncoder(nn.Module):
@@ -74,6 +59,9 @@ class SpatialEncoder(nn.Module):
         self.proj = (conv2d(latent, out_channels, 1, bias=True, dtype=dtype)
                      if out_channels else None)
         self.latent_size = out_channels or latent
+        # the fused lift's static conditions; the maps' device decides at run time
+        self.fused_lift = bool(out_channels) and self.resize and (
+            compute_dtype_of(dtype) == torch.bfloat16)
 
     def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
         """(B, 3, H, W) images -> (B, latent_size, H', W'), H' = H * feature_scale / 2.
@@ -89,6 +77,11 @@ class SpatialEncoder(nn.Module):
             x = torch.nn.functional.avg_pool2d(x, f, f)
         feats = self.resnet(x, update_stats)
         target = feats[0].shape[-2:]
+        pixels = feats[0].shape[0] * target[0] * target[1]
+        count("lift.pixels", pixels)
+        if self.fused_lift and feats[0].is_cuda:
+            count("lift.fused_pixels", pixels)
+            return spatial_lift(feats, self.proj.weight, self.proj.bias)
         if self.resize:
             feats = [resize_bilinear_align_corners(f, target) for f in feats]
         elif any(f.shape[-2:] != target for f in feats):

@@ -10,8 +10,10 @@ nothing is built or imported when this module is imported.
 Each kernel has a `Kernel` record whose `launches` counts the launches its
 wrapper made, so a run can show that its main path went through it, and
 whose `last_launch` holds what a wrapper records of its last launch (the
-FPS wrapper: its plan). `fps_plan` asks the FPS launcher how it would run a
-cloud (no launch).
+FPS wrapper: its plan). `KERNELS` are the ports of the JAX package's TPU
+kernels (K1-K3); `LIFT_KERNELS` the spatial encoder's lift and its
+backward's gather (csrc/spatial_lift.cu), which replace no TPU kernel.
+`fps_plan` asks the FPS launcher how it would run a cloud (no launch).
 """
 from __future__ import annotations
 
@@ -63,6 +65,9 @@ POINT_DECODE = Kernel(
     [_P, _P, ctypes.c_longlong, _I, _I, _I, _I] + [_P] * 6 + [_F, _F, _F, _P, _I, _I, _P],
 )
 KERNELS = (FPS, GRID_DECODE, POINT_DECODE)
+SPATIAL_LIFT = Kernel("spatial_lift", "gennerf_spatial_lift", [_I] + [_P] * 8 + [_I] * 5 + [_P])
+LIFT_RESIZE_T = Kernel("lift_resize_t", "gennerf_lift_resize_t", [_P] * 4 + [_I] * 5 + [_P])
+LIFT_KERNELS = (SPATIAL_LIFT, LIFT_RESIZE_T)
 
 _lock = threading.Lock()
 _lib = None
@@ -70,7 +75,7 @@ build_info: dict = {}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
+    for k in KERNELS + LIFT_KERNELS:
         k.launches = 0
 
 
@@ -144,7 +149,7 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build_library())
-            for k in KERNELS:
+            for k in KERNELS + LIFT_KERNELS:
                 fn = getattr(lib, k.symbol)
                 fn.argtypes = k.argtypes
                 fn.restype = ctypes.c_int

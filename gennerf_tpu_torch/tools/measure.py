@@ -40,15 +40,22 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
 
 
 KERNEL_OF_ENTRY = (("fps_", "fps"), ("grid_decode_kernel", "grid_decode"),
-                   ("point_decode_kernel", "point_decode"))
+                   ("point_decode_kernel", "point_decode"), ("spatial_lift_kernel", "spatial_lift"),
+                   ("lift_resize_t_kernel", "lift_resize_t"))
 
 
 def kernel_of(entry: str):
     """(kernel, instance) of a mangled entry name: the width H of a decode
     kernel; the function and its template argument for an FPS kernel (past
-    the anonymous namespace's name, which nvcc builds from the file's)."""
+    the anonymous namespace's name, which nvcc builds from the file's); the
+    packed weight rows (32 per chunk of its template argument) of the lift."""
     for key, name in KERNEL_OF_ENTRY:
         if key in entry:
+            if name == "lift_resize_t":
+                return name, None
+            if name == "spatial_lift":
+                m = re.search(r"spatial_lift_kernelILi(\d+)E", entry)
+                return name, 32 * int(m.group(1)) if m else None
             if name == "fps":
                 m = re.search(r"(fps_[a-z_]*?kernel)(?:ILi(\d+)E)?", entry)
                 if m is None:
@@ -80,7 +87,7 @@ def ptxas_rows(ptxas_log: str) -> dict:
 
 
 def _row(rows: dict, name: str, instance) -> dict:
-    key = "instance" if name == "fps" else "H"
+    key = {"fps": "instance", "spatial_lift": "rows", "lift_resize_t": "instance"}.get(name, "H")
     return rows.setdefault((name, instance), {"kernel": name, key: instance})
 
 
@@ -114,13 +121,22 @@ def build_report(ptxas_log: str, lib_path: str) -> dict:
 
 def check_build(report: dict) -> None:
     """The decode kernels run on wgmma (HGMMA, no HMMA, where cuobjdump
-    exists) and spill nothing at H = 256; no FPS kernel instance spills."""
+    exists) and spill nothing at H = 256; no FPS kernel instance spills; the
+    lift kernels spill nothing, the lift itself on wgmma."""
     for r in report["kernels"]:
-        if r["kernel"] == "fps" and (r.get("spill_store_bytes") or r.get("spill_load_bytes")):
+        spills = r.get("spill_store_bytes") or r.get("spill_load_bytes")
+        if r["kernel"] == "fps" and spills:
             raise RuntimeError(f"an fps kernel spills: {r}")
+        if r["kernel"] in ("spatial_lift", "lift_resize_t"):
+            if spills:
+                raise RuntimeError(f"a lift kernel spills: {r}")
+            if (r["kernel"] == "spatial_lift" and report["cuobjdump"] != "missing"
+                    and (r.get("hgmma", 0) == 0 or r.get("hmma", 0))):
+                raise RuntimeError(f"the lift kernel is not on wgmma: {r}")
+            continue
         if r["kernel"] not in ("grid_decode", "point_decode"):
             continue
-        if r["H"] == 256 and (r.get("spill_store_bytes") or r.get("spill_load_bytes")):
+        if r["H"] == 256 and spills:
             raise RuntimeError(f"{r['kernel']} spills at H=256: {r}")
         if report["cuobjdump"] != "missing" and (r.get("hgmma", 0) == 0 or r.get("hmma", 0)):
             raise RuntimeError(f"{r['kernel']} H={r['H']} is not on wgmma: {r}")

@@ -23,6 +23,8 @@ Counters (where: value):
     prior.kept_voxels     tsdf/fusion.apply_fusion_prior: voxels in the band
     backproject.pairs     ops/projection.backproject_fold: (item, frame, voxel) pairs
     backproject.observed  ops/projection.backproject_fold: those some pixel sees
+    lift.pixels           models/spatial_encoder.SpatialEncoder.forward: output pixels
+    lift.fused_pixels     the same, where the fused lift (ops/spatial_lift) ran
 """
 from __future__ import annotations
 

@@ -25,7 +25,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPANS = {"gennerf.reconstruct", "gennerf.encode", "gennerf.decode", "gennerf.prior",
          "gennerf.refine", "gennerf.step", "gennerf.forward", "gennerf.backward",
          "gennerf.allreduce", "gennerf.optimizer"}
-COUNTERS = {"decode.voxels", "prior.kept_voxels", "backproject.pairs", "backproject.observed"}
+COUNTERS = {"decode.voxels", "prior.kept_voxels", "backproject.pairs", "backproject.observed",
+            "lift.pixels", "lift.fused_pixels"}
 IDLE = ("encode_idle_ms.infer", "decode_idle_ms.infer", "prior_idle_ms.infer",
         "other_idle_ms.infer")
 
