@@ -44,7 +44,7 @@ from ..ops.coords import normalize_3d_coordinate, normalize_coordinate
 from ..ops.interpolation import sample_plane_feature, trilinear_interpolation
 from ..ops.projection import backproject_fold, get_3d_points
 from ..ops.sampling import farthest_point_sample, uniform_presample, voxel_hash_downsample
-from ..utils.spans import span
+from ..utils.spans import count, span
 from .config import GenNerfConfig, check_supported
 from .heads import TSDFHeadSimple
 from .pointnet import FeaturePlaneMerger, LocalPoolPointnet
@@ -113,11 +113,14 @@ def encode_feature_volume(featurize: Callable, projection: torch.Tensor, image: 
     return volume, valid
 
 
-def normalized_volume(volume: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def normalized_volume(volume: torch.Tensor, valid: torch.Tensor,
+                      observed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The summed volume over its observation count, 0 where no frame saw
-    the voxel."""
+    the voxel (`observed`, valid > 0, where the caller has it)."""
     vol = volume / valid.clamp_min(1e-12)
-    return torch.where(valid > 0, vol, torch.zeros((), dtype=vol.dtype, device=vol.device))
+    if observed is None:
+        observed = valid > 0
+    return torch.where(observed, vol, torch.zeros((), dtype=vol.dtype, device=vol.device))
 
 
 class GenNerf(nn.Module):
@@ -215,11 +218,12 @@ class GenNerf(nn.Module):
         spatial encoder's channels, then the teacher's (use_auxiliary)."""
         enc = self.cfg.encoder
         feats = []
-        if enc.use_spatial:
-            feats.append(self.spatial(images, update_stats))
-        if enc.use_auxiliary:
-            feats.append(self.teacher(images))
-        return feats[0] if len(feats) == 1 else torch.cat(feats, dim=1)
+        with span("gennerf.featurize"):
+            if enc.use_spatial:
+                feats.append(self.spatial(images, update_stats))
+            if enc.use_auxiliary:
+                feats.append(self.teacher(images))
+            return feats[0] if len(feats) == 1 else torch.cat(feats, dim=1)
 
     def _encode_planes(self, projection, depth, generator, sel, start):
         B, T = projection.shape[:2]
@@ -250,10 +254,16 @@ class GenNerf(nn.Module):
         """The volume's mean feature per voxel (sum over count, 0 where no
         frame saw the voxel), channels-last (B, nx, ny, nz, C) and
         contiguous; None for a scene without a volume. A caller decoding
-        one scene in many chunks computes it once and passes it on."""
+        one scene in many chunks computes it once and passes it on.
+        Counters: `volume.voxels` and `volume.observed_voxels` (count above 0)."""
         if repr_.volume is None:
             return None
-        return normalized_volume(repr_.volume, repr_.valid).permute(0, 2, 3, 4, 1).contiguous()
+        with span("gennerf.volume"):
+            observed = repr_.valid > 0
+            count("volume.voxels", observed.numel())
+            count("volume.observed_voxels", observed)
+            return normalized_volume(repr_.volume, repr_.valid, observed).permute(
+                0, 2, 3, 4, 1).contiguous()
 
     def map_features(self, repr_: SceneRepr, xyz: torch.Tensor, origin=None,
                      volume_cl: Optional[torch.Tensor] = None) -> torch.Tensor:

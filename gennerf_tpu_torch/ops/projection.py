@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.spans import count
+from ..utils.spans import count, span
 from .coords import world_coordinates
 
 
@@ -99,14 +99,16 @@ def backproject_fold(feat_2d: torch.Tensor, projection: torch.Tensor, image_hw, 
     B, T = projection.shape[:2]
     C, Hf, Wf = feat_2d.shape[1:]
     H, W = (int(s) for s in image_hw)
-    scale = torch.tensor([Wf / W, Hf / H, 1.0], dtype=torch.float32,
-                         device=projection.device).reshape(1, 3, 1)
-    feat = feat_2d.to(torch.float32).reshape(B, T, C, Hf, Wf)
-    volume = valid = None
-    for t in range(T):
-        vol, val = backproject(voxel_dim, voxel_size, origin, projection[:, t] * scale, feat[:, t])
-        volume = vol if volume is None else volume + vol
-        valid = val if valid is None else valid + val
-    count("backproject.pairs", B * T * valid[0, 0].numel())
-    count("backproject.observed", valid)
-    return volume, valid
+    with span("gennerf.backproject"):
+        scale = torch.tensor([Wf / W, Hf / H, 1.0], dtype=torch.float32,
+                             device=projection.device).reshape(1, 3, 1)
+        feat = feat_2d.to(torch.float32).reshape(B, T, C, Hf, Wf)
+        volume = valid = None
+        for t in range(T):
+            vol, val = backproject(voxel_dim, voxel_size, origin, projection[:, t] * scale,
+                                   feat[:, t])
+            volume = vol if volume is None else volume + vol
+            valid = val if valid is None else valid + val
+        count("backproject.pairs", B * T * valid[0, 0].numel())
+        count("backproject.observed", valid)
+        return volume, valid

@@ -12,6 +12,9 @@ exactly the profiled windows of the process.
 Spans (where):
     gennerf.reconstruct   predict.reconstruct
     gennerf.encode        GenNerf.encode, VoxelNet.encode
+    gennerf.featurize     GenNerf.features_2d (the spatial encoder, the teacher)
+    gennerf.backproject   ops/projection.backproject_fold
+    gennerf.volume        GenNerf.volume_features (the count-normalised volume)
     gennerf.decode        train/predict.predict_tsdf_volume(_sparse)
     gennerf.prior         tsdf/fusion.apply_fusion_prior
     gennerf.refine        VoxelNet.refine (the 3D net and the heads)
@@ -20,11 +23,14 @@ Spans (where):
 
 Counters (where: value):
     decode.voxels         ops/grid_decode.grid_decode: voxels decoded
+    decode.dense_points   train/predict.decode_dense: points decoded off the kernels
     prior.kept_voxels     tsdf/fusion.apply_fusion_prior: voxels in the band
     backproject.pairs     ops/projection.backproject_fold: (item, frame, voxel) pairs
     backproject.observed  ops/projection.backproject_fold: those some pixel sees
     lift.pixels           models/spatial_encoder.SpatialEncoder.forward: output pixels
     lift.fused_pixels     the same, where the fused lift (ops/spatial_lift) ran
+    volume.voxels         GenNerf.volume_features: voxels of each normalised volume
+    volume.observed_voxels  the same, those some frame sees (count above 0)
 """
 from __future__ import annotations
 

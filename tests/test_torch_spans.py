@@ -24,9 +24,11 @@ import _torch_threads  # noqa: F401  (sizes torch's threads per xdist worker)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPANS = {"gennerf.reconstruct", "gennerf.encode", "gennerf.decode", "gennerf.prior",
          "gennerf.refine", "gennerf.step", "gennerf.forward", "gennerf.backward",
-         "gennerf.allreduce", "gennerf.optimizer"}
+         "gennerf.allreduce", "gennerf.optimizer", "gennerf.featurize", "gennerf.backproject",
+         "gennerf.volume"}
 COUNTERS = {"decode.voxels", "prior.kept_voxels", "backproject.pairs", "backproject.observed",
-            "lift.pixels", "lift.fused_pixels"}
+            "lift.pixels", "lift.fused_pixels", "decode.dense_points", "volume.voxels",
+            "volume.observed_voxels"}
 IDLE = ("encode_idle_ms.infer", "decode_idle_ms.infer", "prior_idle_ms.infer",
         "other_idle_ms.infer")
 
