@@ -87,8 +87,10 @@ from csrc/host/ with the host C++ compiler, then:
      peak memory of each), K1 against the plain FPS, the frame_chunk
      encode against the one-pass encode in eval mode; timed and profiled
      train steps; a held-out `reconstruct` at 96x96x56 (K1 once, K2 0,
-     finite, inside the head's range), its total and decode ms and a
-     profile;
+     finite, inside the head's range), counters reset just before and
+     read just after: csrc/volume_sample.cu launched exactly once a dense
+     decode chunk (the 2 chunks `predict_tsdf_volume`'s chunk size cuts the
+     grid into), its total and decode ms and a profile;
  11. voxelnet: configs/experiment/seqs_multigeo_voxelnet.yaml at full width
      in the precision it asks for, bf16-mixed (ResNet-18 stem and 2 stages
      at feature_scale 2.0 on the loaders' 480x640 frames, 32 channels
@@ -339,9 +341,32 @@ from csrc/host/ with the host C++ compiler, then:
      float32 products), and both paths' forward + backward ms and peak
      memory; the `kernels` line takes both kernels' launches from the
      voxelnet phase;
+ 20. volume_sample: the feature volume's trilinear sample
+     (csrc/volume_sample.cu) against the composition of gathers and lerps
+     it replaces on the card, bit for bit (no element's f32 bits differ):
+     at the combined-encoder cell's decode chunk (VS_CHUNK grid points of
+     the VS_GRID grid, 512 f32 channels) and at as many random points
+     (inside, outside the volume, on grid points), both again with the
+     volume in bf16; at C = 1, 33 and 64 in f32 and bf16 on a batch of 2
+     with an origin off zero, an unaligned volume and one holding zeros of
+     both signs, infinities and NaNs; the dispatch (one launch under
+     no_grad, the composition where a graph is needed) with its counters;
+     the kernel's ms at the cell's chunk against its bound (each point's
+     row read once, its features written once) and VS_MAX_MS, the bf16
+     volume's ms and the composition's; the library's sampler on the same
+     chunk (F.grid_sample, 5-D, bilinear, border, align_corners, on the
+     channels-first volume, its output transposed to the decoder's rows):
+     its ms, its differing elements and largest difference from the
+     composition, and the ms of the channels-last copy of the volume that
+     the kernel needs and grid_sample would not; then a dense decode of the
+     cell's grid (`predict_tsdf_volume`, the spatial phase's config with
+     random weights and a random 512-channel scene), counters reset just
+     before and read just after: the kernel launched exactly once a chunk
+     (24), every point through it (`trilinear.kernel_points` =
+     `trilinear.points` = the grid's voxels);
 then a `gates` JSON line, a `kernels` JSON line, the nvidia-smi line and
 the final result line. Every phase raises on failure. Needs one CUDA card;
-exits non-zero without. `--phases` names which of phases 8-18 run (PHASES;
+exits non-zero without. `--phases` names which of phases 8-20 run (PHASES;
 phases 1-7 always run, and the data phase's dataset is written for a
 phase that reads it): a gate's margin measured on its phase alone.
 
@@ -881,6 +906,17 @@ def error_breakdown(err, out, tile: int = 128, top: int = 64) -> dict:
             "top_tile_rows": {"at_tile_edge": int(np.isin(rows, (0, tile - 1)).sum()),
                               "at_consumer_split": int(np.isin(rows, (tile // 2 - 1,
                                                                       tile // 2)).sum())}}
+
+
+def dense_chunks(voxel_dim) -> int:
+    """The chunks `predict_tsdf_volume` cuts a dense decode of this grid
+    into (its default chunk size)."""
+    import inspect
+
+    from gennerf_tpu_torch.train.predict import predict_tsdf_volume
+
+    chunk = inspect.signature(predict_tsdf_volume).parameters["chunk_size"].default
+    return -(-math.prod(int(d) for d in voxel_dim) // chunk)
 
 
 def host_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -1938,9 +1974,11 @@ def data_phase(torch, dev, smi: str, root: str) -> dict:
     return totals
 
 
-def spatial_phase(torch, dev, smi: str, root: str) -> dict:
+def spatial_phase(torch, dev, smi: str, root: str) -> tuple:
     """Phase 10 (see the module docstring); returns the launch counts of
-    the main-path runs (the fit with its validation, the reconstruct)."""
+    the main-path runs (the fit with its validation, the reconstruct) and
+    {"volume_sample_launches": the reconstruct's launches of the volume
+    sample and the number its decode implies}."""
     GATES.phase = "spatial"
     from unittest import mock
 
@@ -1978,7 +2016,8 @@ def spatial_phase(torch, dev, smi: str, root: str) -> dict:
         model = build_model(cfg["model"], dev, SEED)
         mcfg = model.cfg
         if not (mcfg.encoder.use_spatial and mcfg.encoder.use_pointnet and mcfg.remat
-                and mcfg.encoder.spatial.frame_chunk == 1) or uses_grid_decode(model):
+                and mcfg.encoder.spatial.frame_chunk == 1) or uses_grid_decode(model) \
+                or mcfg.sparse_band_decode:
             raise RuntimeError(f"not the spatial drive config: {mcfg.encoder}")
         opt = make_optimizer(model.parameters(), mcfg.optimizer,
                              trainer_cfg.get("gradient_clip_val"))
@@ -2147,12 +2186,20 @@ def spatial_phase(torch, dev, smi: str, root: str) -> dict:
         vol = reconstruct(model, P, image, depth, voxel_dim, torch.Generator().manual_seed(SEED))
         torch.cuda.synchronize()
         predict_launches = read_launches()
+        # the dense decode samples the feature volume (and a 'grid' plane)
+        # once a chunk, each on the kernel
+        samples = int(mcfg.has_feature_volume) + int("grid" in mcfg.encoder.pointnet.plane_type)
+        volume_samples = {"launches": kernels.VOLUME_SAMPLE.launches,
+                          "implied": dense_chunks(voxel_dim) * samples}
         smoothing = mcfg.mlp.head_smoothing
         if tuple(vol.shape) != voxel_dim or not torch.isfinite(vol).all() \
                 or float(vol.abs().max()) > max(smoothing, 1.0):
             raise RuntimeError(f"spatial volume {tuple(vol.shape)} not finite or out of range")
         if (predict_launches["fps"], predict_launches["grid_decode"]) != (1, 0):
             raise RuntimeError(f"the spatial reconstruct launched {predict_launches}")
+        if not gate("reconstruct.volume_sample_launches",
+                    abs(volume_samples["launches"] - volume_samples["implied"]), 0):
+            raise RuntimeError(f"the spatial reconstruct's volume samples: {volume_samples}")
         total_ms = host_ms(torch, lambda: reconstruct(model, P, image, depth, voxel_dim,
                                                       torch.Generator().manual_seed(SEED)), 3)
         origin = torch.zeros(3, device=dev)
@@ -2174,14 +2221,15 @@ def spatial_phase(torch, dev, smi: str, root: str) -> dict:
               "chunked_vs_one_pass": chunk_rec,
               "train_step_ms": {"median": med_ms, "all": train_ms},
               "predict": {"scene": scene["scene"][0], "voxel_dim": list(voxel_dim),
-                          "launches": predict_launches, "total_ms": total_ms,
+                          "launches": predict_launches, "volume_sample": volume_samples,
+                          "total_ms": total_ms,
                           "decode_ms": decode_ms, "out_abs_max": float(vol.abs().max())},
               "card": smi})
         emit({"phase": "spatial_profile", "what": "one loader-batch spatial train_step",
               "k1_share": prof["fps_kernel_ms"] / max(prof["device_busy_ms"], 1e-9), **prof})
         emit({"phase": "spatial_predict_profile",
               "what": "one spatial reconstruct at the test grid", **predict_prof})
-    return totals
+    return totals, {"volume_sample_launches": volume_samples}
 
 
 def voxelnet_phase(torch, dev, smi: str, root: str) -> tuple:
@@ -6392,8 +6440,199 @@ def lift_phase(torch, dev, smi: str) -> tuple:
     return {k.name: k.launches for k in kernels.KERNELS}, rec
 
 
+# the volume_sample phase: one decode chunk of the combined-encoder GenNerf
+# cell (gennerf_living_spatial.recon): its 256x256x96 grid at 4 cm, the
+# 512-channel f32 mean-feature volume, 262,144 points a chunk (the grid's
+# 13th chunk of 24)
+VS_GRID, VS_VOXEL, VS_CHANNELS, VS_CHUNK, VS_CHUNK_INDEX = (256, 256, 96), 0.04, 512, 262144, 12
+# the smaller volumes: (B, grid) at each channel count, f32 and bf16
+VS_SMALL, VS_SMALL_CHANNELS = (2, (40, 36, 28)), (1, 33, 64)
+# the kernel's time a cell chunk, at most (ms; its bound by bytes is 0.32)
+VS_MAX_MS = 1.0
+
+
+def volume_sample_phase(torch, dev, smi: str) -> tuple:
+    """Phase 20 (see the module docstring); returns the phase's launches of
+    the TPU-kernel ports (none) and its record."""
+    GATES.phase = "volume_sample"
+    import torch.nn.functional as F
+
+    from gennerf_tpu_torch.models.gen_nerf import SceneRepr
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.ops.interpolation import (
+        trilinear_interpolation, trilinear_interpolation_cuda, trilinear_interpolation_plain,
+    )
+    from gennerf_tpu_torch.predict import build_model
+    from gennerf_tpu_torch.tools.measure import cuda_ms
+    from gennerf_tpu_torch.train.predict import dense_grid_points, predict_tsdf_volume
+    from gennerf_tpu_torch.utils import spans
+    from gennerf_tpu_torch.utils.config import load_experiment_config
+
+    kernels.reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    origin = torch.zeros(3, dtype=torch.float32, device=dev)
+    cases = {}
+
+    def differing(vol, xyz, org, voxel) -> int:
+        """Elements whose f32 bits differ between the kernel and the
+        composition (a NaN only matches a NaN of the same bits)."""
+        got = trilinear_interpolation_cuda(vol, xyz, org, voxel)
+        want = trilinear_interpolation_plain(vol, xyz, org, voxel)
+        n = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        del got, want
+        return n
+
+    def points(B, grid, voxel, n):
+        """n points a batch item: a third inside the volume at random, a
+        third up to a fifth of the extent outside it (border clamp), a third
+        on grid points (exact integer hits, as the decode grid's)."""
+        ext = torch.tensor([g * voxel for g in grid], device=dev)
+        k = n // 3
+        inside = torch.rand((B, k, 3), generator=gen, device=dev) * ext
+        outside = (torch.rand((B, k, 3), generator=gen, device=dev) * 1.4 - 0.2) * ext
+        grid_pts = dense_grid_points(grid, voxel, origin, dev)
+        hits = grid_pts[torch.randint(0, grid_pts.shape[0], (B, n - 2 * k), generator=gen,
+                                      device=dev)]
+        return torch.cat([inside, outside, hits], dim=1).contiguous()
+
+    # the cell's chunk and random points on its volume, f32, then bf16
+    volume = torch.randn((1, *VS_GRID, VS_CHANNELS), generator=gen, device=dev)
+    grid = dense_grid_points(VS_GRID, VS_VOXEL, origin, dev)
+    chunk = grid[VS_CHUNK_INDEX * VS_CHUNK:(VS_CHUNK_INDEX + 1) * VS_CHUNK][None].contiguous()
+    del grid
+    cell_random = points(1, VS_GRID, VS_VOXEL, VS_CHUNK)
+    cases["cell_grid_f32"] = differing(volume, chunk, origin, VS_VOXEL)
+    cases["cell_random_f32"] = differing(volume, cell_random, origin, VS_VOXEL)
+    torch.cuda.synchronize()
+
+    # times at the cell's chunk; the bound: each point's row read once and
+    # its features written once
+    n_bytes = 2 * VS_CHUNK * VS_CHANNELS * 4
+    bound_ms = 1e3 * n_bytes / PEAK_BYTES
+    ms = cuda_ms(torch, lambda: trilinear_interpolation_cuda(volume, chunk, origin, VS_VOXEL),
+                 10, inner=5)
+    plain_ms = cuda_ms(torch, lambda: trilinear_interpolation_plain(volume, chunk, origin,
+                                                                    VS_VOXEL), 3)
+
+    # the library's sampler on the same chunk: grid_sample on the
+    # channels-first volume (grid[..., 0] indexes its last axis, z), the
+    # (C, N) output transposed to the (N, C) rows the decoder takes
+    volume_cf = volume.permute(0, 4, 1, 2, 3).contiguous()
+    extent = torch.tensor(VS_GRID, dtype=torch.float32, device=dev) * VS_VOXEL
+
+    def library():
+        norm = 2.0 * (chunk - origin) / extent - 1.0
+        out = F.grid_sample(volume_cf, norm.flip(-1).reshape(1, 1, 1, VS_CHUNK, 3),
+                            mode="bilinear", padding_mode="border", align_corners=True)
+        return out.reshape(1, VS_CHANNELS, VS_CHUNK).transpose(1, 2).contiguous()
+
+    got, want = library(), trilinear_interpolation_plain(volume, chunk, origin, VS_VOXEL)
+    library_rec = {"differing": int((got != want).sum()),
+                   "max_abs_diff": float((got - want).abs().max()),
+                   "ms": cuda_ms(torch, library, 5),
+                   # what volume_features' channels-last copy costs a request
+                   "channels_last_copy_ms": cuda_ms(
+                       torch, lambda: volume_cf.permute(0, 2, 3, 4, 1).contiguous(), 3)}
+    del got, want, volume_cf
+    torch.cuda.synchronize()
+    bf16 = volume.to(torch.bfloat16)
+    del volume
+    cases["cell_grid_bf16"] = differing(bf16, chunk, origin, VS_VOXEL)
+    cases["cell_random_bf16"] = differing(bf16, cell_random, origin, VS_VOXEL)
+    bf16_ms = cuda_ms(torch, lambda: trilinear_interpolation_cuda(bf16, chunk, origin, VS_VOXEL),
+                      10, inner=5)
+    del bf16, cell_random
+    torch.cuda.synchronize()
+
+    # smaller volumes: C = 1, 33 (rows of no multiple of 16 bytes) and 64,
+    # a batch of 2, an origin off zero, an unaligned volume (scalar loads)
+    B, small = VS_SMALL
+    off = torch.tensor([0.3, -0.2, 0.1], device=dev)
+    for C in VS_SMALL_CHANNELS:
+        for dtype in (torch.float32, torch.bfloat16):
+            vol = torch.randn((B, *small, C), generator=gen, device=dev).to(dtype)
+            xyz = points(B, small, VS_VOXEL, 3000) + off
+            cases[f"c{C}_{str(dtype)[6:]}"] = differing(vol, xyz, off, VS_VOXEL)
+    flat = torch.randn(B * math.prod(small) * 64 + 1, generator=gen, device=dev)
+    unaligned = flat[1:].reshape(B, *small, 64)
+    cases["c64_float32_unaligned"] = differing(unaligned, xyz, off, VS_VOXEL)
+    # zeros of both signs, infinities and NaNs in the volume
+    special = torch.randn((B, *small, 8), generator=gen, device=dev)
+    pick = torch.randint(0, 5, special.shape, generator=gen, device=dev)
+    for v, value in enumerate((0.0, -0.0, math.inf, -math.inf)):
+        special[pick == v] = value
+    special[(pick == 4) & (torch.rand(special.shape, generator=gen, device=dev) < 0.05)] = math.nan
+    cases["special_values"] = differing(special, points(B, small, VS_VOXEL, 3000), origin,
+                                        VS_VOXEL)
+    del flat, unaligned, special
+    torch.cuda.synchronize()
+
+    # the dispatch on the card: the kernel under no_grad, the composition
+    # where a graph is needed
+    vol = torch.randn((1, *small, 64), generator=gen, device=dev)
+    xyz = points(1, small, VS_VOXEL, 3000)
+    spans.reset()
+    before = kernels.VOLUME_SAMPLE.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with torch.no_grad():
+            trilinear_interpolation(vol, xyz, origin, VS_VOXEL)
+        trilinear_interpolation(vol.requires_grad_(True), xyz, origin, VS_VOXEL)
+    dispatch = {"launches": kernels.VOLUME_SAMPLE.launches - before, **spans.counters()}
+    spans.reset()
+    del vol, xyz
+
+    # a dense decode of the cell's grid on the main path: the spatial phase's
+    # config (512 volume channels beside the triplanes) with random weights
+    # and a random scene, counters reset just before and read just after
+    mcfg = load_experiment_config(SPATIAL_EXPERIMENT, "train", [])["model"]
+    model = build_model(mcfg, dev, SEED)
+    cfg = model.cfg
+    p = cfg.encoder.pointnet
+    reso = p.plane_resolution
+    planes = {k: torch.randn((1, p.c_dim, reso, reso), generator=gen, device=dev)
+              for k in p.plane_type}
+    scene = SceneRepr(planes,
+                      torch.randn((1, cfg.encoder_latent - p.c_dim, *VS_GRID), generator=gen,
+                                  device=dev),
+                      torch.randint(0, 4, (1, 1, *VS_GRID), generator=gen, device=dev).float())
+    samples = int(cfg.has_feature_volume) + int("grid" in p.plane_type)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    spans.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        tsdf = predict_tsdf_volume(model, scene, VS_GRID, VS_VOXEL, origin)
+    torch.cuda.synchronize()
+    decode = {"voxels": math.prod(VS_GRID), "launches": kernels.VOLUME_SAMPLE.launches,
+              "implied": dense_chunks(VS_GRID) * samples,
+              "finite": bool(torch.isfinite(tsdf).all()), **spans.counters()}
+    spans.reset()
+    del model, scene, planes, tsdf
+    torch.cuda.synchronize()
+
+    rec = {"grid": list(VS_GRID), "channels": VS_CHANNELS, "chunk": VS_CHUNK,
+           "differing": cases, "ms": ms, "bf16_ms": bf16_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes", "bytes": n_bytes, "dispatch": dispatch,
+           "library": library_rec, "decode": decode, "card": smi}
+    emit({"phase": "volume_sample", **rec})
+    ok = (all([gate(f"differing.{name}", n, 0) for name, n in cases.items()])
+          & gate("ms", ms, VS_MAX_MS)
+          & gate("dispatch.launches", abs(dispatch["launches"] - 1), 0)
+          & gate("dispatch.kernel_points", abs(dispatch.get("trilinear.kernel_points", 0) - 3000),
+                 0)
+          & gate("decode.launches", abs(decode["launches"] - decode["implied"]), 0)
+          & gate("decode.kernel_points",
+                 abs(decode.get("trilinear.kernel_points", 0) - decode["voxels"] * samples), 0)
+          & gate("decode.points", abs(decode.get("trilinear.points", 0) - decode["voxels"] * samples),
+                 0)
+          & decode["finite"])
+    if not ok:
+        raise RuntimeError(f"the volume sample kernel disagrees with the composition: {rec}")
+    return {k.name: k.launches for k in kernels.KERNELS}, rec
+
+
 PHASES = ("train", "data", "spatial", "voxelnet", "flagship_bf16", "distill", "harness",
-          "weights_options", "model_options", "prepare", "parallel", "lift")
+          "weights_options", "model_options", "prepare", "parallel", "lift",
+          "volume_sample")
 # the phases that read the data phase's dataset
 DATASET_PHASES = {"spatial", "voxelnet", "flagship_bf16", "harness", "weights_options",
                   "model_options", "parallel"}
@@ -6410,13 +6649,13 @@ def write_dataset(root: str) -> float:
 
 
 def parse_phases(argv: list) -> set:
-    """`--phases a,b` (phases 8-18 by name, PHASES) -> that set; none: all.
+    """`--phases a,b` (phases 8-20 by name, PHASES) -> that set; none: all.
     Phases 1-7 always run."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated phases 8-18 to run after phases 1-7 "
+                    help="comma-separated phases 8-20 to run after phases 1-7 "
                          f"(default all: {','.join(PHASES)}); '' runs phases 1-7 only")
     names = {n for n in ap.parse_args(argv).phases.split(",") if n}
     unknown = names - set(PHASES)
@@ -6823,7 +7062,7 @@ def _main(phases: set) -> int:
         for name, fn in (
                 # 10. spatial: the ResNet feature volume beside the triplanes,
                 # trained on the same dataset, then a held-out reconstruct
-                ("spatial", lambda: (spatial_phase(torch, dev, smi, root), {})),
+                ("spatial", lambda: spatial_phase(torch, dev, smi, root)),
                 # 11. voxelnet: the second model family in bf16-mixed on the
                 # same dataset, then a held-out predict and evaluation
                 ("voxelnet", lambda: voxelnet_phase(torch, dev, smi, root)),
@@ -6861,7 +7100,11 @@ def _main(phases: set) -> int:
                 ("parallel", lambda: parallel_phase(torch, dev, smi, root)),
                 # 19. lift: the spatial encoder's fused lift at the VoxelNet
                 # cell's shapes against its plain version
-                ("lift", lambda: lift_phase(torch, dev, smi))):
+                ("lift", lambda: lift_phase(torch, dev, smi)),
+                # 20. volume_sample: the feature volume's trilinear sample at
+                # the combined-encoder cell's decode chunk against the
+                # composition
+                ("volume_sample", lambda: volume_sample_phase(torch, dev, smi))):
             if name in phases:
                 runs[name] = fn()
 
@@ -6915,6 +7158,21 @@ def _main(phases: set) -> int:
              "launches": voxelnet_lifts and voxelnet_lifts["lift_resize_t"],
              "ms": gather["ms"], "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
              "bound_by": "bytes", "library_ms": None}]
+    if "volume_sample" in runs:
+        # the times at the spatial cell's chunk, the launches of the dense
+        # decode of its grid (and of the spatial phase's reconstruct, where
+        # it ran), each gated at what its decode implies
+        vs = runs["volume_sample"][1]
+        spatial_samples = (runs["spatial"][1]["volume_sample_launches"]["launches"]
+                           if "spatial" in runs else 0)
+        kernel_line["kernels"].append(
+            {"name": "volume_sample", "route": "cuda",
+             "source": "gennerf_tpu_torch/csrc/volume_sample.cu", "replaces": None,
+             "launches": vs["decode"]["launches"] + spatial_samples,
+             "launches_cell_request": vs["decode"]["launches"],
+             "differing": sum(vs["differing"].values()),
+             "ms": vs["ms"], "plain_ms": vs["plain_ms"], "bound_ms": vs["bound_ms"],
+             "bound_by": "bytes", "library_ms": vs["library"]["ms"]})
     emit(GATES.line())
     emit(kernel_line)
     print(smi, flush=True)

@@ -68,6 +68,10 @@ KERNELS = (FPS, GRID_DECODE, POINT_DECODE)
 SPATIAL_LIFT = Kernel("spatial_lift", "gennerf_spatial_lift", [_I] + [_P] * 8 + [_I] * 5 + [_P])
 LIFT_RESIZE_T = Kernel("lift_resize_t", "gennerf_lift_resize_t", [_P] * 4 + [_I] * 5 + [_P])
 LIFT_KERNELS = (SPATIAL_LIFT, LIFT_RESIZE_T)
+VOLUME_SAMPLE = Kernel("volume_sample", "gennerf_volume_sample",
+                       [_P, _I, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong]
+                       + [_I] * 4 + [_F] * 3 + [_P])
+_ALL = KERNELS + LIFT_KERNELS + (VOLUME_SAMPLE,)
 
 _lock = threading.Lock()
 _lib = None
@@ -75,7 +79,7 @@ build_info: dict = {}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS + LIFT_KERNELS:
+    for k in _ALL:
         k.launches = 0
 
 
@@ -149,7 +153,7 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build_library())
-            for k in KERNELS + LIFT_KERNELS:
+            for k in _ALL:
                 fn = getattr(lib, k.symbol)
                 fn.argtypes = k.argtypes
                 fn.restype = ctypes.c_int

@@ -41,18 +41,26 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
 
 KERNEL_OF_ENTRY = (("fps_", "fps"), ("grid_decode_kernel", "grid_decode"),
                    ("point_decode_kernel", "point_decode"), ("spatial_lift_kernel", "spatial_lift"),
-                   ("lift_resize_t_kernel", "lift_resize_t"))
+                   ("lift_resize_t_kernel", "lift_resize_t"),
+                   ("volume_sample_kernel", "volume_sample"))
 
 
 def kernel_of(entry: str):
     """(kernel, instance) of a mangled entry name: the width H of a decode
     kernel; the function and its template argument for an FPS kernel (past
     the anonymous namespace's name, which nvcc builds from the file's); the
-    packed weight rows (32 per chunk of its template argument) of the lift."""
+    packed weight rows (32 per chunk of its template argument) of the lift;
+    the element type and channels a thread loads at once of the volume
+    sample ("f32x4", "bf16x8", ...)."""
     for key, name in KERNEL_OF_ENTRY:
         if key in entry:
             if name == "lift_resize_t":
                 return name, None
+            if name == "volume_sample":
+                m = re.search(r"volume_sample_kernelI(f|13__nv_bfloat16)Li(\d+)E", entry)
+                if m is None:
+                    return name, entry
+                return name, ("f32" if m.group(1) == "f" else "bf16") + "x" + m.group(2)
             if name == "spatial_lift":
                 m = re.search(r"spatial_lift_kernelILi(\d+)E", entry)
                 return name, 32 * int(m.group(1)) if m else None
@@ -87,7 +95,8 @@ def ptxas_rows(ptxas_log: str) -> dict:
 
 
 def _row(rows: dict, name: str, instance) -> dict:
-    key = {"fps": "instance", "spatial_lift": "rows", "lift_resize_t": "instance"}.get(name, "H")
+    key = {"fps": "instance", "spatial_lift": "rows", "lift_resize_t": "instance",
+           "volume_sample": "instance"}.get(name, "H")
     return rows.setdefault((name, instance), {"kernel": name, key: instance})
 
 
@@ -122,11 +131,12 @@ def build_report(ptxas_log: str, lib_path: str) -> dict:
 def check_build(report: dict) -> None:
     """The decode kernels run on wgmma (HGMMA, no HMMA, where cuobjdump
     exists) and spill nothing at H = 256; no FPS kernel instance spills; the
-    lift kernels spill nothing, the lift itself on wgmma."""
+    lift kernels spill nothing, the lift itself on wgmma; no volume sample
+    instance spills."""
     for r in report["kernels"]:
         spills = r.get("spill_store_bytes") or r.get("spill_load_bytes")
-        if r["kernel"] == "fps" and spills:
-            raise RuntimeError(f"an fps kernel spills: {r}")
+        if r["kernel"] in ("fps", "volume_sample") and spills:
+            raise RuntimeError(f"an instance of the {r['kernel']} kernel spills: {r}")
         if r["kernel"] in ("spatial_lift", "lift_resize_t"):
             if spills:
                 raise RuntimeError(f"a lift kernel spills: {r}")

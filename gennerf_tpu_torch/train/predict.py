@@ -59,8 +59,12 @@ def decode_dense(model: GenNerf, repr_: SceneRepr, points: torch.Tensor, origin=
     `origin` places the feature volume (default 0), whose mean features are
     computed once for all chunks. A model computing in another dtype than
     float32 samples its planes and volume in that dtype (the counts stay
-    as they are), as the reference's decode_dense does. Counter:
-    `decode.dense_points`, the points decoded."""
+    as they are), as the reference's decode_dense does. Each chunk samples
+    the volume through `GenNerf.map_features` ->
+    `ops/interpolation.trilinear_interpolation`: on the card (no graph
+    under no_grad) one launch of csrc/volume_sample.cu a chunk, on the CPU
+    the composition of gathers and lerps. Counter: `decode.dense_points`,
+    the points decoded."""
     count("decode.dense_points", points.shape[0])
     dt = model.dtype
     if dt != torch.float32:

@@ -31,6 +31,8 @@ Counters (where: value):
     lift.fused_pixels     the same, where the fused lift (ops/spatial_lift) ran
     volume.voxels         GenNerf.volume_features: voxels of each normalised volume
     volume.observed_voxels  the same, those some frame sees (count above 0)
+    trilinear.points      ops/interpolation.trilinear_interpolation: points sampled
+    trilinear.kernel_points  the same, those the kernel (csrc/volume_sample.cu) sampled
 """
 from __future__ import annotations
 

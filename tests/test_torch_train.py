@@ -298,10 +298,24 @@ def test_ray_sampler(batch, rng):
     np.testing.assert_allclose(xyz_t.numpy(), np.asarray(xyz_j), rtol=0, atol=1e-5)
 
 
-def test_trilinear_interpolation(rng):
-    vol = rng.uniform(-1, 1, (2, 6, 5, 4, 3)).astype(np.float32)
-    xyz = rng.uniform(-0.2, 0.8, (2, 50, 3)).astype(np.float32)  # some outside: border clamp
+# (B, dims, C): the first is the volume of the decode's first tests; C = 1
+# and 64 are the training target's TSDF and the PointNet `grid` plane
+TRILINEAR_CASES = {"c3": (2, (6, 5, 4), 3), "c1": (1, (7, 3, 5), 1),
+                   "c64": (1, (4, 6, 5), 64), "unit_axis": (2, (1, 5, 4), 5)}
+
+
+@pytest.mark.parametrize("case", sorted(TRILINEAR_CASES))
+def test_trilinear_interpolation(rng, case):
+    """Points inside and outside the volume (border clamp), then on grid
+    points (exact integer hits, as the dense decode's)."""
+    B, dims, C = TRILINEAR_CASES[case]
+    vol = rng.uniform(-1, 1, (B, *dims, C)).astype(np.float32)
+    xyz = rng.uniform(-0.2, 0.8, (B, 50, 3)).astype(np.float32)  # some outside: border clamp
     origin = np.array([0.02, -0.01, 0.0], np.float32)
+    idx = np.stack(np.meshgrid(*(np.arange(n) for n in dims), indexing="ij"), -1).reshape(-1, 3)
+    step = np.array([0.1 * n / max(n - 1, 1) for n in dims], np.float32)
+    hits = (idx[:20].astype(np.float32) * step + origin)[None].repeat(B, 0)
+    xyz = np.concatenate([xyz, hits], axis=1)
     for mode in ("bilinear", "nearest"):
         ref = jinterp.trilinear_interpolation(jnp.asarray(vol), jnp.asarray(xyz), jnp.asarray(origin),
                                               0.1, mode)
