@@ -11,48 +11,50 @@ from csrc/host/ with the host C++ compiler, then:
      decode kernel spills at H=256 or is not on wgmma, or an FPS kernel
      instance spills; the host library's build seconds and whether it was
      cached;
-  2. fps: the FPS kernel against its plain version on (8, 16384, 3)
-     presampled depth clouds with duplicates, npoint 256 (the predict and
-     the training shape of seqs_multigeo_4cm), and on (32, 16384, 3) (a
-     batch_size-4 config's): 0 index mismatches at both; the plan
-     the wrapper launched (cluster size, CTAs, tier), the clusters the card
-     runs at once for each size, ms over back-to-back launches and of one
-     call between two events, us per iteration;
-  3. grid_decode: the grid-decode kernel against its plain bf16-feed
-     version on tables of full-width weights at 96x96x56, H=256, 5 blocks,
-     its time, TFLOP/s and share of the bf16 peak;
-  4. predict: `reconstruct` of the full-width seqs_multigeo_4cm GenNerf
-     (seeded random weights) on 8 rendered 120x160 frames, with the launch
-     counters reset just before and read just after (and the FPS plan that
-     run launched); the volume is checked
-     against the same stages run through the plain versions; then a
-     profiled call (device busy ms, idle share);
-  5. point_decode: the point-decode kernel against its plain bf16-feed
-     version on the triplane features and codes of 2^20 points in the
-     test volume, its time and share of the peak there and at a view's
-     coarse, fine and secant launch sizes;
-  6. render: `render_views` of 4 of the frames (the K3-backed march) with
+  2. predict: `reconstruct` of the full-width seqs_multigeo_4cm GenNerf
+     (seeded random weights, every ResnetFC matrix non-zero) on 8 rendered
+     120x160 frames, with the launch counters reset just before and read
+     just after (and the FPS plan that run launched); the volume is checked
+     against the same stages run through the plain versions;
+  3. render: `render_views` of 4 of the frames (the K3-backed march) with
      the counters reset just before and read just after, held against the
-     same march on the plain bf16-feed decode; then a profiled view;
-  6b. mesh: on the render phase's weights, the 96x96x56 volume of
+     same march on the plain bf16-feed decode (k3_march);
+  4. mesh: on the render phase's weights, the 96x96x56 volume of
      `reconstruct` (K2, counters reset just before and read just after) and
      of the same stages through the plain versions, each meshed by
      `TSDF.get_mesh`: both non-empty, `eval_mesh(K2 mesh, plain mesh)` at
      F@5cm >= 0.99; the host ms of marching cubes, eval_mesh and the PLY
      write and load;
-  7. predict_sparse: `reconstruct` with sparse_band_decode, and the band
+  5. predict_sparse: `reconstruct` with sparse_band_decode, and the band
      decode against the dense gather decode clamped by the prior;
-  8. train: the training path of the same config (ray supervision, smooth_log
+  6. kernels: each kernel of KERNEL_ROWS (K1-K3, the fused lift and its
+     backward gather, the volume sample) alone at the shape PERF.md's
+     kernel table reports, on inputs its row makes: its ms
+     (tools/measure.cuda_ms), its plain version's and its bound's (bytes
+     at the HBM peak, or operations at the f32 or bf16 tensor peak), one
+     line a row; K1's launched plan, the clusters the card runs at once
+     for each size and one call's ms; both lift paths' forward + backward
+     ms and peak memory; the volume sample's ms on a bf16 volume, the
+     library's sampler's (F.grid_sample with the transpose to rows) and
+     the channels-last copy's, and its ms gated at VS_MAX_MS. Each row's
+     kernel is first held against its plain version on the same inputs
+     (the row's `check`: K1's indices equal, K2 and K3 within the grid and
+     point tolerances, the lift within one bf16 step a rounding and two
+     runs bit-equal, the gather within float32 sums of the float64
+     transpose, the volume sample bit-equal in f32 and bf16); the card
+     tests (tests/test_torch_kernels.py, test_torch_spatial_lift.py,
+     test_torch_volume_sample_card.py) hold the other shapes and cases;
+  7. train: the training path of the same config (ray supervision, smooth_log
      TSDF loss, autograd, Adam with coupled L2) on `training_batch`'s scene
      of 8 frames, K1 in every step's encode: one step with K1 against the
      same step with the plain FPS on the card (same weights and draws,
      deterministic algorithms),
      then 3 warm-up and 20 timed chained `train_step`s with the counters
      reset just before and read just after (K1 launches must equal the
-     steps; the loss must fall), a profiled step, the peak memory, and a
+     steps; the loss must fall), the peak memory, and a
      save / reload into a fresh model and optimizer / step against the
      uninterrupted step;
-  9. data: the multigeo dataset written by the port's writer (8 training
+  8. data: the multigeo dataset written by the port's writer (8 training
      and 2 held-out scenes of 10 frames of 120x160, ground truth at 4 and
      8 cm) into a temporary directory; ScannetDataModule of the same config
      with its 3D augmentation; 2 epochs (16 steps) of `Trainer.fit` over
@@ -61,8 +63,8 @@ from csrc/host/ with the host C++ compiler, then:
      before and read just after (K1 launches must equal the steps plus
      the validation encodes, the losses and val_recon_tsdf_l1 finite,
      best_epoch() the epoch of the lowest val_combined), the loader wait
-     and step times, TSDF.transform's time per item, the peak memory and a
-     profiled loader-fed step; then
+     and step times, TSDF.transform's time per item and the peak memory;
+     then
      data_eval: both held-out scenes through the predict CLI from the run
      directory (`--ckpt`: the best epoch, selected_by val_combined; K2
      once per scene, each of those outputs held against the plain
@@ -74,7 +76,7 @@ from csrc/host/ with the host C++ compiler, then:
      rendered through K3, held against the plain march (the hit share
      printed), and one step with K1 against the plain-FPS step on the
      fit's first augmented 480x640 batch;
- 10. spatial: configs/experiment/seqs_multigeo_spatial.yaml at full width
+  9. spatial: configs/experiment/seqs_multigeo_spatial.yaml at full width
      (ResNet-34 stem and 3 stages at feature_scale 2.0 on the loaders'
      480x640 frames, 512 latent channels backprojected into an 80x80x40
      volume beside the pointnet triplanes, d_in 544, frame_chunk 1 with
@@ -85,13 +87,18 @@ from csrc/host/ with the host C++ compiler, then:
      on one loader batch the remat step against the step without remat
      under deterministic algorithms (loss, gradients, running statistics,
      peak memory of each), K1 against the plain FPS, the frame_chunk
-     encode against the one-pass encode in eval mode; timed and profiled
-     train steps; a held-out `reconstruct` at 96x96x56 (K1 once, K2 0,
-     finite, inside the head's range), counters reset just before and
-     read just after: csrc/volume_sample.cu launched exactly once a dense
-     decode chunk (the 2 chunks `predict_tsdf_volume`'s chunk size cuts the
-     grid into), its total and decode ms and a profile;
- 11. voxelnet: configs/experiment/seqs_multigeo_voxelnet.yaml at full width
+     encode against the one-pass encode in eval mode; timed train steps;
+     a held-out `reconstruct` at 96x96x56 (K1 once, K2 0, finite, inside
+     the head's range), counters reset just before and read just after:
+     csrc/volume_sample.cu launched exactly once a dense decode chunk (the
+     2 chunks `predict_tsdf_volume`'s chunk size cuts the grid into), its
+     total and decode ms; then a dense decode of the spatial benchmark
+     cell's grid (SPATIAL_CELL_GRID, 256x256x96) on a random scene of this
+     config's widths (512 volume channels), counters reset just before and
+     read just after: the kernel launched exactly once a chunk (24), every
+     point through it (`trilinear.kernel_points` = `trilinear.points` = the
+     grid's voxels);
+ 10. voxelnet: configs/experiment/seqs_multigeo_voxelnet.yaml at full width
      in the precision it asks for, bf16-mixed (ResNet-18 stem and 2 stages
      at feature_scale 2.0 on the loaders' 480x640 frames, 32 channels
      backprojected into an 80x80x40 volume, the 3D encoder-decoder with
@@ -108,11 +115,11 @@ from csrc/host/ with the host C++ compiler, then:
      precision discipline (parameters and running statistics float32
      after a bf16 step; the ResNet's output bf16, the volume, the 3D
      backbone's and the heads' outputs float32; the bf16 loss near the
-     float32 loss), a remat step against the step without remat; timed and
-     profiled bf16 steps; the held-out scenes through the predict CLI from
-     the run directory and `evaluation.process` (metrics finite, meshes
+     float32 loss), a remat step against the step without remat; timed
+     bf16 steps; the held-out scenes through the predict CLI from the run
+     directory and `evaluation.process` (metrics finite, meshes
      non-empty);
- 12. flagship_bf16: configs/experiment/seq1_frames8_evenspaced_pointnet.yaml
+ 11. flagship_bf16: configs/experiment/seq1_frames8_evenspaced_pointnet.yaml
      at full width in the precision it asks for, bf16-mixed (pointnet c_dim
      64, 4 blocks, 128x128 planes, UNet depth 3, 512 sparse points, raw
      world coordinates; ResnetFC H 256, 5 blocks; 100 rays of 1 + 20 + 8
@@ -124,7 +131,7 @@ from csrc/host/ with the host C++ compiler, then:
      against the plain-FPS step; the bf16 loss against the float32 loss of
      the same weights, batch and draws (2e-2), the state float32 after a
      bf16 step, the planes and TSDF bf16, the features float32; the float32
-     planes and loss on the card against the CPU (1e-4); timed and profiled
+     planes and loss on the card against the CPU (1e-4); timed
      bf16 steps (K1 once a step) and the same in float32; an epoch and a
      validation of the eikonal child in bf16 (the eikonal term finite and
      above 0), for 4 draws its float32 step on the card and on the CPU and
@@ -149,7 +156,7 @@ from csrc/host/ with the host C++ compiler, then:
      view through K3 against the plain march (a tenth of the rays hitting,
      masks and depths agreeing); one bf16 step of seqs_multigeo_spatial
      (K1 once, the loss within 2e-2 of the float32 loss);
- 13. distill: scans/scene_synth0 (24 frames) written by the port's
+ 12. distill: scans/scene_synth0 (24 frames) written by the port's
      `generate_scene`; configs/experiment/distill_synthetic.yaml and
      distill_render_synthetic.yaml at their own width (pointnet c_dim 32,
      64x64 planes, UNet depth 3, 256 sparse points; ResnetFC H 256 x 5
@@ -163,7 +170,7 @@ from csrc/host/ with the host C++ compiler, then:
      against the CPU on the CPU's sparse and supervision points (and, in
      render mode, the CPU's march) within 1e-5, the card's own march
      against the CPU's (99% of the hit masks agree, the crossings within
-     1e-3 m); timed and profiled steps of each mode; on the trained
+     1e-3 m); timed steps of each mode; on the trained
      surface model's head (d_geo 64, lin_out 128 wide) K2 through
      `reconstruct` of the scene's test frames against the plain bf16-feed
      decode (the field centred first if a tenth of it is not live), K3 at
@@ -172,7 +179,7 @@ from csrc/host/ with the host C++ compiler, then:
      (the teacher's 64 channels backprojected beside the planes, d_in 96):
      one step, the card against the CPU, and a `reconstruct` and a
      `render_views` launching K1 twice and K2 and K3 0 times;
- 14. harness: configs/experiment/seqs_multigeo_4cm.yaml at full width on
+ 13. harness: configs/experiment/seqs_multigeo_4cm.yaml at full width on
      the data phase's dataset through the train CLI's `main` in process,
      with the reference's harness groups (HARNESS_OVERRIDES: at most 6
      epochs of 3 train batches and 1 validation batch, early stopping on
@@ -197,7 +204,7 @@ from csrc/host/ with the host C++ compiler, then:
      and a --resume run of one more epoch starting at the next epoch with
      a finite loss; a 2-trial learning-rate grid through
      `train.sweep` (2 records, val_combined finite);
- 15. weights_options: weights in and out and the GenNerf options a
+ 14. weights_options: weights in and out and the GenNerf options a
      reference checkpoint can name. A reference-named Lightning .ckpt of the
      full-width seqs_multigeo_4cm (c_dim 32, 64x64 planes, UNet depth 3, 256
      sparse points, ResnetFC H 256 x 5), fabricated with numpy, its
@@ -232,7 +239,7 @@ from csrc/host/ with the host C++ compiler, then:
      after the steps printed);
      PointNet++ on one (8, 16384) cloud (K1 at npoint 128, then 32 on 128
      centroids, each index-exact, its plan printed);
- 16. model_options: the remaining model options, on the data phase's
+ 15. model_options: the remaining model options, on the data phase's
      dataset (and the distill phase's scene). (a) seqs_multigeo_voxelnet
      at full width in its bf16-mixed with backbone3d.norm GN and drop 0.1
      (VOXELNET_OPTIONS): 3 loader-batch train steps (the masks drawn from
@@ -268,7 +275,7 @@ from csrc/host/ with the host C++ compiler, then:
      the bf16 surface model's d_geo-64 head against their plain versions,
      and one use_auxiliary step (K1 once, decode_dense route) within
      OPTIONS_BF16_LOSS_RTOL of its float32 loss;
- 17. prepare: data preparation from raw ScanNet, then the flagship on it. A
+ 16. prepare: data preparation from raw ScanNet, then the flagship on it. A
      'rooms' scene (data/prepare/synthetic_scannet.py) of PREPARE_FRAMES
      frames rendered at ScanNet's sizes (colour 1296x968, depth 640x480 in
      mm, ScanNet-like intrinsics) written as scans/scene0244_01/
@@ -296,7 +303,7 @@ from csrc/host/ with the host C++ compiler, then:
      K3 against the plain march; the .sens write, export per frame, JPEG
      decode, fusion per voxel size, loader wait and step times, and the
      phase's seconds on a line of their own;
- 18. parallel: more than one GPU, on PARALLEL_BATCH loader items of the
+ 17. parallel: more than one GPU, on PARALLEL_BATCH loader items of the
      data phase's dataset at full width (seqs_multigeo_4cm, f32;
      seqs_multigeo_voxelnet, bf16-mixed, its BatchNorm global): (a) NCCL at
      world size 1 in this process, every collective run: 10 steps of
@@ -324,50 +331,10 @@ from csrc/host/ with the host C++ compiler, then:
      whole grid and within K2's tolerances of the plain decode; (e) the
      data phase's loader-fed fit at prefetch_batches 0 and 2 in turns:
      median loader wait and step ms; the phase's seconds;
- 19. lift: the spatial encoder's fused lift (csrc/spatial_lift.cu) at the
-     VoxelNet benchmark cell's shapes (LIFT_IMAGES images of ResNet-50 at
-     feature_scale 2 on 480x640 frames: LIFT_MAPS, 1,856 -> LIFT_OUT)
-     against its plain version (the unfused resizes, concat and cast
-     conv): no element beyond one bf16 step at each of its two roundings,
-     under LIFT_DIFFERING_SHARE of them differing at all; two runs
-     bit-equal; on LIFT_GRAD_IMAGES of them the gradients no farther from
-     the float64 lift on the same bf16 interpolation weights than
-     LIFT_GRAD_FACTOR times the unfused autograd's; the forward's
-     ms against its bound (the maps read once, the output written once,
-     or its products at the bf16 peak) and the plain version's, the
-     backward gather's (csrc/spatial_lift.cu's lift_resize_t, one launch a
-     resized map) summed ms against its bound (the gradient read once a
-     map, each map's f32 sums written once) and its plain version's (two
-     float32 products), and both paths' forward + backward ms and peak
-     memory; the `kernels` line takes both kernels' launches from the
-     voxelnet phase;
- 20. volume_sample: the feature volume's trilinear sample
-     (csrc/volume_sample.cu) against the composition of gathers and lerps
-     it replaces on the card, bit for bit (no element's f32 bits differ):
-     at the combined-encoder cell's decode chunk (VS_CHUNK grid points of
-     the VS_GRID grid, 512 f32 channels) and at as many random points
-     (inside, outside the volume, on grid points), both again with the
-     volume in bf16; at C = 1, 33 and 64 in f32 and bf16 on a batch of 2
-     with an origin off zero, an unaligned volume and one holding zeros of
-     both signs, infinities and NaNs; the dispatch (one launch under
-     no_grad, the composition where a graph is needed) with its counters;
-     the kernel's ms at the cell's chunk against its bound (each point's
-     row read once, its features written once) and VS_MAX_MS, the bf16
-     volume's ms and the composition's; the library's sampler on the same
-     chunk (F.grid_sample, 5-D, bilinear, border, align_corners, on the
-     channels-first volume, its output transposed to the decoder's rows):
-     its ms, its differing elements and largest difference from the
-     composition, and the ms of the channels-last copy of the volume that
-     the kernel needs and grid_sample would not; then a dense decode of the
-     cell's grid (`predict_tsdf_volume`, the spatial phase's config with
-     random weights and a random 512-channel scene), counters reset just
-     before and read just after: the kernel launched exactly once a chunk
-     (24), every point through it (`trilinear.kernel_points` =
-     `trilinear.points` = the grid's voxels);
 then a `gates` JSON line, a `kernels` JSON line, the nvidia-smi line and
 the final result line. Every phase raises on failure. Needs one CUDA card;
-exits non-zero without. `--phases` names which of phases 8-20 run (PHASES;
-phases 1-7 always run, and the data phase's dataset is written for a
+exits non-zero without. `--phases` names which of phases 6-17 run (PHASES;
+phases 1-5 always run, and the data phase's dataset is written for a
 phase that reads it): a gate's margin measured on its phase alone.
 
 The `gates` line lists every numeric gate the run evaluated, in order:
@@ -395,13 +362,11 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections.abc import Callable
 
 SEED = 0
 NUM_FRAMES, HEIGHT, WIDTH = 8, 120, 160
 NPOINT, PRESAMPLE = 256, 16384
-# clouds of a batch_size-4 training batch (seqs_living_gen_nerf.yaml: 4
-# scenes x 8 frames); seqs_multigeo_4cm trains at batch_size 1, (8, 16384)
-FPS_BATCH = 32
 VOXEL_DIM = (96, 96, 56)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor FLOP/s, f32 FLOP/s
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
@@ -466,6 +431,8 @@ EXPERIMENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 SPATIAL_EXPERIMENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "configs", "experiment", "seqs_multigeo_spatial.yaml")
 SPATIAL_BACKBONE = "random:resnet34"
+# the decode grid of the spatial benchmark cell (gennerf_living_spatial.recon)
+SPATIAL_CELL_GRID, SPATIAL_CELL_VOXEL = (256, 256, 96), 0.04
 SPATIAL_EPOCHS, SPATIAL_TIMED_STEPS = 1, 5
 # remat against no remat on one batch, same weights and draws, under
 # deterministic algorithms: the same arithmetic, recomputed, so the loss,
@@ -919,18 +886,89 @@ def dense_chunks(voxel_dim) -> int:
     return -(-math.prod(int(d) for d in voxel_dim) // chunk)
 
 
+def synced_calls(torch, fn, n: int) -> tuple:
+    """n calls of fn(), the card synchronized before and after each: each
+    call's wall ms and what each returned."""
+    ms, outs = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, outs
+
+
 def host_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     """Median wall time of fn() ending in a device synchronize, in ms."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    return statistics.median(synced_calls(torch, fn, reps)[0])
+
+
+def forward_backward(torch, m, loss_fn) -> tuple:
+    """One training-mode forward and backward of m (loss_fn(m): the loss):
+    the loss, the gradients, the running statistics, peak bytes and ms."""
+    m.train()
+    m.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loss = loss_fn(m)
+    loss.backward()
+    torch.cuda.synchronize()
+    return (float(loss.detach()), {n: p.grad.clone() for n, p in m.named_parameters()},
+            {k: v.clone() for k, v in m.state_dict().items() if "running_" in k},
+            torch.cuda.max_memory_allocated(), (time.perf_counter() - t) * 1e3)
+
+
+def remat_record(torch, remat: tuple, no_remat: tuple, fitted: dict) -> dict:
+    """forward_backward of a model with remat against one without, both
+    from the weights `fitted`: the record, gated (the loss, the worst
+    gradient and the running statistics within the REMAT tolerances, every
+    statistic moved); raises where they disagree."""
+    loss_r, grads_r, stats_r, peak_r, ms_r = remat
+    loss_p, grads_p, stats_p, peak_p, ms_p = no_remat
+    grad_err = {n: float((grads_r[n] - grads_p[n]).abs().max())
+                / max(float(grads_p[n].abs().max()), 1e-30) for n in grads_p}
+    stats_err = max(float((stats_r[k] - stats_p[k]).abs().max())
+                    / max(float(stats_p[k].abs().max()), 1e-30) for k in stats_p)
+    moved = sum(not torch.equal(stats_r[k], fitted[k]) for k in stats_r)
+    worst = max(grad_err, key=grad_err.get)
+    remat_rec = {"loss_remat": loss_r, "loss_plain": loss_p,
+                 "loss_rel_err": abs(loss_r - loss_p) / abs(loss_p),
+                 "worst_grad": worst, "worst_grad_err_over_max_abs": grad_err[worst],
+                 "running_stats_rel_err": stats_err, "running_stats_moved": moved,
+                 "running_stats": len(stats_r), "peak_memory_bytes_remat": peak_r,
+                 "peak_memory_bytes_no_remat": peak_p, "forward_backward_ms_remat": ms_r,
+                 "forward_backward_ms_no_remat": ms_p,
+                 "tolerance": {"loss_rel": REMAT_LOSS_RTOL, "grad_over_max_abs": REMAT_GRAD_TOL,
+                               "stats_rel": REMAT_STATS_TOL}}
+    if not (gate("remat.loss_rel", remat_rec["loss_rel_err"], REMAT_LOSS_RTOL)
+            and gate("remat.grad_over_max_abs", grad_err[worst], REMAT_GRAD_TOL)
+            and gate("remat.stats_rel", stats_err, REMAT_STATS_TOL)
+            and moved == len(stats_r)):
+        raise RuntimeError(f"the remat step disagrees with the step without remat: {remat_rec}")
+    return remat_rec
+
+
+def make_trainer(torch, dev, model, cfg: dict, run_dir: str, epochs: int, val_every: int = 1,
+                 precision=None):
+    """The Trainer of the train config `cfg` for `model`: its optimizer
+    (with the config's gradient clip) and checkpoint callback, `epochs`
+    epochs validating every `val_every`, no sanity validation."""
+    from gennerf_tpu_torch.train.checkpoints import CheckpointManager
+    from gennerf_tpu_torch.train.loop import Trainer
+    from gennerf_tpu_torch.train.state import make_optimizer
+
+    opt = make_optimizer(model.parameters(), model.cfg.optimizer,
+                         cfg["trainer"].get("gradient_clip_val"))
+    ckpt = cfg["callbacks"]["model_checkpoint"]
+    checkpoints = CheckpointManager(ckpt["dirpath"], ckpt["save_top_k"], monitor=ckpt["monitor"],
+                                    mode=ckpt.get("mode", "min"))
+    return Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), run_dir,
+                   max_epochs=epochs, check_val_every_n_epoch=val_every, checkpoints=checkpoints,
+                   precision=precision, num_sanity_val_steps=0)
 
 
 @contextlib.contextmanager
@@ -950,36 +988,6 @@ def deterministic_algorithms(torch):
     finally:
         torch.use_deterministic_algorithms(before[0], warn_only=before[1])
         torch.backends.cudnn.deterministic = before[2]
-
-
-def profile_device(torch, fn, total_ms: float, card: str) -> dict:
-    """Device busy ms and idle share of one fn() call: device-side events
-    of one profiled call (host-side op events would count their kernels
-    twice, and so would the device-side spans of annotated host ranges
-    such as Optimizer.step, which carry a host event's name), against its
-    unprofiled wall time; and the host ops taking the most host time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    host = {e.key for e in events if e.device_type == DeviceType.CPU}
-    kernel_us = sorted(((e.key, e.self_device_time_total, e.count) for e in events
-                        if e.device_type == DeviceType.CUDA and e.key not in host
-                        and e.self_device_time_total > 0), key=lambda d: -d[1])
-    host_us = sorted(((e.key, e.self_cpu_time_total, e.count) for e in events
-                      if e.device_type == DeviceType.CPU), key=lambda d: -d[1])
-    busy_ms = sum(d[1] for d in kernel_us) / 1e3
-    return {"device_busy_ms": busy_ms, "unprofiled_total_ms": total_ms,
-            "device_idle_share": 1 - busy_ms / total_ms,
-            "kernels_launched": sum(d[2] for d in kernel_us),
-            "fps_kernel_ms": sum(d[1] for d in kernel_us if "fps_" in d[0]) / 1e3,
-            "top": [{"name": k[:80], "ms": us / 1e3, "calls": n} for k, us, n in kernel_us[:12]],
-            "host_top": [{"name": k[:60], "self_ms": us / 1e3, "calls": n}
-                         for k, us, n in host_us[:8]],
-            "card": card}
 
 
 def ray_draws(torch, dev, cfg, batch: dict, seed: int):
@@ -1280,6 +1288,143 @@ def march_analysis(torch, model, repr_, depth, intrinsics, poses, rk: dict, rp: 
     for k, n in saved.items():
         k.launches = n
     return rec
+
+
+def counting(owner, attr: str, names: list):
+    """mock.patch.object of owner.attr by a wrapper appending the wrapped
+    function's name to `names` at each call."""
+    from unittest import mock
+
+    fn = getattr(owner, attr)
+
+    def wrapper(*a, **k):
+        names.append(fn.__name__)
+        return fn(*a, **k)
+    return mock.patch.object(owner, attr, wrapper)
+
+
+def recorded(fn, calls: list):
+    """fn, with each call's arguments and output appended to `calls`."""
+    def wrapper(*args):
+        out = fn(*args)
+        calls.append((*args, out))
+        return out
+    return wrapper
+
+
+def recorded_k2_errors(decoded: list) -> tuple:
+    """(the largest max and mean abs error, the least live share) of the K2
+    calls recorded in `decoded` (recorded(grid_decode_cuda, decoded))
+    against the plain bf16-feed decode of their tables; empties `decoded`."""
+    from gennerf_tpu_torch.ops import grid_decode as grid_decode_module
+
+    errs = []
+    for tables, weights, out in decoded:
+        err = (out - grid_decode_module.separable_grid_decode_plain(
+            tables, weights, bf16_feeds=True)).abs()
+        errs.append((float(err.max()), float(err.mean()),
+                     float((out.abs() < FIELD_LIVE * weights["smoothing"]).double().mean())))
+    decoded.clear()
+    return tuple(f(e[i] for e in errs) for i, f in enumerate((max, max, min)))
+
+
+def read_launches(totals: dict) -> dict:
+    """The TPU-kernel ports' launch counters, added into a phase's `totals`."""
+    from gennerf_tpu_torch.ops import kernels
+
+    counts = {k.name: k.launches for k in kernels.KERNELS}
+    for name, n in counts.items():
+        totals[name] += n
+    return counts
+
+
+def counted_run(torch, totals: dict, run, *patches) -> tuple:
+    """run() (a fit) under `patches`, the launch counters reset just before
+    and read into `totals` just after, the validation's encodes counted:
+    its seconds, the launches, the encodes' names (eval_step,
+    reconstruct) and what run returned."""
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.train import loop as loop_module
+
+    encodes = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        for patch in (counting(loop_module, "eval_step", encodes),
+                      counting(loop_module, "reconstruct", encodes), *patches):
+            stack.enter_context(patch)
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return seconds, read_launches(totals), encodes, out
+
+
+def k3_march(torch, model, repr_, depth, intrinsics, poses, views: int = 1) -> dict:
+    """`views` views of the frames marched through K3 (make_point_tsdf_fn,
+    the main path) against the same march through the plain bf16-feed
+    decode, on one encode `repr_`: the views and image, each march's hit
+    share, the share of rays agreeing on the hit and of those both hit
+    within RENDER_DEPTH_TOL (1.0 where none; march_gates reads both), the
+    depth differences' quantiles, the K3 march's ms and march_analysis. The
+    plain march launches no kernel, so counters read after this call count
+    the K3 march's launches."""
+    import numpy as np
+
+    from gennerf_tpu_torch.render import render_encoded
+    from gennerf_tpu_torch.train.predict import make_point_tsdf_fn
+
+    args = (model, repr_, depth, intrinsics, poses)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rk = render_encoded(*args, make_point_tsdf_fn(model, repr_), views)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    rp = render_encoded(*args, make_point_tsdf_fn(model, repr_, plain=True), views)
+    hk, hp = rk["ray_depth"] > 0, rp["ray_depth"] > 0
+    ddiff = np.abs(rk["ray_depth"] - rp["ray_depth"])[hk & hp]
+    return {"views": [int(v) for v in rk["views"]], "image": list(rk["ray_depth"].shape[-2:]),
+            "hit_share": float(hk.mean()), "hit_share_plain": float(hp.mean()),
+            "vs_plain_mask_agree": float((hk == hp).mean()),
+            "vs_plain_depth_agree": float((ddiff <= RENDER_DEPTH_TOL).mean()) if ddiff.size
+            else 1.0, "both_hit_rays": int(ddiff.size),
+            "vs_plain_depth_diff_m": _quantiles(ddiff), "ms": ms,
+            "vs_plain_analysis": march_analysis(torch, *args, rk, rp)}
+
+
+def k3_points(torch, model, repr_, pts) -> dict:
+    """K3 against its plain bf16-feed version on the triplane features and
+    codes of the points `pts` (N, 3) of the scene `repr_`: the errors
+    point_gates reads and the share of the field live there."""
+    from gennerf_tpu_torch.models.positional_encoding import positional_encoding
+    from gennerf_tpu_torch.ops.point_decode import (
+        fused_resnetfc_tsdf_cuda, fused_resnetfc_tsdf_plain,
+    )
+    from gennerf_tpu_torch.train.predict import triplane_feat_fast, triplane_gather_setup
+
+    cfg = model.cfg
+    feat = triplane_feat_fast(*triplane_gather_setup(model, repr_.planes), pts[None])[0]
+    code = positional_encoding(pts, cfg.code.num_freqs, cfg.code.freq_factor,
+                               cfg.code.include_input)
+    weights = decoder_weights(model, point=True)
+    plain = fused_resnetfc_tsdf_plain(feat, code, weights, bf16_feeds=True)
+    err = (fused_resnetfc_tsdf_cuda(feat, code, weights) - plain).abs()
+    return {"points": int(pts.shape[0]), "d_in": int(feat.shape[1]),
+            "d_code": int(code.shape[1]), "max_abs_err": float(err.max()),
+            "mean_abs_err": float(err.mean()), "out_abs_max": float(plain.abs().max()),
+            "live_share": float((plain.abs() < FIELD_LIVE * cfg.mlp.head_smoothing)
+                                .double().mean())}
+
+
+def decoder_weights(model, point: bool) -> dict:
+    """The model's ResnetFC and geometry head packed for K3 (`point`) or K2,
+    as train/predict packs them."""
+    from gennerf_tpu_torch.ops.grid_decode import extract_resnetfc_weights
+    from gennerf_tpu_torch.ops.weight_slabs import pack_decode_weights
+
+    mlp = model.cfg.mlp
+    return pack_decode_weights(extract_resnetfc_weights(
+        model.mlp, model.head_geo, mlp.d_out_geo, mlp.head_smoothing), point=point)
 
 
 def _grid_tail(torch, weights, x, zx, sites=None, flips=None):
@@ -1628,7 +1773,7 @@ def k1_step_vs_plain(torch, dev, model, batch: dict, seed: int) -> dict:
 
 
 def train_phase(torch, dev, cfg_dict: dict, smi: str) -> dict:
-    """Phase 8 (see the module docstring); returns the launch counts of
+    """Phase 7 (see the module docstring); returns the launch counts of
     the main-path steps."""
     GATES.phase = "train"
     import tempfile
@@ -1659,14 +1804,9 @@ def train_phase(torch, dev, cfg_dict: dict, smi: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    losses, step_ms = [], []
-    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics = train_step(model, opt, batch, gen)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(metrics["combined"]))
+    step_ms, steps = synced_calls(torch, lambda: train_step(model, opt, batch, gen),
+                                  TRAIN_WARMUP + TRAIN_STEPS)
+    losses = [float(m["combined"]) for m in steps]
     launches = {k.name: k.launches for k in kernels.KERNELS}
     fps_launched = dict(kernels.FPS.last_launch or {})
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -1680,7 +1820,6 @@ def train_phase(torch, dev, cfg_dict: dict, smi: str) -> dict:
     torch.cuda.synchronize()
     chained_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
     losses.append(float(metrics["combined"]))
-    prof = profile_device(torch, lambda: train_step(model, opt, batch, gen), med_ms, smi)
 
     # save, reload into a fresh model and optimizer, one step
     with tempfile.TemporaryDirectory() as tmp:
@@ -1708,8 +1847,6 @@ def train_phase(torch, dev, cfg_dict: dict, smi: str) -> dict:
           "peak_memory_bytes": peak_bytes, "resume": {"loss": loss_a, "loss_resumed": loss_b,
                                                       "rel_err": resume_rel},
           "card": smi})
-    emit({"phase": "train_profile", "what": "one train_step (forward, backward, Adam)",
-          "k1_share": prof["fps_kernel_ms"] / prof["device_busy_ms"], **prof})
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         raise RuntimeError(f"training did not lower the loss on its fixed batch: {losses}")
     if launches["fps"] != n_steps:
@@ -1720,14 +1857,12 @@ def train_phase(torch, dev, cfg_dict: dict, smi: str) -> dict:
 
 
 def data_phase(torch, dev, smi: str, root: str) -> dict:
-    """Phase 9 (see the module docstring): writes the multigeo dataset to
+    """Phase 8 (see the module docstring): writes the multigeo dataset to
     `root`; returns the launch counts of the main-path runs (the fit, the
     held-out predict, the render)."""
     GATES.phase = "data"
     import tempfile
     from unittest import mock
-
-    import numpy as np
 
     from gennerf_tpu_torch.data.datamodule import ScannetDataModule
     from gennerf_tpu_torch.ops import grid_decode as grid_decode_module
@@ -1736,21 +1871,13 @@ def data_phase(torch, dev, smi: str, root: str) -> dict:
     from gennerf_tpu_torch.data.datasets import load_info_json, parse_splits_list
     from gennerf_tpu_torch.eval import evaluation
     from gennerf_tpu_torch.predict import build_model
-    from gennerf_tpu_torch.render import render_encoded
     from gennerf_tpu_torch.train import loop as loop_module
-    from gennerf_tpu_torch.train.checkpoints import CheckpointManager
-    from gennerf_tpu_torch.train.loop import Trainer
-    from gennerf_tpu_torch.train.predict import make_point_tsdf_fn, uses_grid_decode
-    from gennerf_tpu_torch.train.state import make_optimizer
-    from gennerf_tpu_torch.train.step import batch_to_device, train_step
+    from gennerf_tpu_torch.train.predict import uses_grid_decode
+    from gennerf_tpu_torch.train.step import batch_to_device
     from gennerf_tpu_torch.tsdf import tsdf as tsdf_module
     from gennerf_tpu_torch.utils.config import load_experiment_config
 
     totals = {k.name: 0 for k in kernels.KERNELS}
-
-    def add_launches():
-        for k in kernels.KERNELS:
-            totals[k.name] += k.launches
 
     with tempfile.TemporaryDirectory() as tmp:
         write_s = write_dataset(root)
@@ -1761,8 +1888,6 @@ def data_phase(torch, dev, smi: str, root: str) -> dict:
         datamodule = ScannetDataModule(data_cfg, seed=SEED)
         train_loader = datamodule.train_dataloader()
         model = build_model(cfg["model"], dev, SEED)
-        opt = make_optimizer(model.parameters(), model.cfg.optimizer,
-                             trainer_cfg.get("gradient_clip_val"))
 
         # the fit's first batch, from a second module of the same seed: the
         # fit's own loader starts at its first epoch
@@ -1783,13 +1908,7 @@ def data_phase(torch, dev, smi: str, root: str) -> dict:
             transform_s.append(time.perf_counter() - t)
             return out
 
-        val_encodes, val_records = [], []
-
-        def counted(fn):
-            def wrapper(*a, **k):
-                val_encodes.append(fn.__name__)
-                return fn(*a, **k)
-            return wrapper
+        val_records = []
 
         real_validate = loop_module.Trainer.validate
 
@@ -1802,34 +1921,17 @@ def data_phase(torch, dev, smi: str, root: str) -> dict:
         run_cfg = load_experiment_config(EXPERIMENT, "train", [f"paths.data_dir={root}",
                                                                f"paths.output_dir={run_dir}"])
         ckpt_cfg = run_cfg["callbacks"]["model_checkpoint"]
-        checkpoints = CheckpointManager(ckpt_cfg["dirpath"], ckpt_cfg["save_top_k"],
-                                        monitor=ckpt_cfg["monitor"], mode=ckpt_cfg["mode"])
-        trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), run_dir,
-                          max_epochs=DATA_EPOCHS, check_val_every_n_epoch=1,
-                          checkpoints=checkpoints, num_sanity_val_steps=0)
-        torch.cuda.synchronize()
+        trainer = make_trainer(torch, dev, model, run_cfg, run_dir, DATA_EPOCHS)
+        checkpoints = trainer.ckpt
         torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        with mock.patch.object(tsdf_module.TSDF, "transform", timed_transform), \
-                mock.patch.object(loop_module, "eval_step", counted(loop_module.eval_step)), \
-                mock.patch.object(loop_module, "reconstruct", counted(loop_module.reconstruct)), \
-                mock.patch.object(loop_module.Trainer, "validate", recorded_validate):
-            t0 = time.perf_counter()
-            trainer.fit(train_loader, datamodule.val_dataloader())
-            fit_s = time.perf_counter() - t0
-        fit_launches = {k.name: k.launches for k in kernels.KERNELS}
-        add_launches()
+        fit_s, fit_launches, val_encodes, _ = counted_run(
+            torch, totals, lambda: trainer.fit(train_loader, datamodule.val_dataloader()),
+            mock.patch.object(tsdf_module.TSDF, "transform", timed_transform),
+            mock.patch.object(loop_module.Trainer, "validate", recorded_validate))
         peak_bytes = torch.cuda.max_memory_allocated()
         steps = trainer.global_step  # fit raises on a non-finite loss
         waits = [t["data_wait_ms"] for t in trainer.timings]
         step_ms = [t["step_ms"] for t in trainer.timings]
-        # one profiled loader-fed step: the next batch from a running loader, then the step
-        it = iter(train_loader)
-        next(it)
-        prof = profile_device(
-            torch, lambda: train_step(model, opt, batch_to_device(next(it), dev), trainer.generator),
-            statistics.median(step_ms) + statistics.median(waits), smi)
-        del it
         val_combined = [r["val_combined"] for r in val_records]
         recon_l1 = [r.get("val_recon_tsdf_l1") for r in val_records]
         best_epoch = checkpoints.best_epoch()
@@ -1857,8 +1959,6 @@ def data_phase(torch, dev, smi: str, root: str) -> dict:
               "transform_ms_per_item": 1e3 * statistics.mean(transform_s),
               "transform_calls": len(transform_s), "loss_last": trainer.metrics["train_combined"],
               "peak_memory_bytes": peak_bytes, "card": smi})
-        emit({"phase": "data_profile", "what": "one loader-fed train_step (next batch + step)",
-              "k1_share": prof["fps_kernel_ms"] / max(prof["device_busy_ms"], 1e-9), **prof})
         if (fit_launches["fps"] != steps + len(val_encodes)
                 or steps != DATA_EPOCHS * DATA_TRAIN_SCENES):
             raise RuntimeError(f"K1 launched {fit_launches['fps']} times in {steps} steps and "
@@ -1881,13 +1981,7 @@ def data_phase(torch, dev, smi: str, root: str) -> dict:
             raise RuntimeError("the trained model does not take the grid decode")
         # each counted K2 call is kept, to be held against the plain decode
         decoded = []
-        real_k2 = grid_decode_module.grid_decode_cuda
-
-        def recording_k2(tables, weights):
-            out = real_k2(tables, weights)
-            decoded.append((tables, weights, out))
-            return out
-
+        recording_k2 = recorded(grid_decode_module.grid_decode_cuda, decoded)
         pred_dir = os.path.join(tmp, "pred")
         kernels.reset_launch_counts()
         with mock.patch.object(grid_decode_module, "grid_decode_cuda", recording_k2):
@@ -1895,8 +1989,7 @@ def data_phase(torch, dev, smi: str, root: str) -> dict:
                                         "--split", "val.txt", "--out", pred_dir,
                                         "--device", dev.type])
         torch.cuda.synchronize()
-        predict_launches = {k.name: k.launches for k in kernels.KERNELS}
-        add_launches()
+        predict_launches = read_launches(totals)
         with open(os.path.join(pred_dir, "predict_meta.json")) as f:
             predict_meta = json.load(f)
         if (predict_meta["selected_by"], predict_meta["epoch"]) != (ckpt_cfg["monitor"], best_epoch):
@@ -1905,15 +1998,8 @@ def data_phase(torch, dev, smi: str, root: str) -> dict:
             raise RuntimeError(f"held-out predict launched K2 {predict_launches['grid_decode']} "
                                f"times for {len(results)} scenes")
         # those K2 outputs against the plain bf16-feed decode of the same tables
-        grid_err = []
-        for tables, weights, out in decoded:
-            err = (out - grid_decode_module.separable_grid_decode_plain(
-                tables, weights, bf16_feeds=True)).abs()
-            grid_err.append((float(err.max()), float(err.mean())))
-        grid_max = max(e[0] for e in grid_err)
-        grid_mean = max(e[1] for e in grid_err)
         voxel_dim = tuple(decoded[0][2].shape)
-        del decoded
+        grid_max, grid_mean, _ = recorded_k2_errors(decoded)
         eval_rec = evaluate_held_out(dev, evaluation, parse_splits_list("val.txt", root),
                                      pred_dir, os.path.join(tmp, "oracle"), load_info_json)
         emit({"phase": "data_eval", "predict_meta": predict_meta,
@@ -1930,28 +2016,15 @@ def data_phase(torch, dev, smi: str, root: str) -> dict:
         with torch.no_grad():
             repr_ = model.encode(frames["projection"][None], frames["image"][None],
                                  frames["depth"][None], torch.Generator().manual_seed(SEED))
-        render_args = (model, repr_, frames["depth"], frames["intrinsics"], frames["pose"])
         kernels.reset_launch_counts()
-        rk = render_encoded(*render_args, make_point_tsdf_fn(model, repr_), 1)
-        torch.cuda.synchronize()
-        render_launches = {k.name: k.launches for k in kernels.KERNELS}
-        add_launches()
-        rp = render_encoded(*render_args, make_point_tsdf_fn(model, repr_, plain=True), 1)
-        analysis = march_analysis(torch, *render_args, rk, rp)
-        hk, hp = rk["ray_depth"] > 0, rp["ray_depth"] > 0
-        mask_agree = float((hk == hp).mean())
-        ddiff = np.abs(rk["ray_depth"] - rp["ray_depth"])[hk & hp]
-        depth_agree = float((ddiff <= RENDER_DEPTH_TOL).mean()) if ddiff.size else 1.0
+        render_rec = k3_march(torch, model, repr_, frames["depth"], frames["intrinsics"],
+                              frames["pose"])
+        render_launches = read_launches(totals)
         emit({"phase": "data_predict", "scenes": results, "head_bias": head_bias,
               "launches": predict_launches, "voxel_dim": list(voxel_dim),
               "grid_vs_plain": {"max_abs": grid_max, "mean_abs": grid_mean},
               "grid_tolerance": {"max_abs": GRID_MAX_ABS_TOL, "mean_abs": GRID_MEAN_ABS_TOL},
-              "render": {"scene": scene, "view": [int(v) for v in rk["views"]],
-                         "image": list(frames["depth"].shape[-2:]),
-                         "launches": render_launches, "hit_share": float(hk.mean()),
-                         "hit_share_plain": float(hp.mean()),
-                         "vs_plain_mask_agree": mask_agree, "vs_plain_depth_agree": depth_agree,
-                         "both_hit_rays": int(ddiff.size), "vs_plain_analysis": analysis},
+              "render": {"scene": scene, "launches": render_launches, **render_rec},
               "render_tolerance": {"mask_agree": RENDER_MASK_AGREE, "depth_m": RENDER_DEPTH_TOL,
                                    "depth_agree": RENDER_DEPTH_AGREE},
               "eval_tsdf_l1_16_steps_not_quality": {k: v.get("l1") for k, v in results.items()},
@@ -1961,10 +2034,9 @@ def data_phase(torch, dev, smi: str, root: str) -> dict:
             raise RuntimeError(f"K2 on trained weights disagrees: max {grid_max}, mean {grid_mean}")
         if render_launches["point_decode"] < 1:
             raise RuntimeError("the held-out render launched no point_decode kernel")
-        if not (gate("k3_march.mask_agree", mask_agree, RENDER_MASK_AGREE, "agree")
-                and gate("k3_march.depth_agree", depth_agree, RENDER_DEPTH_AGREE, "agree")):
+        if not march_gates("k3_march", render_rec, min_hits=False):
             raise RuntimeError(f"K3 march on trained weights disagrees with the plain march: "
-                               f"masks {mask_agree}, depths {depth_agree}")
+                               f"{render_rec}")
 
         # K1 against the plain FPS on the first augmented 480x640 loader batch
         vs_plain = k1_step_vs_plain(torch, dev, model, batch_to_device(first, dev), SEED)
@@ -1975,34 +2047,23 @@ def data_phase(torch, dev, smi: str, root: str) -> dict:
 
 
 def spatial_phase(torch, dev, smi: str, root: str) -> tuple:
-    """Phase 10 (see the module docstring); returns the launch counts of
+    """Phase 9 (see the module docstring); returns the launch counts of
     the main-path runs (the fit with its validation, the reconstruct) and
-    {"volume_sample_launches": the reconstruct's launches of the volume
-    sample and the number its decode implies}."""
+    {"volume_sample_launches": the volume sample's launches in the
+    reconstruct and the cell grid's decode}."""
     GATES.phase = "spatial"
-    from unittest import mock
-
     from gennerf_tpu_torch.data.datamodule import ScannetDataModule
-    from gennerf_tpu_torch.models.gen_nerf import GenNerf
+    from gennerf_tpu_torch.models.gen_nerf import GenNerf, SceneRepr
     from gennerf_tpu_torch.ops import kernels
     from gennerf_tpu_torch.predict import build_model, reconstruct
     from gennerf_tpu_torch.tools.port_backbone import main as port_backbone
-    from gennerf_tpu_torch.train import loop as loop_module
-    from gennerf_tpu_torch.train.checkpoints import CheckpointManager
-    from gennerf_tpu_torch.train.loop import Trainer
     from gennerf_tpu_torch.train.predict import predict_tsdf_volume, uses_grid_decode
-    from gennerf_tpu_torch.train.state import make_optimizer
     from gennerf_tpu_torch.train.step import StepDraws, batch_to_device, gen_nerf_forward_loss
     from gennerf_tpu_torch.train.step import train_step
+    from gennerf_tpu_torch.utils import spans
     from gennerf_tpu_torch.utils.config import load_experiment_config
 
     totals = {k.name: 0 for k in kernels.KERNELS}
-
-    def read_launches():
-        counts = {k.name: k.launches for k in kernels.KERNELS}
-        for name, n in counts.items():
-            totals[name] += n
-        return counts
 
     with tempfile.TemporaryDirectory() as tmp:
         backbone = os.path.join(tmp, "backbone.npz")
@@ -2019,34 +2080,14 @@ def spatial_phase(torch, dev, smi: str, root: str) -> tuple:
                 and mcfg.encoder.spatial.frame_chunk == 1) or uses_grid_decode(model) \
                 or mcfg.sparse_band_decode:
             raise RuntimeError(f"not the spatial drive config: {mcfg.encoder}")
-        opt = make_optimizer(model.parameters(), mcfg.optimizer,
-                             trainer_cfg.get("gradient_clip_val"))
-        ckpt_cfg = cfg["callbacks"]["model_checkpoint"]
-        checkpoints = CheckpointManager(ckpt_cfg["dirpath"], ckpt_cfg["save_top_k"],
-                                        monitor=ckpt_cfg["monitor"], mode=ckpt_cfg["mode"])
-        trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), run_dir,
-                          max_epochs=SPATIAL_EPOCHS, check_val_every_n_epoch=1,
-                          checkpoints=checkpoints, num_sanity_val_steps=0)
-        encodes = []
-
-        def counted(fn):
-            def wrapper(*a, **k):
-                encodes.append(fn.__name__)
-                return fn(*a, **k)
-            return wrapper
+        trainer = make_trainer(torch, dev, model, cfg, run_dir, SPATIAL_EPOCHS)
+        opt = trainer.optimizer
 
         # the main path: the fit over the loaders with its validation and
         # reconstruction tail, counters reset just before and read just after
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        with mock.patch.object(loop_module, "eval_step", counted(loop_module.eval_step)), \
-                mock.patch.object(loop_module, "reconstruct", counted(loop_module.reconstruct)):
-            t0 = time.perf_counter()
-            trainer.fit(datamodule.train_dataloader(), datamodule.val_dataloader())
-            torch.cuda.synchronize()
-            fit_s = time.perf_counter() - t0
-        fit_launches = read_launches()
+        fit_s, fit_launches, encodes, _ = counted_run(torch, totals, lambda: trainer.fit(
+            datamodule.train_dataloader(), datamodule.val_dataloader()))
         fit_peak = torch.cuda.max_memory_allocated()
         steps = trainer.global_step  # fit raises on a non-finite loss
         step_ms = [t["step_ms"] for t in trainer.timings]
@@ -2084,44 +2125,13 @@ def spatial_phase(torch, dev, smi: str, root: str) -> tuple:
             noise=torch.randn((B * T, mcfg.ray.num_rays, mcfg.ray.M), generator=g, device=dev))
         plain = GenNerf(dataclasses.replace(mcfg, remat=False)).to(dev)
 
-        def forward_backward(m):
-            m.load_state_dict(fitted)
-            m.train()
-            m.zero_grad(set_to_none=True)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t = time.perf_counter()
-            loss, _ = gen_nerf_forward_loss(m, batch, draws=draws)
-            loss.backward()
-            torch.cuda.synchronize()
-            stats = {k: v.clone() for k, v in m.state_dict().items() if "running_" in k}
-            return (float(loss.detach()), {n: p.grad.clone() for n, p in m.named_parameters()},
-                    stats, torch.cuda.max_memory_allocated(), (time.perf_counter() - t) * 1e3)
-
+        model.load_state_dict(fitted)
+        plain.load_state_dict(fitted)
         with deterministic_algorithms(torch):
-            loss_r, grads_r, stats_r, peak_r, ms_r = forward_backward(model)
-            loss_p, grads_p, stats_p, peak_p, ms_p = forward_backward(plain)
-        grad_err = {n: float((grads_r[n] - grads_p[n]).abs().max())
-                    / max(float(grads_p[n].abs().max()), 1e-30) for n in grads_p}
-        stats_err = max(float((stats_r[k] - stats_p[k]).abs().max())
-                        / max(float(stats_p[k].abs().max()), 1e-30) for k in stats_p)
-        moved = sum(not torch.equal(stats_r[k], fitted[k]) for k in stats_r)
-        worst = max(grad_err, key=grad_err.get)
-        remat_rec = {"loss_remat": loss_r, "loss_plain": loss_p,
-                     "loss_rel_err": abs(loss_r - loss_p) / abs(loss_p),
-                     "worst_grad": worst, "worst_grad_err_over_max_abs": grad_err[worst],
-                     "running_stats_rel_err": stats_err, "running_stats_moved": moved,
-                     "running_stats": len(stats_r), "peak_memory_bytes_remat": peak_r,
-                     "peak_memory_bytes_no_remat": peak_p, "forward_backward_ms_remat": ms_r,
-                     "forward_backward_ms_no_remat": ms_p,
-                     "tolerance": {"loss_rel": REMAT_LOSS_RTOL, "grad_over_max_abs": REMAT_GRAD_TOL,
-                                   "stats_rel": REMAT_STATS_TOL}}
-        del plain, grads_r, grads_p
-        if not (gate("remat.loss_rel", remat_rec["loss_rel_err"], REMAT_LOSS_RTOL)
-                and gate("remat.grad_over_max_abs", grad_err[worst], REMAT_GRAD_TOL)
-                and gate("remat.stats_rel", stats_err, REMAT_STATS_TOL)
-                and moved == len(stats_r)):
-            raise RuntimeError(f"the remat step disagrees with the step without remat: {remat_rec}")
+            remat_rec = remat_record(torch, *(forward_backward(
+                torch, m, lambda m_: gen_nerf_forward_loss(m_, batch, draws=draws)[0])
+                for m in (model, plain)), fitted)
+        del plain
 
         # K1 against the plain FPS on the same batch (deterministic algorithms)
         model.load_state_dict(fitted)
@@ -2162,18 +2172,12 @@ def spatial_phase(torch, dev, smi: str, root: str) -> tuple:
                 and gate("chunk.planes_rel", chunk_rec["planes_rel_err"], CHUNK_REL_TOL)):
             raise RuntimeError(f"chunked and one-pass encodes disagree: {chunk_rec}")
 
-        # timed train steps on the loader batch, and one profiled step
+        # timed train steps on the loader batch
         model.load_state_dict(fitted)
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        train_ms = []
-        for _ in range(2 + SPATIAL_TIMED_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            train_step(model, opt, batch, gen)
-            torch.cuda.synchronize()
-            train_ms.append((time.perf_counter() - t0) * 1e3)
+        train_ms = synced_calls(torch, lambda: train_step(model, opt, batch, gen),
+                                2 + SPATIAL_TIMED_STEPS)[0]
         med_ms = statistics.median(train_ms[2:])
-        prof = profile_device(torch, lambda: train_step(model, opt, batch, gen), med_ms, smi)
 
         # predict: one held-out scene at the test grid from the fitted weights
         model.load_state_dict(fitted)
@@ -2185,7 +2189,7 @@ def spatial_phase(torch, dev, smi: str, root: str) -> tuple:
         kernels.reset_launch_counts()
         vol = reconstruct(model, P, image, depth, voxel_dim, torch.Generator().manual_seed(SEED))
         torch.cuda.synchronize()
-        predict_launches = read_launches()
+        predict_launches = read_launches(totals)
         # the dense decode samples the feature volume (and a 'grid' plane)
         # once a chunk, each on the kernel
         samples = int(mcfg.has_feature_volume) + int("grid" in mcfg.encoder.pointnet.plane_type)
@@ -2208,8 +2212,38 @@ def spatial_phase(torch, dev, smi: str, root: str) -> tuple:
                                  torch.Generator().manual_seed(SEED), voxel_dim=voxel_dim)
         decode_ms = host_ms(torch, lambda: predict_tsdf_volume(model, repr_, voxel_dim,
                                                                mcfg.voxel_size, origin), 3)
-        predict_prof = profile_device(torch, lambda: reconstruct(
-            model, P, image, depth, voxel_dim, torch.Generator().manual_seed(SEED)), total_ms, smi)
+        del repr_
+
+        # a dense decode of the spatial benchmark cell's grid on a random
+        # scene of this config's widths, counters reset just before and read
+        # just after: the volume sample once a chunk, every point through it
+        p = mcfg.encoder.pointnet
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        cell = SceneRepr({k: torch.randn((1, p.c_dim, p.plane_resolution, p.plane_resolution),
+                                         generator=gen, device=dev) for k in p.plane_type},
+                         torch.randn((1, mcfg.encoder_latent - p.c_dim, *SPATIAL_CELL_GRID),
+                                     generator=gen, device=dev),
+                         torch.randint(0, 4, (1, 1, *SPATIAL_CELL_GRID), generator=gen,
+                                       device=dev).float())
+        kernels.reset_launch_counts()
+        spans.reset()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            tsdf = predict_tsdf_volume(model, cell, SPATIAL_CELL_GRID, SPATIAL_CELL_VOXEL, origin)
+        torch.cuda.synchronize()
+        voxels = math.prod(SPATIAL_CELL_GRID)
+        cell_decode = {"grid": list(SPATIAL_CELL_GRID), "launches": kernels.VOLUME_SAMPLE.launches,
+                       "implied": dense_chunks(SPATIAL_CELL_GRID) * samples,
+                       "finite": bool(torch.isfinite(tsdf).all()), **spans.counters()}
+        spans.reset()
+        del cell, tsdf
+        if not (gate("cell_decode.launches", abs(cell_decode["launches"] - cell_decode["implied"]),
+                     0)
+                & gate("cell_decode.kernel_points",
+                       abs(cell_decode.get("trilinear.kernel_points", 0) - voxels * samples), 0)
+                & gate("cell_decode.points",
+                       abs(cell_decode.get("trilinear.points", 0) - voxels * samples), 0)
+                and cell_decode["finite"]):
+            raise RuntimeError(f"the dense decode of the spatial cell's grid: {cell_decode}")
 
         emit({"phase": "spatial", "config": "configs/experiment/seqs_multigeo_spatial.yaml",
               "backbone": SPATIAL_BACKBONE, "d_in": mcfg.encoder_latent,
@@ -2224,16 +2258,12 @@ def spatial_phase(torch, dev, smi: str, root: str) -> tuple:
                           "launches": predict_launches, "volume_sample": volume_samples,
                           "total_ms": total_ms,
                           "decode_ms": decode_ms, "out_abs_max": float(vol.abs().max())},
-              "card": smi})
-        emit({"phase": "spatial_profile", "what": "one loader-batch spatial train_step",
-              "k1_share": prof["fps_kernel_ms"] / max(prof["device_busy_ms"], 1e-9), **prof})
-        emit({"phase": "spatial_predict_profile",
-              "what": "one spatial reconstruct at the test grid", **predict_prof})
-    return totals, {"volume_sample_launches": volume_samples}
+              "cell_decode": cell_decode, "card": smi})
+    return totals, {"volume_sample_launches": volume_samples["launches"] + cell_decode["launches"]}
 
 
 def voxelnet_phase(torch, dev, smi: str, root: str) -> tuple:
-    """Phase 11 (see the module docstring); returns the TPU-kernel ports'
+    """Phase 10 (see the module docstring); returns the TPU-kernel ports'
     launch counts of the whole phase (all 0: VoxelNet's path has no TPU
     kernel) and {"lift_launches": the lift kernels' counts of the whole
     phase} (its bf16 spatial encoder runs the fused lift)."""
@@ -2246,9 +2276,6 @@ def voxelnet_phase(torch, dev, smi: str, root: str) -> tuple:
     from gennerf_tpu_torch.models.voxel_net import VoxelNet
     from gennerf_tpu_torch.ops import kernels
     from gennerf_tpu_torch.predict import build_model
-    from gennerf_tpu_torch.train.checkpoints import CheckpointManager
-    from gennerf_tpu_torch.train.loop import Trainer
-    from gennerf_tpu_torch.train.state import make_optimizer
     from gennerf_tpu_torch.train.step import batch_to_device, train_step, voxel_net_forward_loss
     from gennerf_tpu_torch.utils.config import load_experiment_config
 
@@ -2265,14 +2292,9 @@ def voxelnet_phase(torch, dev, smi: str, root: str) -> tuple:
         if not (isinstance(model, VoxelNet) and model.dtype == torch.bfloat16
                 and mcfg.voxel_sizes == (4, 8) and mcfg.backbone3d.channels == (32, 64, 128)):
             raise RuntimeError(f"not the VoxelNet drive config: {precision}, {mcfg}")
-        opt = make_optimizer(model.parameters(), mcfg.optimizer,
-                             trainer_cfg.get("gradient_clip_val"))
         ckpt_cfg = cfg["callbacks"]["model_checkpoint"]
-        checkpoints = CheckpointManager(ckpt_cfg["dirpath"], ckpt_cfg["save_top_k"],
-                                        monitor=ckpt_cfg["monitor"], mode=ckpt_cfg["mode"])
-        trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), run_dir,
-                          max_epochs=VOXELNET_EPOCHS, check_val_every_n_epoch=1,
-                          checkpoints=checkpoints, num_sanity_val_steps=0)
+        trainer = make_trainer(torch, dev, model, cfg, run_dir, VOXELNET_EPOCHS)
+        opt = trainer.optimizer
 
         # the main path: the fit over the loaders with its validation and
         # reconstruction tail, in bf16-mixed
@@ -2290,7 +2312,7 @@ def voxelnet_phase(torch, dev, smi: str, root: str) -> tuple:
                    "loss_last": trainer.metrics["train_tsdf_loss"],
                    "val_tsdf_loss": trainer.metrics.get("val_tsdf_loss"),
                    "val_recon_tsdf_l1": trainer.metrics.get("val_recon_tsdf_l1"),
-                   "best_epoch": checkpoints.best_epoch(),
+                   "best_epoch": trainer.ckpt.best_epoch(),
                    "peak_memory_bytes": torch.cuda.max_memory_allocated()}
         if not (fit_rec["steps"] == 8 * VOXELNET_EPOCHS and fit_rec["best_epoch"] is not None
                 and math.isfinite(fit_rec["val_tsdf_loss"] or math.nan)
@@ -2416,67 +2438,28 @@ def voxelnet_phase(torch, dev, smi: str, root: str) -> tuple:
         # mode, deterministic algorithms where torch has them (the gather's
         # backward adds with atomics; the trilinear upsample's backward has
         # no deterministic version, warn only)
-        def forward_backward(m, remat):
+        def lift_step(remat):  # forward_backward, the lift's launches gated
             before = lift_counts()
-            m.train()
-            m.zero_grad(set_to_none=True)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t = time.perf_counter()
-            loss, _ = voxel_net_forward_loss(m, batch)
-            loss.backward()
-            torch.cuda.synchronize()
+            run = forward_backward(torch, fresh(dev, torch.bfloat16, remat=remat),
+                                   lambda m: voxel_net_forward_loss(m, batch)[0])
             if not lift_gates("remat" if remat else "no_remat", before, 1, remat):
                 raise RuntimeError(f"the lift's launches are not the step's: {lift_rec}")
-            return (float(loss.detach()), {n: p.grad.clone() for n, p in m.named_parameters()},
-                    {k: v.clone() for k, v in m.state_dict().items() if "running_" in k},
-                    torch.cuda.max_memory_allocated(), (time.perf_counter() - t) * 1e3)
+            return run
 
         with deterministic_algorithms(torch):
-            loss_r, grads_r, stats_r, peak_r, ms_r = forward_backward(
-                fresh(dev, torch.bfloat16, remat=True), True)
-            loss_p, grads_p, stats_p, peak_p, ms_p = forward_backward(
-                fresh(dev, torch.bfloat16, remat=False), False)
-        grad_err = {n: float((grads_r[n] - grads_p[n]).abs().max())
-                    / max(float(grads_p[n].abs().max()), 1e-30) for n in grads_p}
-        stats_err = max(float((stats_r[k] - stats_p[k]).abs().max())
-                        / max(float(stats_p[k].abs().max()), 1e-30) for k in stats_p)
-        moved = sum(not torch.equal(stats_r[k], fitted[k]) for k in stats_r)
-        worst = max(grad_err, key=grad_err.get)
-        remat_rec = {"loss_remat": loss_r, "loss_plain": loss_p,
-                     "loss_rel_err": abs(loss_r - loss_p) / abs(loss_p),
-                     "worst_grad": worst, "worst_grad_err_over_max_abs": grad_err[worst],
-                     "running_stats_rel_err": stats_err, "running_stats_moved": moved,
-                     "running_stats": len(stats_r), "peak_memory_bytes_remat": peak_r,
-                     "peak_memory_bytes_no_remat": peak_p, "forward_backward_ms_remat": ms_r,
-                     "forward_backward_ms_no_remat": ms_p,
-                     "tolerance": {"loss_rel": REMAT_LOSS_RTOL, "grad_over_max_abs": REMAT_GRAD_TOL,
-                                   "stats_rel": REMAT_STATS_TOL}}
-        del grads_r, grads_p
-        if not (gate("remat.loss_rel", remat_rec["loss_rel_err"], REMAT_LOSS_RTOL)
-                and gate("remat.grad_over_max_abs", grad_err[worst], REMAT_GRAD_TOL)
-                and gate("remat.stats_rel", stats_err, REMAT_STATS_TOL)
-                and moved == len(stats_r)):
-            raise RuntimeError(f"the VoxelNet remat step disagrees with the step without remat: "
-                               f"{remat_rec}")
+            remat_rec = remat_record(torch, lift_step(True), lift_step(False), fitted)
 
-        # timed bf16 train steps on the loader batch, and one profiled step
+        # timed bf16 train steps on the loader batch
         model.load_state_dict(fitted)
-        train_ms = []
         torch.cuda.reset_peak_memory_stats()
         before = lift_counts()
-        for _ in range(VOXELNET_WARMUP + VOXELNET_TIMED_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            train_step(model, opt, batch)
-            torch.cuda.synchronize()
-            train_ms.append((time.perf_counter() - t0) * 1e3)
+        train_ms = synced_calls(torch, lambda: train_step(model, opt, batch),
+                                VOXELNET_WARMUP + VOXELNET_TIMED_STEPS)[0]
         step_peak = torch.cuda.max_memory_allocated()
         if not lift_gates("timed_steps", before, VOXELNET_WARMUP + VOXELNET_TIMED_STEPS,
                           mcfg.remat):
             raise RuntimeError(f"the lift's launches are not the steps': {lift_rec}")
         med_ms = statistics.median(train_ms[VOXELNET_WARMUP:])
-        prof = profile_device(torch, lambda: train_step(model, opt, batch), med_ms, smi)
 
         # held-out predict from the run directory (its best epoch, the
         # training precision) and the evaluation of both scenes
@@ -2511,8 +2494,6 @@ def voxelnet_phase(torch, dev, smi: str, root: str) -> tuple:
               "predict": {"meta": predict_meta, "seconds": predict_s, "scenes": results},
               "eval": {scene: rec["pred"] for scene, rec in eval_rec.items()},
               "card": smi})
-        emit({"phase": "voxelnet_profile", "what": "one loader-batch bf16-mixed VoxelNet train_step",
-              **prof})
     return launches, {"lift_launches": lift_launches}
 
 
@@ -2532,7 +2513,7 @@ def experiment_config(path: str, overrides: list) -> dict:
 
 
 def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
-    """Phase 12 (see the module docstring); returns the launch counts of
+    """Phase 11 (see the module docstring); returns the launch counts of
     the main-path runs (the fits with their validations, the timed bf16
     steps, the frustum, gradient and spatial steps, the held-out predict,
     the reconstruct at the flagship's grid, the render) and each kernel's
@@ -2555,31 +2536,14 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
         farthest_point_sample_plain, fps_cuda, uniform_presample,
     )
     from gennerf_tpu_torch.predict import build_model, reconstruct
-    from gennerf_tpu_torch.render import render_encoded
     from gennerf_tpu_torch.tools.measure import FPS_INNER, cuda_ms
-    from gennerf_tpu_torch.train import loop as loop_module
-    from gennerf_tpu_torch.train.checkpoints import CheckpointManager
-    from gennerf_tpu_torch.train.loop import Trainer
-    from gennerf_tpu_torch.models.positional_encoding import positional_encoding
-    from gennerf_tpu_torch.ops.grid_decode import extract_resnetfc_weights, grid_decode_flops
-    from gennerf_tpu_torch.ops.point_decode import (
-        fused_resnetfc_tsdf_cuda, fused_resnetfc_tsdf_plain, pack_point_weights,
-    )
-    from gennerf_tpu_torch.train.predict import (
-        dense_grid_points, make_point_tsdf_fn, triplane_feat_fast, triplane_gather_setup,
-        uses_grid_decode,
-    )
+    from gennerf_tpu_torch.ops.grid_decode import grid_decode_flops
+    from gennerf_tpu_torch.train.predict import dense_grid_points, uses_grid_decode
     from gennerf_tpu_torch.train import step as step_module
     from gennerf_tpu_torch.train.state import make_optimizer
     from gennerf_tpu_torch.train.step import batch_to_device, gen_nerf_forward_loss, train_step
 
     totals = {k.name: 0 for k in kernels.KERNELS}
-
-    def read_launches():
-        counts = {k.name: k.launches for k in kernels.KERNELS}
-        for name, n in counts.items():
-            totals[name] += n
-        return counts
 
     data_overrides = flagship_overrides(root)
 
@@ -2600,35 +2564,13 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
         cfg = config(path, run_dir, extra)
         precision = str(cfg["trainer"]["precision"])
         model = build_model(cfg["model"], dev, SEED, precision)
-        opt = make_optimizer(model.parameters(), model.cfg.optimizer,
-                             cfg["trainer"].get("gradient_clip_val"))
-        ckpt_cfg = cfg["callbacks"]["model_checkpoint"]
-        checkpoints = CheckpointManager(ckpt_cfg["dirpath"], ckpt_cfg["save_top_k"],
-                                        monitor=ckpt_cfg["monitor"],
-                                        mode=ckpt_cfg.get("mode", "min"))
-        trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), run_dir,
-                          max_epochs=FLAGSHIP_EPOCHS, check_val_every_n_epoch=1,
-                          checkpoints=checkpoints, precision=precision,
-                          num_sanity_val_steps=0)
+        trainer = make_trainer(torch, dev, model, cfg, run_dir, FLAGSHIP_EPOCHS,
+                               precision=precision)
         datamodule = ScannetDataModule(cfg["data"], seed=SEED)
-        encodes = []
 
-        def counted(fn):
-            def wrapper(*a, **k):
-                encodes.append(fn.__name__)
-                return fn(*a, **k)
-            return wrapper
-
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        with mock.patch.object(loop_module, "eval_step", counted(loop_module.eval_step)), \
-                mock.patch.object(loop_module, "reconstruct", counted(loop_module.reconstruct)):
-            t0 = time.perf_counter()
-            trainer.fit(datamodule.train_dataloader(), datamodule.val_dataloader())
-            torch.cuda.synchronize()
-            fit_s = time.perf_counter() - t0
-        launches = read_launches()
+        fit_s, launches, encodes, _ = counted_run(torch, totals, lambda: trainer.fit(
+            datamodule.train_dataloader(), datamodule.val_dataloader()))
         steps = trainer.global_step  # fit raises on a non-finite loss
         n_eval, n_tail = encodes.count("eval_step"), encodes.count("reconstruct")
         step_ms = [t["step_ms"] for t in trainer.timings]
@@ -2648,25 +2590,16 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
     def timed_steps(model, opt, batch, n, main_path=True):
         """`FLAGSHIP_WARMUP` + n synchronized train steps from one generator
         (counters reset just before, read just after, and counted on the
-        main path), then a profiled step. Returns (step ms, launches,
-        profile, peak bytes, losses)."""
+        main path). Returns (step ms, launches, peak bytes, losses)."""
         gen = torch.Generator(device=dev).manual_seed(SEED)
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        ms, losses = [], []
-        for _ in range(FLAGSHIP_WARMUP + n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            metrics = train_step(model, opt, batch, gen)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(metrics["combined"]))
-        launches = (read_launches() if main_path
+        ms, steps = synced_calls(torch, lambda: train_step(model, opt, batch, gen),
+                                 FLAGSHIP_WARMUP + n)
+        launches = (read_launches(totals) if main_path
                     else {k.name: k.launches for k in kernels.KERNELS})
-        peak = torch.cuda.max_memory_allocated()
-        med = statistics.median(ms[FLAGSHIP_WARMUP:])
-        prof = profile_device(torch, lambda: train_step(model, opt, batch, gen), med, smi)
-        return ms, launches, prof, peak, losses
+        return (ms, launches, torch.cuda.max_memory_allocated(),
+                [float(m["combined"]) for m in steps])
 
     def grads_finite(model):
         return all(p.grad is None or bool(torch.isfinite(p.grad).all())
@@ -2781,7 +2714,7 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
 
         # timed bf16 steps on the loader batch (the main path), then the same in float32
         model.load_state_dict(fitted)
-        ms16, launches16, prof16, peak16, losses16 = timed_steps(
+        ms16, launches16, peak16, losses16 = timed_steps(
             model, opt, batch, FLAGSHIP_TIMED_STEPS)
         n16 = FLAGSHIP_WARMUP + FLAGSHIP_TIMED_STEPS
         if launches16["fps"] != n16 or not all(math.isfinite(x) for x in losses16):
@@ -2789,18 +2722,14 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
                                f"losses {losses16}")
         m32 = fresh(dev, torch.float32)
         opt32 = make_optimizer(m32.parameters(), mcfg.optimizer)
-        ms32, launches32, prof32, peak32, _ = timed_steps(m32, opt32, batch, FLAGSHIP_TIMED_STEPS,
-                                                          main_path=False)
+        ms32, launches32, peak32, _ = timed_steps(m32, opt32, batch, FLAGSHIP_TIMED_STEPS,
+                                                  main_path=False)
         del m32, opt32
         steps_rec = {
             "bf16": {"step_ms_median": statistics.median(ms16[FLAGSHIP_WARMUP:]),
-                     "step_ms_all": ms16, "launches": launches16, "peak_memory_bytes": peak16,
-                     "device_busy_ms": prof16["device_busy_ms"],
-                     "device_idle_share": prof16["device_idle_share"]},
+                     "step_ms_all": ms16, "launches": launches16, "peak_memory_bytes": peak16},
             "f32": {"step_ms_median": statistics.median(ms32[FLAGSHIP_WARMUP:]),
-                    "step_ms_all": ms32, "launches": launches32, "peak_memory_bytes": peak32,
-                    "device_busy_ms": prof32["device_busy_ms"],
-                    "device_idle_share": prof32["device_idle_share"]}}
+                    "step_ms_all": ms32, "launches": launches32, "peak_memory_bytes": peak32}}
 
         # eikonal: one epoch and its validation in bf16, decode_with_grad on the card
         eik_dir = os.path.join(tmp, "eikonal")
@@ -2885,7 +2814,7 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
         eik_gen = torch.Generator(device=dev).manual_seed(SEED)
         kernels.reset_launch_counts()
         eik_ms = host_ms(torch, lambda: train_step(eik_model, eik_opt, batch, eik_gen), 5)
-        read_launches()
+        read_launches(totals)
         eik_rec.update(vs_f64=eik_seeds, step_ms=eik_ms,
                        plain_step_ms=steps_rec["bf16"]["step_ms_median"])
         del eik_model, eik_trainer, eik_opt
@@ -2902,7 +2831,7 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
             kernels.reset_launch_counts()
             metrics = train_step(m, o, b, torch.Generator(device=dev).manual_seed(SEED))
             torch.cuda.synchronize()
-            launches = read_launches()
+            launches = read_launches(totals)
             side[name] = {"precision": str(cfg_["trainer"]["precision"]),
                           "sampling_mode": m.cfg.sampling_mode,
                           "frames": list(b["depth"].shape[1:]),
@@ -2921,24 +2850,7 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
         model.load_state_dict(fitted)
         model.eval()
         decoded = []
-        real_k2 = grid_decode_module.grid_decode_cuda
-
-        def recording_k2(tables, weights):
-            out = real_k2(tables, weights)
-            decoded.append((tables, weights, out))
-            return out
-
-        bound = mcfg.mlp.head_smoothing
-
-        def k2_vs_plain():
-            """(max, mean abs error, least live share) over the recorded K2 calls."""
-            errs = []
-            for tables, weights, out in decoded:
-                err = (out - grid_decode_module.separable_grid_decode_plain(
-                    tables, weights, bf16_feeds=True)).abs()
-                errs.append((float(err.max()), float(err.mean()),
-                             float((out.abs() < FIELD_LIVE * bound).double().mean())))
-            return tuple(f(e[i] for e in errs) for i, f in enumerate((max, max, min)))
+        recording_k2 = recorded(grid_decode_module.grid_decode_cuda, decoded)
 
         pred_dir = os.path.join(tmp, "pred")
         kernels.reset_launch_counts()
@@ -2950,15 +2862,14 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
                                         *data_overrides])
         torch.cuda.synchronize()
         predict_s = time.perf_counter() - t0
-        predict_launches = read_launches()
+        predict_launches = read_launches(totals)
         with open(os.path.join(pred_dir, "predict_meta.json")) as f:
             predict_meta = json.load(f)
         if not (predict_meta["precision"] == "bf16-mixed"
                 and predict_launches["grid_decode"] == len(decoded) == len(results) == 2):
             raise RuntimeError(f"held-out predict: {predict_meta}, K2 "
                                f"{predict_launches['grid_decode']} for {len(results)} scenes")
-        pred_grid = k2_vs_plain()
-        decoded.clear()
+        pred_grid = recorded_k2_errors(decoded)
         eval_rec = evaluate_held_out(dev, evaluation, parse_splits_list("val.txt", root),
                                      pred_dir, os.path.join(tmp, "oracle"), load_info_json)
 
@@ -2993,11 +2904,11 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
             vol = reconstruct(model, *frames, FLAGSHIP_GRID, torch.Generator().manual_seed(SEED))
         torch.cuda.synchronize()
         recon_ms = (time.perf_counter() - t0) * 1e3
-        recon_launches = read_launches()
+        recon_launches = read_launches(totals)
         tables, weights, _ = decoded[0]
-        recon_grid = k2_vs_plain()
-        decoded.clear()
-        k2_ms = cuda_ms(torch, lambda: real_k2(tables, weights), reps=10)
+        recon_grid = recorded_k2_errors(decoded)
+        k2_ms = cuda_ms(torch, lambda: grid_decode_module.grid_decode_cuda(tables, weights),
+                        reps=10)
         k2_plain_ms = cuda_ms(torch, lambda: grid_decode_module.separable_grid_decode_plain(
             tables, weights, bf16_feeds=True), reps=2)
         H_, nb = weights["w0"].shape[-1], weights["w0"].shape[0]
@@ -3044,43 +2955,20 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
         pts = torch.from_numpy(np.concatenate([
             rng.uniform(-reach, reach, (N_POINTS // 2, 3)),
             rng.uniform(0, box, (N_POINTS // 2, 3))]).astype(np.float32)).to(dev)
-        feat = triplane_feat_fast(*triplane_gather_setup(model, repr_.planes), pts[None])[0]
-        code = positional_encoding(pts, mcfg.code.num_freqs, mcfg.code.freq_factor,
-                                   mcfg.code.include_input)
-        pweights = pack_point_weights(extract_resnetfc_weights(
-            model.mlp, model.head_geo, mcfg.mlp.d_out_geo, bound))
-        pk = fused_resnetfc_tsdf_cuda(feat, code, pweights)
-        pp = fused_resnetfc_tsdf_plain(feat, code, pweights, bf16_feeds=True)
-        perr = (pk - pp).abs()
-        k3_rec = {"points": N_POINTS, "d_in": int(feat.shape[1]), "d_code": int(code.shape[1]),
-                  "max_abs_err": float(perr.max()),
-                  "mean_abs_err": float(perr.mean()), "out_abs_max": float(pp.abs().max()),
-                  "live_share": float((pp.abs() < FIELD_LIVE * bound).double().mean()),
-                  "field_shift": render_shift}
-        del pts, feat, code, pk, pp, perr
+        k3_rec = dict(k3_points(torch, model, repr_, pts), field_shift=render_shift)
+        del pts
         if not point_gates("k3", k3_rec):
             raise RuntimeError(f"K3 at d_in 64 on the bf16 flagship's planes: {k3_rec}")
 
         # the view through K3 (the main path), against the plain march
-        render_args = (model, repr_, view["depth"], view["intrinsics"], view["pose"])
         kernels.reset_launch_counts()
-        rk = render_encoded(*render_args, make_point_tsdf_fn(model, repr_), 1)
-        torch.cuda.synchronize()
-        render_launches = read_launches()
-        rp = render_encoded(*render_args, make_point_tsdf_fn(model, repr_, plain=True), 1)
-        analysis = march_analysis(torch, *render_args, rk, rp)
-        hk, hp = rk["ray_depth"] > 0, rp["ray_depth"] > 0
-        ddiff = np.abs(rk["ray_depth"] - rp["ray_depth"])[hk & hp]
-        render_rec = {"scene": scene_batch["scene"][0], "launches": render_launches,
-                      "field_shift": render_shift,
-                      "hit_share": float(hk.mean()), "hit_share_plain": float(hp.mean()),
-                      "vs_plain_mask_agree": float((hk == hp).mean()),
-                      "vs_plain_depth_agree": float((ddiff <= RENDER_DEPTH_TOL).mean())
-                      if ddiff.size else 0.0, "both_hit_rays": int(ddiff.size),
-                      "vs_plain_analysis": analysis}
+        render_rec = k3_march(torch, model, repr_, view["depth"], view["intrinsics"], view["pose"])
+        render_launches = read_launches(totals)
+        render_rec.update(scene=scene_batch["scene"][0], launches=render_launches,
+                          field_shift=render_shift)
         if not (render_launches["point_decode"] >= 1 and march_gates("k3_march", render_rec)):
             raise RuntimeError(f"the bf16 render through K3: {render_rec}")
-        del repr_, rk, rp
+        del repr_
 
         # the spatial path in bf16: one step of seqs_multigeo_spatial on its
         # loader batch, its loss against the float32 loss of the same weights
@@ -3097,7 +2985,7 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
         kernels.reset_launch_counts()
         smetrics = train_step(s16, s_opt, sbatch, draws=sdraws)
         torch.cuda.synchronize()
-        spatial_launches = read_launches()
+        spatial_launches = read_launches(totals)
         spatial_rec = {"loss_bf16": float(smetrics["combined"]), "loss_f32": sloss32,
                        "loss_rel_diff": abs(float(smetrics["combined"]) - sloss32) / abs(sloss32),
                        "launches": spatial_launches, "grads_finite": grads_finite(s16)}
@@ -3136,10 +3024,6 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
                                        "depth_agree": RENDER_DEPTH_AGREE,
                                        "min_hit_share": RENDER_MIN_HIT_SHARE}},
               "card": smi})
-        emit({"phase": "flagship_bf16_profile", "what": "one loader-batch bf16-mixed train_step",
-              **prof16})
-        emit({"phase": "flagship_f32_profile", "what": "the same train_step in float32",
-              **prof32})
     # each kernel's largest error against its plain version at this path's shapes
     errors = {"fps": float((idx_k - idx_p).abs().max()),
               "grid_decode": max(pred_grid[0], recon_grid[0]),
@@ -3148,7 +3032,7 @@ def flagship_bf16_phase(torch, dev, smi: str, root: str) -> dict:
 
 
 def distill_phase(torch, dev, smi: str, root: str) -> tuple:
-    """Phase 13 (see the module docstring); returns the launch counts of
+    """Phase 12 (see the module docstring); returns the launch counts of
     the main-path runs (the two fits through the train CLI, the timed
     steps of each mode, the trained model's reconstruct and its held-out
     view through K3, the use_auxiliary step, reconstruct and render) and
@@ -3161,32 +3045,17 @@ def distill_phase(torch, dev, smi: str, root: str) -> tuple:
 
     from gennerf_tpu_torch.data.datamodule import ScannetDataModule
     from gennerf_tpu_torch.data.synthetic import generate_scene
-    from gennerf_tpu_torch.models.positional_encoding import positional_encoding
     from gennerf_tpu_torch.ops import grid_decode as grid_decode_module
     from gennerf_tpu_torch.ops import kernels
-    from gennerf_tpu_torch.ops.grid_decode import extract_resnetfc_weights
-    from gennerf_tpu_torch.ops.point_decode import (
-        fused_resnetfc_tsdf_cuda, fused_resnetfc_tsdf_plain, pack_point_weights,
-    )
     from gennerf_tpu_torch.predict import build_model, reconstruct
-    from gennerf_tpu_torch.render import render_encoded, render_views
-    from gennerf_tpu_torch.train import loop as loop_module
+    from gennerf_tpu_torch.render import render_views
     from gennerf_tpu_torch.train import step as step_module
     from gennerf_tpu_torch.train.__main__ import main as train_main
-    from gennerf_tpu_torch.train.predict import (
-        dense_grid_points, make_point_tsdf_fn, triplane_feat_fast, triplane_gather_setup,
-        uses_grid_decode,
-    )
+    from gennerf_tpu_torch.train.predict import dense_grid_points, uses_grid_decode
     from gennerf_tpu_torch.train.state import make_optimizer
     from gennerf_tpu_torch.train.step import batch_to_device, gen_nerf_forward_loss, train_step
 
     totals = {k.name: 0 for k in kernels.KERNELS}
-
-    def read_launches():
-        counts = {k.name: k.launches for k in kernels.KERNELS}
-        for name, n in counts.items():
-            totals[name] += n
-        return counts
 
     t0 = time.perf_counter()
     info = generate_scene(root, num_frames=DISTILL_FRAMES)
@@ -3197,24 +3066,8 @@ def distill_phase(torch, dev, smi: str, root: str) -> tuple:
         """The train CLI on the config (its 10 epochs, validation every 5),
         counters reset just before and read just after; each epoch's row
         of metrics.csv. Returns (trainer, record)."""
-        evals = []
-
-        def counted(fn):
-            def wrapper(*a, **k):
-                evals.append(fn.__name__)
-                return fn(*a, **k)
-            return wrapper
-
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        with mock.patch.object(loop_module, "eval_step", counted(loop_module.eval_step)), \
-                mock.patch.object(loop_module, "reconstruct", counted(loop_module.reconstruct)):
-            t0 = time.perf_counter()
-            trainer = train_main(["--config", path, "--data-dir", root, "--out", run_dir,
-                                  "--device", dev.type])
-            torch.cuda.synchronize()
-            fit_s = time.perf_counter() - t0
-        launches = read_launches()
+        fit_s, launches, evals, trainer = counted_run(torch, totals, lambda: train_main(
+            ["--config", path, "--data-dir", root, "--out", run_dir, "--device", dev.type]))
         with open(os.path.join(run_dir, "metrics.csv")) as f:
             rows = list(csv.DictReader(f))
         keys = ("train_tsdf", "train_distill", "train_distill_coverage",
@@ -3298,24 +3151,15 @@ def distill_phase(torch, dev, smi: str, root: str) -> tuple:
 
     def timed_steps(model, opt, batch):
         """DISTILL_WARMUP + DISTILL_TIMED_STEPS synchronized train steps
-        (counters reset just before and read just after), then a profiled
-        step."""
+        (counters reset just before and read just after)."""
         gen = torch.Generator(device=dev).manual_seed(SEED)
         kernels.reset_launch_counts()
-        ms = []
-        for _ in range(DISTILL_WARMUP + DISTILL_TIMED_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            metrics = train_step(model, opt, batch, gen)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        launches = read_launches()
-        med = statistics.median(ms[DISTILL_WARMUP:])
-        prof = profile_device(torch, lambda: train_step(model, opt, batch, gen), med, smi)
-        rec = {"step_ms_median": med, "step_ms_all": ms, "launches": launches,
-               "metrics": {k: float(v) for k, v in metrics.items()},
-               "device_busy_ms": prof["device_busy_ms"],
-               "device_idle_share": prof["device_idle_share"], "top": prof["top"][:6]}
+        ms, steps = synced_calls(torch, lambda: train_step(model, opt, batch, gen),
+                                 DISTILL_WARMUP + DISTILL_TIMED_STEPS)
+        metrics = steps[-1]
+        launches = read_launches(totals)
+        rec = {"step_ms_median": statistics.median(ms[DISTILL_WARMUP:]), "step_ms_all": ms,
+               "launches": launches, "metrics": {k: float(v) for k, v in metrics.items()}}
         if launches["fps"] != len(ms) or not all(map(math.isfinite, rec["metrics"].values())):
             raise RuntimeError(f"the timed distillation steps: {rec}")
         return rec
@@ -3343,7 +3187,6 @@ def distill_phase(torch, dev, smi: str, root: str) -> tuple:
             del trainer
         model = trained.eval()
         mcfg = model.cfg
-        bound = mcfg.mlp.head_smoothing
 
         # K2 on the trained distillation head (d_geo 64, lin_out 128 wide):
         # the scene's test frames through reconstruct, the field centred
@@ -3353,12 +3196,7 @@ def distill_phase(torch, dev, smi: str, root: str) -> tuple:
                 for k in ("projection", "image", "depth", "intrinsics", "pose")}
         frames = (view["projection"], view["image"], view["depth"])
         decoded = []
-        real_k2 = grid_decode_module.grid_decode_cuda
-
-        def recording_k2(tables, weights):
-            out = real_k2(tables, weights)
-            decoded.append((tables, weights, out))
-            return out
+        recording_k2 = recorded(grid_decode_module.grid_decode_cuda, decoded)
 
         def k2_reconstruct():
             decoded.clear()
@@ -3367,15 +3205,11 @@ def distill_phase(torch, dev, smi: str, root: str) -> tuple:
                 vol = reconstruct(model, *frames, mcfg.voxel_dim_test,
                                   torch.Generator().manual_seed(SEED))
             torch.cuda.synchronize()
-            launches = read_launches()
-            tables, weights, out = decoded[0]
-            err = (out - grid_decode_module.separable_grid_decode_plain(
-                tables, weights, bf16_feeds=True)).abs()
-            return {"launches": launches, "max_abs_err": float(err.max()),
-                    "mean_abs_err": float(err.mean()),
-                    "live_share": float((out.abs() < FIELD_LIVE * bound).double().mean()),
-                    "finite": bool(torch.isfinite(vol).all()),
-                    "d_in": int(weights["w_in"].shape[0])}
+            launches = read_launches(totals)
+            d_in = int(decoded[0][1]["w_in"].shape[0])
+            return {"launches": launches, "finite": bool(torch.isfinite(vol).all()), "d_in": d_in,
+                    **dict(zip(("max_abs_err", "mean_abs_err", "live_share"),
+                               recorded_k2_errors(decoded)))}
 
         k2_rec = {"trained": k2_reconstruct(), "field_shift": 0.0}
         k2_final = k2_rec["trained"]
@@ -3404,8 +3238,6 @@ def distill_phase(torch, dev, smi: str, root: str) -> tuple:
         box = np.array(mcfg.voxel_dim_test, np.float32) * mcfg.voxel_size
         pts = torch.from_numpy(np.random.default_rng(SEED).uniform(0, box, (N_POINTS // 4, 3))
                                .astype(np.float32)).to(dev)
-        code = positional_encoding(pts, mcfg.code.num_freqs, mcfg.code.freq_factor,
-                                   mcfg.code.include_input)
 
         def k3_view():
             kernels.reset_launch_counts()
@@ -3413,29 +3245,11 @@ def distill_phase(torch, dev, smi: str, root: str) -> tuple:
                 repr_ = model.encode(*(f[None] for f in frames),
                                      torch.Generator().manual_seed(SEED))
             torch.cuda.synchronize()
-            encode_launches = read_launches()
-            feat = triplane_feat_fast(*triplane_gather_setup(model, repr_.planes), pts[None])[0]
-            pweights = pack_point_weights(extract_resnetfc_weights(
-                model.mlp, model.head_geo, mcfg.mlp.d_out_geo, bound))
-            pk = fused_resnetfc_tsdf_cuda(feat, code, pweights)
-            pp = fused_resnetfc_tsdf_plain(feat, code, pweights, bf16_feeds=True)
-            perr = (pk - pp).abs()
-            rec = {"points": int(pts.shape[0]), "d_in": int(feat.shape[1]),
-                   "max_abs_err": float(perr.max()), "mean_abs_err": float(perr.mean()),
-                   "live_share": float((pp.abs() < FIELD_LIVE * bound).double().mean()),
-                   "encode_launches": encode_launches}
-            render_args = (model, repr_, view["depth"], view["intrinsics"], view["pose"])
+            encode_launches = read_launches(totals)
+            rec = dict(k3_points(torch, model, repr_, pts), encode_launches=encode_launches)
             kernels.reset_launch_counts()
-            rk = render_encoded(*render_args, make_point_tsdf_fn(model, repr_), 1)
-            torch.cuda.synchronize()
-            rec["launches"] = read_launches()
-            rp = render_encoded(*render_args, make_point_tsdf_fn(model, repr_, plain=True), 1)
-            analysis = march_analysis(torch, *render_args, rk, rp)
-            hk, hp = rk["ray_depth"] > 0, rp["ray_depth"] > 0
-            ddiff = np.abs(rk["ray_depth"] - rp["ray_depth"])[hk & hp]
-            rec.update(hit_share=float(hk.mean()), vs_plain_mask_agree=float((hk == hp).mean()),
-                       vs_plain_depth_agree=float((ddiff <= RENDER_DEPTH_TOL).mean())
-                       if ddiff.size else 0.0, vs_plain_analysis=analysis)
+            rec.update(k3_march(torch, model, repr_, view["depth"], view["intrinsics"],
+                                view["pose"]), launches=read_launches(totals))
             return rec, repr_
 
         k3_rec = {"field_shift": 0.0}
@@ -3445,7 +3259,7 @@ def distill_phase(torch, dev, smi: str, root: str) -> tuple:
                 or k3_final["hit_share"] < RENDER_MIN_HIT_SHARE):
             k3_rec["field_shift"] = center_field(torch, model, repr_, grid_pts)
             k3_rec["centred"] = k3_final = k3_view()[0]
-        del repr_, pts, code
+        del repr_, pts
         k3_runs = [r for r in k3_rec.values() if isinstance(r, dict)]
         if not (k3_final["launches"]["point_decode"] >= 1 and k3_final["launches"]["fps"] == 0
                 and k3_final["encode_launches"] == {"fps": 1, "grid_decode": 0, "point_decode": 0}
@@ -3469,14 +3283,15 @@ def distill_phase(torch, dev, smi: str, root: str) -> tuple:
         metrics = train_step(aux, aopt, abatch, torch.Generator(device=dev).manual_seed(SEED))
         torch.cuda.synchronize()
         aux_rec["step"] = {"metrics": {k: float(v) for k, v in metrics.items()},
-                           "launches": read_launches()}
+                           "launches": read_launches(totals)}
         aux.eval()
         kernels.reset_launch_counts()
         vol = reconstruct(aux, *frames, mcfg.voxel_dim_test, torch.Generator().manual_seed(SEED))
         out = render_views(aux, *frames, view["intrinsics"], view["pose"], num_views=1,
                            generator=torch.Generator().manual_seed(SEED))
         torch.cuda.synchronize()
-        aux_rec.update(launches=read_launches(), volume_finite=bool(torch.isfinite(vol).all()),
+        aux_rec.update(launches=read_launches(totals),
+                       volume_finite=bool(torch.isfinite(vol).all()),
                        render_hit_share=float((out["ray_depth"] > 0).mean()),
                        d_in=aux.cfg.encoder_latent)
         del aux, aopt, abatch, vol, out
@@ -3612,7 +3427,7 @@ def read_tfevents(path: str) -> list:
 
 
 def harness_phase(torch, dev, smi: str, root: str) -> tuple:
-    """Phase 14 (see the module docstring); returns the launch counts of
+    """Phase 13 (see the module docstring); returns the launch counts of
     the main-path runs (the fit with its test pass, the resume, the sweep,
     the overhead fits) and K2's largest error against its plain version
     over the fit's tails."""
@@ -3628,7 +3443,6 @@ def harness_phase(torch, dev, smi: str, root: str) -> tuple:
     from gennerf_tpu_torch.ops import kernels
     from gennerf_tpu_torch.ops import sampling as sampling_module
     from gennerf_tpu_torch.predict import build_model
-    from gennerf_tpu_torch.train import loop as loop_module
     from gennerf_tpu_torch.train import sweep
     from gennerf_tpu_torch.train.__main__ import main as train_main
     from gennerf_tpu_torch.train.callbacks import ProgressBar, clear_device_caches
@@ -3642,12 +3456,6 @@ def harness_phase(torch, dev, smi: str, root: str) -> tuple:
     t_phase = time.perf_counter()
     totals = {k.name: 0 for k in kernels.KERNELS}
 
-    def read_launches():
-        counts = {k.name: k.launches for k in kernels.KERNELS}
-        for name, n in counts.items():
-            totals[name] += n
-        return counts
-
     def csv_rows(path):
         with open(path) as f:
             return list(csv.DictReader(f))
@@ -3656,38 +3464,16 @@ def harness_phase(torch, dev, smi: str, root: str) -> tuple:
         # (1) one fit through the train CLI with the harness options
         run = os.path.join(tmp, "fit")
         prof_dir = os.path.join(tmp, "prof")
-        evals, decoded, sampled = [], [], []
-        real_k1, real_k2 = sampling_module.fps_cuda, grid_decode_module.grid_decode_cuda
-
-        def recording_k1(xyz, npoint, start, cluster=0):
-            out = real_k1(xyz, npoint, start, cluster)
-            sampled.append((xyz, npoint, start, out))
-            return out
-
-        def recording_k2(tables, weights):
-            out = real_k2(tables, weights)
-            decoded.append((tables, weights, out))
-            return out
-
-        def counted(fn):
-            def wrapper(*a, **k):
-                evals.append(fn.__name__)
-                return fn(*a, **k)
-            return wrapper
-
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        with mock.patch.object(loop_module, "eval_step", counted(loop_module.eval_step)), \
-                mock.patch.object(loop_module, "reconstruct", counted(loop_module.reconstruct)), \
-                mock.patch.object(grid_decode_module, "grid_decode_cuda", recording_k2), \
-                mock.patch.object(sampling_module, "fps_cuda", recording_k1):
-            t0 = time.perf_counter()
-            trainer = train_main(["--config", EXPERIMENT, "--data-dir", root, "--out", run,
-                                  "--device", dev.type, *HARNESS_OVERRIDES,
-                                  f"trainer.profile_dir={prof_dir}"])
-            torch.cuda.synchronize()
-            fit_s = time.perf_counter() - t0
-        launches = read_launches()
+        decoded, sampled = [], []
+        fit_s, launches, evals, trainer = counted_run(
+            torch, totals, lambda: train_main(["--config", EXPERIMENT, "--data-dir", root,
+                                               "--out", run, "--device", dev.type,
+                                               *HARNESS_OVERRIDES,
+                                               f"trainer.profile_dir={prof_dir}"]),
+            mock.patch.object(grid_decode_module, "grid_decode_cuda",
+                              recorded(grid_decode_module.grid_decode_cuda, decoded)),
+            mock.patch.object(sampling_module, "fps_cuda",
+                              recorded(sampling_module.fps_cuda, sampled)))
         steps, n_eval, n_tail = trainer.global_step, evals.count("eval_step"), evals.count(
             "reconstruct")
         rows = csv_rows(os.path.join(run, "metrics.csv"))
@@ -3710,12 +3496,8 @@ def harness_phase(torch, dev, smi: str, root: str) -> tuple:
                     expected_stop = epoch
                     break
         expected_epochs = 6 if expected_stop is None else expected_stop + 1
-        grid_err = []
-        for tables, weights, out in decoded:
-            err = (out - grid_decode_module.separable_grid_decode_plain(
-                tables, weights, bf16_feeds=True)).abs()
-            grid_err.append((float(err.max()), float(err.mean())))
-        del decoded
+        tails = len(decoded)
+        grid_max, grid_mean, _ = recorded_k2_errors(decoded)
         # each K1 launch of the fit against the plain FPS on its inputs
         fps_diff = [(out - sampling_module.farthest_point_sample_plain(xyz, npoint, start)).abs()
                     for xyz, npoint, start, out in sampled]
@@ -3724,8 +3506,6 @@ def harness_phase(torch, dev, smi: str, root: str) -> tuple:
         del fps_diff
         k1_shapes = sorted({(*xyz.shape[:2], npoint) for xyz, npoint, _, _ in sampled})
         del sampled
-        grid_max = max(e[0] for e in grid_err)
-        grid_mean = max(e[1] for e in grid_err)
 
         # the tfevents file against metrics.csv, the images against local/
         tb_dir = os.path.join(run, "tensorboard")
@@ -3758,7 +3538,7 @@ def harness_phase(torch, dev, smi: str, root: str) -> tuple:
             "launches": launches, "fit_s": fit_s, "epoch_s": trainer.epoch_seconds,
             "k1_vs_plain": {"launches": len(fps_mismatches), "shapes": k1_shapes,
                             "index_mismatches": sum(fps_mismatches)},
-            "k2_vs_plain": {"max_abs": grid_max, "mean_abs": grid_mean, "tails": len(grid_err)},
+            "k2_vs_plain": {"max_abs": grid_max, "mean_abs": grid_mean, "tails": tails},
             "tfevents": {"values": len(tb), "scalars": len(scalars),
                          "scalars_missing": missing[:5], "images": sorted(images),
                          "not_white": not_white, "mesh_tensors": mesh_tags,
@@ -3782,9 +3562,10 @@ def harness_phase(torch, dev, smi: str, root: str) -> tuple:
                                f"for {steps} steps, {n_eval} eval batches, {n_tail} tails")
         if len(fps_mismatches) != launches["fps"] or any(fps_mismatches):
             raise RuntimeError(f"the fit's K1 launches against the plain FPS: {fps_mismatches}")
-        if n_tail != epochs_run + 1 or len(grid_err) != n_tail or not grid_gates(
+        if n_tail != epochs_run + 1 or tails != n_tail or not grid_gates(
                 "k2_tails", grid_max, grid_mean):
-            raise RuntimeError(f"the tails' K2 volumes against the plain decode: {grid_err}")
+            raise RuntimeError(f"the tails' K2 volumes against the plain decode: {tails} tails, "
+                               f"max {grid_max}, mean {grid_mean}")
         if missing or len(hparams) != 1 or sorted(local_same) != sorted(image_tags) or not all(
                 local_same.values()) or not all(not_white[t] > 0 for t in image_tags):
             raise RuntimeError(f"tfevents or local images incomplete: {fit_rec['tfevents']}, "
@@ -3833,7 +3614,7 @@ def harness_phase(torch, dev, smi: str, root: str) -> tuple:
             t.fit([batch] * OVERHEAD_STEPS)
             torch.cuda.synchronize()
             step_host_ms[on].append((time.perf_counter() - t0) * 1e3 / OVERHEAD_STEPS)
-        overhead_launches = read_launches()
+        overhead_launches = read_launches(totals)
         clear_ms = host_ms(torch, lambda: clear_device_caches(dev), 5)
         emit({"phase": "harness_overhead",
               "clear_cache_epoch_s": {"off": cache_epoch_s[False], "on": cache_epoch_s[True]},
@@ -3893,7 +3674,7 @@ def harness_phase(torch, dev, smi: str, root: str) -> tuple:
         resumed = train_main(["--out", os.path.join(tmp, "resumed"), "--resume", sig_dir,
                               *sig_args[:-1], f"trainer.max_epochs={last_epoch + 2}"])
         torch.cuda.synchronize()
-        resume_launches = read_launches()
+        resume_launches = read_launches(totals)
         resumed_rows = csv_rows(os.path.join(tmp, "resumed", "metrics.csv"))
         resumed_epochs = sorted({int(float(r["epoch"])) for r in resumed_rows if r.get("epoch")})
         sig_rec = {"returncode": proc.returncode, "signal_at_step": logged,
@@ -3925,7 +3706,7 @@ def harness_phase(torch, dev, smi: str, root: str) -> tuple:
                   "parameters": {"model.optimizer.lr": {"values": list(SWEEP_LRS)}}})
         torch.cuda.synchronize()
         sweep_s = time.perf_counter() - t0
-        sweep_launches = read_launches()
+        sweep_launches = read_launches(totals)
         with open(os.path.join(tmp, "sweep", "sweep_results.jsonl")) as f:
             written = [json.loads(line) for line in f]
         emit({"phase": "harness_sweep", "records": records, "written": len(written),
@@ -4040,7 +3821,7 @@ def save_reference_ckpt(torch, path: str, reference: dict) -> None:
 
 
 def weights_options_phase(torch, dev, smi: str, root: str) -> tuple:
-    """Phase 15 (see the module docstring); returns the launch counts of
+    """Phase 14 (see the module docstring); returns the launch counts of
     the main-path runs (the CLIs on the reference checkpoint, the option
     groups' steps and reconstructs, PointNet++) and each kernel's largest
     error against its plain version there."""
@@ -4060,9 +3841,8 @@ def weights_options_phase(torch, dev, smi: str, root: str) -> tuple:
     from gennerf_tpu_torch.ops import sampling as sampling_module
     from gennerf_tpu_torch.ops.projection import get_3d_points
     from gennerf_tpu_torch.predict import build_model, load_params, reconstruct
-    from gennerf_tpu_torch.render import render_encoded
     from gennerf_tpu_torch.train.checkpoints import load_checkpoint, save_checkpoint
-    from gennerf_tpu_torch.train.predict import make_point_tsdf_fn, uses_grid_decode
+    from gennerf_tpu_torch.train.predict import uses_grid_decode
     from gennerf_tpu_torch.train.state import make_optimizer
     from gennerf_tpu_torch.train.step import batch_to_device, gen_nerf_forward_loss, train_step
     from gennerf_tpu_torch.utils.port_reference import (
@@ -4072,12 +3852,6 @@ def weights_options_phase(torch, dev, smi: str, root: str) -> tuple:
     t_phase = time.perf_counter()
     totals = {k.name: 0 for k in kernels.KERNELS}
     cpu = torch.device("cpu")
-
-    def read_launches():
-        counts = {k.name: k.launches for k in kernels.KERNELS}
-        for name, n in counts.items():
-            totals[name] += n
-        return counts
 
     def config(path, extra=()):
         return experiment_config(path, [f"paths.data_dir={root}", *extra])
@@ -4105,10 +3879,7 @@ def weights_options_phase(torch, dev, smi: str, root: str) -> tuple:
         sampled.append((xyz, npoint, start, out, dict(kernels.FPS.last_launch)))
         return out
 
-    def recording_k2(tables, weights):
-        out = real_k2(tables, weights)
-        decoded.append((tables, weights, out))
-        return out
+    recording_k2 = recorded(real_k2, decoded)
 
     def k1_vs_plain():
         """Each recorded K1 launch against the plain FPS on its inputs."""
@@ -4174,7 +3945,7 @@ def weights_options_phase(torch, dev, smi: str, root: str) -> tuple:
             repr_ = model.encode(view["projection"][None], view["image"][None],
                                  view["depth"][None], torch.Generator().manual_seed(SEED))
         torch.cuda.synchronize()
-        encode_launches = read_launches()
+        encode_launches = read_launches(totals)
         surface = get_3d_points(view["depth"][:1], view["projection"][:1]).reshape(-1, 3)
         shift = center_field(torch, model, repr_, surface[view["depth"][0].reshape(-1) > 0])
         reference["mlp.lin_out.bias"] = model.mlp.lin_out.bias.detach().cpu().numpy()
@@ -4197,7 +3968,7 @@ def weights_options_phase(torch, dev, smi: str, root: str) -> tuple:
                                         "--num-views", "1", "--device", dev.type])
             torch.cuda.synchronize()
             render_s = time.perf_counter() - t0
-        cli_launches = read_launches()
+        cli_launches = read_launches(totals)
         cli_k1 = k1_vs_plain()
         cli_k2 = k2_vs_plain(pin=True)
         with open(os.path.join(pred_dir, "predict_meta.json")) as f:
@@ -4219,19 +3990,12 @@ def weights_options_phase(torch, dev, smi: str, root: str) -> tuple:
             repr_ = reader_model.encode(view["projection"][None], view["image"][None],
                                         view["depth"][None], torch.Generator().manual_seed(SEED),
                                         voxel_dim=mcfg.voxel_dim_test)
-        render_args = (reader_model, repr_, view["depth"], view["intrinsics"], view["pose"])
-        rk = render_encoded(*render_args, make_point_tsdf_fn(reader_model, repr_), 1)
-        rp = render_encoded(*render_args, make_point_tsdf_fn(reader_model, repr_, plain=True), 1)
-        analysis = march_analysis(torch, *render_args, rk, rp)
-        hk, hp = rk["ray_depth"] > 0, rp["ray_depth"] > 0
-        ddiff = np.abs(rk["ray_depth"] - rp["ray_depth"])[hk & hp]
-        k3_rec = {"image": list(view["depth"].shape[-2:]), "hit_share": float(hk.mean()),
-                  "vs_plain_mask_agree": float((hk == hp).mean()),
-                  "vs_plain_depth_agree": float((ddiff <= RENDER_DEPTH_TOL).mean())
-                  if ddiff.size else 0.0, "field_shift": shift, "vs_plain_analysis": analysis}
+        k3_rec = k3_march(torch, reader_model, repr_, view["depth"], view["intrinsics"],
+                          view["pose"])
+        k3_rec["field_shift"] = shift
         if not march_gates("reference_ckpt_k3_march", k3_rec):
             raise RuntimeError(f"the reference checkpoint's view through K3: {k3_rec}")
-        del repr_, rk, rp
+        del repr_
 
         determinism.close()
 
@@ -4390,7 +4154,7 @@ def weights_options_phase(torch, dev, smi: str, root: str) -> tuple:
                 vol = reconstruct(gmodel, *scene, None, torch.Generator().manual_seed(SEED))
             torch.cuda.synchronize()
             recon_ms = (time.perf_counter() - t0) * 1e3
-            launches = read_launches()
+            launches = read_launches(totals)
             k2_errs = k2_vs_plain()
             expect_k2 = int(uses_grid_decode(gmodel))
             expect = {"fps": 0 if voxel_hash else OPTIONS_STEPS + 1,
@@ -4505,7 +4269,7 @@ def weights_options_phase(torch, dev, smi: str, root: str) -> tuple:
             feature = pnpp(cloud, torch.Generator().manual_seed(SEED))
         torch.cuda.synchronize()
         pnpp_ms = (time.perf_counter() - t0) * 1e3
-        pnpp_launches = read_launches()
+        pnpp_launches = read_launches(totals)
         pnpp_k1 = k1_vs_plain()
         pnpp_rec = {"cloud": list(cloud.shape), "launches": pnpp_launches, "ms": pnpp_ms,
                     "feature": list(feature.shape), "finite": bool(torch.isfinite(feature).all()),
@@ -4529,7 +4293,7 @@ def weights_options_phase(torch, dev, smi: str, root: str) -> tuple:
 
 
 def model_options_phase(torch, dev, smi: str, root: str, synth_root: str) -> tuple:
-    """Phase 16 (see the module docstring); returns the launch counts of
+    """Phase 15 (see the module docstring); returns the launch counts of
     the main-path runs (VoxelNet's steps and predicts, the spatial
     forwards, the bf16 option groups' steps, reconstructs and view, the
     bf16 distillation steps, reconstruct and view, the use_auxiliary step)
@@ -4543,22 +4307,13 @@ def model_options_phase(torch, dev, smi: str, root: str, synth_root: str) -> tup
     from gennerf_tpu_torch.data.datamodule import ScannetDataModule
     from gennerf_tpu_torch.data.synthetic import ring_frames
     from gennerf_tpu_torch.models.backbone3d import DropoutDraws
-    from gennerf_tpu_torch.models.positional_encoding import positional_encoding
     from gennerf_tpu_torch.models.voxel_net import VolumeRepr, VoxelNet
     from gennerf_tpu_torch.ops import grid_decode as grid_decode_module
     from gennerf_tpu_torch.ops import kernels
     from gennerf_tpu_torch.ops import sampling as sampling_module
-    from gennerf_tpu_torch.ops.grid_decode import extract_resnetfc_weights
-    from gennerf_tpu_torch.ops.point_decode import (
-        fused_resnetfc_tsdf_cuda, fused_resnetfc_tsdf_plain, pack_point_weights,
-    )
     from gennerf_tpu_torch.ops.projection import get_3d_points
     from gennerf_tpu_torch.predict import build_model, reconstruct
-    from gennerf_tpu_torch.render import render_encoded
-    from gennerf_tpu_torch.train.predict import (
-        dense_grid_points, make_point_tsdf_fn, triplane_feat_fast, triplane_gather_setup,
-        uses_grid_decode,
-    )
+    from gennerf_tpu_torch.train.predict import dense_grid_points, uses_grid_decode
     from gennerf_tpu_torch.train.state import make_optimizer
     from gennerf_tpu_torch.train.step import batch_to_device, forward_loss, train_step
 
@@ -4566,12 +4321,6 @@ def model_options_phase(torch, dev, smi: str, root: str, synth_root: str) -> tup
     totals = {k.name: 0 for k in kernels.KERNELS}
     errors = {"fps": 0.0, "grid_decode": 0.0, "point_decode": 0.0}
     cpu = torch.device("cpu")
-
-    def read_launches():
-        counts = {k.name: k.launches for k in kernels.KERNELS}
-        for name, n in counts.items():
-            totals[name] += n
-        return counts
 
     def first_batch(data_cfg, frames=None):
         batch = batch_to_device(next(iter(ScannetDataModule(data_cfg, seed=SEED)
@@ -4586,17 +4335,8 @@ def model_options_phase(torch, dev, smi: str, root: str, synth_root: str) -> tup
         return {k: torch.as_tensor(np.asarray(scene_batch[k][0])).to(dev) for k in FRAME_KEYS}
 
     sampled, decoded = [], []
-    real_k1, real_k2 = sampling_module.fps_cuda, grid_decode_module.grid_decode_cuda
-
-    def recording_k1(xyz, npoint, start, cluster=0):
-        out = real_k1(xyz, npoint, start, cluster)
-        sampled.append((xyz, npoint, start, out))
-        return out
-
-    def recording_k2(tables, weights):
-        out = real_k2(tables, weights)
-        decoded.append((tables, weights, out))
-        return out
+    recording_k1 = recorded(sampling_module.fps_cuda, sampled)
+    recording_k2 = recorded(grid_decode_module.grid_decode_cuda, decoded)
 
     def recording():
         stack = contextlib.ExitStack()
@@ -4635,47 +4375,24 @@ def model_options_phase(torch, dev, smi: str, root: str, synth_root: str) -> tup
         and K3 against its plain bf16-feed version on 2^18 points in the
         march's box (a comparison, not counted), on the field centred on
         the view's measured surface (so that its rays cross zero)."""
-        mcfg, bound = model.cfg, model.cfg.mlp.head_smoothing
+        mcfg = model.cfg
         kernels.reset_launch_counts()
         with torch.no_grad():
             repr_ = model.encode(view["projection"][None], view["image"][None],
                                  view["depth"][None], torch.Generator().manual_seed(SEED))
         torch.cuda.synchronize()
-        encode_launches = read_launches()
+        encode_launches = read_launches(totals)
         surface = get_3d_points(view["depth"][:1], view["projection"][:1]).reshape(-1, 3)
         shift = center_field(torch, model, repr_, surface[view["depth"][0].reshape(-1) > 0])
         box_pts = dense_grid_points(box_dim, mcfg.voxel_size, (0, 0, 0), dev)
         pts = box_pts[torch.randperm(box_pts.shape[0], generator=torch.Generator().manual_seed(
             SEED))[:N_POINTS // 4].to(dev)]
-        feat = triplane_feat_fast(*triplane_gather_setup(model, repr_.planes), pts[None])[0]
-        code = positional_encoding(pts, mcfg.code.num_freqs, mcfg.code.freq_factor,
-                                   mcfg.code.include_input)
-        pweights = pack_point_weights(extract_resnetfc_weights(
-            model.mlp, model.head_geo, mcfg.mlp.d_out_geo, bound))
-        pk = fused_resnetfc_tsdf_cuda(feat, code, pweights)
-        pp = fused_resnetfc_tsdf_plain(feat, code, pweights, bf16_feeds=True)
-        perr = (pk - pp).abs()
-        render_args = (model, repr_, view["depth"], view["intrinsics"], view["pose"])
+        points = k3_points(torch, model, repr_, pts)
         kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        rk = render_encoded(*render_args, make_point_tsdf_fn(model, repr_), 1)
-        torch.cuda.synchronize()
-        view_ms = (time.perf_counter() - t0) * 1e3
-        launches = read_launches()
-        rp = render_encoded(*render_args, make_point_tsdf_fn(model, repr_, plain=True), 1)
-        analysis = march_analysis(torch, *render_args, rk, rp)
-        hk, hp = rk["ray_depth"] > 0, rp["ray_depth"] > 0
-        ddiff = np.abs(rk["ray_depth"] - rp["ray_depth"])[hk & hp]
-        rec = {"image": list(view["depth"].shape[-2:]), "d_in": int(feat.shape[1]),
-               "planes_dtype": str(repr_.planes["xz"].dtype), "field_shift": shift,
-               "points": int(pts.shape[0]), "max_abs_err": float(perr.max()),
-               "mean_abs_err": float(perr.mean()),
-               "live_share": float((pp.abs() < FIELD_LIVE * bound).double().mean()),
-               "encode_launches": encode_launches, "launches": launches, "view_ms": view_ms,
-               "hit_share": float(hk.mean()),
-               "vs_plain_mask_agree": float((hk == hp).mean()),
-               "vs_plain_depth_agree": float((ddiff <= RENDER_DEPTH_TOL).mean())
-               if ddiff.size else 0.0, "vs_plain_analysis": analysis}
+        rec = k3_march(torch, model, repr_, view["depth"], view["intrinsics"], view["pose"])
+        launches = read_launches(totals)
+        rec.update(points, planes_dtype=str(repr_.planes["xz"].dtype), field_shift=shift,
+                   encode_launches=encode_launches, launches=launches)
         errors["point_decode"] = max(errors["point_decode"], rec["max_abs_err"])
         if not (launches["point_decode"] >= 1 and launches["fps"] == 0
                 and point_gates(f"{name}.k3", rec) & march_gates(f"{name}.k3_march", rec)):
@@ -4740,7 +4457,7 @@ def model_options_phase(torch, dev, smi: str, root: str, synth_root: str) -> tup
         view = held_out_view(vcfg["data"])
         vol = reconstruct(vmodel, view["projection"], view["image"], view["depth"])
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches = read_launches(totals)
         rec = {"losses": losses, "step_ms": step_ms, "launches": launches,
                "predict": {"voxel_dim": list(vol.shape),
                            "finite": bool(torch.isfinite(vol).all()),
@@ -4855,7 +4572,7 @@ def model_options_phase(torch, dev, smi: str, root: str, synth_root: str) -> tup
                            "equal_to_batch": bool(torch.equal(r.volume, base.volume) and all(
                                torch.equal(r.planes[k], v) for k, v in base.planes.items()))}
         del smodel, r
-    srec["launches"] = read_launches()
+    srec["launches"] = read_launches(totals)
     # one layer without a resize: the stem's map alone, card against CPU on
     # the CPU's sparse points
     ucfg = experiment_config(SPATIAL_EXPERIMENT, [
@@ -4930,7 +4647,7 @@ def model_options_phase(torch, dev, smi: str, root: str, synth_root: str) -> tup
                 losses16.append(float(train_step(g16, opt, batch, draws=d)["combined"]))
             torch.cuda.synchronize()
             step_ms = (time.perf_counter() - t0) * 1e3 / OPTIONS_STEPS
-            step_launches = read_launches()
+            step_launches = read_launches(totals)
             step_k1, _ = kernels_vs_plain(gc.mlp.head_smoothing)
         losses32 = same_steps_f32(gc, batch, step_draws, states, "combined")
         del opt, states
@@ -4956,7 +4673,7 @@ def model_options_phase(torch, dev, smi: str, root: str, synth_root: str) -> tup
             vol = reconstruct(g16, *frames, FLAGSHIP_GRID, torch.Generator().manual_seed(SEED))
             torch.cuda.synchronize()
             rec["reconstruct_ms"] = (time.perf_counter() - t0) * 1e3
-            rec["reconstruct_launches"] = read_launches()
+            rec["reconstruct_launches"] = read_launches(totals)
             recon_k1, recon_k2 = kernels_vs_plain(gc.mlp.head_smoothing)
         rec.update(k2_vs_plain=recon_k2, reconstruct_k1_mismatches=recon_k1,
                    volume_finite=bool(torch.isfinite(vol).all()))
@@ -5015,7 +4732,7 @@ def model_options_phase(torch, dev, smi: str, root: str, synth_root: str) -> tup
                                                                  draws=d).items()})
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / OPTIONS_STEPS
-        step_launches = read_launches()
+        step_launches = read_launches(totals)
         distill32 = same_steps_f32(dc, batch, step_draws, states, "distill")
         del opt, states
         rel = [abs(a["distill"] - b) / abs(b) for a, b in zip(metrics16, distill32)]
@@ -5045,7 +4762,7 @@ def model_options_phase(torch, dev, smi: str, root: str, synth_root: str) -> tup
             with recording():
                 vol = reconstruct(d16, *scene, None, torch.Generator().manual_seed(SEED))
                 torch.cuda.synchronize()
-                rec["reconstruct_launches"] = read_launches()
+                rec["reconstruct_launches"] = read_launches(totals)
                 recon_k1, recon_k2 = kernels_vs_plain(dc.mlp.head_smoothing)
             rec.update(k2_vs_plain=recon_k2, reconstruct_k1_mismatches=recon_k1,
                        volume_finite=bool(torch.isfinite(vol).all()))
@@ -5066,7 +4783,7 @@ def model_options_phase(torch, dev, smi: str, root: str, synth_root: str) -> tup
     kernels.reset_launch_counts()
     ametrics = train_step(aux, aopt, abatch, torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
-    drec["use_auxiliary"] = {"d_in": aux.cfg.encoder_latent, "launches": read_launches(),
+    drec["use_auxiliary"] = {"d_in": aux.cfg.encoder_latent, "launches": read_launches(totals),
                              "metrics": {k: float(v) for k, v in ametrics.items()},
                              "route": "grid_decode" if uses_grid_decode(aux) else "decode_dense"}
     with torch.no_grad():
@@ -5106,7 +4823,7 @@ def model_options_phase(torch, dev, smi: str, root: str, synth_root: str) -> tup
 
 
 def prepare_phase(torch, dev, smi: str, work: str) -> tuple:
-    """Phase 17 (see the module docstring): raw ScanNet in, ground truth out,
+    """Phase 16 (see the module docstring): raw ScanNet in, ground truth out,
     then the flagship trained on it. Returns the launch counts of the
     main-path runs (the fit with its validation, the reconstruct at the
     flagship's grid, the rendered view) and each kernel's largest error
@@ -5122,28 +4839,16 @@ def prepare_phase(torch, dev, smi: str, work: str) -> tuple:
     from gennerf_tpu_torch.data.prepare import prepare_data
     from gennerf_tpu_torch.data.prepare.sensor_data import SensorData
     from gennerf_tpu_torch.data.prepare.synthetic_scannet import COLOR_SIZE, DEPTH_SIZE, write_scene
-    from gennerf_tpu_torch.models.positional_encoding import positional_encoding
     from gennerf_tpu_torch.ops import grid_decode as grid_decode_module
     from gennerf_tpu_torch.ops import kernels
-    from gennerf_tpu_torch.ops.grid_decode import extract_resnetfc_weights
-    from gennerf_tpu_torch.ops.point_decode import (
-        fused_resnetfc_tsdf_cuda, fused_resnetfc_tsdf_plain, pack_point_weights,
-    )
     from gennerf_tpu_torch.ops.projection import get_3d_points
     from gennerf_tpu_torch.ops.sampling import (
         farthest_point_sample_plain, fps_cuda, uniform_presample,
     )
     from gennerf_tpu_torch.predict import build_model, reconstruct
-    from gennerf_tpu_torch.render import render_encoded
     from gennerf_tpu_torch.tools import build_scannet, read_scannet
     from gennerf_tpu_torch.tools.measure import FPS_INNER, cuda_ms
-    from gennerf_tpu_torch.train import loop as loop_module
-    from gennerf_tpu_torch.train.checkpoints import CheckpointManager
-    from gennerf_tpu_torch.train.loop import Trainer
-    from gennerf_tpu_torch.train.predict import (
-        dense_grid_points, make_point_tsdf_fn, triplane_feat_fast, triplane_gather_setup,
-    )
-    from gennerf_tpu_torch.train.state import make_optimizer
+    from gennerf_tpu_torch.train.predict import dense_grid_points
     from gennerf_tpu_torch.train.step import batch_to_device
     from gennerf_tpu_torch.tsdf.fusion import TSDFFusion
     from gennerf_tpu_torch.tsdf.tsdf import TSDF
@@ -5152,12 +4857,6 @@ def prepare_phase(torch, dev, smi: str, work: str) -> tuple:
     from gennerf_tpu_torch.utils.mesh import Mesh
 
     totals = {k.name: 0 for k in kernels.KERNELS}
-
-    def read_launches():
-        counts = {k.name: k.launches for k in kernels.KERNELS}
-        for name, n in counts.items():
-            totals[name] += n
-        return counts
 
     t_phase = time.perf_counter()
     raw, export, data = (os.path.join(work, d) for d in ("raw", "export", "data"))
@@ -5290,55 +4989,19 @@ def prepare_phase(torch, dev, smi: str, work: str) -> tuple:
     precision = str(cfg["trainer"]["precision"])
     model = build_model(cfg["model"], dev, SEED, precision)
     mcfg, p = model.cfg, model.cfg.encoder.pointnet
-    opt = make_optimizer(model.parameters(), mcfg.optimizer,
-                         cfg["trainer"].get("gradient_clip_val"))
-    ckpt_cfg = cfg["callbacks"]["model_checkpoint"]
-    checkpoints = CheckpointManager(ckpt_cfg["dirpath"], ckpt_cfg["save_top_k"],
-                                    monitor=ckpt_cfg["monitor"], mode=ckpt_cfg.get("mode", "min"))
-    trainer = Trainer(model, opt, torch.Generator(device=dev).manual_seed(SEED), run_dir,
-                      max_epochs=PREPARE_EPOCHS, check_val_every_n_epoch=PREPARE_EPOCHS,
-                      checkpoints=checkpoints, precision=precision, num_sanity_val_steps=0)
+    trainer = make_trainer(torch, dev, model, cfg, run_dir, PREPARE_EPOCHS,
+                           val_every=PREPARE_EPOCHS, precision=precision)
+    opt = trainer.optimizer
     datamodule = ScannetDataModule(cfg["data"], seed=SEED)
-    encodes, decoded = [], []
-    real_k2 = grid_decode_module.grid_decode_cuda
-
-    def counted(fn):
-        def wrapper(*a, **k):
-            encodes.append(fn.__name__)
-            return fn(*a, **k)
-        return wrapper
-
-    def recording_k2(tables, weights):
-        out = real_k2(tables, weights)
-        decoded.append((tables, weights, out))
-        return out
-
-    bound = mcfg.mlp.head_smoothing
-
-    def k2_vs_plain():
-        """(max, mean abs error, least live share) over the recorded K2 calls."""
-        errs = []
-        for tables, weights, out in decoded:
-            err = (out - grid_decode_module.separable_grid_decode_plain(
-                tables, weights, bf16_feeds=True)).abs()
-            errs.append((float(err.max()), float(err.mean()),
-                         float((out.abs() < FIELD_LIVE * bound).double().mean())))
-        decoded.clear()
-        return tuple(f(e[i] for e in errs) for i, f in enumerate((max, max, min)))
-
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    with mock.patch.object(loop_module, "eval_step", counted(loop_module.eval_step)), \
-            mock.patch.object(loop_module, "reconstruct", counted(loop_module.reconstruct)), \
-            mock.patch.object(grid_decode_module, "grid_decode_cuda", recording_k2):
-        t0 = time.perf_counter()
-        trainer.fit(datamodule.train_dataloader(), datamodule.val_dataloader())
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-    fit_launches = read_launches()
+    decoded = []
+    recording_k2 = recorded(grid_decode_module.grid_decode_cuda, decoded)
+    fit_s, fit_launches, encodes, _ = counted_run(
+        torch, totals, lambda: trainer.fit(datamodule.train_dataloader(),
+                                           datamodule.val_dataloader()),
+        mock.patch.object(grid_decode_module, "grid_decode_cuda", recording_k2))
     steps = trainer.global_step
     n_eval, n_tail = encodes.count("eval_step"), encodes.count("reconstruct")
-    tail_grid = k2_vs_plain()
+    tail_grid = recorded_k2_errors(decoded)
     fit_rec = {"precision": precision, "steps": steps, "eval_batches": n_eval, "tails": n_tail,
                "launches": fit_launches, "fit_s": fit_s,
                "step_ms": [t["step_ms"] for t in trainer.timings],
@@ -5395,8 +5058,8 @@ def prepare_phase(torch, dev, smi: str, work: str) -> tuple:
                           torch.Generator().manual_seed(SEED))
     torch.cuda.synchronize()
     recon_ms = (time.perf_counter() - t0) * 1e3
-    recon_launches = read_launches()
-    recon_grid = k2_vs_plain()
+    recon_launches = read_launches(totals)
+    recon_grid = recorded_k2_errors(decoded)
     k2_rec = {"voxel_dim": list(FLAGSHIP_GRID), "launches": recon_launches,
               "reconstruct_ms": recon_ms, "field_shift": recon_shift,
               "max_abs_err": recon_grid[0], "mean_abs_err": recon_grid[1],
@@ -5411,42 +5074,18 @@ def prepare_phase(torch, dev, smi: str, work: str) -> tuple:
         mcfg.voxel_dim_test, mcfg.voxel_size, (0, 0, 0), dev)[::7])
     pts = torch.from_numpy(np.random.default_rng(SEED).uniform(0, box, (N_POINTS, 3))
                            .astype(np.float32)).to(dev)
-    feat = triplane_feat_fast(*triplane_gather_setup(model, repr_.planes), pts[None])[0]
-    code = positional_encoding(pts, mcfg.code.num_freqs, mcfg.code.freq_factor,
-                               mcfg.code.include_input)
-    pweights = pack_point_weights(extract_resnetfc_weights(
-        model.mlp, model.head_geo, mcfg.mlp.d_out_geo, bound))
-    pk = fused_resnetfc_tsdf_cuda(feat, code, pweights)
-    pp = fused_resnetfc_tsdf_plain(feat, code, pweights, bf16_feeds=True)
-    perr = (pk - pp).abs()
-    k3_rec = {"points": N_POINTS, "d_in": int(feat.shape[1]), "max_abs_err": float(perr.max()),
-              "mean_abs_err": float(perr.mean()),
-              "live_share": float((pp.abs() < FIELD_LIVE * bound).double().mean()),
-              "field_shift": render_shift}
-    del pts, feat, code, pk, pp, perr
+    k3_rec = dict(k3_points(torch, model, repr_, pts), field_shift=render_shift)
+    del pts
     if not point_gates("k3", k3_rec):
         raise RuntimeError(f"K3 on the prepared scene's planes: {k3_rec}")
-    render_args = (model, repr_, view["depth"], view["intrinsics"], view["pose"])
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    rk = render_encoded(*render_args, make_point_tsdf_fn(model, repr_), 1)
-    torch.cuda.synchronize()
-    view_ms = (time.perf_counter() - t0) * 1e3
-    render_launches = read_launches()
-    rp = render_encoded(*render_args, make_point_tsdf_fn(model, repr_, plain=True), 1)
-    analysis = march_analysis(torch, *render_args, rk, rp)
-    hk, hp = rk["ray_depth"] > 0, rp["ray_depth"] > 0
-    ddiff = np.abs(rk["ray_depth"] - rp["ray_depth"])[hk & hp]
-    render_rec = {"image": list(rk["ray_depth"].shape[-2:]), "launches": render_launches,
-                  "view_ms": view_ms, "hit_share": float(hk.mean()),
-                  "vs_plain_mask_agree": float((hk == hp).mean()),
-                  "vs_plain_depth_agree": float((ddiff <= RENDER_DEPTH_TOL).mean())
-                  if ddiff.size else 0.0, "vs_plain_analysis": analysis}
+    render_rec = k3_march(torch, model, repr_, view["depth"], view["intrinsics"], view["pose"])
+    render_launches = render_rec["launches"] = read_launches(totals)
     if not (render_launches["point_decode"] >= 1
             and render_rec["image"] == [DEPTH_SIZE[0], DEPTH_SIZE[1]]
             and march_gates("k3_march", render_rec)):
         raise RuntimeError(f"the view through K3 on the prepared scene: {render_rec}")
-    del repr_, rk, rp, model, opt, trainer
+    del repr_, model, opt, trainer
 
     phase_s = time.perf_counter() - t_phase
     timing = {"phase": "prepare_timing", "sens_write_s": written["write_s"],
@@ -5568,7 +5207,7 @@ def evaluate_held_out(dev, evaluation, info_files, pred_dir: str, oracle_dir: st
 
 
 def mesh_phase(torch, dev, model, frames, planes_ref, table_args: dict, smi: str):
-    """Phase 6b (see the module docstring); returns the launch counts of
+    """Phase 4 (see the module docstring); returns the launch counts of
     the `reconstruct` it drives and the phase's record."""
     GATES.phase = "mesh"
     import tempfile
@@ -5577,10 +5216,7 @@ def mesh_phase(torch, dev, model, frames, planes_ref, table_args: dict, smi: str
 
     from gennerf_tpu_torch.eval.metrics import eval_mesh
     from gennerf_tpu_torch.ops import kernels
-    from gennerf_tpu_torch.ops.grid_decode import (
-        extract_resnetfc_weights, grid_tables, separable_grid_decode_plain,
-    )
-    from gennerf_tpu_torch.ops.weight_slabs import pack_decode_weights
+    from gennerf_tpu_torch.ops.grid_decode import grid_tables, separable_grid_decode_plain
     from gennerf_tpu_torch.predict import reconstruct
     from gennerf_tpu_torch.tsdf.fusion import apply_fusion_prior
     from gennerf_tpu_torch.tsdf.tsdf import TSDF
@@ -5595,8 +5231,7 @@ def mesh_phase(torch, dev, model, frames, planes_ref, table_args: dict, smi: str
     launches = {k.name: k.launches for k in kernels.KERNELS}
     # the same stages through the plain versions: plain FPS (planes_ref),
     # the plain bf16-feed decode of these weights' tables, the prior
-    weights = pack_decode_weights(extract_resnetfc_weights(
-        model.mlp, model.head_geo, cfg.mlp.d_out_geo, cfg.mlp.head_smoothing), point=False)
+    weights = decoder_weights(model, point=False)
     tables = grid_tables(planes_ref["xz"][0], planes_ref["xy"][0], planes_ref["yz"][0], origin,
                          weights, **table_args)
     vol_p = apply_fusion_prior(separable_grid_decode_plain(tables, weights, True),
@@ -5923,24 +5558,21 @@ def compare_ranks(ranks: list, reference: dict, wider: dict) -> tuple:
 
 
 def parallel_phase(torch, dev, smi: str, root: str) -> tuple:
-    """Phase 18 (see the module docstring); returns (the launch counts of
+    """Phase 17 (see the module docstring); returns (the launch counts of
     the phase's main-path runs, its kernel errors)."""
     GATES.phase = "parallel"
     import tempfile
     from unittest import mock
 
     from gennerf_tpu_torch.data.datamodule import ScannetDataModule
-    from gennerf_tpu_torch.models.gen_nerf import SceneRepr
     from gennerf_tpu_torch.ops import kernels
     from gennerf_tpu_torch.ops.grid_decode import (
-        extract_resnetfc_weights, grid_decode_cuda, grid_tables, separable_grid_decode_plain,
-        slab_tables,
+        grid_decode_cuda, grid_tables, separable_grid_decode_plain, slab_tables,
     )
     from gennerf_tpu_torch.ops.projection import get_3d_points
     from gennerf_tpu_torch.ops.sampling import (
         farthest_point_sample_plain, fps_cuda, uniform_presample,
     )
-    from gennerf_tpu_torch.ops.weight_slabs import pack_decode_weights
     from gennerf_tpu_torch.models import backbone3d as backbone3d_module
     from gennerf_tpu_torch.models import resnet as resnet_module
     from gennerf_tpu_torch.parallel import distributed
@@ -6228,9 +5860,7 @@ def parallel_phase(torch, dev, smi: str, root: str) -> tuple:
                for k in ("xz", "xy", "yz")}
     for voxel_dim, (model, pl) in (((96, 96, 56), (gmodel, repr_.planes)),
                                    ((190, 180, 50), (fmodel, fplanes))):
-        weights = pack_decode_weights(extract_resnetfc_weights(
-            model.mlp, model.head_geo, model.cfg.mlp.d_out_geo, model.cfg.mlp.head_smoothing),
-            point=False)
+        weights = decoder_weights(model, point=False)
         mcfg = model.cfg
         extent = [d * mcfg.voxel_size for d in mcfg.voxel_dim_train]
         norm = mcfg.encoder.pointnet.normalize_coords
@@ -6316,323 +5946,368 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-# the lift phase: the VoxelNet benchmark cell's maps (frame_chunk 4 x batch 3)
-LIFT_IMAGES, LIFT_GRAD_IMAGES, LIFT_OUT = 12, 2, 32
+# the kernels phase: each kernel alone at the shape PERF.md's kernel table
+# reports. The decodes' widths are seqs_multigeo_4cm's at full width
+# (ResnetFC H 256 x 5 blocks, c_dim 32 features, a 39-wide positional code)
+DECODER_H, DECODER_BLOCKS, DECODER_D_IN, DECODER_D_CODE = 256, 5, 32, 39
+# the lift rows: the VoxelNet cell's maps (frame_chunk 4 x batch 3 images of
+# ResNet-50 at feature_scale 2 on 480x640 frames, 1,856 -> 32 channels)
+LIFT_IMAGES, LIFT_OUT = 12, 32
 LIFT_MAPS = ((64, 480, 640), (256, 240, 320), (512, 120, 160), (1024, 60, 80))
 # the kernel and the plain path sum the same bf16 products in f32 in other
 # orders (~1e-6 of a sum), so a rounding flips on ~1e-3 of the elements
 LIFT_DIFFERING_SHARE = 0.01
-# gradients against a float64 lift: at most this times the unfused path's distance
-LIFT_GRAD_FACTOR = 5.0
-
-
-def lift_phase(torch, dev, smi: str) -> tuple:
-    """Phase 19 (see the module docstring); returns the phase's launches of
-    the TPU-kernel ports (none) and no errors."""
-    GATES.phase = "lift"
-    from gennerf_tpu_torch.ops import kernels
-    from gennerf_tpu_torch.ops.spatial_lift import (
-        resize_transpose_cuda, resize_transpose_plain, spatial_lift, spatial_lift_cuda,
-        spatial_lift_float64, spatial_lift_plain,
-    )
-    from gennerf_tpu_torch.tools.measure import cuda_ms
-
-    kernels.reset_launch_counts()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    bf16 = torch.bfloat16
-    maps = [torch.randn((LIFT_IMAGES, *s), device=dev, generator=gen).to(bf16) for s in LIFT_MAPS]
-    K = sum(s[0] for s in LIFT_MAPS)
-    weight = torch.randn(LIFT_OUT, K, 1, 1, device=dev, generator=gen) / math.sqrt(K)
-    bias = torch.randn(LIFT_OUT, device=dev, generator=gen) * 0.1
-
-    def steps(v):  # one bf16 step (2^-7 of the binade) at each value
-        return torch.ldexp(torch.ones_like(v, dtype=torch.float32), torch.frexp(v.float())[1] - 8)
-
-    out = spatial_lift_cuda(maps, weight, bias)
-    again = spatial_lift_cuda(maps, weight, bias)
-    plain = spatial_lift_plain(maps, weight, bias)
-    y = spatial_lift_plain(maps, weight, torch.zeros_like(bias))
-    diff = (out.float() - plain.float()).abs()
-    beyond = int((diff > steps(y) + steps(plain)).sum())
-    differing = float((diff > 0).float().mean())
-    rerun_differs = int((out != again).sum())
-    del again, plain, y, diff
-    torch.cuda.synchronize()
-
-    # forward times; the bound: the maps read once and the output written once, or the products
-    HW = LIFT_MAPS[0][1] * LIFT_MAPS[0][2]
-    n_bytes = 2 * LIFT_IMAGES * (sum(c * h * w for c, h, w in LIFT_MAPS) + LIFT_OUT * HW)
-    flops = 2 * LIFT_IMAGES * HW * K * LIFT_OUT
-    bound_ms = 1e3 * max(n_bytes / PEAK_BYTES, flops / PEAK_BF16)
-    ms = cuda_ms(torch, lambda: spatial_lift_cuda(maps, weight, bias), 5)
-    plain_ms = cuda_ms(torch, lambda: spatial_lift_plain(maps, weight, bias), 3)
-
-    # forward + backward of both paths: ms and peak memory
-    g = torch.randn(LIFT_IMAGES, LIFT_OUT, *LIFT_MAPS[0][1:], device=dev, generator=gen).to(bf16)
-
-    # the backward's gather, one launch a resized map: their ms summed against
-    # the bound (g read once a map, each G written once in f32) and the plain
-    # version's (two float32 products with the interpolation matrices)
-    resized = [tuple(s[1:]) for s in LIFT_MAPS[1:]]
-    g32 = g.float()
-    gather_ms = sum(cuda_ms(torch, lambda hw=hw: resize_transpose_cuda(g, hw), 5) for hw in resized)
-    gather_plain_ms = sum(cuda_ms(torch, lambda hw=hw: resize_transpose_plain(g32, hw, bf16), 3)
-                          for hw in resized)
-    gather_bytes = sum(2 * g.numel() + 4 * LIFT_IMAGES * LIFT_OUT * h * w for h, w in resized)
-    gather = {"ms": gather_ms, "plain_ms": gather_plain_ms,
-              "bound_ms": 1e3 * gather_bytes / PEAK_BYTES, "bytes": gather_bytes,
-              "launches": len(resized)}
-    del g32
-
-    def grads(fn, maps_, weight_, bias_, g_):
-        leaves = [m.detach().requires_grad_() for m in (*maps_, weight_, bias_)]
-        out_ = fn(leaves[:-2], leaves[-2], leaves[-1])
-        return torch.autograd.grad(out_, leaves, g_.to(out_.dtype))
-
-    timing = {}
-    for name, fn in (("fused", spatial_lift), ("plain", spatial_lift_plain)):
-        fb_ms = cuda_ms(torch, lambda: grads(fn, maps, weight, bias, g),
-                        3 if name == "fused" else 2)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        grads(fn, maps, weight, bias, g)
-        torch.cuda.synchronize()
-        timing[name] = {"forward_backward_ms": fb_ms,
-                        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-
-    # gradients on LIFT_GRAD_IMAGES images, refereed by a float64 lift
-    n = LIFT_GRAD_IMAGES
-    sub = [m[:n] for m in maps]
-    fused_g = grads(spatial_lift, sub, weight, bias, g[:n])
-    plain_g = grads(spatial_lift_plain, sub, weight, bias, g[:n])
-    ref_g = grads(lambda m, w, b: spatial_lift_float64(m, w, b, bf16), [m.double() for m in sub],
-                  weight.double(), bias.double(), g[:n].double())
-    names = [f"map{i}" for i in range(len(sub))] + ["weight", "bias"]
-    grad_rec = {}
-    for name, a, b, r in zip(names, fused_g, plain_g, ref_g):
-        grad_rec[name] = {"fused_vs_f64": float((a.double() - r).abs().max()),
-                          "plain_vs_f64": float((b.double() - r).abs().max()),
-                          "dtype": str(a.dtype)}
-        if a.dtype != b.dtype or a.shape != b.shape:
-            raise RuntimeError(f"lift gradient {name}: {a.dtype} {tuple(a.shape)} against "
-                               f"{b.dtype} {tuple(b.shape)}")
-    twice = grads(spatial_lift, sub, weight, bias, g[:n])
-    grads_rerun_differ = sum(int((a != b).sum()) for a, b in zip(fused_g, twice))
-    del sub, fused_g, plain_g, ref_g, twice
-    torch.cuda.synchronize()
-    lift_launches = {k.name: k.launches for k in kernels.LIFT_KERNELS}
-    rec = {"images": LIFT_IMAGES, "maps": [list(s) for s in LIFT_MAPS], "out_channels": LIFT_OUT,
-           "beyond_one_step_per_rounding": beyond, "differing_share": differing,
-           "rerun_differing": rerun_differs, "grads_rerun_differing": grads_rerun_differ,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": "bytes" if n_bytes / PEAK_BYTES >= flops / PEAK_BF16 else "operations",
-           "bytes": n_bytes, "flops": flops, "gather": gather, "forward_backward": timing,
-           "grads": grad_rec,
-           "launches": lift_launches, "card": smi}
-    emit({"phase": "lift", **rec})
-    ok = (gate("beyond_one_step_per_rounding", beyond, 0)
-          & gate("differing_share", differing, LIFT_DIFFERING_SHARE)
-          & gate("rerun_differing", rerun_differs + grads_rerun_differ, 0)
-          & all([gate(f"grad_vs_f64.{name}", r["fused_vs_f64"],
-                      LIFT_GRAD_FACTOR * r["plain_vs_f64"]) for name, r in grad_rec.items()]))
-    if not ok:
-        raise RuntimeError(f"the fused lift disagrees with its plain version: {rec}")
-    return {k.name: k.launches for k in kernels.KERNELS}, rec
-
-
-# the volume_sample phase: one decode chunk of the combined-encoder GenNerf
-# cell (gennerf_living_spatial.recon): its 256x256x96 grid at 4 cm, the
-# 512-channel f32 mean-feature volume, 262,144 points a chunk (the grid's
-# 13th chunk of 24)
-VS_GRID, VS_VOXEL, VS_CHANNELS, VS_CHUNK, VS_CHUNK_INDEX = (256, 256, 96), 0.04, 512, 262144, 12
-# the smaller volumes: (B, grid) at each channel count, f32 and bf16
-VS_SMALL, VS_SMALL_CHANNELS = (2, (40, 36, 28)), (1, 33, 64)
+# the volume sample row: one decode chunk of the spatial cell's grid (its
+# 13th of 24), 262,144 points of the 512-channel f32 mean-feature volume
+VS_CHANNELS, VS_CHUNK, VS_CHUNK_INDEX = 512, 262144, 12
 # the kernel's time a cell chunk, at most (ms; its bound by bytes is 0.32)
 VS_MAX_MS = 1.0
 
 
-def volume_sample_phase(torch, dev, smi: str) -> tuple:
-    """Phase 20 (see the module docstring); returns the phase's launches of
-    the TPU-kernel ports (none) and its record."""
-    GATES.phase = "volume_sample"
+@dataclasses.dataclass(frozen=True)
+class KernelRow:
+    """A kernel of the `kernels` phase. `make(torch, dev, shape)` builds its
+    inputs at `shape` and returns {"kernel", "plain": the kernel's and its
+    plain version's calls on them, "check": a call taking their outputs
+    and returning {gate: (value, limit)}, the kernel held against its
+    plain version, "bytes", "ops": what its bound moves and computes}, and
+    where the row needs them "peak" (the operations a second its ops run
+    at, else the bf16 tensor peak), "inner" (calls a timed sample),
+    "parts" ((kernel, plain) calls timed one by one and their ms summed,
+    in place of the two calls) and "extras" (a call returning the row's
+    own readings). `shape` is the one PERF.md's kernel table reports,
+    `tiny` a CPU-sized one of the same form; `max_ms` gates the kernel's
+    ms."""
+    name: str
+    source: str
+    replaces: str | None
+    shape: tuple
+    tiny: tuple
+    make: Callable
+    max_ms: float | None = None
+
+
+def _normal(torch, dev):
+    """scale * N(0, 1) draws of any shape on `dev`, seeded by SEED."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return lambda *shape, scale=1.0: scale * torch.randn(shape, generator=gen, device=dev)
+
+
+def _random_decoder(rnd, H: int, nb: int, d_in: int, d_code: int) -> dict:
+    """Random ResnetFC arrays in extract_resnetfc_weights' form, every
+    matrix non-zero (fc_1's too)."""
+    return {"w_in": rnd(d_in, H, scale=d_in ** -0.5), "b_in": rnd(H, scale=0.1),
+            "wz": rnd(nb, d_code, H, scale=d_code ** -0.5), "bz": rnd(nb, H, scale=0.1),
+            "w0": rnd(nb, H, H, scale=H ** -0.5), "w1": rnd(nb, H, H, scale=H ** -0.5),
+            "b0": rnd(nb, H, scale=0.1), "b1": rnd(nb, H, scale=0.1),
+            "w_last": rnd(H, scale=H ** -0.5), "b_last": 0.05, "alpha": 0.7, "smoothing": 1.05}
+
+
+def ring_clouds(torch):
+    """The (NUM_FRAMES, HEIGHT * WIDTH, 3) depth clouds of the scene's ring
+    frames, on the CPU."""
+    from gennerf_tpu_torch.data.synthetic import ring_frames
+    from gennerf_tpu_torch.ops.projection import get_3d_points
+
+    P, _, depth = (torch.from_numpy(a) for a in ring_frames(
+        NUM_FRAMES, HEIGHT, WIDTH, SCENE_CENTER, PRIMITIVES, seed=SEED))
+    return get_3d_points(depth, P).reshape(NUM_FRAMES, -1, 3)
+
+
+def _max_abs(a, b) -> float:
+    """The largest |a - b| of two outputs (tensors or lists of them)."""
+    pairs = zip(a, b) if isinstance(a, list) else [(a, b)]
+    return max(float((x.double() - y.double()).abs().max()) for x, y in pairs)
+
+
+def _fps_row(torch, dev, shape) -> dict:
+    """K1 on B presampled depth clouds of the ring frames (with
+    replacement: duplicates, ties) of N points, npoint; the indices equal
+    to the plain version's; extras: the plan the wrapper launched, the
+    clusters the card runs at once for each size, one call's ms."""
+    from gennerf_tpu_torch.ops import kernels
+    from gennerf_tpu_torch.ops.sampling import (
+        FPS_CLUSTERS, farthest_point_sample_plain, fps_cuda, uniform_presample,
+    )
+    from gennerf_tpu_torch.tools.measure import FPS_INNER, cuda_ms
+
+    B, N, npoint = shape
+    cloud = ring_clouds(torch)
+    gen = torch.Generator().manual_seed(SEED)
+    xyz = uniform_presample(cloud[torch.arange(B) % NUM_FRAMES], N, gen).contiguous().to(dev)
+    start = torch.randint(0, N, (B,), generator=gen).to(dev, torch.int32)
+
+    def kernel():
+        return fps_cuda(xyz, npoint, start)
+
+    def extras():
+        kernel()
+        return {"launched": dict(kernels.FPS.last_launch),
+                "active_clusters": {cl: kernels.fps_plan(N, cl)["active_clusters"]
+                                    for cl in FPS_CLUSTERS},
+                "single_call_ms": cuda_ms(torch, kernel, 10)}
+
+    # distance update + running min + argmax compare: 10 f32 ops per point per iteration
+    return {"kernel": kernel, "plain": lambda: farthest_point_sample_plain(xyz, npoint, start),
+            "check": lambda k, p: {"index_mismatches": (int((k != p).sum()), 0)},
+            "bytes": 4 * (xyz.numel() + B + B * npoint), "ops": 10 * B * N * npoint,
+            "peak": PEAK_F32, "inner": FPS_INNER, "extras": extras}
+
+
+def _grid_decode_row(torch, dev, shape) -> dict:
+    """K2 on random tables of an (nx, ny, nz) grid and a random decoder of
+    width H and nb blocks, within the grid tolerances of its plain
+    bf16-feed decode."""
+    from gennerf_tpu_torch.ops.grid_decode import (
+        GridTables, grid_decode_cuda, grid_decode_flops, separable_grid_decode_plain,
+    )
+    from gennerf_tpu_torch.ops.weight_slabs import pack_decode_weights
+
+    H, nb, dims = shape
+    nx, ny, nz = dims
+    rnd = _normal(torch, dev)
+    weights = pack_decode_weights(_random_decoder(rnd, H, nb, 1, 1), point=False)
+    tables = GridTables(rnd(ny * nz, H), rnd(nx, nz, H), rnd(nx, ny, H), rnd(nx, nb, H, scale=0.3),
+                        rnd(nb, ny, H, scale=0.3), rnd(nb, nz, H, scale=0.3))
+    packed = sum(weights[k].numel() * weights[k].element_size()
+                 for k in ("k_slabs", "k_b0", "k_b1", "k_w_last"))
+    return {"kernel": lambda: grid_decode_cuda(tables, weights),
+            "plain": lambda: separable_grid_decode_plain(tables, weights, bf16_feeds=True),
+            "check": lambda k, p: _decode_check(k, p, GRID_MAX_ABS_TOL, GRID_MEAN_ABS_TOL),
+            "bytes": 4 * sum(t.numel() for t in tables) + packed + 4 * math.prod(dims),
+            "ops": grid_decode_flops(dims, H, nb)}
+
+
+def _decode_check(k, p, max_tol: float, mean_tol: float) -> dict:
+    """A decode kernel's output `k` against its plain version's `p`."""
+    err = (k - p).abs()
+    return {"max_abs": (float(err.max()), max_tol), "mean_abs": (float(err.mean()), mean_tol)}
+
+
+def _point_decode_row(torch, dev, shape) -> dict:
+    """K3 on N random points' features (d_in) and codes (d_code) and a
+    random decoder of width H and nb blocks, within the point tolerances
+    of its plain bf16-feed decode."""
+    from gennerf_tpu_torch.ops.point_decode import (
+        fused_resnetfc_tsdf_cuda, fused_resnetfc_tsdf_plain, pack_point_weights, point_decode_flops,
+    )
+
+    N, d_in, d_code, H, nb = shape
+    rnd = _normal(torch, dev)
+    weights = pack_point_weights(_random_decoder(rnd, H, nb, d_in, d_code))
+    feat, code = rnd(N, d_in), rnd(N, d_code)
+    packed = sum(t.numel() * t.element_size() for k, t in weights.items()
+                 if k.startswith("k_") and isinstance(t, torch.Tensor))
+    return {"kernel": lambda: fused_resnetfc_tsdf_cuda(feat, code, weights),
+            "plain": lambda: fused_resnetfc_tsdf_plain(feat, code, weights, bf16_feeds=True),
+            "check": lambda k, p: _decode_check(k, p, POINT_MAX_ABS_TOL, POINT_MEAN_ABS_TOL),
+            "bytes": 4 * (feat.numel() + code.numel() + N) + packed,
+            "ops": point_decode_flops(N, d_in, d_code, H, nb)}
+
+
+def _lift_row(torch, dev, shape) -> dict:
+    """The fused lift's forward on `images` images of random bf16 maps
+    (C, H, W) to `out` channels: no element farther from the plain path's
+    than one bf16 step a rounding, under LIFT_DIFFERING_SHARE of them
+    differing at all, a second run bit-equal; the bound: the maps read
+    once and the output written once, or the products at the bf16 peak;
+    extras: both paths' forward + backward ms and peak memory."""
+    from gennerf_tpu_torch.ops.spatial_lift import (
+        spatial_lift, spatial_lift_cuda, spatial_lift_plain,
+    )
+    from gennerf_tpu_torch.tools.measure import cuda_ms
+
+    images, maps_shape, out = shape
+    rnd = _normal(torch, dev)
+    maps = [rnd(images, *s).to(torch.bfloat16) for s in maps_shape]
+    K = sum(s[0] for s in maps_shape)
+    weight, bias = rnd(out, K, 1, 1, scale=K ** -0.5), rnd(out, scale=0.1)
+    g = rnd(images, out, *maps_shape[0][1:]).to(torch.bfloat16)
+    HW = maps_shape[0][1] * maps_shape[0][2]
+
+    def grads(fn):
+        leaves = [t.detach().requires_grad_() for t in (*maps, weight, bias)]
+        return torch.autograd.grad(fn(leaves[:-2], leaves[-2], leaves[-1]), leaves, g)
+
+    def steps(v):  # one bf16 step (2^-7 of the binade) at each value
+        return torch.ldexp(torch.ones_like(v, dtype=torch.float32), torch.frexp(v.float())[1] - 8)
+
+    def check(k, p):
+        y = spatial_lift_plain(maps, weight, torch.zeros_like(bias))
+        diff = (k.float() - p.float()).abs()
+        return {"beyond_one_step_per_rounding": (int((diff > steps(y) + steps(p)).sum()), 0),
+                "differing_share": (float((diff > 0).float().mean()), LIFT_DIFFERING_SHARE),
+                "rerun_differing": (int((spatial_lift_cuda(maps, weight, bias) != k).sum()), 0)}
+
+    def extras():
+        rec = {}
+        for name, fn in (("fused", spatial_lift), ("plain", spatial_lift_plain)):
+            ms = cuda_ms(torch, lambda: grads(fn), 3)
+            torch.cuda.reset_peak_memory_stats()
+            grads(fn)
+            torch.cuda.synchronize()
+            rec[name] = {"ms": ms, "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        return {"forward_backward": rec}
+
+    return {"kernel": lambda: spatial_lift_cuda(maps, weight, bias),
+            "plain": lambda: spatial_lift_plain(maps, weight, bias), "check": check,
+            "bytes": 2 * images * (sum(math.prod(s) for s in maps_shape) + out * HW),
+            "ops": 2 * images * HW * K * out, "extras": extras}
+
+
+def _lift_resize_t_row(torch, dev, shape) -> dict:
+    """The lift backward's gather: a random bf16 gradient of `images` x
+    `out` planes at the first map's size taken onto each other map's size,
+    one launch a map (timed one by one and summed), against the plain
+    version's two float32 products; no element farther from the float64
+    transpose than float32 sums of its taps may round (n u sum |w g|, n
+    a texel's taps at most, u 2^-24); the bound: the gradient read once a
+    map, each map's sums written once in float32."""
+    from gennerf_tpu_torch.ops.spatial_lift import resize_transpose_cuda, resize_transpose_plain
+
+    images, maps_shape, out = shape
+    bf16 = torch.bfloat16
+    g = _normal(torch, dev)(images, out, *maps_shape[0][1:]).to(bf16)
+    g32 = g.float()
+    H, W = maps_shape[0][1:]
+    sizes = [tuple(s[1:]) for s in maps_shape[1:]]
+
+    def check(k, _):
+        beyond = 0
+        for got, (h, w) in zip(k, sizes):
+            # an input texel takes the output rows within two of its
+            # spacings, and an edge texel the clamped ones beyond it
+            taps = (3 * math.ceil(H / h) + 2) * (3 * math.ceil(W / w) + 2)
+            ref = resize_transpose_plain(g.double(), (h, w), bf16)
+            bound = (taps + 2) * 2.0 ** -24 * resize_transpose_plain(g.double().abs(), (h, w), bf16)
+            beyond += int(((got.double() - ref).abs() > bound).sum())
+            del ref, bound
+        return {"beyond_f32_sum_bound": (beyond, 0)}
+
+    parts = [(lambda hw=hw: resize_transpose_cuda(g, hw),
+              lambda hw=hw: resize_transpose_plain(g32, hw, bf16)) for hw in sizes]
+    return {"kernel": lambda: [k() for k, _ in parts], "plain": lambda: [p() for _, p in parts],
+            "check": check, "parts": parts,
+            "bytes": sum(2 * g.numel() + 4 * images * out * h * w for h, w in sizes), "ops": 0}
+
+
+def _volume_sample_row(torch, dev, shape) -> dict:
+    """The trilinear sample of a random f32 volume of `grid` and C channels
+    (SPATIAL_CELL_VOXEL voxels) at the index'th chunk of n of its dense
+    grid's points, bit-equal to the composition (trilinear_interpolation_plain)
+    on the volume in f32 and in bf16; the bound: each point's row read once
+    and its features written once; extras: the same on the volume in bf16, the library's
+    sampler (F.grid_sample) on the same chunk and the channels-last copy
+    of the volume that the kernel needs and grid_sample would not."""
     import torch.nn.functional as F
 
-    from gennerf_tpu_torch.models.gen_nerf import SceneRepr
-    from gennerf_tpu_torch.ops import kernels
     from gennerf_tpu_torch.ops.interpolation import (
-        trilinear_interpolation, trilinear_interpolation_cuda, trilinear_interpolation_plain,
+        trilinear_interpolation_cuda, trilinear_interpolation_plain,
     )
-    from gennerf_tpu_torch.predict import build_model
     from gennerf_tpu_torch.tools.measure import cuda_ms
-    from gennerf_tpu_torch.train.predict import dense_grid_points, predict_tsdf_volume
-    from gennerf_tpu_torch.utils import spans
-    from gennerf_tpu_torch.utils.config import load_experiment_config
+    from gennerf_tpu_torch.train.predict import dense_grid_points
 
-    kernels.reset_launch_counts()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    origin = torch.zeros(3, dtype=torch.float32, device=dev)
-    cases = {}
+    grid, C, n, index = shape
+    voxel = SPATIAL_CELL_VOXEL
+    origin = torch.zeros(3, device=dev)
+    volume = _normal(torch, dev)(1, *grid, C)
+    pts = dense_grid_points(grid, voxel, origin, dev)[index * n:(index + 1) * n][None].contiguous()
 
-    def differing(vol, xyz, org, voxel) -> int:
-        """Elements whose f32 bits differ between the kernel and the
-        composition (a NaN only matches a NaN of the same bits)."""
-        got = trilinear_interpolation_cuda(vol, xyz, org, voxel)
-        want = trilinear_interpolation_plain(vol, xyz, org, voxel)
-        n = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-        del got, want
-        return n
+    def differing(got, want) -> int:  # f32 bits (a NaN only matches the same NaN)
+        return int((got.view(torch.int32) != want.view(torch.int32)).sum())
 
-    def points(B, grid, voxel, n):
-        """n points a batch item: a third inside the volume at random, a
-        third up to a fifth of the extent outside it (border clamp), a third
-        on grid points (exact integer hits, as the decode grid's)."""
-        ext = torch.tensor([g * voxel for g in grid], device=dev)
-        k = n // 3
-        inside = torch.rand((B, k, 3), generator=gen, device=dev) * ext
-        outside = (torch.rand((B, k, 3), generator=gen, device=dev) * 1.4 - 0.2) * ext
-        grid_pts = dense_grid_points(grid, voxel, origin, dev)
-        hits = grid_pts[torch.randint(0, grid_pts.shape[0], (B, n - 2 * k), generator=gen,
-                                      device=dev)]
-        return torch.cat([inside, outside, hits], dim=1).contiguous()
+    def check(k, p):
+        rec = {"differing.cell_grid_f32": (differing(k, p), 0)}
+        bf16 = volume.to(torch.bfloat16)
+        rec["differing.cell_grid_bf16"] = (differing(
+            trilinear_interpolation_cuda(bf16, pts, origin, voxel),
+            trilinear_interpolation_plain(bf16, pts, origin, voxel)), 0)
+        return rec
 
-    # the cell's chunk and random points on its volume, f32, then bf16
-    volume = torch.randn((1, *VS_GRID, VS_CHANNELS), generator=gen, device=dev)
-    grid = dense_grid_points(VS_GRID, VS_VOXEL, origin, dev)
-    chunk = grid[VS_CHUNK_INDEX * VS_CHUNK:(VS_CHUNK_INDEX + 1) * VS_CHUNK][None].contiguous()
-    del grid
-    cell_random = points(1, VS_GRID, VS_VOXEL, VS_CHUNK)
-    cases["cell_grid_f32"] = differing(volume, chunk, origin, VS_VOXEL)
-    cases["cell_random_f32"] = differing(volume, cell_random, origin, VS_VOXEL)
-    torch.cuda.synchronize()
+    def extras():
+        # grid_sample on the channels-first volume (grid[..., 0] indexes its
+        # last axis, z), the (C, N) output transposed to the decoder's rows
+        volume_cf = volume.permute(0, 4, 1, 2, 3).contiguous()
+        extent = torch.tensor(grid, dtype=torch.float32, device=dev) * voxel
 
-    # times at the cell's chunk; the bound: each point's row read once and
-    # its features written once
-    n_bytes = 2 * VS_CHUNK * VS_CHANNELS * 4
-    bound_ms = 1e3 * n_bytes / PEAK_BYTES
-    ms = cuda_ms(torch, lambda: trilinear_interpolation_cuda(volume, chunk, origin, VS_VOXEL),
-                 10, inner=5)
-    plain_ms = cuda_ms(torch, lambda: trilinear_interpolation_plain(volume, chunk, origin,
-                                                                    VS_VOXEL), 3)
+        def library():
+            norm = 2.0 * (pts - origin) / extent - 1.0
+            out = F.grid_sample(volume_cf, norm.flip(-1).reshape(1, 1, 1, n, 3), mode="bilinear",
+                                padding_mode="border", align_corners=True)
+            return out.reshape(1, C, n).transpose(1, 2).contiguous()
 
-    # the library's sampler on the same chunk: grid_sample on the
-    # channels-first volume (grid[..., 0] indexes its last axis, z), the
-    # (C, N) output transposed to the (N, C) rows the decoder takes
-    volume_cf = volume.permute(0, 4, 1, 2, 3).contiguous()
-    extent = torch.tensor(VS_GRID, dtype=torch.float32, device=dev) * VS_VOXEL
+        rec = {"library_ms": cuda_ms(torch, library, 5),
+               "channels_last_copy_ms": cuda_ms(
+                   torch, lambda: volume_cf.permute(0, 2, 3, 4, 1).contiguous(), 3)}
+        del volume_cf
+        bf16 = volume.to(torch.bfloat16)
+        rec["bf16_ms"] = cuda_ms(
+            torch, lambda: trilinear_interpolation_cuda(bf16, pts, origin, voxel), 10, inner=5)
+        return rec
 
-    def library():
-        norm = 2.0 * (chunk - origin) / extent - 1.0
-        out = F.grid_sample(volume_cf, norm.flip(-1).reshape(1, 1, 1, VS_CHUNK, 3),
-                            mode="bilinear", padding_mode="border", align_corners=True)
-        return out.reshape(1, VS_CHANNELS, VS_CHUNK).transpose(1, 2).contiguous()
-
-    got, want = library(), trilinear_interpolation_plain(volume, chunk, origin, VS_VOXEL)
-    library_rec = {"differing": int((got != want).sum()),
-                   "max_abs_diff": float((got - want).abs().max()),
-                   "ms": cuda_ms(torch, library, 5),
-                   # what volume_features' channels-last copy costs a request
-                   "channels_last_copy_ms": cuda_ms(
-                       torch, lambda: volume_cf.permute(0, 2, 3, 4, 1).contiguous(), 3)}
-    del got, want, volume_cf
-    torch.cuda.synchronize()
-    bf16 = volume.to(torch.bfloat16)
-    del volume
-    cases["cell_grid_bf16"] = differing(bf16, chunk, origin, VS_VOXEL)
-    cases["cell_random_bf16"] = differing(bf16, cell_random, origin, VS_VOXEL)
-    bf16_ms = cuda_ms(torch, lambda: trilinear_interpolation_cuda(bf16, chunk, origin, VS_VOXEL),
-                      10, inner=5)
-    del bf16, cell_random
-    torch.cuda.synchronize()
-
-    # smaller volumes: C = 1, 33 (rows of no multiple of 16 bytes) and 64,
-    # a batch of 2, an origin off zero, an unaligned volume (scalar loads)
-    B, small = VS_SMALL
-    off = torch.tensor([0.3, -0.2, 0.1], device=dev)
-    for C in VS_SMALL_CHANNELS:
-        for dtype in (torch.float32, torch.bfloat16):
-            vol = torch.randn((B, *small, C), generator=gen, device=dev).to(dtype)
-            xyz = points(B, small, VS_VOXEL, 3000) + off
-            cases[f"c{C}_{str(dtype)[6:]}"] = differing(vol, xyz, off, VS_VOXEL)
-    flat = torch.randn(B * math.prod(small) * 64 + 1, generator=gen, device=dev)
-    unaligned = flat[1:].reshape(B, *small, 64)
-    cases["c64_float32_unaligned"] = differing(unaligned, xyz, off, VS_VOXEL)
-    # zeros of both signs, infinities and NaNs in the volume
-    special = torch.randn((B, *small, 8), generator=gen, device=dev)
-    pick = torch.randint(0, 5, special.shape, generator=gen, device=dev)
-    for v, value in enumerate((0.0, -0.0, math.inf, -math.inf)):
-        special[pick == v] = value
-    special[(pick == 4) & (torch.rand(special.shape, generator=gen, device=dev) < 0.05)] = math.nan
-    cases["special_values"] = differing(special, points(B, small, VS_VOXEL, 3000), origin,
-                                        VS_VOXEL)
-    del flat, unaligned, special
-    torch.cuda.synchronize()
-
-    # the dispatch on the card: the kernel under no_grad, the composition
-    # where a graph is needed
-    vol = torch.randn((1, *small, 64), generator=gen, device=dev)
-    xyz = points(1, small, VS_VOXEL, 3000)
-    spans.reset()
-    before = kernels.VOLUME_SAMPLE.launches
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
-        with torch.no_grad():
-            trilinear_interpolation(vol, xyz, origin, VS_VOXEL)
-        trilinear_interpolation(vol.requires_grad_(True), xyz, origin, VS_VOXEL)
-    dispatch = {"launches": kernels.VOLUME_SAMPLE.launches - before, **spans.counters()}
-    spans.reset()
-    del vol, xyz
-
-    # a dense decode of the cell's grid on the main path: the spatial phase's
-    # config (512 volume channels beside the triplanes) with random weights
-    # and a random scene, counters reset just before and read just after
-    mcfg = load_experiment_config(SPATIAL_EXPERIMENT, "train", [])["model"]
-    model = build_model(mcfg, dev, SEED)
-    cfg = model.cfg
-    p = cfg.encoder.pointnet
-    reso = p.plane_resolution
-    planes = {k: torch.randn((1, p.c_dim, reso, reso), generator=gen, device=dev)
-              for k in p.plane_type}
-    scene = SceneRepr(planes,
-                      torch.randn((1, cfg.encoder_latent - p.c_dim, *VS_GRID), generator=gen,
-                                  device=dev),
-                      torch.randint(0, 4, (1, 1, *VS_GRID), generator=gen, device=dev).float())
-    samples = int(cfg.has_feature_volume) + int("grid" in p.plane_type)
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    spans.reset()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
-        tsdf = predict_tsdf_volume(model, scene, VS_GRID, VS_VOXEL, origin)
-    torch.cuda.synchronize()
-    decode = {"voxels": math.prod(VS_GRID), "launches": kernels.VOLUME_SAMPLE.launches,
-              "implied": dense_chunks(VS_GRID) * samples,
-              "finite": bool(torch.isfinite(tsdf).all()), **spans.counters()}
-    spans.reset()
-    del model, scene, planes, tsdf
-    torch.cuda.synchronize()
-
-    rec = {"grid": list(VS_GRID), "channels": VS_CHANNELS, "chunk": VS_CHUNK,
-           "differing": cases, "ms": ms, "bf16_ms": bf16_ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": "bytes", "bytes": n_bytes, "dispatch": dispatch,
-           "library": library_rec, "decode": decode, "card": smi}
-    emit({"phase": "volume_sample", **rec})
-    ok = (all([gate(f"differing.{name}", n, 0) for name, n in cases.items()])
-          & gate("ms", ms, VS_MAX_MS)
-          & gate("dispatch.launches", abs(dispatch["launches"] - 1), 0)
-          & gate("dispatch.kernel_points", abs(dispatch.get("trilinear.kernel_points", 0) - 3000),
-                 0)
-          & gate("decode.launches", abs(decode["launches"] - decode["implied"]), 0)
-          & gate("decode.kernel_points",
-                 abs(decode.get("trilinear.kernel_points", 0) - decode["voxels"] * samples), 0)
-          & gate("decode.points", abs(decode.get("trilinear.points", 0) - decode["voxels"] * samples),
-                 0)
-          & decode["finite"])
-    if not ok:
-        raise RuntimeError(f"the volume sample kernel disagrees with the composition: {rec}")
-    return {k.name: k.launches for k in kernels.KERNELS}, rec
+    return {"kernel": lambda: trilinear_interpolation_cuda(volume, pts, origin, voxel),
+            "plain": lambda: trilinear_interpolation_plain(volume, pts, origin, voxel),
+            "check": check, "bytes": 2 * n * C * 4, "ops": 0, "inner": 5, "extras": extras}
 
 
-PHASES = ("train", "data", "spatial", "voxelnet", "flagship_bf16", "distill", "harness",
-          "weights_options", "model_options", "prepare", "parallel", "lift",
-          "volume_sample")
+KERNEL_ROWS = (
+    KernelRow("fps", "gennerf_tpu_torch/csrc/fps.cu", "gennerf_tpu/ops/pallas/fps.py:33",
+              (NUM_FRAMES, PRESAMPLE, NPOINT), (2, 64, 8), _fps_row),
+    KernelRow("grid_decode", "gennerf_tpu_torch/csrc/grid_decode.cu",
+              "gennerf_tpu/ops/pallas/fused_decoder.py:353",
+              (DECODER_H, DECODER_BLOCKS, VOXEL_DIM), (128, 1, (3, 4, 5)), _grid_decode_row),
+    KernelRow("point_decode", "gennerf_tpu_torch/csrc/point_decode.cu",
+              "gennerf_tpu/ops/pallas/fused_decoder.py:53",
+              (N_POINTS, DECODER_D_IN, DECODER_D_CODE, DECODER_H, DECODER_BLOCKS),
+              (50, 8, 9, 128, 1), _point_decode_row),
+    KernelRow("spatial_lift", "gennerf_tpu_torch/csrc/spatial_lift.cu", None,
+              (LIFT_IMAGES, LIFT_MAPS, LIFT_OUT), (2, ((16, 12, 16), (32, 6, 8)), 8), _lift_row),
+    KernelRow("lift_resize_t", "gennerf_tpu_torch/csrc/spatial_lift.cu", None,
+              (LIFT_IMAGES, LIFT_MAPS, LIFT_OUT), (2, ((16, 12, 16), (32, 6, 8)), 8),
+              _lift_resize_t_row),
+    KernelRow("volume_sample", "gennerf_tpu_torch/csrc/volume_sample.cu", None,
+              (SPATIAL_CELL_GRID, VS_CHANNELS, VS_CHUNK, VS_CHUNK_INDEX), ((6, 5, 4), 8, 40, 1),
+              _volume_sample_row, max_ms=VS_MAX_MS),
+)
+
+
+def kernels_phase(torch, dev, smi: str) -> dict:
+    """Phase 6 (see the module docstring); returns each row's line by the
+    kernel's name."""
+    GATES.phase = "kernels"
+    from gennerf_tpu_torch.tools.measure import cuda_ms
+
+    recs = {}
+    for row in KERNEL_ROWS:
+        x = row.make(torch, dev, row.shape)
+        out, ref = x["kernel"](), x["plain"]()
+        checks, max_abs_err = x["check"](out, ref), _max_abs(out, ref)
+        del out, ref
+        torch.cuda.synchronize()
+        parts = x.get("parts", [(x["kernel"], x["plain"])])
+        ms = sum(cuda_ms(torch, k, 10, inner=x.get("inner", 1)) for k, _ in parts)
+        plain_ms = sum(cuda_ms(torch, p, 3) for _, p in parts)
+        by_bytes, by_ops = x["bytes"] / PEAK_BYTES, x["ops"] / x.get("peak", PEAK_BF16)
+        rec = {"phase": "kernels", "kernel": row.name, "shape": row.shape, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": 1e3 * max(by_bytes, by_ops),
+               "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+               "bytes": x["bytes"], "ops": x["ops"], "max_abs_err": max_abs_err,
+               "vs_plain": {name: value for name, (value, _) in checks.items()},
+               **(x["extras"]() if "extras" in x else {}), "card": smi}
+        del x
+        emit(rec)
+        recs[row.name] = rec
+        if not all([gate(f"{row.name}.{name}", value, limit)
+                    for name, (value, limit) in checks.items()]):
+            raise RuntimeError(f"the {row.name} kernel disagrees with its plain version: "
+                               f"{rec['vs_plain']}")
+        if row.max_ms is not None and not gate(f"{row.name}.ms", ms, row.max_ms):
+            raise RuntimeError(f"the {row.name} kernel took {ms} ms, beyond {row.max_ms}")
+    return recs
+
+
+PHASES = ("kernels", "train", "data", "spatial", "voxelnet", "flagship_bf16", "distill",
+          "harness", "weights_options", "model_options", "prepare", "parallel")
 # the phases that read the data phase's dataset
 DATASET_PHASES = {"spatial", "voxelnet", "flagship_bf16", "harness", "weights_options",
                   "model_options", "parallel"}
@@ -6649,14 +6324,14 @@ def write_dataset(root: str) -> float:
 
 
 def parse_phases(argv: list) -> set:
-    """`--phases a,b` (phases 8-20 by name, PHASES) -> that set; none: all.
-    Phases 1-7 always run."""
+    """`--phases a,b` (phases 6-17 by name, PHASES) -> that set; none: all.
+    Phases 1-5 always run."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated phases 8-20 to run after phases 1-7 "
-                         f"(default all: {','.join(PHASES)}); '' runs phases 1-7 only")
+                    help="comma-separated phases 6-17 to run after phases 1-5 "
+                         f"(default all: {','.join(PHASES)}); '' runs phases 1-5 only")
     names = {n for n in ap.parse_args(argv).phases.split(",") if n}
     unknown = names - set(PHASES)
     if unknown:
@@ -6684,27 +6359,17 @@ def _main(phases: set) -> int:
     from gennerf_tpu_torch import set_reference_precision
     from gennerf_tpu_torch.data.synthetic import ring_frames
     from gennerf_tpu_torch.models.gen_nerf import GenNerf
-    from gennerf_tpu_torch.models.positional_encoding import positional_encoding
     from gennerf_tpu_torch.models.resnetfc import ResnetBlockFC
     from gennerf_tpu_torch.ops import kernels
-    from gennerf_tpu_torch.ops.grid_decode import (
-        extract_resnetfc_weights, grid_decode_cuda, grid_decode_flops, grid_tables,
-        separable_grid_decode_plain,
-    )
+    from gennerf_tpu_torch.ops.grid_decode import grid_tables, separable_grid_decode_plain
     from gennerf_tpu_torch.ops.projection import get_3d_points
-    from gennerf_tpu_torch.ops.sampling import (
-        FPS_CLUSTERS, farthest_point_sample_plain, fps_cuda, uniform_presample,
-    )
-    from gennerf_tpu_torch.tools.measure import FPS_INNER, build_report, check_build, cuda_ms
-    from gennerf_tpu_torch.ops.weight_slabs import pack_decode_weights
-    from gennerf_tpu_torch.ops.point_decode import (
-        fused_resnetfc_tsdf_cuda, fused_resnetfc_tsdf_plain, pack_point_weights, point_decode_flops,
-    )
+    from gennerf_tpu_torch.ops.sampling import farthest_point_sample_plain, uniform_presample
+    from gennerf_tpu_torch.tools.measure import build_report, check_build
     from gennerf_tpu_torch.predict import build_model, reconstruct
-    from gennerf_tpu_torch.render import render_encoded, render_views
+    from gennerf_tpu_torch.render import render_views
     from gennerf_tpu_torch.train.predict import (
-        decode_dense, dense_grid_points, make_point_tsdf_fn, predict_tsdf_volume,
-        predict_tsdf_volume_sparse, triplane_feat_fast, triplane_gather_setup, uses_grid_decode,
+        decode_dense, dense_grid_points, predict_tsdf_volume, predict_tsdf_volume_sparse,
+        uses_grid_decode,
     )
     from gennerf_tpu_torch.tsdf.fusion import apply_fusion_prior, prior_classes
     from gennerf_tpu_torch.utils import native
@@ -6738,51 +6403,7 @@ def _main(phases: set) -> int:
                             cameras=True)
     P, image, depth, intrinsics, poses = (torch.from_numpy(a).to(dev) for a in frames_np)
 
-    # 2. fps: presampled depth clouds (with replacement: duplicates, ties)
-    # of the 8 frames (the predict shape) and of 4 x 8 frames (the training
-    # batch's shape)
-    gen = torch.Generator().manual_seed(SEED)
-    cloud = get_3d_points(depth, P).reshape(NUM_FRAMES, -1, 3)
-    xyz = uniform_presample(cloud, PRESAMPLE, gen).contiguous()
-    B, N = xyz.shape[:2]
-    start = torch.randint(0, N, (B,), generator=gen).to(dev, torch.int32)
-    xyz_batch = uniform_presample(cloud.repeat(FPS_BATCH // B, 1, 1), PRESAMPLE, gen).contiguous()
-    start_batch = torch.randint(0, N, (FPS_BATCH,), generator=gen).to(dev, torch.int32)
-    fps_instances = [r for r in report["kernels"] if r["kernel"] == "fps"]
-
-    def fps_case(x, s):
-        nb, n = x.shape[:2]
-        idx_k = fps_cuda(x, NPOINT, s)
-        launched = dict(kernels.FPS.last_launch)  # the plan the wrapper launched
-        idx_p = farthest_point_sample_plain(x, NPOINT, s)
-        torch.cuda.synchronize()
-        ms = cuda_ms(torch, lambda: fps_cuda(x, NPOINT, s), reps=20, inner=FPS_INNER)
-        single_ms = cuda_ms(torch, lambda: fps_cuda(x, NPOINT, s), reps=20)
-        plain_ms = cuda_ms(torch, lambda: farthest_point_sample_plain(x, NPOINT, s), reps=5)
-        # distance update + running min + argmax compare: 10 f32 ops per point per iteration
-        ops = 10 * nb * n * NPOINT
-        nbytes = x.numel() * 4 + nb * 4 + nb * NPOINT * 4
-        return idx_k, idx_p, {
-            "shape": [nb, n, 3], "npoint": NPOINT,
-            "duplicate_points": int(n - torch.unique(x[0], dim=0).shape[0]),
-            "index_mismatches": int((idx_k != idx_p).sum()), "launched": launched,
-            "active_clusters": {cl: kernels.fps_plan(n, cl)["active_clusters"]
-                                for cl in FPS_CLUSTERS},
-            "ms": ms, "us_per_iteration": ms * 1e3 / NPOINT, "single_call_ms": single_ms,
-            "plain_ms": plain_ms, "bound_ms": max(ops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3}
-
-    idx_k, idx_p, fps_rec = fps_case(xyz, start)
-    _, _, fps_batch = fps_case(xyz_batch, start_batch)
-    fps_ms, fps_plain_ms, fps_bound = fps_rec["ms"], fps_rec["plain_ms"], fps_rec["bound_ms"]
-    emit({"phase": "fps", **fps_rec, "batch": fps_batch, "build": fps_instances, "card": smi})
-    GATES.phase = "fps"
-    for rec in (fps_rec, fps_batch):
-        if not gate(f"index_mismatches_{rec['shape'][0]}x{rec['shape'][1]}",
-                    rec["index_mismatches"], 0):
-            raise RuntimeError(f"FPS kernel disagrees with its plain version at "
-                               f"{rec['index_mismatches']} indices at {rec['shape']}")
-
-    # 3. grid_decode: full-width weights, every matrix non-zero
+    # the model of phases 2-5: full-width weights, every matrix non-zero
     cfg_dict = load_experiment_model_config(EXPERIMENT)
     model = build_model(cfg_dict, dev, SEED)
     wgen = torch.Generator().manual_seed(SEED + 1)
@@ -6795,47 +6416,19 @@ def _main(phases: set) -> int:
     cfg = model.cfg
     if not uses_grid_decode(model):
         raise RuntimeError("the full-width config does not take the grid decode")
-    with torch.no_grad():
+    # one encode for phases 2-5, deterministic (the scatters' atomics add in
+    # one order), so the render's field shift and its march agree run to run
+    with torch.no_grad(), deterministic_algorithms(torch):
         repr_ = model.encode(P[None], image[None], depth[None], torch.Generator().manual_seed(SEED))
-    weights = pack_decode_weights(extract_resnetfc_weights(
-        model.mlp, model.head_geo, cfg.mlp.d_out_geo, cfg.mlp.head_smoothing), point=False)
+    weights = decoder_weights(model, point=False)
     extent = [d * cfg.voxel_size for d in cfg.voxel_dim_train]
     table_args = dict(
         voxel_dim=VOXEL_DIM, voxel_size=cfg.voxel_size, num_freqs=cfg.code.num_freqs,
         freq_factor=cfg.code.freq_factor, include_input=cfg.code.include_input,
         padding=cfg.encoder.pointnet.padding, coord_center=tuple(e / 2 for e in extent),
         coord_scale=max(extent))
-    planes = repr_.planes
-    tables = grid_tables(planes["xz"][0], planes["xy"][0], planes["yz"][0],
-                         torch.zeros(3, device=dev), weights, **table_args)
-    vol_k = grid_decode_cuda(tables, weights)
-    vol_p = separable_grid_decode_plain(tables, weights, bf16_feeds=True)
-    torch.cuda.synchronize()
-    err = (vol_k - vol_p).abs()
-    grid_max, grid_mean = float(err.max()), float(err.mean())
-    grid_ms = cuda_ms(torch, lambda: grid_decode_cuda(tables, weights), reps=10)
-    grid_plain_ms = cuda_ms(torch, lambda: separable_grid_decode_plain(tables, weights, True), reps=3)
-    H, nb = weights["w0"].shape[-1], weights["w0"].shape[0]
-    grid_flops = grid_decode_flops(VOXEL_DIM, H, nb)
-    grid_bytes = (sum(t.numel() for t in tables) * 4 + sum(
-        weights[k].numel() * weights[k].element_size() for k in ("k_slabs", "k_b0", "k_b1", "k_w_last"))
-                  + math.prod(VOXEL_DIM) * 4)
-    grid_bound = max(grid_flops / PEAK_BF16, grid_bytes / PEAK_BYTES) * 1e3
-    emit({"phase": "grid_decode", "voxel_dim": list(VOXEL_DIM), "H": H, "n_blocks": nb,
-          "max_abs_err": grid_max, "mean_abs_err": grid_mean,
-          "tolerance": {"max_abs": GRID_MAX_ABS_TOL, "mean_abs": GRID_MEAN_ABS_TOL},
-          "out_abs_max": float(vol_p.abs().max()), "ms": grid_ms, "plain_ms": grid_plain_ms,
-          "flops": grid_flops, "bound_ms": grid_bound,
-          "tflops_per_s": grid_flops / grid_ms / 1e9,
-          "peak_share": grid_flops / grid_ms * 1e3 / PEAK_BF16,
-          "vs_plain_analysis": k2_analysis(torch, tables, weights, vol_k, vol_p)
-          if at_edge(gate_margin(grid_max, GRID_MAX_ABS_TOL),
-                     gate_margin(grid_mean, GRID_MEAN_ABS_TOL)) else None, "card": smi})
-    GATES.phase = "grid_decode"
-    if not (torch.isfinite(vol_k).all() and grid_gates("k2", grid_max, grid_mean)):
-        raise RuntimeError(f"grid-decode kernel disagrees: max {grid_max}, mean {grid_mean}")
 
-    # 4. predict: the main path, counters reset just before, read just after
+    # 2. predict: the main path, counters reset just before, read just after
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -6897,59 +6490,16 @@ def _main(phases: set) -> int:
     if not grid_gates("vs_plain_stages", pred_max, pred_mean):
         raise RuntimeError(f"predict disagrees with its plain stages: max {pred_max}, mean {pred_mean}")
 
-    # where one reconstruct's device time goes
-    emit({"phase": "profile", **profile_device(torch, lambda: reconstruct(
-        model, P, image, depth, VOXEL_DIM, torch.Generator().manual_seed(SEED)), total_ms, smi)})
-
-    # 5. point_decode: 2^20 points uniform in the test volume, their
-    # triplane features and codes from the grid phase's scene
-    box = np.array(cfg.voxel_dim_test, np.float32) * cfg.voxel_size
-    pts = torch.from_numpy(np.random.default_rng(SEED).uniform(0, box, (N_POINTS, 3))
-                           .astype(np.float32)).to(dev)
-    feat = triplane_feat_fast(*triplane_gather_setup(model, planes), pts[None])[0]
-    code = positional_encoding(pts, cfg.code.num_freqs, cfg.code.freq_factor,
-                               cfg.code.include_input)
-    pweights = pack_point_weights(weights)
-    pk = fused_resnetfc_tsdf_cuda(feat, code, pweights)
-    pp = fused_resnetfc_tsdf_plain(feat, code, pweights, bf16_feeds=True)
-    torch.cuda.synchronize()
-    perr = (pk - pp).abs()
-    point_max, point_mean = float(perr.max()), float(perr.mean())
-    point_ms = cuda_ms(torch, lambda: fused_resnetfc_tsdf_cuda(feat, code, pweights), reps=10)
-    point_plain_ms = cuda_ms(torch, lambda: fused_resnetfc_tsdf_plain(feat, code, pweights, True),
-                             reps=3)
-    # one view's launch sizes at 120x160: coarse 16, fine 8 and secant 1 sample per ray
-    rays = HEIGHT * WIDTH
-    launch_sizes = (("coarse", 16 * rays), ("fine", 8 * rays), ("secant", rays))
-    launch_ms = {name: cuda_ms(torch, lambda n=n: fused_resnetfc_tsdf_cuda(feat[:n], code[:n],
-                                                                          pweights), reps=10)
-                 for name, n in launch_sizes}
-    d_in, d_code = feat.shape[1], code.shape[1]
-    point_flops = point_decode_flops(N_POINTS, d_in, d_code, H, nb)
-    point_bytes = (feat.numel() + code.numel() + N_POINTS) * 4 + sum(
-        t.numel() * t.element_size() for k, t in pweights.items()
-        if k.startswith("k_") and isinstance(t, torch.Tensor))
-    point_bound = max(point_flops / PEAK_BF16, point_bytes / PEAK_BYTES) * 1e3
-    emit({"phase": "point_decode", "points": N_POINTS, "d_in": d_in, "d_code": d_code, "H": H,
-          "n_blocks": nb, "max_abs_err": point_max, "mean_abs_err": point_mean,
-          "tolerance": {"max_abs": POINT_MAX_ABS_TOL, "mean_abs": POINT_MEAN_ABS_TOL},
-          "out_abs_max": float(pp.abs().max()), "ms": point_ms, "plain_ms": point_plain_ms,
-          "flops": point_flops, "bytes": point_bytes, "bound_ms": point_bound,
-          "tflops_per_s": point_flops / point_ms / 1e9,
-          "peak_share": point_flops / point_ms * 1e3 / PEAK_BF16, "launch_ms": launch_ms,
-          "launch_peak_share": {name: point_decode_flops(n, d_in, d_code, H, nb) / launch_ms[name]
-                                * 1e3 / PEAK_BF16 for name, n in launch_sizes},
-          "card": smi})
-    GATES.phase = "point_decode"
-    if not (torch.isfinite(pk).all() and point_gates(
-            "k3", {"max_abs_err": point_max, "mean_abs_err": point_mean})):
-        raise RuntimeError(f"point-decode kernel disagrees: max {point_max}, mean {point_mean}")
-
-    # 6. render: a random field need not cross zero, so lin_out's bias moves
-    # along the head until the median pre-tanh head over the grid is 0
+    # 3. render: a random field need not cross zero, so lin_out's bias moves
+    # along the head until the median pre-tanh head of the plain decode over
+    # the grid is 0
+    tables = grid_tables(repr_.planes["xz"][0], repr_.planes["xy"][0], repr_.planes["yz"][0],
+                         origin, weights, **table_args)
+    median = float(separable_grid_decode_plain(tables, weights, bf16_feeds=True).median())
+    del tables
     d_geo = cfg.mlp.d_out_geo
     with torch.no_grad():
-        shift = -math.atanh(float(vol_p.median()) / smoothing)
+        shift = -math.atanh(median / smoothing)
         w_head = model.head_geo.fc.weight[0].to(torch.float64)
         model.mlp.lin_out.bias[:d_geo] += (shift * w_head / (w_head @ w_head)).to(torch.float32)
     render_args = (model, P, image, depth, intrinsics, poses)
@@ -6965,59 +6515,34 @@ def _main(phases: set) -> int:
     hit_share = (out["ray_depth"] > 0).mean(axis=(1, 2))
     if not (hit_share > 0).all() or not np.isfinite(out["depth"]).all():
         raise RuntimeError(f"a rendered view has no hit rays or non-finite depth: {hit_share}")
-    # the same march on the plain bf16-feed decode, on one shared encode
-    # (deterministic: the same planes in every run)
-    with torch.no_grad(), deterministic_algorithms(torch):
-        repr_r = model.encode(P[None], image[None], depth[None],
-                              torch.Generator().manual_seed(SEED))
-    rk = render_encoded(model, repr_r, depth, intrinsics, poses, make_point_tsdf_fn(model, repr_r),
-                        NUM_VIEWS)
-    rp = render_encoded(model, repr_r, depth, intrinsics, poses,
-                        make_point_tsdf_fn(model, repr_r, plain=True), NUM_VIEWS)
-    hk, hp = rk["ray_depth"] > 0, rp["ray_depth"] > 0
-    mask_agree = float((hk == hp).mean())
-    both = hk & hp
-    ddiff = np.abs(rk["ray_depth"] - rp["ray_depth"])[both]
-    depth_agree = float((ddiff <= RENDER_DEPTH_TOL).mean())
-    analysis = march_analysis(torch, model, repr_r, depth, intrinsics, poses, rk, rp)
+    # the same march on the plain bf16-feed decode, on the phases' encode
+    # (the shift moved only the decoder)
+    march = k3_march(torch, model, repr_, depth, intrinsics, poses, NUM_VIEWS)
     render_ms = host_ms(torch, lambda: render_views(
         *render_args, num_views=NUM_VIEWS, generator=torch.Generator().manual_seed(SEED)), 3)
-    tsdf_k = make_point_tsdf_fn(model, repr_r)
-    view_ms = host_ms(torch, lambda: render_encoded(model, repr_r, depth, intrinsics, poses,
-                                                    tsdf_k, 1), 3)
+    rays = HEIGHT * WIDTH
     emit({"phase": "render", "config": "configs/experiment/seqs_multigeo_4cm.yaml",
           "views": [int(v) for v in out["views"]], "image": [HEIGHT, WIDTH],
           "launches": render_launches, "point_decode_launches_per_view":
           render_launches["point_decode"] / NUM_VIEWS,
           "point_decode_points_per_view": rays * (16 + 8 + 4),
           "first_call_ms": render_first_ms, "render_views_ms": render_ms,
-          "host_ms_per_view": render_ms / NUM_VIEWS, "one_view_ms": view_ms,
+          "host_ms_per_view": render_ms / NUM_VIEWS,
           "rays_per_s": NUM_VIEWS * rays / (render_ms / 1e3),
-          "hit_share": [float(h) for h in hit_share],
-          "vs_plain_mask_agree": mask_agree, "vs_plain_depth_agree": depth_agree,
-          "vs_plain_depth_diff_m": {"p99": float(np.quantile(ddiff, 0.99)),
-                                    "p999": float(np.quantile(ddiff, 0.999)),
-                                    "max": float(ddiff.max()),
-                                    "share_over_1cm": float((ddiff > 0.01).mean())},
+          "hit_share": [float(h) for h in hit_share], "k3_march": march,
           "tolerance": {"mask_agree": RENDER_MASK_AGREE, "depth_m": RENDER_DEPTH_TOL,
                         "depth_agree": RENDER_DEPTH_AGREE},
-          "vs_plain_analysis": analysis,
           "eval_depth_random_weights_not_quality": out["mean"], "card": smi})
     GATES.phase = "render"
-    if not march_gates("k3_march", {"vs_plain_mask_agree": mask_agree,
-                                    "vs_plain_depth_agree": depth_agree}, min_hits=False):
-        raise RuntimeError(f"kernel march disagrees with the plain march: masks {mask_agree}, "
-                           f"depths {depth_agree}")
-    emit({"phase": "render_profile", "what": "one view of render_encoded (K3 march)",
-          **profile_device(torch, lambda: render_encoded(model, repr_r, depth, intrinsics, poses,
-                                                         tsdf_k, 1), view_ms, smi)})
+    if not march_gates("k3_march", march, min_hits=False):
+        raise RuntimeError(f"kernel march disagrees with the plain march: {march}")
 
-    # 6b. mesh: the render phase's weights cross zero inside the grid
+    # 4. mesh: the render phase's weights cross zero inside the grid
     mesh_launches, mesh_rec = mesh_phase(torch, dev, model, (P, image, depth), planes_ref,
                                          table_args, smi)
     emit(mesh_rec)
 
-    # 7. predict_sparse: the band decode through the user entry point, then
+    # 5. predict_sparse: the band decode through the user entry point, then
     # against the dense gather decode clamped by the prior on one encode
     sparse_model = GenNerf(dataclasses.replace(cfg, sparse_band_decode=True))
     sparse_model.load_state_dict(model.state_dict())
@@ -7042,7 +6567,9 @@ def _main(phases: set) -> int:
     if not gate("vs_dense_max_abs", sparse_err, SPARSE_TOL):
         raise RuntimeError(f"sparse band decode disagrees with the dense decode: {sparse_err}")
 
-    # 8.-18.: each returns its main-path launches (and its kernels' errors
+    # 6. kernels: each kernel alone against its plain version's time and its bound
+    timed = kernels_phase(torch, dev, smi) if "kernels" in phases else {}
+    # 7.-17.: each returns its main-path launches (and its kernels' errors
     # against their plain versions); `phases` picks which run
     runs = {}
     if "train" in phases:
@@ -7050,7 +6577,7 @@ def _main(phases: set) -> int:
     with tempfile.TemporaryDirectory() as data_tmp:
         root, synth = os.path.join(data_tmp, "multigeo"), os.path.join(data_tmp, "synth0")
         if "data" in phases:
-            # 9. data: the on-disk dataset through the loaders into training,
+            # 8. data: the on-disk dataset through the loaders into training,
             # then held-out predict and render from the trained weights
             runs["data"] = data_phase(torch, dev, smi, root), {}
         elif phases & DATASET_PHASES:
@@ -7060,119 +6587,69 @@ def _main(phases: set) -> int:
 
             generate_scene(synth, num_frames=DISTILL_FRAMES)
         for name, fn in (
-                # 10. spatial: the ResNet feature volume beside the triplanes,
-                # trained on the same dataset, then a held-out reconstruct
+                # 9. spatial: the ResNet feature volume beside the triplanes,
+                # trained on the same dataset, then a held-out reconstruct and
+                # a dense decode of the spatial cell's grid
                 ("spatial", lambda: spatial_phase(torch, dev, smi, root)),
-                # 11. voxelnet: the second model family in bf16-mixed on the
+                # 10. voxelnet: the second model family in bf16-mixed on the
                 # same dataset, then a held-out predict and evaluation
                 ("voxelnet", lambda: voxelnet_phase(torch, dev, smi, root)),
-                # 12. flagship_bf16: the flagship GenNerf in bf16-mixed, its
+                # 11. flagship_bf16: the flagship GenNerf in bf16-mixed, its
                 # eikonal and frustum children and the gradient loss on the
                 # same dataset, then a held-out predict, the flagship's grid,
                 # a render
                 ("flagship_bf16", lambda: flagship_bf16_phase(torch, dev, smi, root)),
-                # 13. distill: both distillation experiments through the train
+                # 12. distill: both distillation experiments through the train
                 # CLI on their synthetic scene, K2 and K3 on the trained head,
                 # use_auxiliary
                 ("distill", lambda: distill_phase(torch, dev, smi, synth)),
-                # 14. harness: the train CLI's harness (early stopping, batch
+                # 13. harness: the train CLI's harness (early stopping, batch
                 # limits, the profiler window, the loggers, the SIGTERM save,
                 # the sweep) on the data phase's dataset
                 ("harness", lambda: harness_phase(torch, dev, smi, root)),
-                # 15. weights_options: a reference checkpoint through the CLIs'
+                # 14. weights_options: a reference checkpoint through the CLIs'
                 # --params (K1, K2, K3), the writer and reader round trip, the
                 # spatial and VoxelNet readers, the GenNerf options on the card
                 # against the CPU, PointNet++'s K1
                 ("weights_options", lambda: weights_options_phase(torch, dev, smi, root)),
-                # 16. model_options: VoxelNet's GroupNorm, dropout and loss
+                # 15. model_options: VoxelNet's GroupNorm, dropout and loss
                 # split, the spatial norm_type and upsample, the GenNerf options
                 # and distillation in bf16-mixed (K1, K2, K3)
                 ("model_options", lambda: model_options_phase(torch, dev, smi, root, synth)),
-                # 17. prepare: a raw ScanNet .sens through export and
+                # 16. prepare: a raw ScanNet .sens through export and
                 # preparation (fusion on the card), then the flagship trained
                 # on it (K1, K2, K3)
                 ("prepare", lambda: prepare_phase(torch, dev, smi,
                                                   os.path.join(data_tmp, "prepare"))),
-                # 18. parallel: the process group (NCCL at world size 1, 2 ranks
+                # 17. parallel: the process group (NCCL at world size 1, 2 ranks
                 # on the card over gloo, NCCL at 2 on two cards), the
                 # data-parallel steps against world size 1, K2's x-slab split,
                 # host prefetch
-                ("parallel", lambda: parallel_phase(torch, dev, smi, root)),
-                # 19. lift: the spatial encoder's fused lift at the VoxelNet
-                # cell's shapes against its plain version
-                ("lift", lambda: lift_phase(torch, dev, smi)),
-                # 20. volume_sample: the feature volume's trilinear sample at
-                # the combined-encoder cell's decode chunk against the
-                # composition
-                ("volume_sample", lambda: volume_sample_phase(torch, dev, smi))):
+                ("parallel", lambda: parallel_phase(torch, dev, smi, root))):
             if name in phases:
                 runs[name] = fn()
 
-    def total(kernel: str) -> int:
-        return sum(launches_[kernel] for launches_, _ in runs.values())
+    def main_path_launches(kernel: str):
+        """Every main-path launch of `kernel` the run counted (None where
+        the phase that counts it did not run)."""
+        if kernel in launches:  # a TPU-kernel port: phases 2-5 and every phase run
+            return (launches[kernel] + render_launches[kernel] + mesh_launches[kernel]
+                    + sparse_launches[kernel] + sum(l_[kernel] for l_, _ in runs.values()))
+        if kernel == "volume_sample":
+            return runs["spatial"][1]["volume_sample_launches"] if "spatial" in runs else None
+        return runs["voxelnet"][1]["lift_launches"][kernel] if "voxelnet" in runs else None
 
-    def worst(kernel: str) -> float:
-        return max([errors_[kernel] for _, errors_ in runs.values() if kernel in errors_],
-                   default=0.0)
+    def worst(kernel: str):
+        """The largest error against its plain version a phase recorded."""
+        return max([errors_[kernel] for _, errors_ in runs.values() if kernel in errors_]
+                   + ([timed[kernel]["max_abs_err"]] if kernel in timed else []), default=None)
 
     kernel_line = {"kernels": [
-        {"name": "fps", "route": "cuda", "source": "gennerf_tpu_torch/csrc/fps.cu",
-         "replaces": "gennerf_tpu/ops/pallas/fps.py:33",
-         "launches": (launches["fps"] + render_launches["fps"] + mesh_launches["fps"]
-                      + sparse_launches["fps"] + total("fps")),
-         "max_abs_err": max(float((idx_k - idx_p).abs().max()), worst("fps")),
-         "ms": fps_ms,
-         "plain_ms": fps_plain_ms, "bound_ms": fps_bound, "bound_by": "operations",
-         "library_ms": None},
-        {"name": "grid_decode", "route": "cuda", "source": "gennerf_tpu_torch/csrc/grid_decode.cu",
-         "replaces": "gennerf_tpu/ops/pallas/fused_decoder.py:353",
-         "launches": launches["grid_decode"] + mesh_launches["grid_decode"] + total("grid_decode"),
-         "max_abs_err": max(grid_max, worst("grid_decode")),
-         "ms": grid_ms,
-         "plain_ms": grid_plain_ms, "bound_ms": grid_bound,
-         "bound_by": "operations" if grid_flops / PEAK_BF16 >= grid_bytes / PEAK_BYTES else "bytes",
-         "library_ms": None},
-        {"name": "point_decode", "route": "cuda", "source": "gennerf_tpu_torch/csrc/point_decode.cu",
-         "replaces": "gennerf_tpu/ops/pallas/fused_decoder.py:53",
-         "launches": render_launches["point_decode"] + total("point_decode"),
-         "max_abs_err": max(point_max, worst("point_decode")),
-         "ms": point_ms,
-         "plain_ms": point_plain_ms, "bound_ms": point_bound,
-         "bound_by": "operations" if point_flops / PEAK_BF16 >= point_bytes / PEAK_BYTES else "bytes",
-         "library_ms": None},
-    ]}
-    if "lift" in runs:
-        # the times at the VoxelNet cell's shapes (the lift phase), the
-        # launches of the VoxelNet phase's own run (None where it did not run)
-        lift, gather = runs["lift"][1], runs["lift"][1]["gather"]
-        voxelnet_lifts = runs["voxelnet"][1]["lift_launches"] if "voxelnet" in runs else None
-        kernel_line["kernels"] += [
-            {"name": "spatial_lift", "route": "cuda",
-             "source": "gennerf_tpu_torch/csrc/spatial_lift.cu", "replaces": None,
-             "launches": voxelnet_lifts and voxelnet_lifts["spatial_lift"],
-             "beyond_one_step_per_rounding": lift["beyond_one_step_per_rounding"],
-             "ms": lift["ms"], "plain_ms": lift["plain_ms"], "bound_ms": lift["bound_ms"],
-             "bound_by": lift["bound_by"], "library_ms": None},
-            {"name": "lift_resize_t", "route": "cuda",
-             "source": "gennerf_tpu_torch/csrc/spatial_lift.cu", "replaces": None,
-             "launches": voxelnet_lifts and voxelnet_lifts["lift_resize_t"],
-             "ms": gather["ms"], "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
-             "bound_by": "bytes", "library_ms": None}]
-    if "volume_sample" in runs:
-        # the times at the spatial cell's chunk, the launches of the dense
-        # decode of its grid (and of the spatial phase's reconstruct, where
-        # it ran), each gated at what its decode implies
-        vs = runs["volume_sample"][1]
-        spatial_samples = (runs["spatial"][1]["volume_sample_launches"]["launches"]
-                           if "spatial" in runs else 0)
-        kernel_line["kernels"].append(
-            {"name": "volume_sample", "route": "cuda",
-             "source": "gennerf_tpu_torch/csrc/volume_sample.cu", "replaces": None,
-             "launches": vs["decode"]["launches"] + spatial_samples,
-             "launches_cell_request": vs["decode"]["launches"],
-             "differing": sum(vs["differing"].values()),
-             "ms": vs["ms"], "plain_ms": vs["plain_ms"], "bound_ms": vs["bound_ms"],
-             "bound_by": "bytes", "library_ms": vs["library"]["ms"]})
+        {"name": row.name, "route": "cuda", "source": row.source, "replaces": row.replaces,
+         "launches": main_path_launches(row.name), "max_abs_err": worst(row.name),
+         **{k: timed.get(row.name, {}).get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                         "library_ms")}}
+        for row in KERNEL_ROWS]}
     emit(GATES.line())
     emit(kernel_line)
     print(smi, flush=True)

@@ -41,7 +41,7 @@
 // block step that every warp reaches after reading buffer p. A first
 // cluster barrier makes the initialised mbarriers visible to the peers; a
 // last one keeps every CTA until all candidates have landed.
-// tools/fps_variants.py times the alternatives as edits of this file: a
+// Alternatives measured on the H100 as edits of this file: a
 // cluster barrier in place of the mbarriers (~60% slower), every warp
 // sending its own candidate (faster at CL <= 4, slower at the CL = 8 the
 // launcher takes), other thread counts, no register tier.

@@ -232,7 +232,7 @@ FPS_CLUSTERS = (1, 2, 4, 8, 16)
 
 # the largest cluster the launcher takes unless only 16 reaches a better
 # tier: 8 ran 3-9% faster than 16 at (8, 16384) and (32, 16384) on the H100
-# (PERF.md, tools/fps_variants.py); the exchange grows with the cluster
+# (PERF.md); the exchange grows with the cluster
 FPS_AUTO_MAX_CLUSTER = 8
 
 

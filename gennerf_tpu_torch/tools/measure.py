@@ -1,6 +1,6 @@
-"""What `chip_smoke.py` and the variant tools measure the kernels with: one
-device timer and one reading of the build (ptxas registers and spills per
-kernel instance, cuobjdump's HGMMA/HMMA counts) with its gate.
+"""What `chip_smoke.py` measures the kernels with: one device timer and
+one reading of the build (ptxas registers and spills per kernel instance,
+cuobjdump's HGMMA/HMMA counts) with its gate.
 
 Nothing here imports torch at module level: the timer takes it as an
 argument, so the CPU tests can import the parse.

@@ -2,8 +2,9 @@
 csrc/point_decode.cu) against their plain PyTorch versions, and their
 wrappers' checks (the weight packing's own tests: test_torch_packing.py).
 
-This file imports torch and the port only, so on the machine with the card
-(which has no JAX) it runs without the suite's conftest:
+This file imports torch, the port and chip_smoke.py (the scene of the depth
+clouds) only, so on the machine with the card (which has no JAX) it runs
+without the suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
@@ -16,7 +17,9 @@ average: both round the same values to bf16 and accumulate in f32 in
 another order, so a few activations round the other way (one bf16 step,
 2^-8 of the value).
 """
+import functools
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -41,6 +44,10 @@ def cuda():
 
 def _fps_cloud(kind, B, N, seed=0):
     rng = np.random.default_rng(seed)
+    if kind == "depth":  # presampled depth clouds of 8 rendered 120x160 frames (duplicates, ties)
+        cloud = _ring_cloud()
+        sel = rng.integers(0, cloud.shape[1], (B, N))
+        return np.take_along_axis(cloud[np.arange(B) % len(cloud)], sel[..., None], 1)
     if kind == "random":
         return rng.standard_normal((B, N, 3)).astype(np.float32)
     if kind == "duplicates":  # a presample with replacement of a smaller cloud
@@ -50,6 +57,16 @@ def _fps_cloud(kind, B, N, seed=0):
     if kind == "identical":  # every distance ties
         return np.ones((B, N, 3), np.float32)
     raise ValueError(kind)
+
+
+@functools.lru_cache(maxsize=1)
+def _ring_cloud():
+    """The (8, 19200, 3) depth clouds of chip_smoke.py's scene: 8 ring
+    frames around a sphere and a box."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke.ring_clouds(torch).numpy()
 
 
 # -- checks that run without a card -----------------------------------------
@@ -145,29 +162,6 @@ def test_point_kernel_limits(H, d_in, d_code):
         pd.fused_resnetfc_tsdf_cuda(torch.zeros(3, d_in), torch.zeros(3, d_code), w)
 
 
-def test_tile_variants_apply(tmp_path):
-    """Every measured variant of the tile (tools/tile_variants.py) still
-    applies to the committed sources."""
-    from gennerf_tpu_torch.tools import tile_variants as tv
-
-    for name in tv.VARIANTS:
-        d = tv.make_variant(name, str(tmp_path), kernels.CSRC_DIR)
-        assert sorted(os.listdir(d)) == sorted(os.listdir(kernels.CSRC_DIR))
-
-
-def test_fps_variants_apply(tmp_path):
-    """Every measured variant of the FPS kernel (tools/fps_variants.py)
-    still applies to the committed sources."""
-    from gennerf_tpu_torch.tools import fps_variants as fv
-    from gennerf_tpu_torch.tools import tile_variants as tv
-
-    for name in fv.VARIANTS:
-        d = tv.make_variant(name, str(tmp_path), kernels.CSRC_DIR, fv.VARIANTS)
-        assert sorted(os.listdir(d)) == sorted(os.listdir(kernels.CSRC_DIR))
-        with open(os.path.join(d, fv.FPS)) as f, open(os.path.join(kernels.CSRC_DIR, fv.FPS)) as g:
-            assert (f.read() == g.read()) == (name == "base")
-
-
 def _plans(active, tiers=None):
     """fps_plan answers: clusters the card runs at once and the tier, by size."""
     tiers = tiers or {}
@@ -215,7 +209,6 @@ def test_fps_wrapper_checks(N, npoint, cluster, match):
 def test_fps_build_rows():
     """The ptxas parse and the build gate chip_smoke.py runs: every FPS
     instance found, a spill in any of them fails the build."""
-    from gennerf_tpu_torch.tools import fps_variants as fv
     from gennerf_tpu_torch.tools import measure
 
     log = ("ptxas info    : Compiling entry function '_ZN34_GLOBAL__N__fps_cu_bc431931_1234514fps_reg_kernelILi4EEEvPKfPKiPiPfiii' for 'sm_90a'\n"
@@ -234,7 +227,7 @@ def test_fps_build_rows():
             "spill_store_bytes": 4, "spill_load_bytes": 8},
            {"kernel": "fps", "instance": "fps_kernel<16>", "registers": 30}]
     rows = measure.ptxas_rows(log)
-    assert [r for r in rows.values() if r["kernel"] == "fps"] == fps == fv.fps_rows(log)
+    assert [r for r in rows.values() if r["kernel"] == "fps"] == fps
     assert rows[("grid_decode", 256)] == {"kernel": "grid_decode", "H": 256, "registers": 168}
     report = {"cuobjdump": "missing", "kernels": list(rows.values())}
     with pytest.raises(RuntimeError, match="fps kernel spills"):
@@ -260,6 +253,8 @@ FPS_CASES = [
     ("random", 3, 1000, 64),
     ("duplicates", 8, 16384, 256),   # the predict shape
     ("duplicates", 32, 16384, 256),  # a training batch of 4 x 8 frames
+    ("depth", 8, 16384, 256),        # the predict shape on rendered depth clouds
+    ("depth", 32, 16384, 256),       # the training batch's
     ("duplicates", 2, 20000, 128),
     ("random", 1, 32768, 32),
     ("random", 1, 307200, 32),       # a 640x480 frame without presample
@@ -356,6 +351,7 @@ def _grid_case(H, nb, dims, device):
     (256, 5, (3, 5, 56)),
     (512, 1, (3, 5, 56)),
     (256, 2, (2, 3, 7)),      # one ragged tile
+    (256, 5, (96, 96, 56)),   # the full-width decoder at seqs_multigeo_4cm's test grid
 ])
 def test_grid_decode_kernel_matches_plain(cuda, H, nb, dims):
     tables, weights = _grid_case(H, nb, dims, cuda)
@@ -415,6 +411,7 @@ def test_decode_wrappers_count_launches(cuda):
     (128, 2, 32, 39, 19200),
     (256, 2, 128, 128, 129),    # the most shared memory (128-wide code tile at H 256)
     (512, 1, 80, 72, 65),       # lin_in and lin_z deeper than an H-512 slab (64)
+    (256, 5, 32, 39, 1 << 20),  # the full-width decoder at 2^20 points
 ])
 def test_point_decode_kernel_matches_plain(cuda, H, nb, d_in, d_code, N):
     w = _point_weights(H, nb, d_in, d_code, cuda, seed=H + nb + N)

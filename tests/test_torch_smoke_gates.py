@@ -26,6 +26,8 @@ synthetic inputs.
   perturbation.
 - `ReluPicks.rows` (one rank's rows of every pick), `distance_distribution`
   and `parse_phases`.
+- The `kernels` phase's table: each row builds its inputs at its tiny shape
+  and runs its plain version there.
 """
 import math
 import os
@@ -445,3 +447,23 @@ def test_parse_phases():
     assert chip_smoke.parse_phases(["--phases", ""]) == set()
     with pytest.raises(SystemExit):
         chip_smoke.parse_phases(["--phases", "render"])
+
+
+@pytest.mark.parametrize("row", chip_smoke.KERNEL_ROWS, ids=lambda row: row.name)
+def test_kernel_row_runs_its_plain_version_at_a_tiny_shape(row, monkeypatch):
+    """Each row at its tiny shape: the plain call's output finite, and the
+    row's check passing that output as the kernel's (the kernels its check
+    calls again replaced by their plain versions)."""
+    from gennerf_tpu_torch.ops import interpolation, spatial_lift
+
+    monkeypatch.setattr(spatial_lift, "spatial_lift_cuda", spatial_lift.spatial_lift_plain)
+    monkeypatch.setattr(interpolation, "trilinear_interpolation_cuda",
+                        interpolation.trilinear_interpolation_plain)
+    x = row.make(torch, torch.device("cpu"), row.tiny)
+    out = x["plain"]()
+    assert all(torch.isfinite(t.float()).all() for t in (out if isinstance(out, list) else [out]))
+    assert x["bytes"] > 0 and x["ops"] >= 0 and len(row.tiny) == len(row.shape)
+    checks = x["check"](out, out)
+    assert checks and all(value <= limit for value, limit in checks.values()), checks
+    assert chip_smoke._max_abs(out, out) == 0.0
+    assert len(x.get("parts", [None])) == (len(row.tiny[1]) - 1 if "parts" in x else 1)

@@ -281,6 +281,10 @@ CARD_CASES = {
     "stem_only_cout16": ([(3, 64, 17, 29)], 16),
     "five_maps": ([(2, 64, 33, 47), (2, 64, 17, 24), (2, 128, 9, 12), (2, 256, 5, 6),
                    (2, 512, 3, 3)], 32),
+    # the VoxelNet benchmark cell's lift (frame_chunk 4 x batch 3 images of 480x640 at
+    # feature_scale 2, 1,856 -> 32), and two of its images for the float64 referee
+    "cell": (map_shapes("resnet50", 4, (480, 640), 2.0, N=12), 32),
+    "cell_two_images": (map_shapes("resnet50", 4, (480, 640), 2.0), 32),
 }
 
 
@@ -303,7 +307,8 @@ def test_card_forward_matches_the_plain_bf16_path(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["resnet50_4", "resnet18_3_odd", "resnet50_3_cout40"])
+@pytest.mark.parametrize("case", ["resnet50_4", "resnet18_3_odd", "resnet50_3_cout40",
+                                  "cell_two_images"])
 def test_card_gradients_judged_against_float64(cuda, case):
     shapes, cout = CARD_CASES[case]
     maps, weight, bias, g = _inputs(shapes, cout, BF16, cuda, seed=4)
@@ -320,8 +325,9 @@ def test_card_gradients_judged_against_float64(cuda, case):
 
 
 @pytest.mark.cuda
-def test_card_two_runs_bit_equal_and_launch_counts(cuda):
-    shapes, cout = CARD_CASES["resnet50_4"]
+@pytest.mark.parametrize("case", ["resnet50_4", "cell"])
+def test_card_two_runs_bit_equal_and_launch_counts(cuda, case):
+    shapes, cout = CARD_CASES[case]
     maps, weight, bias, g = _inputs(shapes, cout, BF16, cuda, seed=5)
     weight, bias, g = weight.float(), bias.float(), g.to(BF16)
     lift0, gather0 = kernels.SPATIAL_LIFT.launches, kernels.LIFT_RESIZE_T.launches

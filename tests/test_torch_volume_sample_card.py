@@ -61,6 +61,8 @@ CASES = {
     "bf16_c64": (2, (13, 10, 7), 64, torch.bfloat16),
     "bf16_c4": (1, (13, 10, 7), 4, torch.bfloat16),
     "f32_unit_axis": (1, (1, 10, 7), 8, torch.float32),
+    **{f"{name}_c{C}_b2_40x36x28": (2, (40, 36, 28), C, dtype)
+       for C in (1, 33, 64) for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))},
 }
 
 
@@ -81,11 +83,32 @@ def test_kernel_is_bit_equal_to_the_composition(cuda, case):
 
 
 @pytest.mark.cuda
-def test_unaligned_volume_and_special_values(cuda):
+@pytest.mark.parametrize("points", ["grid", "random"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_spatial_cell_chunk_is_bit_equal_to_the_composition(cuda, dtype, points):
+    """One decode chunk of the spatial benchmark cell: 262,144 points (its
+    grid's 13th chunk of 24, or as many inside, outside and on its grid) of
+    a 256x256x96 volume of 512 channels."""
+    grid, C, n = (256, 256, 96), 512, 262144
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    vol = torch.randn((1, *grid, C), generator=gen, device=cuda).to(dtype)
+    origin = torch.zeros(3, device=cuda)
+    if points == "grid":
+        xyz = dense_grid_points(grid, VOXEL, origin, cuda)[12 * n:13 * n][None].contiguous()
+    else:
+        xyz = _points(gen, cuda, 1, grid, n, origin)
+    _same_bits(interp.trilinear_interpolation_cuda(vol, xyz, origin, VOXEL),
+               interp.trilinear_interpolation_plain(vol, xyz, origin, VOXEL))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid, C, offset", [((12, 9, 10), 16, 1), ((40, 36, 28), 64, 1),
+                                             ((40, 36, 28), 8, 0)])
+def test_unaligned_volume_and_special_values(cuda, grid, C, offset):
+    """Offset 1: 4 bytes off a 16-byte boundary (scalar loads)."""
     gen = torch.Generator(device=cuda).manual_seed(5)
-    grid, C = (12, 9, 10), 16
     flat = torch.randn(math.prod(grid) * C + 1, generator=gen, device=cuda)
-    vol = flat[1:].reshape(1, *grid, C)  # 4 bytes off a 16-byte boundary: scalar loads
+    vol = flat[offset:offset + math.prod(grid) * C].reshape(1, *grid, C)
     pick = torch.randint(0, 6, vol.shape, generator=gen, device=cuda)
     for v, value in enumerate((0.0, -0.0, math.inf, -math.inf, math.nan)):
         vol[pick == v] = value
@@ -105,13 +128,13 @@ def test_empty_points_launch_nothing(cuda):
 
 
 @pytest.mark.cuda
-def test_dispatch_on_the_card(cuda):
+@pytest.mark.parametrize("grid, n", [((10, 8, 6), 900), ((40, 36, 28), 3000)])
+def test_dispatch_on_the_card(cuda, grid, n):
     gen = torch.Generator(device=cuda).manual_seed(7)
-    grid = (10, 8, 6)
     vol = torch.randn((1, *grid, 64), generator=gen, device=cuda)
     # a channels-first volume permuted to channels-last (the grid plane's)
     vol_cf = vol.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1)
-    xyz = _points(gen, cuda, 1, grid, 900, torch.zeros(3, device=cuda))
+    xyz = _points(gen, cuda, 1, grid, n, torch.zeros(3, device=cuda))
     origin = torch.zeros(3, device=cuda)
     spans.reset()
     before = kernels.VOLUME_SAMPLE.launches
@@ -121,6 +144,6 @@ def test_dispatch_on_the_card(cuda):
         graph = interp.trilinear_interpolation(vol.requires_grad_(True), xyz, origin, VOXEL)
     assert kernels.VOLUME_SAMPLE.launches == before + 1
     assert graph.requires_grad
-    assert spans.counters() == {"trilinear.points": 1800, "trilinear.kernel_points": 900}
+    assert spans.counters() == {"trilinear.points": 2 * n, "trilinear.kernel_points": n}
     spans.reset()
     _same_bits(fast, graph.detach())
