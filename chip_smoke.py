@@ -28,22 +28,26 @@ from csrc/host/ with the host C++ compiler, then:
   5. predict_sparse: `reconstruct` with sparse_band_decode, and the band
      decode against the dense gather decode clamped by the prior;
   6. kernels: each kernel of KERNEL_ROWS (K1-K3, the fused lift and its
-     backward gather, the volume sample) alone at the shape PERF.md's
-     kernel table reports, on inputs its row makes: its ms
+     backward gather, the volume sample, the backprojection) alone at the
+     shape PERF.md's kernel table reports, on inputs its row makes: its ms
      (tools/measure.cuda_ms), its plain version's and its bound's (bytes
      at the HBM peak, or operations at the f32 or bf16 tensor peak), one
      line a row; K1's launched plan, the clusters the card runs at once
      for each size and one call's ms; both lift paths' forward + backward
      ms and peak memory; the volume sample's ms on a bf16 volume, the
      library's sampler's (F.grid_sample with the transpose to rows) and
-     the channels-last copy's, and its ms gated at VS_MAX_MS. Each row's
-     kernel is first held against its plain version on the same inputs
+     the channels-last copy's, and its ms gated at VS_MAX_MS; the
+     backprojection's whole no_grad fold, its pixel choice and torch's
+     channels_last copy of its features. Each row's kernel is first held
+     against its plain version on the same inputs
      (the row's `check`: K1's indices equal, K2 and K3 within the grid and
      point tolerances, the lift within one bf16 step a rounding and two
      runs bit-equal, the gather within float32 sums of the float64
-     transpose, the volume sample bit-equal in f32 and bf16); the card
-     tests (tests/test_torch_kernels.py, test_torch_spatial_lift.py,
-     test_torch_volume_sample_card.py) hold the other shapes and cases;
+     transpose, the volume sample bit-equal in f32 and bf16, the
+     backprojection's sum and count bit-equal); the card tests
+     (tests/test_torch_kernels.py, test_torch_spatial_lift.py,
+     test_torch_volume_sample_card.py, test_torch_backproject_card.py)
+     hold the other shapes and cases;
   7. train: the training path of the same config (ray supervision, smooth_log
      TSDF loss, autograd, Adam with coupled L2) on `training_batch`'s scene
      of 8 frames, K1 in every step's encode: one step with K1 against the
@@ -91,8 +95,9 @@ from csrc/host/ with the host C++ compiler, then:
      a held-out `reconstruct` at 96x96x56 (K1 once, K2 0, finite, inside
      the head's range), counters reset just before and read just after:
      csrc/volume_sample.cu launched exactly once a dense decode chunk (the
-     2 chunks `predict_tsdf_volume`'s chunk size cuts the grid into), its
-     total and decode ms; then a dense decode of the spatial benchmark
+     2 chunks `predict_tsdf_volume`'s chunk size cuts the grid into) and
+     csrc/backproject.cu once a frame chunk of the encode, its total and
+     decode ms; then a dense decode of the spatial benchmark
      cell's grid (SPATIAL_CELL_GRID, 256x256x96) on a random scene of this
      config's widths (512 volume channels), counters reset just before and
      read just after: the kernel launched exactly once a chunk (24), every
@@ -2050,7 +2055,8 @@ def spatial_phase(torch, dev, smi: str, root: str) -> tuple:
     """Phase 9 (see the module docstring); returns the launch counts of
     the main-path runs (the fit with its validation, the reconstruct) and
     {"volume_sample_launches": the volume sample's launches in the
-    reconstruct and the cell grid's decode}."""
+    reconstruct and the cell grid's decode, "backproject_launches": the
+    backprojection's in the reconstruct}."""
     GATES.phase = "spatial"
     from gennerf_tpu_torch.data.datamodule import ScannetDataModule
     from gennerf_tpu_torch.models.gen_nerf import GenNerf, SceneRepr
@@ -2195,6 +2201,10 @@ def spatial_phase(torch, dev, smi: str, root: str) -> tuple:
         samples = int(mcfg.has_feature_volume) + int("grid" in mcfg.encoder.pointnet.plane_type)
         volume_samples = {"launches": kernels.VOLUME_SAMPLE.launches,
                           "implied": dense_chunks(voxel_dim) * samples}
+        # no graph under reconstruct: the backprojection kernel once a frame chunk
+        chunk, frames = mcfg.encoder.spatial.frame_chunk, P.shape[0]
+        backprojections = {"launches": kernels.BACKPROJECT.launches,
+                           "implied": -(-frames // chunk) if 0 < chunk < frames else 1}
         smoothing = mcfg.mlp.head_smoothing
         if tuple(vol.shape) != voxel_dim or not torch.isfinite(vol).all() \
                 or float(vol.abs().max()) > max(smoothing, 1.0):
@@ -2204,6 +2214,9 @@ def spatial_phase(torch, dev, smi: str, root: str) -> tuple:
         if not gate("reconstruct.volume_sample_launches",
                     abs(volume_samples["launches"] - volume_samples["implied"]), 0):
             raise RuntimeError(f"the spatial reconstruct's volume samples: {volume_samples}")
+        if not gate("reconstruct.backproject_launches",
+                    abs(backprojections["launches"] - backprojections["implied"]), 0):
+            raise RuntimeError(f"the spatial reconstruct's backprojections: {backprojections}")
         total_ms = host_ms(torch, lambda: reconstruct(model, P, image, depth, voxel_dim,
                                                       torch.Generator().manual_seed(SEED)), 3)
         origin = torch.zeros(3, device=dev)
@@ -2256,10 +2269,12 @@ def spatial_phase(torch, dev, smi: str, root: str) -> tuple:
               "train_step_ms": {"median": med_ms, "all": train_ms},
               "predict": {"scene": scene["scene"][0], "voxel_dim": list(voxel_dim),
                           "launches": predict_launches, "volume_sample": volume_samples,
+                          "backproject": backprojections,
                           "total_ms": total_ms,
                           "decode_ms": decode_ms, "out_abs_max": float(vol.abs().max())},
               "cell_decode": cell_decode, "card": smi})
-    return totals, {"volume_sample_launches": volume_samples["launches"] + cell_decode["launches"]}
+    return totals, {"volume_sample_launches": volume_samples["launches"] + cell_decode["launches"],
+                    "backproject_launches": backprojections["launches"]}
 
 
 def voxelnet_phase(torch, dev, smi: str, root: str) -> tuple:
@@ -5962,6 +5977,9 @@ LIFT_DIFFERING_SHARE = 0.01
 VS_CHANNELS, VS_CHUNK, VS_CHUNK_INDEX = 512, 262144, 12
 # the kernel's time a cell chunk, at most (ms; its bound by bytes is 0.32)
 VS_MAX_MS = 1.0
+# the backprojection row: the spatial cell's 8 frames of 512 bf16 channels
+# at 480x640 (the images' own size) into its grid
+BP_FRAMES, BP_CHANNELS, BP_HW = 8, 512, (480, 640)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -6015,9 +6033,35 @@ def ring_clouds(torch):
 
 
 def _max_abs(a, b) -> float:
-    """The largest |a - b| of two outputs (tensors or lists of them)."""
+    """The largest |a - b| of two outputs (tensors or lists of them), in
+    float64 a slice of 2^26 elements at a time."""
     pairs = zip(a, b) if isinstance(a, list) else [(a, b)]
-    return max(float((x.double() - y.double()).abs().max()) for x, y in pairs)
+    step = 1 << 26
+    return max(float((x[i:i + step].double() - y[i:i + step].double()).abs().max())
+               for x, y in ((x.reshape(-1), y.reshape(-1)) for x, y in pairs)
+               for i in range(0, x.numel(), step))
+
+
+def ring_projections(torch, dev, B: int, T: int, image_hw, grid, voxel: float, seed: int):
+    """(B, T, 3, 4) world->image projections of cameras on a ring around
+    the centre of a grid of `voxel` cells at origin 0, looking at it
+    (f = 0.6 W), a little above it."""
+    import numpy as np
+
+    from gennerf_tpu_torch.data.synthetic import look_at_pose
+
+    rng = np.random.default_rng(seed)
+    H, W = image_hw
+    K = np.array([[0.6 * W, 0, W / 2], [0, 0.6 * W, H / 2], [0, 0, 1]])
+    ext = np.asarray(grid, np.float64) * voxel
+    center, radius = ext / 2, 0.45 * float(ext[:2].max())
+    out = np.empty((B, T, 3, 4), np.float32)
+    for b in range(B):
+        for t in range(T):
+            ang = 2 * np.pi * t / T + 0.4 * b + 0.05 * rng.standard_normal()
+            eye = center + np.array([radius * np.cos(ang), radius * np.sin(ang), 0.3 * ext[2]])
+            out[b, t] = (K @ np.linalg.inv(look_at_pose(eye, center))[:3]).astype(np.float32)
+    return torch.from_numpy(out).to(dev)
 
 
 def _fps_row(torch, dev, shape) -> dict:
@@ -6250,6 +6294,55 @@ def _volume_sample_row(torch, dev, shape) -> dict:
             "check": check, "bytes": 2 * n * C * 4, "ops": 0, "inner": 5, "extras": extras}
 
 
+def _backproject_row(torch, dev, shape) -> dict:
+    """The backprojection of T random bf16 frames of C channels at (Hf, Wf)
+    (the images' own size), seen by a ring of cameras, into `grid` at
+    SPATIAL_CELL_VOXEL: the sum and the count of the main path's route
+    (channels-first features through backproject_fold_cuda: torch's
+    channels_last copy, then the kernel) bit-equal to the composition
+    (backproject_fold_plain, pixels included); the kernel timed alone, on
+    channels_last features and precomputed pixels; the bound: the features
+    read once, the pixels read, the sum and the count written once; extras:
+    the whole no_grad fold on channels-first features (the pixels, the
+    copy and the kernel), the pixels alone and the copy alone."""
+    from gennerf_tpu_torch.ops.projection import (
+        backproject_fold, backproject_fold_cuda, backproject_fold_plain, fold_pixels,
+    )
+    from gennerf_tpu_torch.tools.measure import cuda_ms
+
+    T, C, hw, grid = shape
+    voxel, origin = SPATIAL_CELL_VOXEL, torch.zeros(3, device=dev)
+    feat = _normal(torch, dev)(T, C, *hw).to(torch.bfloat16)
+    rows = feat.contiguous(memory_format=torch.channels_last)
+    P = ring_projections(torch, dev, 1, T, hw, grid, voxel, SEED)
+    pixel = fold_pixels(P, hw, hw, grid, voxel, origin)
+
+    def differing(got, want) -> int:  # f32 bits (a NaN only matches the same NaN)
+        return sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                   for g, w in zip(got, want))
+
+    def extras():
+        def fold():
+            with torch.no_grad():
+                return backproject_fold(feat, P, hw, grid, voxel, origin)
+
+        return {"fold_ms": cuda_ms(torch, fold, 5),
+                "pixels_ms": cuda_ms(torch, lambda: fold_pixels(P, hw, hw, grid, voxel, origin),
+                                     5),
+                "channels_last_copy_ms": cuda_ms(
+                    torch, lambda: feat.contiguous(memory_format=torch.channels_last), 5)}
+
+    def plain():
+        return list(backproject_fold_plain(feat, P, hw, grid, voxel, origin))
+
+    V = math.prod(grid)
+    return {"kernel": lambda: list(backproject_fold_cuda(feat, pixel, grid)), "plain": plain,
+            "parts": [(lambda: list(backproject_fold_cuda(rows, pixel, grid)), plain)],
+            "check": lambda k, p: {"differing.cell_bf16": (differing(k, p), 0)},
+            "bytes": feat.numel() * 2 + pixel.numel() * 4 + (C + 1) * V * 4, "ops": 0,
+            "extras": extras}
+
+
 KERNEL_ROWS = (
     KernelRow("fps", "gennerf_tpu_torch/csrc/fps.cu", "gennerf_tpu/ops/pallas/fps.py:33",
               (NUM_FRAMES, PRESAMPLE, NPOINT), (2, 64, 8), _fps_row),
@@ -6268,6 +6361,9 @@ KERNEL_ROWS = (
     KernelRow("volume_sample", "gennerf_tpu_torch/csrc/volume_sample.cu", None,
               (SPATIAL_CELL_GRID, VS_CHANNELS, VS_CHUNK, VS_CHUNK_INDEX), ((6, 5, 4), 8, 40, 1),
               _volume_sample_row, max_ms=VS_MAX_MS),
+    KernelRow("backproject", "gennerf_tpu_torch/csrc/backproject.cu", None,
+              (BP_FRAMES, BP_CHANNELS, BP_HW, SPATIAL_CELL_GRID), (2, 8, (12, 16), (6, 5, 4)),
+              _backproject_row),
 )
 
 
@@ -6280,7 +6376,10 @@ def kernels_phase(torch, dev, smi: str) -> dict:
     recs = {}
     for row in KERNEL_ROWS:
         x = row.make(torch, dev, row.shape)
-        out, ref = x["kernel"](), x["plain"]()
+        # the plain version first: the backprojection row's composition peaks
+        # at ~62 GB, which the kernel's 12.9 GB output would push to ~75
+        ref = x["plain"]()
+        out = x["kernel"]()
         checks, max_abs_err = x["check"](out, ref), _max_abs(out, ref)
         del out, ref
         torch.cuda.synchronize()
@@ -6635,8 +6734,8 @@ def _main(phases: set) -> int:
         if kernel in launches:  # a TPU-kernel port: phases 2-5 and every phase run
             return (launches[kernel] + render_launches[kernel] + mesh_launches[kernel]
                     + sparse_launches[kernel] + sum(l_[kernel] for l_, _ in runs.values()))
-        if kernel == "volume_sample":
-            return runs["spatial"][1]["volume_sample_launches"] if "spatial" in runs else None
+        if kernel in ("volume_sample", "backproject"):
+            return runs["spatial"][1][f"{kernel}_launches"] if "spatial" in runs else None
         return runs["voxelnet"][1]["lift_launches"][kernel] if "voxelnet" in runs else None
 
     def worst(kernel: str):

@@ -12,7 +12,9 @@ wrapper made, so a run can show that its main path went through it, and
 whose `last_launch` holds what a wrapper records of its last launch (the
 FPS wrapper: its plan). `KERNELS` are the ports of the JAX package's TPU
 kernels (K1-K3); `LIFT_KERNELS` the spatial encoder's lift and its
-backward's gather (csrc/spatial_lift.cu), which replace no TPU kernel.
+backward's gather (csrc/spatial_lift.cu), `VOLUME_SAMPLE` the feature
+volume's trilinear sample (csrc/volume_sample.cu), and `BACKPROJECT` its
+backprojection (csrc/backproject.cu), which replace no TPU kernel.
 `fps_plan` asks the FPS launcher how it would run a cloud (no launch).
 """
 from __future__ import annotations
@@ -71,7 +73,9 @@ LIFT_KERNELS = (SPATIAL_LIFT, LIFT_RESIZE_T)
 VOLUME_SAMPLE = Kernel("volume_sample", "gennerf_volume_sample",
                        [_P, _I, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong]
                        + [_I] * 4 + [_F] * 3 + [_P])
-_ALL = KERNELS + LIFT_KERNELS + (VOLUME_SAMPLE,)
+BACKPROJECT = Kernel("backproject", "gennerf_backproject",
+                     [_P, _I, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_longlong, _I, _I, _P])
+_ALL = KERNELS + LIFT_KERNELS + (VOLUME_SAMPLE, BACKPROJECT)
 
 _lock = threading.Lock()
 _lib = None

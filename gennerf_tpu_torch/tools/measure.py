@@ -42,7 +42,7 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
 KERNEL_OF_ENTRY = (("fps_", "fps"), ("grid_decode_kernel", "grid_decode"),
                    ("point_decode_kernel", "point_decode"), ("spatial_lift_kernel", "spatial_lift"),
                    ("lift_resize_t_kernel", "lift_resize_t"),
-                   ("volume_sample_kernel", "volume_sample"))
+                   ("volume_sample_kernel", "volume_sample"), ("backproject_kernel", "backproject"))
 
 
 def kernel_of(entry: str):
@@ -51,13 +51,13 @@ def kernel_of(entry: str):
     the anonymous namespace's name, which nvcc builds from the file's); the
     packed weight rows (32 per chunk of its template argument) of the lift;
     the element type and channels a thread loads at once of the volume
-    sample ("f32x4", "bf16x8", ...)."""
+    sample and of the backprojection ("f32x4", "bf16x8", ...)."""
     for key, name in KERNEL_OF_ENTRY:
         if key in entry:
             if name == "lift_resize_t":
                 return name, None
-            if name == "volume_sample":
-                m = re.search(r"volume_sample_kernelI(f|13__nv_bfloat16)Li(\d+)E", entry)
+            if name in ("volume_sample", "backproject"):
+                m = re.search(name + r"_kernelI(f|13__nv_bfloat16)Li(\d+)E", entry)
                 if m is None:
                     return name, entry
                 return name, ("f32" if m.group(1) == "f" else "bf16") + "x" + m.group(2)
@@ -96,7 +96,7 @@ def ptxas_rows(ptxas_log: str) -> dict:
 
 def _row(rows: dict, name: str, instance) -> dict:
     key = {"fps": "instance", "spatial_lift": "rows", "lift_resize_t": "instance",
-           "volume_sample": "instance"}.get(name, "H")
+           "volume_sample": "instance", "backproject": "instance"}.get(name, "H")
     return rows.setdefault((name, instance), {"kernel": name, key: instance})
 
 
@@ -132,10 +132,10 @@ def check_build(report: dict) -> None:
     """The decode kernels run on wgmma (HGMMA, no HMMA, where cuobjdump
     exists) and spill nothing at H = 256; no FPS kernel instance spills; the
     lift kernels spill nothing, the lift itself on wgmma; no volume sample
-    instance spills."""
+    or backprojection instance spills."""
     for r in report["kernels"]:
         spills = r.get("spill_store_bytes") or r.get("spill_load_bytes")
-        if r["kernel"] in ("fps", "volume_sample") and spills:
+        if r["kernel"] in ("fps", "volume_sample", "backproject") and spills:
             raise RuntimeError(f"an instance of the {r['kernel']} kernel spills: {r}")
         if r["kernel"] in ("spatial_lift", "lift_resize_t"):
             if spills:

@@ -26,6 +26,7 @@ Counters (where: value):
     decode.dense_points   train/predict.decode_dense: points decoded off the kernels
     prior.kept_voxels     tsdf/fusion.apply_fusion_prior: voxels in the band
     backproject.pairs     ops/projection.backproject_fold: (item, frame, voxel) pairs
+    backproject.kernel_pairs  the same, those the kernel (csrc/backproject.cu) took
     backproject.observed  ops/projection.backproject_fold: those some pixel sees
     lift.pixels           models/spatial_encoder.SpatialEncoder.forward: output pixels
     lift.fused_pixels     the same, where the fused lift (ops/spatial_lift) ran

@@ -27,8 +27,9 @@ SPANS = {"gennerf.reconstruct", "gennerf.encode", "gennerf.decode", "gennerf.pri
          "gennerf.allreduce", "gennerf.optimizer", "gennerf.featurize", "gennerf.backproject",
          "gennerf.volume"}
 COUNTERS = {"decode.voxels", "prior.kept_voxels", "backproject.pairs", "backproject.observed",
-            "lift.pixels", "lift.fused_pixels", "decode.dense_points", "volume.voxels",
-            "volume.observed_voxels", "trilinear.points", "trilinear.kernel_points"}
+            "backproject.kernel_pairs", "lift.pixels", "lift.fused_pixels", "decode.dense_points",
+            "volume.voxels", "volume.observed_voxels", "trilinear.points",
+            "trilinear.kernel_points"}
 IDLE = ("encode_idle_ms.infer", "decode_idle_ms.infer", "prior_idle_ms.infer",
         "other_idle_ms.infer")
 
